@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one card, and check it.
+"""Drive the PyTorch/CUDA port's serving paths once on one card, and check them.
 
     python3 chip_smoke.py
 
 from the root of a checkout, on a machine with a CUDA device.  It builds the
-port's CUDA kernels from ``src/repro_torch/csrc``, then:
+port's five CUDA kernels from ``src/repro_torch/csrc``, all at once, then:
 
   1. prints the device, its power limit and the kernels' build time;
-  2. holds each kernel against its plain PyTorch version on the inputs the
-     main path gives it (bfloat16, and float32), and times the kernel, the
-     plain version and one PyTorch library call as a yardstick;
+  2. holds each kernel of the paper-moe-8e path against its plain PyTorch
+     version on the inputs the path gives it (bfloat16, and float32), and
+     times the kernel, the plain version and one PyTorch library call as a
+     yardstick;
   3. checks the stacked dataplane bit for bit against the numpy oracle in
      all three modes, and that the card's chunk plan equals the CPU's;
   4. prefills paper-moe-8e at full width (bf16, 8 EP ranks in 2 groups of 4,
@@ -18,7 +19,24 @@ port's CUDA kernels from ``src/repro_torch/csrc``, then:
      single-device path on the same weights;
   5. answers 4 requests through ``ServeEngine.generate`` (prompt 8, 8 new
      tokens, greedy);
-  6. checks that phases 4 and 5 launched every kernel.
+  6. checks that phases 4 and 5 launched every kernel of that path;
+  7. holds ``mlstm_scan`` against its plain version on the inputs of
+     xlstm-125m's first mLSTM layer at a 4 x 2048 prefill (float32), and
+     times both;
+  8. prefills xlstm-125m at full width (bf16) for 4 requests of 2048 tokens,
+     holds the chunked (kernel) forward against the per-step mLSTM forward
+     at 4 x 256 tokens (float32 and bf16), and a reduced xlstm config on the
+     card against the CPU's plain versions (float32);
+  9. answers 4 requests through ``ServeEngine.generate`` on xlstm-125m
+     (prompt 128, 16 new tokens, greedy), and holds the engine's step-by-step
+     prefill logits against the kernel-path ``forward(last_only=True)``;
+ 10. holds ``relay_copy`` bit for bit against its plain version on
+     [8192, 4096] bf16, f32 and int32 inputs under the parity, swapped and
+     all-zeros slot maps, times it against ``Tensor.copy_``, and calls it
+     once through its own entry point (nothing in the serving paths, or in
+     the JAX package, calls it);
+ 11. checks that each path launched every kernel of its own: phases 8 and 9
+     ``mlstm_scan``, phase 10's entry-point call ``relay_copy``.
 
 It prints one line per phase, the card's name and power limit as
 ``nvidia-smi`` reports them, a JSON line of per-kernel numbers, and as its
@@ -48,7 +66,12 @@ KERNEL_META = {
                             "src/repro/kernels/grouped_ffn/ffn.py:45"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/flash.py:72"),
+    "mlstm_scan": ("src/repro_torch/csrc/mlstm_scan.cu",
+                   "src/repro/kernels/mlstm_scan/scan.py:112"),
+    "relay_copy": ("src/repro_torch/csrc/relay_copy.cu",
+                   "src/repro/kernels/relay_copy/relay.py:52"),
 }
+MOE_KERNELS = ("token_gather", "grouped_ffn_blocked", "flash_attention")
 
 
 class Checks:
@@ -77,10 +100,13 @@ def _time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _to(tree, device):
+def _to(tree, device, dtype=None):
+    """A parameter tree on ``device`` (floating leaves cast to ``dtype``)."""
     if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
-    return tree.to(device)
+        return {k: _to(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device, dtype) for v in tree]
+    return tree.to(device=device, dtype=dtype or tree.dtype)
 
 
 class Recorder:
@@ -102,6 +128,198 @@ class Recorder:
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.orig)
+
+
+def _max_err(out, ref) -> float:
+    return (out.float() - ref.float()).abs().max().item()
+
+
+def xlstm_phases(torch, np, check, compare, seed: int, dev):
+    """Phases 7-9 on xlstm-125m -> (mlstm_scan's report, its launches)."""
+    from repro_torch.configs.base import InputShape, get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.mlstm_scan.ops import mlstm_scan, mlstm_scan_chunked_ref
+    from repro_torch.models import xlstm as xlstm_mod
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.sharding.context import ParallelContext
+
+    cfg = get_config("xlstm-125m")
+    bf16 = torch.bfloat16
+    ctx = ParallelContext(param_dtype=bf16, compute_dtype=bf16, device="cuda")
+    model = build_model(cfg, ctx)
+    params = model.init(seed)
+    ctx32 = ParallelContext(device="cuda")
+    model32 = build_model(cfg, ctx32)
+    params32 = _to(params, dev, torch.float32)
+    rng = np.random.default_rng(seed + 1)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (4, 2048)), device=dev)
+    batch = {"tokens": tokens}
+
+    # ---- 7. mlstm_scan against its plain version -----------------------------
+    # capture pass (also a warm-up): layer 0's q, k, v, ig, lf at the prefill
+    with Recorder(xlstm_mod, "mlstm_scan", keep=1) as rec:
+        model.forward(params, batch, last_only=True)
+    torch.cuda.synchronize()
+    q, k, v, ig, lf = (a.contiguous() for a in rec.calls[0][:5])
+    chunk = rec.calls[0][5]["chunk"]
+    h, st = mlstm_scan(q, k, v, ig, lf, chunk=chunk)
+    h_ref, st_ref = mlstm_scan_chunked_ref(q, k, v, ig, lf, chunk=chunk)
+    why = "f32 sums over dh and the chunk's steps in another order"
+    err = compare("mlstm_scan", "h f32", h, h_ref, 1e-4, why)
+    for key in ("C", "n", "m"):
+        compare("mlstm_scan", f"final {key} f32", st[key], st_ref[key], 1e-4, why)
+    B, H, S, dh = q.shape
+    L = min(chunk, S)
+    n_chunks = -(-S // L)
+    # least work: q k^T and S v over the causal half of each L x L chunk, q C
+    # and the k^T v state update at L x dh x dh; bytes: q, k, v, ig, lf in,
+    # h and the final (C, n, m) out, once each
+    flops = 2.0 * B * H * n_chunks * (2 * (L * (L + 1) // 2) * dh + 2 * L * dh * dh)
+    nbytes = 4 * (4 * B * H * S * dh + 2 * B * H * S + B * H * (dh * dh + dh + 1))
+    t_ops, t_bytes = flops / PEAK_FLOPS["f32"], nbytes / PEAK_BYTES_S
+    ms_report = dict(
+        ms=_time_ms(torch, lambda: mlstm_scan(q, k, v, ig, lf, chunk=chunk), 10),
+        plain_ms=_time_ms(torch, lambda: mlstm_scan_chunked_ref(q, k, v, ig, lf,
+                                                                 chunk=chunk), 3),
+        library_ms=None, max_abs_err=err,
+        bound_ms=max(t_ops, t_bytes) * 1e3,
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+    )
+    print(f"[7 kernel] mlstm_scan: q/k/v {tuple(q.shape)} f32, chunk {L}: kernel "
+          f"{ms_report['ms']:.4f} ms, plain {ms_report['plain_ms']:.4f} ms, library none, "
+          f"bound {ms_report['bound_ms']:.4f} ms ({ms_report['bound_by']}: "
+          f"{flops / 1e9:.3f} GFLOP at 67 TFLOP/s, {nbytes / 1e6:.1f} MB at 3.35 TB/s)",
+          flush=True)
+
+    # ---- 8. prefill ----------------------------------------------------------
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = model.forward(params, batch, last_only=True)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    counts_prefill = launch_counts()
+    check(tuple(logits.shape) == (4, 1, cfg.vocab), f"xlstm prefill logits {logits.shape}")
+    check(bool(torch.isfinite(logits).all()), "xlstm prefill logits not finite")
+    # the chunked (kernel) forward against the per-step mLSTM forward
+    step_cfg = dataclasses.replace(cfg, mlstm_chunk=0)
+    short = {"tokens": tokens[:, :256]}
+    cross = {}
+    for label, m, p, mstep, tol in (
+            ("f32", model32, params32, build_model(step_cfg, ctx32), 1e-3),
+            ("bf16", model, params, build_model(step_cfg, ctx), 5e-2)):
+        lc, _ = m.forward(p, short)
+        ls, _ = mstep.forward(p, short)
+        cross[label] = compare("xlstm chunked vs per-step", f"{label} logits 4x256", lc, ls,
+                               tol, "f32: sums in other orders through 12 layers"
+                               if label == "f32" else "bf16 activations round differently")
+    # a reduced config on the card against the CPU's plain versions
+    small = get_config("xlstm-125m").reduced(n_layers=4)
+    cpu = ParallelContext(device="cpu")
+    m_cpu = build_model(small, cpu)
+    p_cpu = m_cpu.init(seed)
+    toks_s = torch.as_tensor(rng.integers(0, small.vocab, (2, 160)))
+    ls_cpu, _ = m_cpu.forward(p_cpu, {"tokens": toks_s})
+    ls_gpu, _ = build_model(small, ctx32).forward(_to(p_cpu, dev), {"tokens": toks_s.to(dev)})
+    small_err = _max_err(ls_gpu.cpu(), ls_cpu)
+    check(small_err <= 1e-3, f"reduced xlstm card vs CPU: {small_err:.3g}")
+    n_tok = tokens.numel()
+    print(f"[8 prefill] {cfg.name} bf16, 4 x 2048 tokens: {prefill_s * 1e3:.1f} ms, "
+          f"{n_tok / prefill_s:.0f} tokens/s, logits {tuple(logits.shape)} finite; "
+          f"chunked vs per-step mLSTM at 4 x 256: max|diff| f32 {cross['f32']:.4g}, "
+          f"bf16 {cross['bf16']:.4g}; reduced xlstm (dh 64) f32 card vs CPU plain "
+          f"{small_err:.3g} (limit 1e-3: f32 sums in other orders)", flush=True)
+
+    # ---- 9. generation -------------------------------------------------------
+    P, n_new = 128, 16
+    prompts = rng.integers(0, cfg.vocab, (4, P))
+    engine = ServeEngine(model, params, max_len=P + n_new)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = engine.generate(prompts, n_new=n_new)
+    gen_s = time.perf_counter() - t0
+    counts_gen = launch_counts()
+    check(ids.shape == (4, n_new) and ((ids >= 0) & (ids < cfg.vocab)).all(),
+          f"xlstm generated ids {ids.shape}")
+    # the engine's step-by-step prefill ends where the kernel-path forward does
+    pt = torch.as_tensor(prompts, device=dev)
+    shape = InputShape("serve", P + n_new, 4, "decode")
+    agree = {}
+    for label, m, p, eng, tol in (
+            ("bf16", model, params, engine, 5e-2),
+            ("f32", model32, params32, ServeEngine(model32, params32, P + n_new), 1e-3)):
+        with torch.no_grad():
+            l_step, _ = eng.prefill(m.init_cache(4, shape), pt)
+            l_fwd = m.forward(p, {"tokens": pt}, last_only=True)[0][:, 0]
+        compare("xlstm engine prefill vs forward", f"{label} last logits", l_step, l_fwd,
+                tol, "per-step vs chunked mLSTM" + ("" if label == "f32"
+                                                    else ", bf16 activations"))
+        agree[label] = torch.equal(l_step.float().argmax(-1), l_fwd.float().argmax(-1))
+    check(agree["f32"], "xlstm f32: argmax of the step prefill != the forward's")
+    print(f"[9 generate] {cfg.name} bf16, 4 requests, prompt {P}, {n_new} new tokens, "
+          f"greedy: {gen_s:.2f} s, {ids.size / gen_s:.1f} new tokens/s "
+          f"({4 * (P + n_new) / gen_s:.1f} incl. the prompt steps); argmax of the last "
+          f"prompt logits, step prefill vs forward: f32 {'equal' if agree['f32'] else 'DIFFER'}"
+          f", bf16 {'equal' if agree['bf16'] else 'differ'} (reported, not checked); ids "
+          f"{ids[:, :8].tolist()}", flush=True)
+    return ms_report, counts_prefill["mlstm_scan"] + counts_gen["mlstm_scan"]
+
+
+def relay_phase(torch, check, seed: int, dev):
+    """Phase 10 -> (relay_copy's report, its launches through its entry point)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.relay_copy.ops import (
+        parity_slot_map,
+        relay_copy,
+        relay_copy_ref,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n, d, bc = 8192, 4096, 256
+    n_chunks = n // bc
+    maps = {"parity": parity_slot_map(n_chunks, dev),
+            "swapped": 1 - parity_slot_map(n_chunks, dev),
+            "zeros": torch.zeros(n_chunks, dtype=torch.int32, device=dev)}
+    inputs = {
+        "bf16": torch.randn((n, d), generator=gen, device=dev).to(torch.bfloat16),
+        "f32": torch.randn((n, d), generator=gen, device=dev),
+        "int32": torch.randint(-2**31, 2**31 - 1, (n, d), generator=gen, device=dev,
+                               dtype=torch.int32),
+    }
+    parts = []
+    for dt, x in inputs.items():
+        for mname, smap in maps.items():
+            out = relay_copy(x, smap, block_chunk=bc)
+            exact = torch.equal(out, x) and torch.equal(out, relay_copy_ref(x, smap,
+                                                                             block_chunk=bc))
+            check(exact, f"relay_copy {dt} {mname} map: not bit-exact")
+            parts.append(f"{dt}/{mname} {'exact' if exact else 'WRONG'}")
+    x = inputs["bf16"]
+    smap = maps["parity"]
+    out = torch.empty_like(x)
+    nbytes = 2 * x.numel() * x.element_size() + smap.numel() * 4
+    report = dict(
+        ms=_time_ms(torch, lambda: relay_copy(x, smap, block_chunk=bc), 20),
+        plain_ms=_time_ms(torch, lambda: relay_copy_ref(x, smap, block_chunk=bc), 20),
+        library_ms=_time_ms(torch, lambda: out.copy_(x), 20),
+        max_abs_err=_max_err(relay_copy(x, smap, block_chunk=bc), x),
+        bound_ms=nbytes / PEAK_BYTES_S * 1e3, bound_by="bytes",
+    )
+    del inputs
+    # its own entry point, as a caller would use it: default map and chunk
+    reset_launch_counts()
+    y = relay_copy(x)
+    torch.cuda.synchronize()
+    launches = launch_counts()["relay_copy"]
+    check(torch.equal(y, x), "relay_copy entry point: not bit-exact")
+    print(f"[10 relay] relay_copy [{n}, {d}], chunks of {bc} rows: {', '.join(parts)}; "
+          f"bf16 parity: kernel {report['ms']:.4f} ms, plain (clone) "
+          f"{report['plain_ms']:.4f} ms, copy_ {report['library_ms']:.4f} ms, bound "
+          f"{report['bound_ms']:.4f} ms (bytes); entry point relay_copy(x): "
+          f"{launches} launch, exact", flush=True)
+    return report, launches
 
 
 def main() -> int:
@@ -394,12 +612,31 @@ def main() -> int:
           f"{'equal' if np.array_equal(ids, ids1) else 'DIFFER'}; ids "
           f"{ids.tolist()}", flush=True)
 
-    # ---- 6. kernels on the main path -----------------------------------------
-    launches = {k: counts_prefill[k] + counts_gen[k] for k in counts_prefill}
+    # ---- 6. kernels on the paper-moe-8e path ---------------------------------
+    launches = {k: counts_prefill[k] + counts_gen[k] for k in MOE_KERNELS}
     for kname, c in launches.items():
-        check(c > 0, f"{kname} never launched on the main path")
+        check(c > 0, f"{kname} never launched on the paper-moe-8e path")
     print(f"[6 kernels] launches prefill {counts_prefill}, generate {counts_gen} "
           f"({time.perf_counter() - t_start:.0f} s so far)", flush=True)
+    del model8, model1, nodrop, engine, params, logits8, logits1, logits8nd
+    torch.cuda.empty_cache()
+
+    # ---- 7-9. xlstm-125m -------------------------------------------------------
+    report["mlstm_scan"], launches["mlstm_scan"] = xlstm_phases(
+        torch, np, check, compare, args.seed, dev)
+    print(f"[9 generate] ({time.perf_counter() - t_start:.0f} s so far)", flush=True)
+
+    # ---- 10. relay_copy --------------------------------------------------------
+    report["relay_copy"], launches["relay_copy"] = relay_phase(torch, check, args.seed, dev)
+
+    # ---- 11. kernels on their paths ----------------------------------------------
+    check(launches["mlstm_scan"] > 0, "mlstm_scan never launched on the xlstm-125m path")
+    check(launches["relay_copy"] > 0, "relay_copy never launched by its entry point")
+    print(f"[11 kernels] launches: paper-moe-8e path (phases 4-5) "
+          f"{ {k: launches[k] for k in MOE_KERNELS} }; xlstm-125m path (phases 8-9) "
+          f"mlstm_scan {launches['mlstm_scan']}; relay_copy's own entry point "
+          f"(phase 10; no serving path calls it) relay_copy {launches['relay_copy']} "
+          f"({time.perf_counter() - t_start:.0f} s in all)", flush=True)
 
     kernels = []
     for kname, (src, replaces) in KERNEL_META.items():

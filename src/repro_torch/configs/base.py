@@ -113,6 +113,8 @@ class InputShape:
 ARCH_IDS: List[str] = [
     # the paper's own evaluation model (§V-D): 8-expert MoE block testbed
     "paper-moe-8e",
+    # the ssm family: alternating sLSTM / mLSTM blocks
+    "xlstm-125m",
 ]
 
 _REGISTRY: Dict[str, ModelConfig] = {}

@@ -22,7 +22,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-KERNELS = ("token_gather", "grouped_ffn", "flash_attention")
+KERNELS = ("token_gather", "grouped_ffn", "flash_attention", "mlstm_scan", "relay_copy")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -33,7 +33,8 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 #: launches of each CUDA kernel; a wrapper adds one where it launches its
 #: kernel, and nowhere else
 LAUNCHES: Dict[str, int] = {
-    "token_gather": 0, "grouped_ffn_blocked": 0, "flash_attention": 0}
+    "token_gather": 0, "grouped_ffn_blocked": 0, "flash_attention": 0,
+    "mlstm_scan": 0, "relay_copy": 0}
 
 
 def _nvcc() -> str:

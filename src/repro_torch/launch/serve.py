@@ -2,13 +2,17 @@
 
     python -m repro_torch.launch.serve --arch paper-moe-8e --ep 8 \
         --batch 4 --prompt-len 8 --new-tokens 8
+    python -m repro_torch.launch.serve --arch xlstm-125m \
+        --batch 4 --prompt-len 128 --new-tokens 16
 
 runs the model at full width on the card with random weights from
-``--seed``, expert-parallel over ``--ep`` stacked ranks in groups of up to
-4 with NIMBLE dispatch.  One generation of the same requests runs first as
-a warm-up (its time is printed too), so the timed one pays no first-call
-costs.  ``--reduced`` shrinks the model to smoke-test widths and
-``--device cpu`` runs on the CPU (the kernels' plain versions).
+``--seed``.  A MoE model runs expert-parallel over ``--ep`` stacked ranks
+(default 8) in groups of up to 4 with NIMBLE dispatch; the ssm family
+(xLSTM) has no experts, so ``--ep`` above 1 is refused for it.  One
+generation of the same requests runs first as a warm-up (its time is
+printed too), so the timed one pays no first-call costs.  ``--reduced``
+shrinks the model to smoke-test widths and ``--device cpu`` runs on the
+CPU (the kernels' plain versions).
 """
 
 from __future__ import annotations
@@ -33,7 +37,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="paper-moe-8e")
     ap.add_argument("--reduced", action="store_true")
-    ap.add_argument("--ep", type=int, default=8)
+    ap.add_argument("--ep", type=int, default=None,
+                    help="expert-parallel ranks (moe only; default 8)")
     ap.add_argument("--dtype", default="bf16", choices=sorted(_DTYPES))
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--batch", type=int, default=4)
@@ -44,14 +49,18 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
+    ep = args.ep if args.ep is not None else (8 if cfg.arch_type == "moe" else 1)
     if args.reduced:
         cfg = dataclasses.replace(cfg.reduced(), n_experts=cfg.n_experts)
     dt = _DTYPES[args.dtype]
-    ctx = ParallelContext(ep_size=args.ep, group_size=min(4, args.ep), moe_mode="nimble",
+    ctx = ParallelContext(ep_size=ep, group_size=min(4, ep), moe_mode="nimble",
                           param_dtype=dt, compute_dtype=dt, device=args.device)
+    try:
+        model = build_model(cfg, ctx)
+    except ValueError as e:               # e.g. --ep > 1 for a family without experts
+        ap.error(str(e))
     if args.device.startswith("cuda"):
         _build.build()                    # compile before the clock starts
-    model = build_model(cfg, ctx)
     params = model.init(args.seed)
     engine = ServeEngine(model, params, max_len=args.prompt_len + args.new_tokens)
     rng = np.random.default_rng(args.seed)
@@ -65,7 +74,7 @@ def main(argv=None):
     warm_s, dt_s = times
     where = (torch.cuda.get_device_name(0) if args.device.startswith("cuda")
              else args.device)
-    print(f"[serve] {cfg.name} ep={args.ep} on {where}: generated {out.shape} "
+    print(f"[serve] {cfg.name} ep={ep} on {where}: generated {out.shape} "
           f"in {dt_s:.2f}s ({args.batch * args.new_tokens / dt_s:.1f} tok/s; "
           f"warm-up run {warm_s:.2f}s)")
     print("[serve] sample:", out[0][:12].tolist())

@@ -20,10 +20,12 @@ Params = Dict[str, torch.Tensor]
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, device,
-               lead: Tuple[int, ...] = ()):
-    """N(0, 1/d_in) weights [*lead, d_in, d_out], as the reference scales them."""
+               lead: Tuple[int, ...] = (), scale: Optional[float] = None):
+    """N(0, scale^2) weights [*lead, d_in, d_out], scale 1/sqrt(d_in) by default,
+    as the reference scales them."""
     w = torch.randn((*lead, d_in, d_out), generator=gen, device=device)
-    return (w / math.sqrt(d_in)).to(dtype)
+    w = w / math.sqrt(d_in) if scale is None else w * scale
+    return w.to(dtype)
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

@@ -2,32 +2,43 @@
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Sequence
 
 import numpy as np
 import torch
 
 from .configs.base import ModelConfig
-from .models.moe import param_shapes
+from .models.registry import family
 from .sharding.context import ParallelContext
 
 
 def params_from_jax(tree: Mapping, cfg: ModelConfig, ctx: ParallelContext):
     """The reference's parameter tree, as numpy arrays -> the port's params.
 
-    Keys and shapes must be the ones the port's ``moe`` model expects;
-    values are cast to ``ctx.param_dtype`` on ``ctx.device``.
+    Keys, list lengths and shapes must be the ones ``cfg``'s family expects
+    (its ``param_shapes``).  Values are cast to ``ctx.param_dtype`` on
+    ``ctx.device``, apart from the leaves the family keeps in float32 (its
+    ``F32_PARAMS``), as the reference does.
     """
-    def convert(node, shapes, path):
+    mod = family(cfg)
+    keep_f32 = set(getattr(mod, "F32_PARAMS", ()))
+
+    def convert(node, shapes, path, key):
         if isinstance(shapes, dict):
             if not isinstance(node, Mapping) or set(node) != set(shapes):
                 got = sorted(node) if isinstance(node, Mapping) else type(node)
                 raise ValueError(f"{path or 'params'}: keys {got} != {sorted(shapes)}")
-            return {k: convert(node[k], shapes[k], f"{path}/{k}") for k in shapes}
+            return {k: convert(node[k], shapes[k], f"{path}/{k}", k) for k in shapes}
+        if isinstance(shapes, list):
+            if not isinstance(node, Sequence) or len(node) != len(shapes):
+                got = len(node) if isinstance(node, Sequence) else type(node)
+                raise ValueError(f"{path}: {got} entries != {len(shapes)}")
+            return [convert(n, s, f"{path}/{i}", key)
+                    for i, (n, s) in enumerate(zip(node, shapes))]
         arr = np.asarray(node)
         if arr.shape != tuple(shapes):
             raise ValueError(f"{path}: shape {arr.shape} != {tuple(shapes)}")
-        return torch.as_tensor(arr.astype(np.float32)).to(
-            device=ctx.device, dtype=ctx.param_dtype)
+        dtype = torch.float32 if key in keep_f32 else ctx.param_dtype
+        return torch.as_tensor(arr.astype(np.float32)).to(device=ctx.device, dtype=dtype)
 
-    return convert(tree, param_shapes(cfg), "")
+    return convert(tree, mod.param_shapes(cfg), "", "")

@@ -17,7 +17,7 @@ from repro_torch.core.dataplane import NimbleAllToAll, build_rel_of_pair, ref_al
 from repro_torch.core.incidence import incidence_for
 from repro_torch.core.schedule import build_schedule
 from repro_torch.core.topology import Topology
-from repro_torch.kernels import launch_counts
+from repro_torch.kernels import _build, launch_counts
 from repro_torch.kernels.flash_attention.ops import flash_attention, mha_ref
 from repro_torch.kernels.grouped_ffn.ops import (
     _arrange,
@@ -25,6 +25,8 @@ from repro_torch.kernels.grouped_ffn.ops import (
     grouped_ffn_blocked,
     grouped_ffn_blocked_ref,
 )
+from repro_torch.kernels.mlstm_scan.ops import mlstm_scan, mlstm_scan_chunked_ref
+from repro_torch.kernels.relay_copy.ops import parity_slot_map, relay_copy, relay_copy_ref
 from repro_torch.kernels.token_scatter.ops import token_gather, token_gather_ref
 
 pytestmark = pytest.mark.torch_port
@@ -156,3 +158,118 @@ def test_planner_on_card_deterministic_and_equal_to_cpu(cuda, n, seed):
     on_card = planner.plan_chunks(dc.to(cuda), tables, cfg, S, rel)
     assert int(on_card[..., 1:].sum()) > 0                  # relays in use
     assert torch.equal(on_card.cpu(), planner.plan_chunks(dc, tables, cfg, S, rel))
+
+
+def _mlstm_inputs(rng, b, h, s, dh, device):
+    # the reference's kernel-test inputs (tests/test_mlstm_scan_kernel.py)
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=device)
+    q, k, v = (t(rng.normal(size=(b, h, s, dh)) * 0.3) for _ in range(3))
+    ig = t(rng.normal(size=(b, h, s)) * 0.5)
+    fg = rng.normal(size=(b, h, s)) + 2.0
+    lf = t(np.log(1.0 / (1.0 + np.exp(-fg))))
+    return q, k, v, ig, lf
+
+
+def _close(got, want, rtol=2e-4, atol=2e-5):
+    # f32 sums over dh and the chunk in another order: the reference's own
+    # kernel tolerance
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("b,h,s,dh,chunk", [
+    (2, 2, 64, 16, 16),
+    (1, 3, 96, 32, 64),      # S padded to 128 (L = 64)
+    (2, 4, 256, 64, 64),
+    (1, 2, 200, 48, 64),     # a partial 32-column value slice, S padded
+    (1, 4, 8, 192, 64),      # an 8-token prompt: L = 8
+    (1, 4, 320, 192, 64),    # xlstm-125m's head dim
+])
+def test_mlstm_scan_matches_plain(cuda, b, h, s, dh, chunk):
+    rng = np.random.default_rng(s + dh)
+    q, k, v, ig, lf = _mlstm_inputs(rng, b, h, s, dh, cuda)
+    before = launch_counts()["mlstm_scan"]
+    got, st = mlstm_scan(q, k, v, ig, lf, chunk=chunk)
+    torch.cuda.synchronize()
+    assert launch_counts()["mlstm_scan"] == before + 1
+    want, st_ref = mlstm_scan_chunked_ref(q, k, v, ig, lf, chunk=chunk)
+    assert got.shape == (b, h, s, dh)
+    _close(got, want)
+    for key in ("C", "n", "m"):
+        _close(st[key], st_ref[key])
+
+
+def test_mlstm_scan_carries_state(cuda):
+    # two calls chained through the carried state equal one call
+    rng = np.random.default_rng(7)
+    q, k, v, ig, lf = _mlstm_inputs(rng, 2, 4, 192, 192, cuda)
+    whole, st_whole = mlstm_scan(q, k, v, ig, lf, chunk=64)
+    a, st_a = mlstm_scan(*(x[:, :, :100] for x in (q, k, v, ig, lf)), chunk=64)
+    b, st_b = mlstm_scan(*(x[:, :, 100:] for x in (q, k, v, ig, lf)), chunk=64,
+                         state=st_a)
+    torch.cuda.synchronize()
+    _close(torch.cat([a, b], dim=2), whole)
+    ref_b, st_ref = mlstm_scan_chunked_ref(*(x[:, :, 100:] for x in (q, k, v, ig, lf)),
+                                           chunk=64, state=st_a)
+    _close(b, ref_b)
+    for key in ("C", "n", "m"):
+        _close(st_b[key], st_whole[key])
+        _close(st_b[key], st_ref[key])
+
+
+def _relay_input(rng, n, d, dtype, device):
+    if dtype == torch.int32:
+        return torch.as_tensor(rng.integers(-100, 100, size=(n, d)), dtype=dtype,
+                               device=device)
+    return torch.as_tensor(rng.normal(size=(n, d)), dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
+@pytest.mark.parametrize("n,d,bc", [(1024, 64, 256), (512, 128, 64), (256, 32, 256),
+                                    (8192, 4096, 256), (45, 7, 15)])
+def test_relay_copy_bit_exact_under_every_slot_map(cuda, dtype, n, d, bc):
+    rng = np.random.default_rng(n + d)
+    x = _relay_input(rng, n, d, dtype, cuda)
+    n_chunks = n // bc
+    maps = [None, parity_slot_map(n_chunks, cuda), 1 - parity_slot_map(n_chunks, cuda),
+            torch.zeros(n_chunks, dtype=torch.int32, device=cuda)]
+    for slot_map in maps:
+        before = launch_counts()["relay_copy"]
+        out = relay_copy(x, slot_map, block_chunk=bc)
+        torch.cuda.synchronize()
+        assert launch_counts()["relay_copy"] == before + 1
+        assert out.dtype == x.dtype and out.data_ptr() != x.data_ptr()
+        assert torch.equal(out, x)
+        assert torch.equal(out, relay_copy_ref(x, slot_map, block_chunk=bc))
+
+
+def test_relay_copy_new_slot_map_reuses_the_loaded_kernel(cuda):
+    # a new schedule is an argument: same library, no build, no host read of
+    # the map (any synchronizing call raises in sync-debug "error" mode)
+    rng = np.random.default_rng(3)
+    x = _relay_input(rng, 2048, 256, torch.bfloat16, cuda)
+    relay_copy(x, block_chunk=256)
+    lib = _build.library("relay_copy")
+    built = sorted(_build.BUILD_DIR.glob("librelay_copy-*.so"))
+    outs = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for slot_map in (1 - parity_slot_map(8, cuda),
+                         torch.zeros(8, dtype=torch.int32, device=cuda),
+                         torch.ones(8, dtype=torch.int32, device=cuda)):
+            outs.append(relay_copy(x, slot_map, block_chunk=256))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert _build.library("relay_copy") is lib
+    assert sorted(_build.BUILD_DIR.glob("librelay_copy-*.so")) == built
+    assert all(torch.equal(o, x) for o in outs)
+
+
+def test_relay_copy_refuses_bad_maps(cuda):
+    x = torch.zeros((512, 16), device=cuda)
+    with pytest.raises(ValueError):
+        relay_copy(x, torch.zeros(3, dtype=torch.int32, device=cuda), block_chunk=256)
+    with pytest.raises(ValueError):
+        relay_copy(x, torch.zeros(2, dtype=torch.int64, device=cuda), block_chunk=256)
+    with pytest.raises(ValueError):
+        relay_copy(x, torch.zeros(2, dtype=torch.int32), block_chunk=256)

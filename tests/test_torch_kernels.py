@@ -17,10 +17,14 @@ from repro.kernels.flash_attention.ref import mha_ref as j_mha_ref
 from repro.kernels.grouped_ffn import ops as j_ffn_ops
 from repro.kernels.grouped_ffn.ffn import grouped_ffn_blocked as j_blocked
 from repro.kernels.grouped_ffn.ref import grouped_ffn_ref as j_ffn_ref
+from repro.kernels.relay_copy.relay import parity_slot_map as j_parity_slot_map
+from repro.kernels.relay_copy.relay import relay_copy as j_relay
 from repro.kernels.token_scatter.ops import token_gather as j_gather
 from repro.kernels.token_scatter.ref import token_gather_ref as j_gather_ref
 from repro_torch.kernels.flash_attention.ops import attention, flash_attention, mha_ref
 from repro_torch.kernels.grouped_ffn import ops as t_ffn_ops
+from repro_torch.kernels.mlstm_scan.ops import mlstm_scan
+from repro_torch.kernels.relay_copy.ops import parity_slot_map, relay_copy, relay_copy_ref
 from repro_torch.kernels.token_scatter.ops import token_gather
 
 pytestmark = pytest.mark.torch_port
@@ -153,8 +157,56 @@ def test_attention_matches_reference(case, dt, tol):
     np.testing.assert_array_equal(_np(attention(qt, kt, vt, **c)), _np(got))
 
 
+# --------------------------------------------------------------------------- #
+# relay copy
+# --------------------------------------------------------------------------- #
+
+_RELAY_DT = {"f32": (torch.float32, np.float32), "bf16": (torch.bfloat16, jnp.bfloat16),
+             "i32": (torch.int32, np.int32)}
+_SLOT_MAPS = {"parity": lambda n: np.arange(n) % 2, "swapped": lambda n: 1 - np.arange(n) % 2,
+              "zeros": lambda n: np.zeros(n)}
+
+
+@pytest.mark.parametrize("slots", sorted(_SLOT_MAPS))
+@pytest.mark.parametrize("dt", sorted(_RELAY_DT))
+@pytest.mark.parametrize("n,d,bc", [(1024, 64, 256), (512, 128, 64), (256, 32, 256)])
+def test_relay_copy_bit_exact_against_reference(n, d, bc, dt, slots):
+    # the reference's grid (tests/test_kernels.py:150-171) under every slot
+    # map; a copy is exact
+    rng = np.random.default_rng(n + d)
+    a = (rng.integers(-100, 100, size=(n, d)) if dt == "i32"
+         else rng.normal(size=(n, d))).astype(np.float32)
+    tdt, jdt = _RELAY_DT[dt]
+    x, xj = torch.as_tensor(a).to(tdt), jnp.asarray(a, dtype=jdt)
+    smap = _SLOT_MAPS[slots](n // bc).astype(np.int32)
+    got = relay_copy(x, torch.as_tensor(smap), block_chunk=bc)
+    want = j_relay(xj, jnp.asarray(smap), block_chunk=bc, interpret=True)
+    assert got.dtype == x.dtype and got.data_ptr() != x.data_ptr()
+    assert torch.equal(got, x)
+    np.testing.assert_array_equal(_np(got) if dt != "i32" else got.numpy(),
+                                  _np(want) if dt != "i32" else np.asarray(want))
+    np.testing.assert_array_equal(parity_slot_map(n // bc).numpy(),
+                                  np.asarray(j_parity_slot_map(n // bc)))
+
+
+def test_relay_copy_checks_shapes_like_the_reference():
+    x = torch.zeros((512, 16))
+    assert torch.equal(relay_copy(x), relay_copy_ref(x))      # one chunk of 512
+    with pytest.raises(ValueError):                           # 512 rows, chunks of 96
+        relay_copy(x, block_chunk=96)
+    with pytest.raises(ValueError):                           # 2 chunks, map of 3
+        relay_copy(x, torch.zeros(3, dtype=torch.int32), block_chunk=256)
+    with pytest.raises(TypeError):
+        relay_copy(x.double())
+
+
 def test_cuda_wrappers_refuse_a_foreign_device():
     # the kernels run only on the card; off it, outside the CPU, they raise
     x = torch.zeros((4, 8), device="meta")
     with pytest.raises(ValueError):
         token_gather(x, torch.zeros(2, dtype=torch.int64, device="meta"))
+    with pytest.raises(ValueError):
+        relay_copy(x)
+    with pytest.raises(ValueError):
+        mlstm_scan(*(torch.zeros((1, 1, 4, 8), device="meta") for _ in range(3)),
+                   *(torch.zeros((1, 1, 4), device="meta") for _ in range(2)))
