@@ -8,9 +8,12 @@ port's five CUDA kernels from ``src/repro_torch/csrc``, all at once, then:
 
   1. prints the device, its power limit and the kernels' build time;
   2. holds each kernel of the paper-moe-8e path against its plain PyTorch
-     version on the inputs the path gives it (bfloat16, and float32), and
+     version on the inputs the path gives it (bfloat16, the tensor-core
+     routes of the FFN and flash; and float32, their CUDA-core routes), and
      times the kernel, the plain version and one PyTorch library call as a
-     yardstick;
+     yardstick (the FFN's: a per-expert matmul loop over the token rows;
+     flash's: ``scaled_dot_product_attention``, with ``is_causal`` for a
+     plain causal call); it counts the FFN's tiles computed and skipped;
   3. checks the stacked dataplane bit for bit against the numpy oracle in
      all three modes, and that the card's chunk plan equals the CPU's;
   4. prefills paper-moe-8e at full width (bf16, 8 EP ranks in 2 groups of 4,
@@ -19,7 +22,8 @@ port's five CUDA kernels from ``src/repro_torch/csrc``, all at once, then:
      single-device path on the same weights;
   5. answers 4 requests through ``ServeEngine.generate`` (prompt 8, 8 new
      tokens, greedy);
-  6. checks that phases 4 and 5 launched every kernel of that path;
+  6. checks that phases 4 and 5 launched every kernel of that path (the FFN
+     and flash through their bf16 tensor-core routes);
   7. holds ``mlstm_scan`` against its plain version on the inputs of
      xlstm-125m's first mLSTM layer at a 4 x 2048 prefill (float32), and
      times both;
@@ -425,12 +429,18 @@ def main() -> int:
               shape=f"x {tuple(x.shape)} bf16, idx [{idx.numel()}]")
     report["token_gather"] = tg
 
-    # grouped_ffn_blocked: the prefill's sorted, padded expert rows
+    # grouped_ffn_blocked: the prefill's sorted, padded expert rows, with the
+    # per-block token counts the path passes (tiles of padding are skipped)
     x_pad, blk, wg, wu, wd, kw = rec_ffn.calls[0]
-    bt = kw["block_tokens"]
-    valid_rows = int((x_pad != 0).any(1).sum())
-    used = sorted(set(blk.tolist()))
+    bt, rows = kw["block_tokens"], kw["block_rows"]
+    valid_rows = int(rows.sum())
+    used = sorted(set(blk[rows > 0].tolist()))
     D, Fd = x_pad.shape[1], wg.shape[2]
+    n_tiles = x_pad.shape[0] // 64
+    tile_rows = rows.long().repeat_interleave(bt // 64) - (
+        torch.arange(n_tiles, device=dev) % (bt // 64)) * 64
+    live_tiles = int((tile_rows > 0).sum())
+    n_pairs = int((ffn_ops._tile_pairs(blk, rows, bt, x_pad.shape[0]) >= 0).sum())
 
     def ffn_bound(dt_name, itemsize):
         flops = 6.0 * valid_rows * D * Fd
@@ -438,35 +448,47 @@ def main() -> int:
         t_ops, t_bytes = flops / PEAK_FLOPS[dt_name], nbytes / PEAK_BYTES_S
         return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
-    segs = []                                 # contiguous per-expert row ranges
-    blk_l = blk.tolist()
-    for b, e in enumerate(blk_l):
-        if segs and segs[-1][0] == e and segs[-1][2] == b * bt:
-            segs[-1][2] = (b + 1) * bt
-        else:
-            segs.append([e, b * bt, (b + 1) * bt])
+    def segments(live_only):
+        """contiguous per-expert row ranges: every row, or token rows only"""
+        segs = []
+        for b, e in enumerate(blk.tolist()):
+            lo, hi = b * bt, b * bt + (int(rows[b]) if live_only else bt)
+            if hi == lo:
+                continue
+            if segs and segs[-1][0] == e and segs[-1][2] == lo:
+                segs[-1][2] = hi
+            else:
+                segs.append([e, lo, hi])
+        return segs
 
-    def ffn_library(xx, g, u, d_):
-        out = torch.empty_like(xx)
+    def ffn_library(xx, g, u, d_, segs):
+        out = torch.zeros_like(xx)
         for e, lo, hi in segs:
             xe = xx[lo:hi]
             out[lo:hi] = (F.silu(xe @ g[e]) * (xe @ u[e])) @ d_[e]
         return out
 
     def run_ffn(xx, g, u, d_):
-        return ffn_ops.grouped_ffn_blocked(xx, blk, g, u, d_, block_tokens=bt)
+        return ffn_ops.grouped_ffn_blocked(xx, blk, g, u, d_, block_tokens=bt, block_rows=rows)
 
     def plain_ffn(xx, g, u, d_):
-        return ffn_ops.grouped_ffn_blocked_ref(xx, blk, g, u, d_, block_tokens=bt)
+        return ffn_ops.grouped_ffn_blocked_ref(xx, blk, g, u, d_, block_tokens=bt,
+                                               block_rows=rows)
 
     y = run_ffn(x_pad, wg, wu, wd)
     ref = plain_ffn(x_pad, wg, wu, wd)
     err_bf16 = compare("grouped_ffn_blocked", "bf16", y, ref, 1e-2,
-                       "both sum in f32 then round to bf16; 1 bf16 ulp is 2^-8 relative")
+                       "H rounds to bf16 between the passes (2^-9 relative, summed over "
+                       "16384 terms of both signs), f32 sums, y rounds to bf16")
+    check(bool((y[(torch.arange(y.shape[0], device=dev) % bt)
+                  >= rows.long().repeat_interleave(bt)] == 0).all()),
+          "grouped_ffn_blocked: a padding row is not exactly 0")
+    seg_tok, seg_all = segments(True), segments(False)
     gf = dict(
-        ms=_time_ms(torch, lambda: run_ffn(x_pad, wg, wu, wd), 3),
+        ms=_time_ms(torch, lambda: run_ffn(x_pad, wg, wu, wd), 5),
         plain_ms=_time_ms(torch, lambda: plain_ffn(x_pad, wg, wu, wd), 3),
-        library_ms=_time_ms(torch, lambda: ffn_library(x_pad, wg, wu, wd), 3),
+        library_ms=_time_ms(torch, lambda: ffn_library(x_pad, wg, wu, wd, seg_tok), 5),
+        every_row_loop_ms=_time_ms(torch, lambda: ffn_library(x_pad, wg, wu, wd, seg_all), 3),
         max_abs_err=err_bf16,
         shape=f"x [{x_pad.shape[0]}, {D}] bf16 ({valid_rows} token rows), "
               f"E {wg.shape[0]}, F {Fd}, block_tokens {bt}",
@@ -482,12 +504,17 @@ def main() -> int:
     gf["f32_bound_ms"] = ffn_bound("f32", 4)[0]
     del w32, x32, y32
     report["grouped_ffn_blocked"] = gf
+    print(f"[2 kernel] grouped_ffn_blocked tiles: {n_tiles} of 64 rows, {live_tiles} hold "
+          f"a token and are computed in {n_pairs} pairs, {n_tiles - live_tiles} skipped; "
+          f"matmul loop over token rows {gf['library_ms']:.4f} ms (the library column), "
+          f"over every row {gf['every_row_loop_ms']:.4f} ms", flush=True)
 
     # flash_attention: layer 0's prefill q, k, v
     q, k, v, kw = rec_fa.calls[0]
     o = fa_ops.flash_attention(q, k, v, **kw)
     err_fa = compare("flash_attention", "bf16", o, fa_ops.mha_ref(q, k, v, **kw), 1e-2,
-                     "bf16 inputs and output; online vs two-pass softmax")
+                     "bf16 inputs and output; online vs two-pass softmax; P enters P V as "
+                     "bf16 plus its bf16 residual, about 16 bits")
     q32, k32, v32 = q.float(), k.float(), v.float()
     fa_f32_err = compare("flash_attention", "f32", fa_ops.flash_attention(q32, k32, v32, **kw),
                          fa_ops.mha_ref(q32, k32, v32, **kw), 1e-5,
@@ -497,7 +524,12 @@ def main() -> int:
     pairs = int(mask.sum()) * B * H
     t_ops = 4.0 * Dh * pairs / PEAK_FLOPS["bf16"]
     t_bytes = 2 * (q.numel() * 2 + k.numel() + v.numel()) / PEAK_BYTES_S
-    sdpa_kw = dict(attn_mask=mask, enable_gqa=True)
+    # the fastest single PyTorch call for it: is_causal where the call is plain
+    # causal (no window, no offset, Sq == Sk), else an explicit mask
+    plain_causal = (kw["causal"] and kw["window"] is None and kw["q_offset"] == 0
+                    and Sq == k.shape[2])
+    sdpa_kw = dict(is_causal=True) if plain_causal else dict(attn_mask=mask)
+    sdpa_kw["enable_gqa"] = True
     kk, vv = k, v
     try:
         F.scaled_dot_product_attention(q, kk, vv, **sdpa_kw)
@@ -506,14 +538,15 @@ def main() -> int:
         kk = k.repeat_interleave(H // k.shape[1], 1)
         vv = v.repeat_interleave(H // k.shape[1], 1)
     report["flash_attention"] = dict(
-        ms=_time_ms(torch, lambda: fa_ops.flash_attention(q, k, v, **kw), 10),
+        ms=_time_ms(torch, lambda: fa_ops.flash_attention(q, k, v, **kw), 20),
         plain_ms=_time_ms(torch, lambda: fa_ops.mha_ref(q, k, v, **kw), 10),
         library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, kk, vv, **sdpa_kw), 10),
+            q, kk, vv, **sdpa_kw), 20),
         max_abs_err=err_fa, f32_max_abs_err=fa_f32_err,
         bound_ms=max(t_ops, t_bytes) * 1e3,
         bound_by="operations" if t_ops >= t_bytes else "bytes",
-        shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 {kw}",
+        shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 {kw}; library: SDPA "
+              + ("is_causal" if plain_causal else "with a boolean mask"),
     )
     for kname, r in report.items():
         print(f"[2 kernel] {kname}: {r['shape']}: kernel {r['ms']:.4f} ms, plain "

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds).  Libraries
-go to ``csrc/build/`` under a name that carries a digest of the sources, so
-an edited source is rebuilt and a stale library is never loaded.  Nothing
+go to ``csrc/build/`` under a name that carries a digest of the kernel's
+source, every shared header (``csrc/*.cuh``) and the flags, so an edited
+source or header is rebuilt and a stale library is never loaded.  Nothing
 is built when a module is imported: :func:`library` builds on first use and
 :func:`build` builds several sources at once, one ``nvcc`` each, in
 parallel.
@@ -31,10 +32,12 @@ NVCC_FLAGS = [
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 #: launches of each CUDA kernel; a wrapper adds one where it launches its
-#: kernel, and nowhere else
+#: kernel, and nowhere else.  ``grouped_ffn_blocked`` and ``flash_attention``
+#: count their bf16 tensor-core routes (the serving path's); the ``_f32``
+#: names count their float32 CUDA-core routes.
 LAUNCHES: Dict[str, int] = {
-    "token_gather": 0, "grouped_ffn_blocked": 0, "flash_attention": 0,
-    "mlstm_scan": 0, "relay_copy": 0}
+    "token_gather": 0, "grouped_ffn_blocked": 0, "grouped_ffn_blocked_f32": 0,
+    "flash_attention": 0, "flash_attention_f32": 0, "mlstm_scan": 0, "relay_copy": 0}
 
 
 def _nvcc() -> str:
@@ -49,7 +52,8 @@ def _nvcc() -> str:
 
 def _library_path(name: str) -> Path:
     h = hashlib.sha256()
-    for src in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"

@@ -1,8 +1,9 @@
 """Attention: the hand-written flash kernel, its plain version, and the dispatch.
 
 Counterpart of ``repro/kernels/flash_attention``.  :func:`flash_attention`
-launches the CUDA kernel (``csrc/flash_attention.cu``) on CUDA tensors and
-uses :func:`mha_ref`, the plain version, only on CPU tensors.
+launches a CUDA kernel (``csrc/flash_attention.cu``) on CUDA tensors, by
+dtype: bfloat16 on tensor cores (wgmma, K/V tiles by TMA), float32 on CUDA
+cores.  It uses :func:`mha_ref`, the plain version, only on CPU tensors.
 :func:`attention` keeps the reference's shape rule (``ops.py:104-116``):
 the kernel for ``Sq >= 128``, the plain version below that.  The reference's
 ``chunked_attention`` (its non-TPU long-sequence path) is not ported yet.
@@ -18,10 +19,12 @@ import torch
 
 from .. import _build
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: C entry point and launch-count name of each dtype's route
+_ROUTES = {torch.bfloat16: ("flash_attention_tc", "flash_attention"),
+           torch.float32: ("flash_attention", "flash_attention_f32")}
 _HEAD_DIMS = (64, 128)
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float] + [
-    ctypes.c_int] * 4 + [ctypes.c_void_p]
+    ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def _mask(sq: int, sk: int, causal: bool, window: Optional[int], q_offset: int,
@@ -60,7 +63,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = Non
         return mha_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: q, k, v must be on one CUDA device")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in _ROUTES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, {v.dtype}")
     b, h, sq, dh = q.shape
     hkv, sk = k.shape[1], k.shape[2]
@@ -71,18 +74,21 @@ def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = Non
                          f"(head dim must be one of {_HEAD_DIMS})")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k, v must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: q, k, v must be 16-byte aligned")
     if window is not None and window <= 0:
         raise ValueError(f"flash_attention: window must be positive, got {window}")
     o = torch.empty_like(q)
     if q.numel() == 0:
         return o
-    fn = _build.function("flash_attention", "flash_attention", _ARGTYPES)
+    entry, count = _ROUTES[q.dtype]
+    fn = _build.function("flash_attention", entry, _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h, hkv,
              sq, sk, dh, 1.0 / math.sqrt(dh), int(causal),
-             0 if window is None else int(window), int(q_offset), _DTYPES[q.dtype],
+             0 if window is None else int(window), int(q_offset),
              torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "flash_attention")
-    _build.LAUNCHES["flash_attention"] += 1
+    _build.check(err, entry)
+    _build.LAUNCHES[count] += 1
     return o
 
 

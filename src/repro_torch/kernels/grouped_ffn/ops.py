@@ -7,12 +7,15 @@ and
   1. sorts them by expert (stable) and pads each expert's segment to a
      multiple of ``block_tokens`` (``_arrange``, as ``ops.py:32-52`` of the
      reference), moving the rows with :func:`token_gather`;
-  2. runs :func:`grouped_ffn_blocked` with per-block expert ids;
+  2. runs :func:`grouped_ffn_blocked` with per-block expert ids and per-block
+     token counts (``_block_rows``), so blocks of padding are skipped;
   3. gathers the results back into the original order.
 
-:func:`grouped_ffn_blocked` launches the hand-written CUDA kernel
-(``csrc/grouped_ffn.cu``) on CUDA tensors and uses
-:func:`grouped_ffn_blocked_ref`, the plain version, only on CPU tensors.
+:func:`grouped_ffn_blocked` launches the hand-written CUDA kernels
+(``csrc/grouped_ffn.cu``) on CUDA tensors, by dtype: bfloat16 on tensor cores
+(wgmma fed by TMA, a bf16 ``[M, F]`` scratch between the passes), float32 on
+CUDA cores (an f32 scratch).  It uses :func:`grouped_ffn_blocked_ref`, the
+plain version, only on CPU tensors.
 The reference's capacity-dropping ``dense`` branch and its ``scan`` branch
 are not ported: the blocked kernel is the reference's TPU branch and drops
 nothing.
@@ -28,10 +31,19 @@ import torch.nn.functional as F_
 from .. import _build
 from ..token_scatter.ops import token_gather
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-#: the CUDA kernel's tile: rows per tile, and the widths D and F must divide by
+#: C entry point, argument types and launch-count name of each dtype's route
+_ROUTES = {
+    torch.bfloat16: ("grouped_ffn_blocked_tc",
+                     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+                     "grouped_ffn_blocked"),
+    torch.float32: ("grouped_ffn_blocked",
+                    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+                    "grouped_ffn_blocked_f32"),
+}
+#: the CUDA kernels' tile: rows per tile, and the widths D and F must divide by
 _TILE_ROWS, _TILE_D, _TILE_F = 64, 128, 64
+#: the tensor-core route's most 64-row tiles a call (its pair list in shared memory)
+_MAX_TILES = 4096
 
 
 def _arrange(expert_id: torch.Tensor, n_experts: int, block: int):
@@ -57,14 +69,72 @@ def _arrange(expert_id: torch.Tensor, n_experts: int, block: int):
     return order, pos_sorted, blk_expert, m_pad
 
 
-def grouped_ffn_blocked_ref(x, block_expert, wg, wu, wd, *, block_tokens: int):
+def _block_rows(expert_id: torch.Tensor, n_experts: int, block: int) -> torch.Tensor:
+    """int32 [m_pad // block]: token rows in each block of ``_arrange``'s layout.
+
+    An expert's segment of ``count`` rows starts at its aligned offset, so its
+    blocks hold ``block`` rows each but the last, which holds the rest; blocks
+    past the last segment hold 0.  Torch ops only: no read on the host.
+    """
+    n = expert_id.shape[0]
+    m_pad = (-(-n // block) + n_experts) * block
+    key = torch.where(expert_id < 0, n_experts, expert_id).long()
+    counts = torch.bincount(key.clamp(0, n_experts), minlength=n_experts + 1)[:-1]
+    aligned = (counts + block - 1) // block * block
+    aligned_off = torch.cumsum(aligned, 0) - aligned
+    blk_start = torch.arange(m_pad // block, device=expert_id.device) * block
+    e = ((aligned_off[None, :] <= blk_start[:, None]).sum(1) - 1).clamp(0, n_experts - 1)
+    rows = counts[e] - (blk_start - aligned_off[e])
+    return rows.clamp(0, block).to(torch.int32)
+
+
+def _tile_pairs(block_expert: torch.Tensor, block_rows, block_tokens: int,
+                m: int) -> torch.Tensor:
+    """int32 [m // 64]: the pairs of 64-row tiles the tensor-core route computes.
+
+    Plain version of the pairing that the kernel's blocks do for themselves.
+    Entry c is ``2 t + two`` for the c-th pair, then -1: tile t, and tile
+    t + 1 too when ``two``.  Tiles that hold a token (all of them without
+    ``block_rows``) are paired along each run of adjacent tiles of one
+    expert, from the run's first tile, so the two tiles of a pair share
+    their weights.  Torch ops only: no read on the host.
+    """
+    dev = block_expert.device
+    per = block_tokens // _TILE_ROWS
+    n = m // _TILE_ROWS
+    t = torch.arange(n, device=dev)
+    tile_e = block_expert.long().repeat_interleave(per)
+    if block_rows is None:
+        live = torch.ones(n, dtype=torch.bool, device=dev)
+    else:
+        rows = block_rows.long().repeat_interleave(per) - (t % per) * _TILE_ROWS
+        live = rows > 0
+    # tile t continues the run of tile t - 1: both hold tokens, same expert
+    cont = torch.zeros(n, dtype=torch.bool, device=dev)
+    cont[1:] = live[1:] & live[:-1] & (tile_e[1:] == tile_e[:-1])
+    first = torch.cummax(torch.where(live & ~cont, t, -1), 0).values  # run's first tile
+    start = live & ((t - first) % 2 == 0)
+    two = torch.zeros(n, dtype=torch.bool, device=dev)
+    two[:-1] = start[:-1] & cont[1:]
+    order = torch.argsort((~start).to(torch.int8), stable=True)   # pair starts first
+    code = (2 * t + two)[order]
+    return torch.where(t < start.sum(), code, -1).to(torch.int32)
+
+
+def grouped_ffn_blocked_ref(x, block_expert, wg, wu, wd, *, block_tokens: int,
+                            block_rows=None):
     """Plain version of the blocked kernel, in float32.
 
     Row r uses expert ``block_expert[r // block_tokens]``; the per-expert
     form of ``ref.py``: each expert's rows go through three float32
-    products with that expert's weights.
+    products with that expert's weights.  With ``block_rows``, rows at or
+    past their block's count are 0.
     """
     row_expert = block_expert.long().repeat_interleave(block_tokens)
+    if block_rows is not None:
+        in_block = torch.arange(x.shape[0], device=x.device) % block_tokens
+        live = in_block < block_rows.long().repeat_interleave(block_tokens)
+        row_expert = torch.where(live, row_expert, -1)
     out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     for e in range(wg.shape[0]):
         rows = torch.nonzero(row_expert == e).squeeze(1)
@@ -76,46 +146,64 @@ def grouped_ffn_blocked_ref(x, block_expert, wg, wu, wd, *, block_tokens: int):
     return out.to(x.dtype)
 
 
-def grouped_ffn_blocked(x, block_expert, wg, wu, wd, *, block_tokens: int):
-    """x [M, D] sorted+padded, block_expert [M // block_tokens] -> [M, D]."""
+def grouped_ffn_blocked(x, block_expert, wg, wu, wd, *, block_tokens: int,
+                        block_rows=None):
+    """x [M, D] sorted+padded, block_expert [M // block_tokens] -> [M, D].
+
+    ``block_rows`` (int32 [M // block_tokens], optional): the token rows at
+    the head of each block; rows at or past it come out 0 and 64-row tiles
+    that hold none are not computed.  Without it every row is computed.
+    """
     if x.device.type == "cpu":
         return grouped_ffn_blocked_ref(x, block_expert, wg, wu, wd,
-                                       block_tokens=block_tokens)
+                                       block_tokens=block_tokens, block_rows=block_rows)
     m, d = x.shape
     e, _, f = wg.shape
+    per_block = (block_expert,) if block_rows is None else (block_expert, block_rows)
     if x.device.type != "cuda" or any(
-        t.device != x.device for t in (block_expert, wg, wu, wd)
+        t.device != x.device for t in (*per_block, wg, wu, wd)
     ):
         raise ValueError("grouped_ffn_blocked: all tensors must be on one CUDA device")
-    if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in (wg, wu, wd)):
+    if x.dtype not in _ROUTES or any(t.dtype != x.dtype for t in (wg, wu, wd)):
         raise TypeError(f"grouped_ffn_blocked: dtypes {x.dtype}, {wg.dtype}, "
                         f"{wu.dtype}, {wd.dtype}")
-    if block_expert.dtype != torch.int32:
-        raise TypeError("grouped_ffn_blocked: block_expert must be int32")
+    if any(t.dtype != torch.int32 for t in per_block):
+        raise TypeError("grouped_ffn_blocked: block_expert and block_rows must be int32")
     if (tuple(wu.shape) != (e, d, f) or tuple(wd.shape) != (e, f, d)
-            or tuple(block_expert.shape) != (m // block_tokens,)):
+            or any(tuple(t.shape) != (m // block_tokens,) for t in per_block)):
         raise ValueError(
             f"grouped_ffn_blocked: shapes x {tuple(x.shape)}, wg {tuple(wg.shape)}, "
             f"wu {tuple(wu.shape)}, wd {tuple(wd.shape)}, "
-            f"block_expert {tuple(block_expert.shape)}")
+            f"block_expert {tuple(block_expert.shape)}"
+            + ("" if block_rows is None else f", block_rows {tuple(block_rows.shape)}"))
     if (m % block_tokens or block_tokens % _TILE_ROWS or d % _TILE_D
             or f % _TILE_F):
         raise ValueError(
             f"grouped_ffn_blocked: needs M % block_tokens == 0, block_tokens % "
             f"{_TILE_ROWS} == 0, D % {_TILE_D} == 0, F % {_TILE_F} == 0; got "
             f"M={m}, block_tokens={block_tokens}, D={d}, F={f}")
-    if not all(t.is_contiguous() for t in (x, block_expert, wg, wu, wd)):
+    if x.dtype == torch.bfloat16 and m // _TILE_ROWS > _MAX_TILES:
+        raise ValueError(f"grouped_ffn_blocked: M={m} is more than {_MAX_TILES} tiles of "
+                         f"{_TILE_ROWS} rows")
+    if not all(t.is_contiguous() for t in (x, *per_block, wg, wu, wd)):
         raise ValueError("grouped_ffn_blocked: inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in (x, wg, wu, wd)):
+        raise ValueError("grouped_ffn_blocked: x and the weights must be 16-byte aligned")
     y = torch.empty_like(x)
     if m == 0:
         return y
-    h = torch.empty((m, f), dtype=torch.float32, device=x.device)  # pass-1 scratch
-    fn = _build.function("grouped_ffn", "grouped_ffn_blocked", _ARGTYPES)
-    err = fn(x.data_ptr(), block_expert.data_ptr(), wg.data_ptr(), wu.data_ptr(),
-             wd.data_ptr(), h.data_ptr(), y.data_ptr(), m, d, f, block_tokens,
-             _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "grouped_ffn_blocked")
-    _build.LAUNCHES["grouped_ffn_blocked"] += 1
+    # pass-1 scratch H [M, F] in the route's dtype; only computed tiles' rows
+    # are written, and only those are read
+    h = torch.empty((m, f), dtype=x.dtype, device=x.device)
+    entry, argtypes, count = _ROUTES[x.dtype]
+    fn = _build.function("grouped_ffn", entry, argtypes)
+    sizes = (m, d, f, e) if x.dtype == torch.bfloat16 else (m, d, f)
+    err = fn(x.data_ptr(), block_expert.data_ptr(),
+             None if block_rows is None else block_rows.data_ptr(), wg.data_ptr(),
+             wu.data_ptr(), wd.data_ptr(), h.data_ptr(), y.data_ptr(), *sizes,
+             block_tokens, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, entry)
+    _build.LAUNCHES[count] += 1
     return y
 
 
@@ -130,7 +218,8 @@ def grouped_ffn(x, expert_id, wg, wu, wd, *, block_tokens: int = 128):
     src.index_put_((pos,), torch.where(valid_sorted, order, -1))
     x_pad = token_gather(x.contiguous(), src)
     y_pad = grouped_ffn_blocked(x_pad, blk_expert.to(torch.int32), wg, wu, wd,
-                                block_tokens=block_tokens)
+                                block_tokens=block_tokens,
+                                block_rows=_block_rows(expert_id, wg.shape[0], block_tokens))
     back = torch.empty(n, dtype=torch.int64, device=x.device)
     back[order] = pos
     back = torch.where(expert_id >= 0, back, -1)

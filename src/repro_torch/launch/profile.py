@@ -29,9 +29,15 @@ from ..models.registry import build_model
 from ..serve.engine import ServeEngine
 from ..sharding.context import ParallelContext
 
-#: kernel-name fragments of the port's own CUDA kernels
-OWN = {"gather_rows": "token_gather", "ffn_gate_up": "grouped_ffn_blocked pass 1",
-       "ffn_down": "grouped_ffn_blocked pass 2", "flash_fwd": "flash_attention",
+#: kernel-name fragments of the port's own CUDA kernels (demangled, as the
+#: profiler shows them); the FFN and flash have a bf16 tensor-core route
+#: (``tc::``) and a float32 CUDA-core route each
+OWN = {"gather_rows": "token_gather",
+       "ffn_tc<true>": "grouped_ffn_blocked pass 1 (tensor cores)",
+       "ffn_tc<false>": "grouped_ffn_blocked pass 2 (tensor cores)",
+       "ffn_gate_up": "grouped_ffn_blocked pass 1 (f32)",
+       "ffn_down": "grouped_ffn_blocked pass 2 (f32)",
+       "flash_tc<": "flash_attention (tensor cores)", "flash_fwd": "flash_attention (f32)",
        "mlstm_chunks": "mlstm_scan", "relay_stage": "relay_copy"}
 
 #: per architecture: EP ranks, prefill length, prompt length, new tokens

@@ -8,10 +8,13 @@ without one; run them on the card with
     python -m pytest -q tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.base import get_config
 from repro_torch.core import planner
 from repro_torch.core.dataplane import NimbleAllToAll, build_rel_of_pair, ref_all_to_allv
 from repro_torch.core.incidence import incidence_for
@@ -21,6 +24,7 @@ from repro_torch.kernels import _build, launch_counts
 from repro_torch.kernels.flash_attention.ops import flash_attention, mha_ref
 from repro_torch.kernels.grouped_ffn.ops import (
     _arrange,
+    _block_rows,
     grouped_ffn,
     grouped_ffn_blocked,
     grouped_ffn_blocked_ref,
@@ -28,6 +32,8 @@ from repro_torch.kernels.grouped_ffn.ops import (
 from repro_torch.kernels.mlstm_scan.ops import mlstm_scan, mlstm_scan_chunked_ref
 from repro_torch.kernels.relay_copy.ops import parity_slot_map, relay_copy, relay_copy_ref
 from repro_torch.kernels.token_scatter.ops import token_gather, token_gather_ref
+from repro_torch.models.registry import build_model
+from repro_torch.sharding.context import ParallelContext
 
 pytestmark = pytest.mark.torch_port
 
@@ -116,6 +122,134 @@ def test_flash_attention_matches_plain(cuda, dtype, tol, dh, case):
     torch.cuda.synchronize()
     ref = mha_ref(q, k, v, **kw)
     assert (o.float() - ref.float()).abs().max() <= tol
+
+
+# ---- the bf16 tensor-core routes (wgmma fed by TMA) ------------------------
+
+def _ffn_tc_close(y, ref):
+    # H rounds to bf16 between the passes (2^-9 relative, in sums of F terms
+    # of both signs, so about 2^-9 of a typical |y|) and y rounds to bf16:
+    # within 2e-2 x max|ref|, as the bf16 route always was
+    scale = ref.float().abs().max()
+    assert (y.float() - ref.float()).abs().max() <= 2e-2 * scale
+
+
+def test_grouped_ffn_tc_one_tile(cuda):
+    rng = np.random.default_rng(4)
+    x, wg, wu, wd = _ffn_inputs(rng, 64, 128, 128, 1, torch.bfloat16, cuda)
+    be = torch.zeros(1, dtype=torch.int32, device=cuda)
+    before = launch_counts()
+    y = grouped_ffn_blocked(x, be, wg, wu, wd, block_tokens=64)
+    torch.cuda.synchronize()
+    _ffn_tc_close(y, grouped_ffn_blocked_ref(x, be, wg, wu, wd, block_tokens=64))
+    after = launch_counts()
+    assert after["grouped_ffn_blocked"] == before["grouped_ffn_blocked"] + 1
+    assert after["grouped_ffn_blocked_f32"] == before["grouped_ffn_blocked_f32"]
+
+
+@pytest.mark.parametrize("bt", [64, 128])
+def test_grouped_ffn_tc_ragged_f(cuda, bt):
+    # F 192: the second 128-column tile of pass 1 is half past F (TMA fills
+    # zeros, the store stops at F); bt 128: a block is a pair of tiles
+    rng = np.random.default_rng(bt)
+    m, d, f, e = 4 * bt, 256, 192, 3
+    x, wg, wu, wd = _ffn_inputs(rng, m, d, f, e, torch.bfloat16, cuda)
+    be = torch.as_tensor([2, 0, 0, 1], dtype=torch.int32, device=cuda)
+    y = grouped_ffn_blocked(x, be, wg, wu, wd, block_tokens=bt)
+    torch.cuda.synchronize()
+    _ffn_tc_close(y, grouped_ffn_blocked_ref(x, be, wg, wu, wd, block_tokens=bt))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bt", [64, 128])
+def test_grouped_ffn_block_rows_skips_padding(cuda, dtype, bt):
+    # a full, a partial, an empty and an almost full block; x is nonzero in
+    # the padding too, so the skipped rows must be written as exact zeros
+    rng = np.random.default_rng(5 + bt)
+    m, d, f, e = 4 * bt, 128, 192, 3
+    x, wg, wu, wd = _ffn_inputs(rng, m, d, f, e, dtype, cuda)
+    be = torch.as_tensor([2, 0, 1, 2], dtype=torch.int32, device=cuda)
+    rows = torch.as_tensor([bt, 5, 0, bt - 1], dtype=torch.int32, device=cuda)
+    y = grouped_ffn_blocked(x, be, wg, wu, wd, block_tokens=bt, block_rows=rows)
+    torch.cuda.synchronize()
+    ref = grouped_ffn_blocked_ref(x, be, wg, wu, wd, block_tokens=bt, block_rows=rows)
+    live = torch.arange(m, device=cuda) % bt < rows.long().repeat_interleave(bt)
+    assert bool((y[~live] == 0).all())
+    if dtype == torch.bfloat16:
+        _ffn_tc_close(y, ref)
+    else:   # f32 sums in another order
+        assert (y - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+def test_grouped_ffn_block_rows_on_card_equals_cpu(cuda):
+    # _block_rows from device ops equals the CPU's, and the sort/pad path
+    # through it equals the CPU's plain version
+    rng = np.random.default_rng(6)
+    eid = torch.as_tensor(rng.integers(-1, 4, size=300))
+    assert torch.equal(_block_rows(eid.to(cuda), 4, 64).cpu(), _block_rows(eid, 4, 64))
+    x, wg, wu, wd = _ffn_inputs(rng, 300, 128, 128, 4, torch.bfloat16, "cpu")
+    y_cpu = grouped_ffn(x, eid, wg, wu, wd, block_tokens=64)
+    y = grouped_ffn(*(t.to(cuda) for t in (x, eid, wg, wu, wd)), block_tokens=64)
+    _ffn_tc_close(y.cpu(), y_cpu)
+
+
+def _flash_inputs(rng, b, h, hkv, sq, sk, dh, dtype, device):
+    def t(shape):
+        return torch.as_tensor(rng.normal(size=shape), dtype=dtype, device=device)
+    return t((b, h, sq, dh)), t((b, hkv, sk, dh)), t((b, hkv, sk, dh))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_tc_one_tile(cuda, dh, causal):
+    # one 64-row query tile and one kv tile.  bf16 inputs and output: 1e-2
+    # absolute (outputs are O(1)); P enters P V as its bf16 rounding plus the
+    # rounding's bf16 residual, about 16 bits, so P adds no bf16-sized error
+    rng = np.random.default_rng(dh)
+    q, k, v = _flash_inputs(rng, 1, 1, 1, 64, 64, dh, torch.bfloat16, cuda)
+    before = launch_counts()
+    o = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert (o.float() - mha_ref(q, k, v, causal=causal).float()).abs().max() <= 1e-2
+    after = launch_counts()
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    assert after["flash_attention_f32"] == before["flash_attention_f32"]
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("case", ["causal", "window", "offset", "full"])
+def test_flash_tc_ragged_edges(cuda, dh, case):
+    # Sq 200 and Sk 300: partial query and kv tiles, zero-filled by TMA and
+    # masked (keys past Sk) or not stored (rows past Sq); GQA 4 / 2.  The
+    # tolerance and its reason as in test_flash_tc_one_tile
+    rng = np.random.default_rng(7)
+    kw = dict(causal=case != "full", window=50 if case == "window" else None,
+              q_offset=100 if case == "offset" else 0)
+    q, k, v = _flash_inputs(rng, 2, 4, 2, 200, 300, dh, torch.bfloat16, cuda)
+    o = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert (o.float() - mha_ref(q, k, v, **kw).float()).abs().max() <= 1e-2
+
+
+def test_main_path_bf16_runs_tensor_core_routes(cuda):
+    # paper-moe-8e (reduced, 8 experts, EP 8 in groups of 4) in bf16: its
+    # prefill reaches the FFN and flash through their tensor-core routes only
+    cfg = dataclasses.replace(get_config("paper-moe-8e").reduced(), n_experts=8)
+    ctx = ParallelContext(ep_size=8, group_size=4, moe_mode="nimble",
+                          param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+                          device="cuda")
+    model = build_model(cfg, ctx)
+    params = model.init(0)
+    tokens = torch.as_tensor(np.random.default_rng(8).integers(0, cfg.vocab, (2, 128)),
+                             device=cuda)
+    before = launch_counts()
+    logits, _ = model.forward(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert bool(torch.isfinite(logits).all())
+    for name in ("grouped_ffn_blocked", "flash_attention"):
+        assert after[name] > before[name]
+        assert after[f"{name}_f32"] == before[f"{name}_f32"]
 
 
 @pytest.mark.parametrize("chunk_bytes", [128.0, float(4 << 20)])

@@ -122,6 +122,136 @@ def test_blocked_plain_matches_pallas_kernel(dt, tol):
     assert (_np(got)[3 * bt:] == 0).all()
 
 
+@pytest.mark.parametrize("N,E,bt", [(200, 4, 64), (64, 3, 32), (7, 2, 32), (300, 8, 128)])
+def test_block_rows_counts_token_rows_of_reference_arrange(N, E, bt):
+    # the token rows of each block, read off the reference's own layout: the
+    # padded positions of the valid tokens, counted per block
+    _, eid, _ = _ffn_inputs(N, 8, 8, E, seed=N + E)
+    jo, jp, _, jm = j_ffn_ops._arrange(jnp.asarray(eid), E, bt)
+    valid = eid[np.asarray(jo)] >= 0
+    want = np.bincount(np.asarray(jp)[valid] // bt, minlength=jm // bt)
+    got = t_ffn_ops._block_rows(torch.as_tensor(eid), E, bt)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("N,E,bt", [(200, 4, 64), (100, 2, 64), (200, 4, 32)])
+def test_grouped_ffn_through_block_rows_matches_reference(N, E, bt, monkeypatch):
+    # grouped_ffn hands the blocked kernel its per-block token counts, and
+    # still equals the reference (Pallas kernel, interpret mode, and oracle);
+    # f32 sums in another order: 1e-5 relative
+    D, F = 32, 64
+    x, eid, (wg, wu, wd) = _ffn_inputs(N, D, F, E, seed=E + bt)
+    seen = []
+    blocked = t_ffn_ops.grouped_ffn_blocked
+
+    def spy(*args, **kw):
+        seen.append(kw["block_rows"])
+        return blocked(*args, **kw)
+
+    monkeypatch.setattr(t_ffn_ops, "grouped_ffn_blocked", spy)
+    got = t_ffn_ops.grouped_ffn(*map(torch.as_tensor, (x, eid, wg, wu, wd)), block_tokens=bt)
+    want = j_ffn_ops.grouped_ffn(*map(jnp.asarray, (x, eid, wg, wu, wd)),
+                                 block_tokens=bt, block_ffn=32)
+    oracle = j_ffn_ref(*map(jnp.asarray, (x, eid, wg, wu, wd)))
+    assert len(seen) == 1 and torch.equal(
+        seen[0], t_ffn_ops._block_rows(torch.as_tensor(eid), E, bt))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got.numpy(), np.asarray(oracle), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("dt,tol", [("f32", 1e-5), ("bf16", 1e-2)])
+def test_blocked_plain_block_rows_zeroes_padding(dt, tol):
+    # rows at or past a block's count come out exactly 0, whatever x holds
+    # there; the rest equal the Pallas kernel (interpret mode) as before
+    D, F, E, bt = 32, 64, 3, 32
+    x, _, (wg, wu, wd) = _ffn_inputs(4 * bt, D, F, E, seed=12)
+    be = np.array([2, 0, 1, 2], np.int32)
+    rows = np.array([bt, 5, 0, bt - 1], np.int32)
+    xt, xj = _both(x, dt)
+    ws = [_both(w, dt) for w in (wg, wu, wd)]
+    want = _np(j_blocked(xj, jnp.asarray(be), *(w[1] for w in ws), block_tokens=bt,
+                         block_ffn=32, interpret=True))
+    got = _np(t_ffn_ops.grouped_ffn_blocked(xt, torch.as_tensor(be), *(w[0] for w in ws),
+                                            block_tokens=bt, block_rows=torch.as_tensor(rows)))
+    live = np.arange(4 * bt) % bt < np.repeat(rows, bt)
+    assert (got[~live] == 0).all()
+    np.testing.assert_allclose(got[live], want[live], rtol=tol, atol=tol * 0.1)
+
+
+def _pairs_case(seed, n_blocks, per):
+    rng = np.random.default_rng(seed)
+    be = np.sort(rng.integers(0, 4, size=n_blocks)).astype(np.int32)
+    bt = 64 * per
+    rows = rng.integers(0, bt + 1, size=n_blocks).astype(np.int32)
+    rows[rng.random(n_blocks) < 0.3] = bt
+    return be, rows, bt
+
+
+@pytest.mark.parametrize("with_rows", [True, False])
+@pytest.mark.parametrize("seed,n_blocks,per", [(0, 9, 1), (1, 24, 1), (2, 7, 2), (3, 16, 2),
+                                               (4, 1, 1), (5, 5, 2)])
+def test_tile_pairs_cover_each_token_tile_once(seed, n_blocks, per, with_rows):
+    # every 64-row tile that holds a token is in exactly one pair, a pair's
+    # two tiles are adjacent and of one expert, and the entries past the
+    # pairs are -1
+    be, rows, bt = _pairs_case(seed, n_blocks, per)
+    m = n_blocks * bt
+    got = t_ffn_ops._tile_pairs(torch.as_tensor(be), torch.as_tensor(rows) if with_rows
+                                else None, bt, m).numpy()
+    assert got.shape == (m // 64,) and got.dtype == np.int32
+    tile_e = np.repeat(be, per)
+    t = np.arange(m // 64)
+    tile_rows = np.repeat(rows, per) - (t % per) * 64 if with_rows else np.full(t.shape, 64)
+    live = tile_rows > 0
+    n = int((got >= 0).sum())
+    assert (got[:n] >= 0).all() and (got[n:] == -1).all()
+    covered = []
+    for code in got[:n]:
+        t0, two = code >> 1, code & 1
+        covered.append(t0)
+        if two:
+            covered.append(t0 + 1)
+            assert tile_e[t0 + 1] == tile_e[t0]
+    assert sorted(covered) == list(t[live])
+    assert len(set(covered)) == len(covered)
+    # pairs follow each run of adjacent token tiles of one expert from its
+    # first tile: a run of L tiles gives L // 2 pairs, then its last tile alone
+    want, i = [], 0
+    while i < len(t):
+        if not live[i]:
+            i += 1
+            continue
+        j = i
+        while j + 1 < len(t) and live[j + 1] and tile_e[j + 1] == tile_e[i]:
+            j += 1
+        want += [2 * a + 1 for a in range(i, j, 2)] + ([2 * j] if (j - i) % 2 == 0 else [])
+        i = j + 1
+    assert got[:n].tolist() == want
+
+
+def test_build_digest_covers_every_shared_header(tmp_path, monkeypatch):
+    # an edited or added csrc/*.cuh changes every kernel's library name, so a
+    # stale library is never loaded
+    from repro_torch.kernels import _build
+
+    for src in _build.CSRC.iterdir():
+        if src.suffix in (".cu", ".cuh"):
+            (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = {name: _build._library_path(name) for name in _build.KERNELS}
+    hopper = tmp_path / "hopper.cuh"
+    hopper.write_bytes(hopper.read_bytes() + b"\n// edited\n")
+    edited = {name: _build._library_path(name) for name in _build.KERNELS}
+    assert all(edited[n] != before[n] for n in _build.KERNELS)
+    (tmp_path / "extra.cuh").write_text("#pragma once\n")
+    added = {name: _build._library_path(name) for name in _build.KERNELS}
+    assert all(added[n] != edited[n] for n in _build.KERNELS)
+    hopper.write_bytes(hopper.read_bytes()[: -len(b"\n// edited\n")])
+    (tmp_path / "extra.cuh").unlink()
+    assert {name: _build._library_path(name) for name in _build.KERNELS} == before
+
+
 # --------------------------------------------------------------------------- #
 # flash attention
 # --------------------------------------------------------------------------- #
