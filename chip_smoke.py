@@ -14,6 +14,10 @@ port's five CUDA kernels from ``src/repro_torch/csrc``, all at once, then:
      yardstick (the FFN's: a per-expert matmul loop over the token rows;
      flash's: ``scaled_dot_product_attention``, with ``is_causal`` for a
      plain causal call); it counts the FFN's tiles computed and skipped;
+     ``token_gather`` is timed on the prefill's relay round, the sideband's
+     relay round and the FFN's sort of 8 KiB rows, and (after phase 5) on a
+     decode step's relay round captured there, each beside its bound and
+     ``index_select``;
   3. checks the stacked dataplane bit for bit against the numpy oracle in
      all three modes, and that the card's chunk plan equals the CPU's;
   4. prefills paper-moe-8e at full width (bf16, 8 EP ranks in 2 groups of 4,
@@ -21,7 +25,7 @@ port's five CUDA kernels from ``src/repro_torch/csrc``, all at once, then:
      ``Model.forward(last_only=True)``, and holds the logits against the
      single-device path on the same weights;
   5. answers 4 requests through ``ServeEngine.generate`` (prompt 8, 8 new
-     tokens, greedy);
+     tokens, greedy), recording a decode step's first ``token_gather`` calls;
   6. checks that phases 4 and 5 launched every kernel of that path (the FFN
      and flash through their bf16 tensor-core routes);
   7. holds ``mlstm_scan`` against its plain version on the inputs of
@@ -91,19 +95,6 @@ class Checks:
         return ok
 
 
-def _time_ms(torch, fn, reps: int) -> float:
-    fn()                                              # warm-up
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def _to(tree, device, dtype=None):
     """A parameter tree on ``device`` (floating leaves cast to ``dtype``)."""
     if isinstance(tree, dict):
@@ -138,11 +129,48 @@ def _max_err(out, ref) -> float:
     return (out.float() - ref.float()).abs().max().item()
 
 
+def gather_report(torch, x, idx, token_gather, token_gather_ref) -> dict:
+    """``token_gather`` on one captured call: times, bound and error.
+
+    The bound counts the bytes this call's data needs: the rows it reads
+    (index >= 0), the rows it writes and the indices, at 3.35 TB/s.
+    ``index_select`` is the yardstick, on the indices clipped at 0 (it
+    takes no -1 and writes no zero rows).  Times by CUDA events over 20
+    calls include the host's launch cost; the device times do not
+    (``kernel_times.device_ms``: the calls queue behind a sleeping kernel).
+    """
+    from repro_torch.launch.kernel_times import device_ms, time_ms
+
+    safe = idx.clamp_min(0)
+    valid = int((idx >= 0).sum())
+    row = x.shape[1] * x.element_size()
+    moved = (valid + idx.numel()) * row + idx.numel() * idx.element_size()
+    return dict(
+        ms=time_ms(lambda: token_gather(x, idx), 20),
+        plain_ms=time_ms(lambda: token_gather_ref(x, idx), 20),
+        library_ms=time_ms(lambda: torch.index_select(x, 0, safe), 20),
+        device_ms=device_ms(lambda: token_gather(x, idx), 20),
+        library_device_ms=device_ms(lambda: torch.index_select(x, 0, safe), 20),
+        bound_ms=moved / PEAK_BYTES_S * 1e3, bound_by="bytes",
+        max_abs_err=_max_err(token_gather(x, idx), token_gather_ref(x, idx)),
+        shape=f"x {tuple(x.shape)} {str(x.dtype)[6:]}, idx [{idx.numel()}] "
+              f"({valid} read)")
+
+
+def print_gather(label, r) -> None:
+    print(f"[2 kernel] token_gather {label}: {r['shape']}: kernel {r['ms']:.4f} ms "
+          f"({r['device_ms']:.4f} on the device, {r['device_ms'] / r['bound_ms']:.2f}x its "
+          f"bound), plain {r['plain_ms']:.4f} ms, index_select {r['library_ms']:.4f} ms "
+          f"({r['library_device_ms']:.4f} on the device), bound {r['bound_ms']:.4f} ms "
+          f"(bytes)", flush=True)
+
+
 def xlstm_phases(torch, np, check, compare, seed: int, dev):
     """Phases 7-9 on xlstm-125m -> (mlstm_scan's report, its launches)."""
     from repro_torch.configs.base import InputShape, get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.mlstm_scan.ops import mlstm_scan, mlstm_scan_chunked_ref
+    from repro_torch.launch.kernel_times import time_ms
     from repro_torch.models import xlstm as xlstm_mod
     from repro_torch.models.registry import build_model
     from repro_torch.serve.engine import ServeEngine
@@ -183,8 +211,8 @@ def xlstm_phases(torch, np, check, compare, seed: int, dev):
     nbytes = 4 * (4 * B * H * S * dh + 2 * B * H * S + B * H * (dh * dh + dh + 1))
     t_ops, t_bytes = flops / PEAK_FLOPS["f32"], nbytes / PEAK_BYTES_S
     ms_report = dict(
-        ms=_time_ms(torch, lambda: mlstm_scan(q, k, v, ig, lf, chunk=chunk), 10),
-        plain_ms=_time_ms(torch, lambda: mlstm_scan_chunked_ref(q, k, v, ig, lf,
+        ms=time_ms(lambda: mlstm_scan(q, k, v, ig, lf, chunk=chunk), 10),
+        plain_ms=time_ms(lambda: mlstm_scan_chunked_ref(q, k, v, ig, lf,
                                                                  chunk=chunk), 3),
         library_ms=None, max_abs_err=err,
         bound_ms=max(t_ops, t_bytes) * 1e3,
@@ -279,6 +307,7 @@ def relay_phase(torch, check, seed: int, dev):
         relay_copy,
         relay_copy_ref,
     )
+    from repro_torch.launch.kernel_times import time_ms
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     n, d, bc = 8192, 4096, 256
@@ -305,9 +334,9 @@ def relay_phase(torch, check, seed: int, dev):
     out = torch.empty_like(x)
     nbytes = 2 * x.numel() * x.element_size() + smap.numel() * 4
     report = dict(
-        ms=_time_ms(torch, lambda: relay_copy(x, smap, block_chunk=bc), 20),
-        plain_ms=_time_ms(torch, lambda: relay_copy_ref(x, smap, block_chunk=bc), 20),
-        library_ms=_time_ms(torch, lambda: out.copy_(x), 20),
+        ms=time_ms(lambda: relay_copy(x, smap, block_chunk=bc), 20),
+        plain_ms=time_ms(lambda: relay_copy_ref(x, smap, block_chunk=bc), 20),
+        library_ms=time_ms(lambda: out.copy_(x), 20),
         max_abs_err=_max_err(relay_copy(x, smap, block_chunk=bc), x),
         bound_ms=nbytes / PEAK_BYTES_S * 1e3, bound_by="bytes",
     )
@@ -353,6 +382,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.grouped_ffn import ops as ffn_ops
     from repro_torch.kernels.token_scatter.ops import token_gather, token_gather_ref
+    from repro_torch.launch.kernel_times import time_ms
     from repro_torch.models.registry import build_model
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.sharding.context import ParallelContext
@@ -391,6 +421,7 @@ def main() -> int:
 
     # capture pass: the main path's own inputs to each kernel (also a warm-up)
     with Recorder(dp_mod, "token_gather", keep=10) as rec_tg, \
+            Recorder(ffn_ops, "token_gather", keep=2) as rec_sort, \
             Recorder(ffn_ops, "grouped_ffn_blocked", keep=1) as rec_ffn, \
             Recorder(fa_ops, "flash_attention", keep=1) as rec_fa:
         model8.forward(params, batch, last_only=True)
@@ -410,24 +441,21 @@ def main() -> int:
 
     # token_gather: the dispatch's slot fill (zero rows), relay rounds (a
     # permutation) and reassembly, on the bf16 payload (calls 0-4) and on the
-    # f32 expert-id sideband (calls 5-9)
+    # f32 expert-id sideband (calls 5-9); the FFN's sort/pad and unsort
     calls = rec_tg.calls
     for i, (x, idx, _) in enumerate(calls):
         out = token_gather(x, idx)
         compare("token_gather", f"{str(x.dtype)[6:]} call {i} {tuple(x.shape)}",
                 out, token_gather_ref(x, idx), 0.0, "a copy is exact")
-    x, idx, _ = calls[1]                                  # the first relay round
-    tg = dict(
-        ms=_time_ms(torch, lambda: token_gather(x, idx), 20),
-        plain_ms=_time_ms(torch, lambda: token_gather_ref(x, idx), 20),
-        library_ms=_time_ms(torch, lambda: torch.index_select(x, 0, idx), 20),
-    )
-    moved = 2 * idx.numel() * x.shape[1] * x.element_size() + idx.numel() * 8
-    tg.update(bound_ms=moved / PEAK_BYTES_S * 1e3, bound_by="bytes",
-              max_abs_err=(token_gather(x, idx).float()
-                           - token_gather_ref(x, idx).float()).abs().max().item(),
-              shape=f"x {tuple(x.shape)} bf16, idx [{idx.numel()}]")
-    report["token_gather"] = tg
+    for i, (x, idx, _) in enumerate(rec_sort.calls):
+        compare("token_gather", f"FFN {('sort', 'unsort')[i]} {tuple(x.shape)}",
+                token_gather(x, idx), token_gather_ref(x, idx), 0.0, "a copy is exact")
+    tg = gather_report(torch, *calls[1][:2], token_gather, token_gather_ref)
+    report["token_gather"] = tg                           # the first relay round
+    gathers = {"sideband relay round": calls[6][:2], "FFN sort of 8 KiB rows":
+               rec_sort.calls[0][:2]}
+    for label, (x, idx) in gathers.items():
+        tg[label] = gather_report(torch, x, idx, token_gather, token_gather_ref)
 
     # grouped_ffn_blocked: the prefill's sorted, padded expert rows, with the
     # per-block token counts the path passes (tiles of padding are skipped)
@@ -485,10 +513,10 @@ def main() -> int:
           "grouped_ffn_blocked: a padding row is not exactly 0")
     seg_tok, seg_all = segments(True), segments(False)
     gf = dict(
-        ms=_time_ms(torch, lambda: run_ffn(x_pad, wg, wu, wd), 5),
-        plain_ms=_time_ms(torch, lambda: plain_ffn(x_pad, wg, wu, wd), 3),
-        library_ms=_time_ms(torch, lambda: ffn_library(x_pad, wg, wu, wd, seg_tok), 5),
-        every_row_loop_ms=_time_ms(torch, lambda: ffn_library(x_pad, wg, wu, wd, seg_all), 3),
+        ms=time_ms(lambda: run_ffn(x_pad, wg, wu, wd), 5),
+        plain_ms=time_ms(lambda: plain_ffn(x_pad, wg, wu, wd), 3),
+        library_ms=time_ms(lambda: ffn_library(x_pad, wg, wu, wd, seg_tok), 5),
+        every_row_loop_ms=time_ms(lambda: ffn_library(x_pad, wg, wu, wd, seg_all), 3),
         max_abs_err=err_bf16,
         shape=f"x [{x_pad.shape[0]}, {D}] bf16 ({valid_rows} token rows), "
               f"E {wg.shape[0]}, F {Fd}, block_tokens {bt}",
@@ -500,7 +528,7 @@ def main() -> int:
     gf["f32_max_abs_err"] = compare(
         "grouped_ffn_blocked", "f32", y32, plain_ffn(x32, *w32), 1e-4,
         "f32 sums of 4096 and 16384 terms in another order")
-    gf["f32_ms"] = _time_ms(torch, lambda: run_ffn(x32, *w32), 2)
+    gf["f32_ms"] = time_ms(lambda: run_ffn(x32, *w32), 2)
     gf["f32_bound_ms"] = ffn_bound("f32", 4)[0]
     del w32, x32, y32
     report["grouped_ffn_blocked"] = gf
@@ -538,9 +566,9 @@ def main() -> int:
         kk = k.repeat_interleave(H // k.shape[1], 1)
         vv = v.repeat_interleave(H // k.shape[1], 1)
     report["flash_attention"] = dict(
-        ms=_time_ms(torch, lambda: fa_ops.flash_attention(q, k, v, **kw), 20),
-        plain_ms=_time_ms(torch, lambda: fa_ops.mha_ref(q, k, v, **kw), 10),
-        library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
+        ms=time_ms(lambda: fa_ops.flash_attention(q, k, v, **kw), 20),
+        plain_ms=time_ms(lambda: fa_ops.mha_ref(q, k, v, **kw), 10),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             q, kk, vv, **sdpa_kw), 20),
         max_abs_err=err_fa, f32_max_abs_err=fa_f32_err,
         bound_ms=max(t_ops, t_bytes) * 1e3,
@@ -548,7 +576,12 @@ def main() -> int:
         shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 {kw}; library: SDPA "
               + ("is_causal" if plain_causal else "with a boolean mask"),
     )
+    for label in gathers:
+        print_gather(label, tg[label])
+    print_gather("prefill relay round", tg)
     for kname, r in report.items():
+        if kname == "token_gather":
+            continue
         print(f"[2 kernel] {kname}: {r['shape']}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
@@ -639,6 +672,15 @@ def main() -> int:
     check(ids.shape == (4, 8) and ((ids >= 0) & (ids < cfg.vocab)).all(),
           f"generated ids {ids.shape}")
     check(np.array_equal(ids, ids1), "EP=8 and EP=1 greedy ids differ")
+    # a decode step's first relay round (its dispatch's second gather),
+    # recorded in an untimed call after the timed one and its counts
+    with Recorder(dp_mod, "token_gather", keep=2) as rec_dec:
+        engine.generate(gprompts, n_new=1)
+    x, idx = rec_dec.calls[1][:2]
+    compare("token_gather", f"decode relay round {tuple(x.shape)}", token_gather(x, idx),
+            token_gather_ref(x, idx), 0.0, "a copy is exact")
+    tg["decode relay round"] = gather_report(torch, x, idx, token_gather, token_gather_ref)
+    print_gather("decode relay round (captured in phase 5)", tg["decode relay round"])
     print(f"[5 generate] 4 requests, prompt 8, 8 new tokens, greedy: {gen_s:.2f} s, "
           f"{ids.size / gen_s:.1f} new tokens/s ({4 * 16 / gen_s:.1f} incl. the "
           f"prompt steps), dropped {int(gstats['dropped'])}, EP1 ids "

@@ -31,7 +31,7 @@ State = Dict[str, torch.Tensor]
 MAX_CHUNK = 64
 MAX_HEAD_DIM = 192
 _NEG = -1e30              # the padded steps' input gate, as xlstm.py:187
-_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def init_state(b: int, h: int, dh: int, device) -> State:
@@ -152,6 +152,10 @@ def mlstm_scan(q, k, v, ig, lf, *, chunk: int = 64, state: Optional[State] = Non
     q, k, v, ig, lf, L = _pad(q, k, v, ig, lf, chunk)
     q, k, v, ig, lf = (a.contiguous() for a in (q, k, v, ig, lf))
     h = torch.empty_like(q)
+    # scratch: each chunk's state update, replaced in place by its C_in and
+    # n_in, then (Lf_L, G) and m_in of each chunk
+    nc = q.shape[2] // L
+    work = torch.empty(b * hh * nc * (dh * dh + dh + 3), dtype=torch.float32, device=dev)
     out = {"C": torch.empty((b, hh, dh, dh), dtype=torch.float32, device=dev),
            "n": torch.empty((b, hh, dh), dtype=torch.float32, device=dev),
            "m": torch.empty((b, hh), dtype=torch.float32, device=dev)}
@@ -161,7 +165,7 @@ def mlstm_scan(q, k, v, ig, lf, *, chunk: int = 64, state: Optional[State] = Non
     fn = _build.function("mlstm_scan", "mlstm_scan", _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ig.data_ptr(), lf.data_ptr(),
              *ptrs, h.data_ptr(), out["C"].data_ptr(), out["n"].data_ptr(),
-             out["m"].data_ptr(), b, hh, q.shape[2], dh, L,
+             out["m"].data_ptr(), work.data_ptr(), b, hh, q.shape[2], dh, L,
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "mlstm_scan")
     _build.LAUNCHES["mlstm_scan"] += 1

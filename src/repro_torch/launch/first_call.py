@@ -1,26 +1,37 @@
 """A redesigned kernel's first call on the card: build, one tile, then the main shapes.
 
-    python -m repro_torch.launch.first_call [--time]
+    python -m repro_torch.launch.first_call [--time] [--kernels NAME ...]
 
-builds the grouped FFN and flash kernels and prints nvcc's register,
-shared-memory and spill report for each of their kernels.  Then it holds
-the bf16 tensor-core routes against their plain versions, smallest first,
-and stops at the first stage that fails (exit 1):
+builds the redesigned kernels (the grouped FFN, flash, ``token_gather`` and
+``mlstm_scan``) and prints nvcc's register, shared-memory and spill report
+for each of their kernels.  Then it holds each against its plain version,
+smallest first, and stops at the first stage that fails (exit 1):
 
   1. one tile each: the FFN at M 64, D 128, F 128, E 1 (also with Wd = I,
      which shows pass 1 alone, and with X = I, which shows pass 2's
      weights), flash at one 64-row tile for Dh 64 and 128, causal or not;
+     ``token_gather`` on 8 rows of 128 bytes; ``mlstm_scan`` on one chunk
+     of 64 steps at dh 64;
   2. ragged shapes: the FFN at F 192 for block_tokens 64 and 128, with and
      without ``block_rows`` (padding rows exactly 0); flash with Sq 200 or
-     130 and Sk 200 or 300 under the causal, window, offset and full masks.
+     130 and Sk 200 or 300 under the causal, window, offset and full masks;
+     ``token_gather`` on rows that are no multiple of a segment, 64-byte
+     rows, 8 KiB rows and offset views (the 4- and 2-byte routes);
+     ``mlstm_scan`` with S no multiple of the chunk, dh 100, 50 and 192, a
+     chunk of 8, and a carried state.
 
 Where a check fails it prints the error's map in 8 x 8 blocks, which shows
 a misplaced operand (a wrong descriptor stride or swizzle) at a glance.
-With ``--time`` it then times both kernels at the main path's shapes on
-synthetic inputs (3731 tokens routed uniformly over 8 experts of
-paper-moe-8e's widths; q [4, 32, 512, 128], k/v [4, 8, 512, 128], causal)
-beside their PyTorch yardsticks, and the FFN's two passes under
-``torch.profiler``.  Inputs are made from ``--seed``.
+With ``--time`` it then times the kernels at the main path's shapes on
+synthetic inputs beside their PyTorch yardsticks: the FFN on 3731 tokens
+routed uniformly over 8 experts of paper-moe-8e's widths (its two passes
+under ``torch.profiler``); flash on q [4, 32, 512, 128], k/v [4, 8, 512,
+128], causal; ``token_gather`` on a relay round of 1024 and of 64 rows of
+128 KiB, the FFN's sort of 3731 tokens into 8704 rows of 8 KiB and 1024
+sideband rows of 64 bytes, against ``index_select``, on the device alone;
+``mlstm_scan`` on q/k/v [4, 4, 2048, 192] f32,
+chunk 64, with its three launches under ``torch.profiler``.  Inputs are
+made from ``--seed``; ``--kernels`` picks the kernels to check and time.
 """
 
 from __future__ import annotations
@@ -37,18 +48,12 @@ import torch.nn.functional as F_
 from ..kernels import _build
 from ..kernels.flash_attention import ops as fa
 from ..kernels.grouped_ffn import ops as ffn
+from ..kernels.mlstm_scan import ops as ms
+from ..kernels.token_scatter import ops as tg
+from .kernel_times import device_ms, gather_inputs, mlstm_flops, mlstm_inputs, time_ms
 
-
-def _time_ms(fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+KERNELS = ("grouped_ffn", "flash_attention", "token_gather", "mlstm_scan")
+PEAK_F32 = 67e12                           # f32 on CUDA cores
 
 
 class _Checks:
@@ -71,10 +76,10 @@ class _Checks:
                   flush=True)
 
 
-def _report_build() -> None:
-    took = _build.build(["grouped_ffn", "flash_attention"])
+def _report_build(names) -> None:
+    took = _build.build(names)
     print(f"built in {max(took.values()):.1f}s", flush=True)
-    for name in ("grouped_ffn", "flash_attention"):
+    for name in names:
         lines = (_build.BUILD_DIR / f"{name}.log").read_text().splitlines()
         for line in lines:
             if "Compiling entry" in line:
@@ -143,6 +148,92 @@ def _flash_stages(check, rng, dev) -> None:
             check(f"flash Dh {dh} {kw} Sq {sq} Sk {sk}", o, fa.mha_ref(q, k, v, **kw), 1e-2)
 
 
+def _gather_stages(check, rng, dev) -> None:
+    def case(n, m, d, dtype):
+        x = torch.as_tensor(rng.normal(size=(n, d)), dtype=dtype, device=dev)
+        idx = torch.as_tensor(rng.integers(-3, n + 5, size=(m,)), device=dev)
+        out = tg.token_gather(x, idx)
+        torch.cuda.synchronize()
+        check(f"token_gather [{n}, {d}] {str(dtype)[6:]} -> {m} rows", out,
+              tg.token_gather_ref(x, idx), 0.0)
+
+    case(8, 8, 64, torch.bfloat16)
+    if not check.ok:
+        return
+    case(256, 64, 65536 + 24, torch.bfloat16)          # no multiple of a segment
+    case(2048, 4096, 16, torch.float32)                # 64-byte sideband rows
+    case(3731, 8704, 4096, torch.bfloat16)             # the FFN's 8 KiB rows
+    for dtype in (torch.float32, torch.bfloat16):      # the 4- and 2-byte routes
+        flat = torch.as_tensor(rng.normal(size=(300 * 4104 + 1,)), dtype=dtype, device=dev)
+        x = flat[1:].view(300, 4104)
+        idx = torch.as_tensor(rng.integers(-2, 302, size=(500,)), device=dev)
+        out = tg.token_gather(x, idx)
+        torch.cuda.synchronize()
+        word = tg.geometry(4104 * x.element_size(), 500, x.data_ptr() | out.data_ptr()).word
+        check(f"token_gather offset view {str(dtype)[6:]} ({word}-byte words)", out,
+              tg.token_gather_ref(x, idx), 0.0)
+
+
+def _mlstm_stages(check, rng, dev) -> None:
+    def case(b, h, s, dh, chunk, split=None):
+        a = mlstm_inputs(dev, int(rng.integers(1 << 30)), b, h, s, dh)
+        st = None
+        if split:
+            _, st = ms.mlstm_scan(*(x[:, :, :split] for x in a), chunk=chunk)
+            a = [x[:, :, split:] for x in a]
+        got, st_got = ms.mlstm_scan(*a, chunk=chunk, state=st)
+        torch.cuda.synchronize()
+        want, st_want = ms.mlstm_scan_chunked_ref(*a, chunk=chunk, state=st)
+        label = f"mlstm_scan [{b}, {h}, {a[0].shape[2]}, {dh}] chunk {chunk}" + (
+            " from a state" if split else "")
+        check(f"{label} h", got, want, 1e-4)
+        for key in ("C", "n"):
+            check(f"{label} final {key}", st_got[key], st_want[key], 1e-4)
+        check(f"{label} final m", st_got["m"][..., None], st_want["m"][..., None], 1e-4)
+
+    case(1, 1, 64, 64, 64)
+    if not check.ok:
+        return
+    case(2, 2, 200, 100, 64)                            # S padded, dh in no 64-row tile
+    case(1, 2, 100, 50, 64)                             # dh % 4 != 0: 4-byte copies
+    case(1, 4, 320, 192, 64)
+    case(2, 1, 8, 192, 64)                              # a chunk of 8
+    case(1, 2, 300, 100, 64, split=130)
+
+
+def _time_gather(dev, seed: int) -> None:
+    for label, x, idx, bound in gather_inputs(dev, seed):
+        safe = idx.clamp_min(0)                 # index_select takes no -1
+        kernel = device_ms(lambda: tg.token_gather(x, idx), 20)
+        lib = device_ms(lambda: torch.index_select(x, 0, safe), 20)
+        print(f"token_gather {label}: x {tuple(x.shape)} {str(x.dtype)[6:]}, {idx.numel()} "
+              f"rows: kernel {kernel:.4f} ms on the device "
+              f"({time_ms(lambda: tg.token_gather(x, idx), 20):.4f} ms by events), "
+              f"index_select {lib:.4f} ms on the device, bound {bound:.4f} ms", flush=True)
+
+
+def _time_mlstm(dev, seed: int) -> None:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    a = mlstm_inputs(dev, seed)
+    b, h, s, dh = a[0].shape
+    L = 64
+    kernel = time_ms(lambda: ms.mlstm_scan(*a, chunk=L), 10)
+    flops = mlstm_flops(b, h, s, dh, L)
+    print(f"mlstm_scan [{b}, {h}, {s}, {dh}] f32 chunk {L}: kernel {kernel:.4f} ms, bound "
+          f"{flops / PEAK_F32 * 1e3:.4f} ms ({flops / 1e9:.3f} GFLOP at 67 TFLOP/s)",
+          flush=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ms.mlstm_scan(*a, chunk=L)
+        torch.cuda.synchronize()
+    for ev in prof.key_averages():
+        for name in ("mlstm_delta", "mlstm_prefix", "mlstm_out"):
+            if ev.device_type == DeviceType.CUDA and (name + "(" in ev.key
+                                                      or name + "<" in ev.key):
+                print(f"  {name}: {ev.self_device_time_total / 1e3:.4f} ms", flush=True)
+
+
 def _time_main_shapes(dev, seed: int) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -151,9 +242,9 @@ def _time_main_shapes(dev, seed: int) -> None:
     gen = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn(4, 32, 512, 128, generator=gen, device=dev).to(bf)
     k, v = (torch.randn(4, 8, 512, 128, generator=gen, device=dev).to(bf) for _ in range(2))
-    sdpa = _time_ms(lambda: F_.scaled_dot_product_attention(q, k, v, is_causal=True,
+    sdpa = time_ms(lambda: F_.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                             enable_gqa=True), 20)
-    kernel = _time_ms(lambda: fa.flash_attention(q, k, v), 20)
+    kernel = time_ms(lambda: fa.flash_attention(q, k, v), 20)
     print(f"flash q [4, 32, 512, 128] causal: kernel {kernel:.4f} ms, SDPA is_causal "
           f"{sdpa:.4f} ms", flush=True)
 
@@ -185,7 +276,7 @@ def _time_main_shapes(dev, seed: int) -> None:
             out[lo:hi] = (F_.silu(xe @ wg[ex]) * (xe @ wu[ex])) @ wd[ex]
         return out
 
-    ms, ml = _time_ms(run, 5), _time_ms(loop, 5)
+    ms, ml = time_ms(run, 5), time_ms(loop, 5)
     print(f"grouped_ffn_blocked [{m_pad}, {d}] ({n} token rows, E {e}, F {f}): kernel "
           f"{ms:.3f} ms, matmul loop over token rows {ml:.3f} ms", flush=True)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -201,6 +292,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--time", action="store_true", help="also time the main path's shapes")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kernels", nargs="+", choices=KERNELS, default=list(KERNELS),
+                    help="the kernels to check (and time)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("first_call: no CUDA device", file=sys.stderr)
@@ -211,15 +304,22 @@ def main(argv=None) -> int:
     print(f"{torch.cuda.get_device_name(0)} | {smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
-    _report_build()
+    _report_build(args.kernels)
     check = _Checks()
     rng = np.random.default_rng(args.seed)
-    for stage in (_ffn_stages, _flash_stages):
-        stage(check, rng, dev)
+    stages = {"grouped_ffn": _ffn_stages, "flash_attention": _flash_stages,
+              "token_gather": _gather_stages, "mlstm_scan": _mlstm_stages}
+    for name in args.kernels:
+        stages[name](check, rng, dev)
         if not check.ok:
             return 1
     if args.time:
-        _time_main_shapes(dev, args.seed)
+        if "grouped_ffn" in args.kernels or "flash_attention" in args.kernels:
+            _time_main_shapes(dev, args.seed)
+        if "token_gather" in args.kernels:
+            _time_gather(dev, args.seed)
+        if "mlstm_scan" in args.kernels:
+            _time_mlstm(dev, args.seed)
     print(f"first_call: every check passed ({time.perf_counter() - t0:.0f} s)", flush=True)
     return 0
 

@@ -38,7 +38,9 @@ OWN = {"gather_rows": "token_gather",
        "ffn_gate_up": "grouped_ffn_blocked pass 1 (f32)",
        "ffn_down": "grouped_ffn_blocked pass 2 (f32)",
        "flash_tc<": "flash_attention (tensor cores)", "flash_fwd": "flash_attention (f32)",
-       "mlstm_chunks": "mlstm_scan", "relay_stage": "relay_copy"}
+       "mlstm_delta": "mlstm_scan 1/3 (chunk state updates)",
+       "mlstm_prefix": "mlstm_scan 2/3 (stabilizer chain, prefix over chunks)",
+       "mlstm_out": "mlstm_scan 3/3 (chunk outputs)", "relay_stage": "relay_copy"}
 
 #: per architecture: EP ranks, prefill length, prompt length, new tokens
 SHAPES = {"paper-moe-8e": (8, 512, 8, 8), "xlstm-125m": (1, 2048, 128, 16)}

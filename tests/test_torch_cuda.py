@@ -31,7 +31,7 @@ from repro_torch.kernels.grouped_ffn.ops import (
 )
 from repro_torch.kernels.mlstm_scan.ops import mlstm_scan, mlstm_scan_chunked_ref
 from repro_torch.kernels.relay_copy.ops import parity_slot_map, relay_copy, relay_copy_ref
-from repro_torch.kernels.token_scatter.ops import token_gather, token_gather_ref
+from repro_torch.kernels.token_scatter.ops import geometry, token_gather, token_gather_ref
 from repro_torch.models.registry import build_model
 from repro_torch.sharding.context import ParallelContext
 
@@ -61,6 +61,48 @@ def test_token_gather_matches_plain(cuda, dtype, idx_dtype, n, m, d):
     # a copy: bit-exact
     assert torch.equal(out, token_gather_ref(x, idx))
     assert launch_counts()["token_gather"] == before + 1
+
+
+def _gather_case(rng, n, m, d, dtype, idx_dtype, device):
+    # indices past both ends: negative ones give zero rows, ones past the
+    # last row read the last row
+    x = torch.as_tensor(rng.normal(size=(n, d)), dtype=dtype, device=device)
+    idx = torch.as_tensor(rng.integers(-3, n + 5, size=(m,)), dtype=idx_dtype, device=device)
+    return x, idx
+
+
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("n,m,d,dtype", [
+    (1024, 1, 65536, torch.bfloat16),       # 128 KiB dispatch chunks, a decode-sized call
+    (1024, 8, 65536, torch.bfloat16),
+    (1024, 64, 65536, torch.bfloat16),
+    (1024, 1024, 65536, torch.bfloat16),    # the prefill's relay round
+    (256, 64, 65536 + 24, torch.bfloat16),  # not a multiple of the segment
+    (2048, 4096, 16, torch.float32),        # the expert-id sideband's 64-byte rows
+    (3731, 8704, 4096, torch.bfloat16),     # the FFN's sort/pad of 8 KiB rows
+])
+def test_token_gather_path_shapes_bit_exact(cuda, n, m, d, dtype, idx_dtype):
+    x, idx = _gather_case(np.random.default_rng(m + d), n, m, d, dtype, idx_dtype, cuda)
+    before = launch_counts()["token_gather"]
+    out = token_gather(x, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(out, token_gather_ref(x, idx))
+    assert launch_counts()["token_gather"] == before + 1
+
+
+@pytest.mark.parametrize("dtype,word", [(torch.float32, 4), (torch.bfloat16, 2)])
+def test_token_gather_offset_views_take_narrow_routes(cuda, dtype, word):
+    # a contiguous view one element into its storage: 16-byte rows, but a
+    # base address aligned to 4 (f32) or 2 (bf16) bytes only
+    rng = np.random.default_rng(word)
+    n, m, d = 300, 500, 4104
+    flat = torch.as_tensor(rng.normal(size=(n * d + 1,)), dtype=dtype, device=cuda)
+    x = flat[1:].view(n, d)
+    idx = torch.as_tensor(rng.integers(-2, n + 2, size=(m,)), device=cuda)
+    out = token_gather(x, idx)
+    torch.cuda.synchronize()
+    assert geometry(d * x.element_size(), m, x.data_ptr() | out.data_ptr()).word == word
+    assert torch.equal(out, token_gather_ref(x, idx))
 
 
 def _ffn_inputs(rng, m, d, f, e, dtype, device):
@@ -318,6 +360,12 @@ def _close(got, want, rtol=2e-4, atol=2e-5):
     (1, 2, 200, 48, 64),     # a partial 32-column value slice, S padded
     (1, 4, 8, 192, 64),      # an 8-token prompt: L = 8
     (1, 4, 320, 192, 64),    # xlstm-125m's head dim
+    (1, 1, 130, 64, 64),     # B * H = 1
+    (2, 2, 160, 100, 64),    # a head dim that fills no 64-row tile
+    (1, 1, 72, 100, 16),
+    (1, 2, 100, 50, 64),     # dh % 4 != 0: the 4-byte route
+    (1, 1, 1100, 12, 1),     # 1100 chunks: the chain runs in windows of 1024
+    (1, 4, 2048, 192, 64),   # xlstm-125m's prefill length
 ])
 def test_mlstm_scan_matches_plain(cuda, b, h, s, dh, chunk):
     rng = np.random.default_rng(s + dh)
@@ -348,6 +396,19 @@ def test_mlstm_scan_carries_state(cuda):
     _close(b, ref_b)
     for key in ("C", "n", "m"):
         _close(st_b[key], st_whole[key])
+        _close(st_b[key], st_ref[key])
+
+
+def test_mlstm_scan_carries_state_at_a_ragged_head_dim(cuda):
+    rng = np.random.default_rng(11)
+    q, k, v, ig, lf = _mlstm_inputs(rng, 1, 2, 300, 100, cuda)
+    _, st_a = mlstm_scan(*(x[:, :, :130] for x in (q, k, v, ig, lf)), chunk=64)
+    b, st_b = mlstm_scan(*(x[:, :, 130:] for x in (q, k, v, ig, lf)), chunk=64, state=st_a)
+    torch.cuda.synchronize()
+    ref_b, st_ref = mlstm_scan_chunked_ref(*(x[:, :, 130:] for x in (q, k, v, ig, lf)),
+                                           chunk=64, state=st_a)
+    _close(b, ref_b)
+    for key in ("C", "n", "m"):
         _close(st_b[key], st_ref[key])
 
 

@@ -25,7 +25,13 @@ from repro_torch.kernels.flash_attention.ops import attention, flash_attention, 
 from repro_torch.kernels.grouped_ffn import ops as t_ffn_ops
 from repro_torch.kernels.mlstm_scan.ops import mlstm_scan
 from repro_torch.kernels.relay_copy.ops import parity_slot_map, relay_copy, relay_copy_ref
-from repro_torch.kernels.token_scatter.ops import token_gather
+from repro_torch.kernels.token_scatter.ops import (
+    SEG_BYTES,
+    THREADS,
+    UNROLL,
+    geometry,
+    token_gather,
+)
 
 pytestmark = pytest.mark.torch_port
 
@@ -61,6 +67,62 @@ def test_token_gather_matches_reference(n, m, d, dt):
     # a copy: bit-exact against the oracle and the interpret-mode kernel
     np.testing.assert_array_equal(_np(got), _np(j_gather_ref(xj, jnp.asarray(idx))))
     np.testing.assert_array_equal(_np(got), _np(j_gather(xj, jnp.asarray(idx))))
+
+
+def _copies_of_each_word(g, m):
+    """How often the kernel's threads copy each word of each row: its loops
+    (csrc/token_gather.cu, gather_rows) run over the launch geometry ``g``."""
+    count = np.zeros((m, g.row_words), dtype=np.int64)
+    units = THREADS // g.group
+    t = np.arange(THREADS)
+    unit, lane = t // g.group, t % g.group
+    for bx in range(g.grid[0]):
+        row = bx * units + unit
+        for by in range(g.grid[1]):
+            w0 = by * g.seg_words
+            w1 = min(w0 + g.seg_words, g.row_words)
+            for th in np.flatnonzero(row < m):
+                starts = np.arange(w0 + lane[th], w1, g.group * UNROLL)
+                w = (starts[:, None] + np.arange(UNROLL)[None, :] * g.group).ravel()
+                np.add.at(count[row[th]], w[w < w1], 1)
+    return count
+
+
+# row widths: narrow rows of 2 to 256 bytes (the 64-byte sideband among
+# them), 8 KiB FFN rows, widths on both sides of a segment and of two, a
+# 128 KiB dispatch chunk and widths that are not a multiple of the segment;
+# addresses aligned to 16, 4 or 2 bytes
+@pytest.mark.parametrize("row_bytes,m", [
+    (2, 300), (4, 300), (6, 40), (8, 70), (12, 33), (16, 300), (24, 65), (32, 129),
+    (48, 20), (64, 300), (96, 11), (100, 9), (128, 64), (250, 7), (256, 40),
+    (1000, 5), (1024, 17), (4096, 9), (8192, 9), (8194, 3), (SEG_BYTES - 2, 3),
+    (SEG_BYTES, 4), (SEG_BYTES + 2, 3), (SEG_BYTES + 16, 5), (2 * SEG_BYTES, 2),
+    (3 * SEG_BYTES + 6, 2), (65536 + 24, 2), (131072, 3), (131072 + 48, 2),
+    (131072 + 2, 1)])
+@pytest.mark.parametrize("align", [0, 4, 2])
+def test_token_gather_geometry_covers_every_byte_once(row_bytes, m, align):
+    g = geometry(row_bytes, m, align)
+    want_word = next(w for w in (16, 4, 2) if row_bytes % w == 0 and align % w == 0)
+    assert g.word == want_word and g.row_words * g.word == row_bytes
+    assert g.group & (g.group - 1) == 0 and 1 <= g.group <= THREADS
+    assert g.seg_words * g.word <= max(SEG_BYTES, g.word)
+    assert 1 <= g.grid[1] <= 65535 and g.grid[0] * (THREADS // g.group) >= m
+    assert (_copies_of_each_word(g, m) == 1).all()
+
+
+def test_token_gather_geometry_fills_the_card_at_the_path_shapes():
+    # a relay round of 1024 rows of 128 KiB: several segments a row, one
+    # batch of 16-byte loads a thread
+    g = geometry(131072, 1024, 0)
+    assert g.word == 16 and g.grid[1] == 131072 // SEG_BYTES and g.group == THREADS
+    assert g.grid[0] * g.grid[1] >= 8 * 132
+    # 8704 rows of 8 KiB (the FFN's sort): two rows a block
+    g = geometry(8192, 8704, 0)
+    assert (g.group, g.grid) == (128, (4352, 1))
+    # the sideband's 64-byte rows: four lanes a row, 64 rows a block
+    assert geometry(64, 1024, 0)[3:] == (4, (16, 1))
+    with pytest.raises(ValueError):
+        geometry(7, 4, 0)
 
 
 # --------------------------------------------------------------------------- #
