@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 from the root of a checkout, on a machine with a CUDA device.  It builds the
-port's five CUDA kernels from ``src/repro_torch/csrc``, all at once, then:
+port's six CUDA kernels from ``src/repro_torch/csrc``, all at once, then:
 
   1. prints the device, its power limit and the kernels' build time;
   2. holds each kernel of the paper-moe-8e path against its plain PyTorch
@@ -28,23 +28,41 @@ port's five CUDA kernels from ``src/repro_torch/csrc``, all at once, then:
      tokens, greedy), recording a decode step's first ``token_gather`` calls;
   6. checks that phases 4 and 5 launched every kernel of that path (the FFN
      and flash through their bf16 tensor-core routes);
-  7. holds ``mlstm_scan`` against its plain version on the inputs of
+  7. trains paper-moe-8e at full width (bf16, EP 8 in groups of 4, NIMBLE,
+     capacity factor 2.0) on 4 x 512 tokens from ``SyntheticLM``: one
+     warm-up step, then 3 timed AdamW steps through ``make_train_step``;
+     prints step time, tokens/s, each step's loss and ``grad_norm``, the
+     forward's, backward's and optimizer's shares, the grouped FFN's and
+     attention's plain-torch backward times and the peak of
+     ``torch.cuda.max_memory_allocated``, and checks that losses and norms
+     are finite;
+  8. holds one step's loss and gradients at capacity factor 8 (nothing
+     dropped, checked) on EP 8 against EP 1 on the same weights (bf16), and
+     a reduced config's one-step gradients on the card against the CPU's
+     plain versions (float32);
+  9. holds ``token_scatter_add`` (``token_gather``'s backward, the port's
+     own kernel) against its plain version on the backward calls phase 7's
+     warm-up step made: bit-exact where no row has more than two sources, the
+     same bits on a second run; times it beside its bound and ``index_add_``;
+ 10. holds ``mlstm_scan`` against its plain version on the inputs of
      xlstm-125m's first mLSTM layer at a 4 x 2048 prefill (float32), and
      times both;
-  8. prefills xlstm-125m at full width (bf16) for 4 requests of 2048 tokens,
+ 11. prefills xlstm-125m at full width (bf16) for 4 requests of 2048 tokens,
      holds the chunked (kernel) forward against the per-step mLSTM forward
      at 4 x 256 tokens (float32 and bf16), and a reduced xlstm config on the
      card against the CPU's plain versions (float32);
-  9. answers 4 requests through ``ServeEngine.generate`` on xlstm-125m
+ 12. answers 4 requests through ``ServeEngine.generate`` on xlstm-125m
      (prompt 128, 16 new tokens, greedy), and holds the engine's step-by-step
      prefill logits against the kernel-path ``forward(last_only=True)``;
- 10. holds ``relay_copy`` bit for bit against its plain version on
+ 13. holds ``relay_copy`` bit for bit against its plain version on
      [8192, 4096] bf16, f32 and int32 inputs under the parity, swapped and
      all-zeros slot maps, times it against ``Tensor.copy_``, and calls it
      once through its own entry point (nothing in the serving paths, or in
      the JAX package, calls it);
- 11. checks that each path launched every kernel of its own: phases 8 and 9
-     ``mlstm_scan``, phase 10's entry-point call ``relay_copy``.
+ 14. checks that each path launched every kernel of its own: phase 7's
+     timed steps ``token_gather``, ``token_scatter_add``, the FFN and flash
+     (bf16 routes), phases 11 and 12 ``mlstm_scan``, phase 13's entry-point
+     call ``relay_copy``.
 
 It prints one line per phase, the card's name and power limit as
 ``nvidia-smi`` reports them, a JSON line of per-kernel numbers, and as its
@@ -78,6 +96,9 @@ KERNEL_META = {
                    "src/repro/kernels/mlstm_scan/scan.py:112"),
     "relay_copy": ("src/repro_torch/csrc/relay_copy.cu",
                    "src/repro/kernels/relay_copy/relay.py:52"),
+    "token_scatter_add": ("src/repro_torch/csrc/token_scatter_add.cu",
+                          "none: no Pallas kernel; the port's own kernel for the XLA "
+                          "scatter-add VJP at src/repro/kernels/token_scatter/ops.py:30"),
 }
 MOE_KERNELS = ("token_gather", "grouped_ffn_blocked", "flash_attention")
 
@@ -166,7 +187,7 @@ def print_gather(label, r) -> None:
 
 
 def xlstm_phases(torch, np, check, compare, seed: int, dev):
-    """Phases 7-9 on xlstm-125m -> (mlstm_scan's report, its launches)."""
+    """Phases 10-12 on xlstm-125m -> (mlstm_scan's report, its launches)."""
     from repro_torch.configs.base import InputShape, get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.mlstm_scan.ops import mlstm_scan, mlstm_scan_chunked_ref
@@ -188,7 +209,7 @@ def xlstm_phases(torch, np, check, compare, seed: int, dev):
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (4, 2048)), device=dev)
     batch = {"tokens": tokens}
 
-    # ---- 7. mlstm_scan against its plain version -----------------------------
+    # ---- 10. mlstm_scan against its plain version ----------------------------
     # capture pass (also a warm-up): layer 0's q, k, v, ig, lf at the prefill
     with Recorder(xlstm_mod, "mlstm_scan", keep=1) as rec:
         model.forward(params, batch, last_only=True)
@@ -218,13 +239,13 @@ def xlstm_phases(torch, np, check, compare, seed: int, dev):
         bound_ms=max(t_ops, t_bytes) * 1e3,
         bound_by="operations" if t_ops >= t_bytes else "bytes",
     )
-    print(f"[7 kernel] mlstm_scan: q/k/v {tuple(q.shape)} f32, chunk {L}: kernel "
+    print(f"[10 kernel] mlstm_scan: q/k/v {tuple(q.shape)} f32, chunk {L}: kernel "
           f"{ms_report['ms']:.4f} ms, plain {ms_report['plain_ms']:.4f} ms, library none, "
           f"bound {ms_report['bound_ms']:.4f} ms ({ms_report['bound_by']}: "
           f"{flops / 1e9:.3f} GFLOP at 67 TFLOP/s, {nbytes / 1e6:.1f} MB at 3.35 TB/s)",
           flush=True)
 
-    # ---- 8. prefill ----------------------------------------------------------
+    # ---- 11. prefill ---------------------------------------------------------
     reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -257,13 +278,13 @@ def xlstm_phases(torch, np, check, compare, seed: int, dev):
     small_err = _max_err(ls_gpu.cpu(), ls_cpu)
     check(small_err <= 1e-3, f"reduced xlstm card vs CPU: {small_err:.3g}")
     n_tok = tokens.numel()
-    print(f"[8 prefill] {cfg.name} bf16, 4 x 2048 tokens: {prefill_s * 1e3:.1f} ms, "
+    print(f"[11 prefill] {cfg.name} bf16, 4 x 2048 tokens: {prefill_s * 1e3:.1f} ms, "
           f"{n_tok / prefill_s:.0f} tokens/s, logits {tuple(logits.shape)} finite; "
           f"chunked vs per-step mLSTM at 4 x 256: max|diff| f32 {cross['f32']:.4g}, "
           f"bf16 {cross['bf16']:.4g}; reduced xlstm (dh 64) f32 card vs CPU plain "
           f"{small_err:.3g} (limit 1e-3: f32 sums in other orders)", flush=True)
 
-    # ---- 9. generation -------------------------------------------------------
+    # ---- 12. generation ------------------------------------------------------
     P, n_new = 128, 16
     prompts = rng.integers(0, cfg.vocab, (4, P))
     engine = ServeEngine(model, params, max_len=P + n_new)
@@ -290,7 +311,7 @@ def xlstm_phases(torch, np, check, compare, seed: int, dev):
                                                     else ", bf16 activations"))
         agree[label] = torch.equal(l_step.float().argmax(-1), l_fwd.float().argmax(-1))
     check(agree["f32"], "xlstm f32: argmax of the step prefill != the forward's")
-    print(f"[9 generate] {cfg.name} bf16, 4 requests, prompt {P}, {n_new} new tokens, "
+    print(f"[12 generate] {cfg.name} bf16, 4 requests, prompt {P}, {n_new} new tokens, "
           f"greedy: {gen_s:.2f} s, {ids.size / gen_s:.1f} new tokens/s "
           f"({4 * (P + n_new) / gen_s:.1f} incl. the prompt steps); argmax of the last "
           f"prompt logits, step prefill vs forward: f32 {'equal' if agree['f32'] else 'DIFFER'}"
@@ -299,8 +320,218 @@ def xlstm_phases(torch, np, check, compare, seed: int, dev):
     return ms_report, counts_prefill["mlstm_scan"] + counts_gen["mlstm_scan"]
 
 
+class EventTimer:
+    """Device time of every call of a module-level function while installed
+    (CUDA events around each call; read after a synchronize)."""
+
+    def __init__(self, torch, module, name):
+        self.torch, self.module, self.name = torch, module, name
+        self.orig = getattr(module, name)
+        self.events = []
+
+    def __enter__(self):
+        def timed(*args, **kw):
+            start, end = (self.torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = self.orig(*args, **kw)
+            end.record()
+            self.events.append((start, end))
+            return out
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+    def total_ms(self) -> float:
+        self.torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+def train_phases(torch, np, check, seed: int, dev, smi: str):
+    """Phases 7-9 on paper-moe-8e training -> (token_scatter_add's report, the
+    training path's launches)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.grouped_ffn import ops as ffn_ops
+    from repro_torch.kernels.token_scatter import ops as ts_ops
+    from repro_torch.launch.kernel_times import device_ms, time_ms
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.sharding.context import ParallelContext
+    from repro_torch.train.step import loss_and_grads, make_train_step
+    from repro_torch.tree import leaves, map_tree
+
+    # ---- 7. train at full width ----------------------------------------------
+    cfg = get_config("paper-moe-8e")
+    bf16 = torch.bfloat16
+    ctx8 = ParallelContext(ep_size=8, group_size=4, moe_mode="nimble", param_dtype=bf16,
+                           compute_dtype=bf16, device="cuda")
+    model = build_model(cfg, ctx8)
+    params = model.init(seed)
+    n_params = sum(p.numel() for p in leaves(params))
+    state = adamw.init(params)
+    # the training launcher's defaults: lr 3e-4 after 20 steps of warm-up
+    step = make_train_step(model, adamw.AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=100))
+    B, S = 4, 512
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B, seed=seed))
+    t0 = time.perf_counter()
+    batches = [to_device(data.batch(i), dev) for i in range(5)]
+    data_ms = (time.perf_counter() - t0) * 1e3 / 5
+    # warm-up step, recording the backward's token_scatter_add calls
+    with Recorder(ts_ops, "token_scatter_add", keep=16) as rec_sa:
+        params, state, m0 = step(params, state, batches[0])
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    with EventTimer(torch, ffn_ops, "grouped_ffn_bwd") as t_ffn, \
+            EventTimer(torch, fa_ops, "flash_attention_bwd") as t_fa:
+        for i in (1, 2, 3):
+            times, stats = {}, {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batches[i], stats=stats, times=times)
+            wall = time.perf_counter() - t0                    # the step ends in a sync
+            rows.append(dict(wall=wall, loss=float(m["loss"]),
+                             gnorm=float(m["grad_norm"]), dropped=int(stats["dropped"]),
+                             **times))
+    counts_train = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ffn_bwd_ms, fa_bwd_ms = t_ffn.total_ms() / 3, t_fa.total_ms() / 3
+    losses = [float(m0["loss"])] + [r["loss"] for r in rows]
+    norms = [float(m0["grad_norm"])] + [r["gnorm"] for r in rows]
+    check(bool(np.isfinite(losses).all() and np.isfinite(norms).all()),
+          f"train losses {losses} or grad norms {norms} not finite")
+    step_ms = float(np.mean([r["wall"] for r in rows])) * 1e3
+    walls = ", ".join(f"{r['wall'] * 1e3:.1f}" for r in rows)
+    share = {k: float(np.mean([r[k] / r["wall"] for r in rows]))
+             for k in ("forward", "backward", "optimizer")}
+    print(f"[7 train] {cfg.name} bf16, {n_params / 1e9:.3f} B params, ep=8 groups of 4 "
+          f"nimble, capacity factor {cfg.moe_capacity_factor}, batch {B} x {S} from "
+          f"SyntheticLM ({data_ms:.1f} ms a batch on the host), AdamW: step "
+          f"{walls} ms (mean {step_ms:.1f} ms, "
+          f"{B * S / step_ms * 1e3:.0f} tokens/s; warm-up step excluded); forward "
+          f"{share['forward']:.3f}, backward {share['backward']:.3f}, optimizer "
+          f"{share['optimizer']:.3f} of the step; grouped FFN backward (plain torch) "
+          f"{ffn_bwd_ms:.2f} ms, attention backward (plain torch, f32) {fa_bwd_ms:.2f} ms a "
+          f"step; peak memory {peak_gb:.2f} GB; on {smi}", flush=True)
+    print(f"[7 train] loss by step {[round(x, 4) for x in losses]}, grad_norm "
+          f"{[round(x, 4) for x in norms]}, dropped {[r['dropped'] for r in rows]} of "
+          f"{B * S * cfg.top_k} assignments; launches in the 3 timed steps {counts_train}",
+          flush=True)
+    del state, m0, m
+    torch.cuda.empty_cache()
+
+    # ---- 8. parity on the card -------------------------------------------------
+    # capacity factor 8 holds every assignment; EP 8 against EP 1 on the same
+    # (trained) weights, one step's loss and gradients.  Both route each
+    # expert's rows in the same order (the dataplane moves rows and adds
+    # nothing; token_scatter_add sums a row's sources in increasing i), so
+    # the same products see the same operands: they must agree bit for bit
+    nodrop = build_model(dataclasses.replace(cfg, moe_capacity_factor=8.0), ctx8)
+    one = build_model(cfg, dataclasses.replace(ctx8, ep_size=1))
+    st = {}
+    l8, g8 = loss_and_grads(nodrop, params, batches[4], stats=st)
+    l1, g1 = loss_and_grads(one, params, batches[4])
+    check(int(st["dropped"]) == 0, "capacity factor 8 dropped assignments in training")
+    loss_err = abs(float(l8) - float(l1))
+    check(loss_err == 0.0, f"EP8 vs EP1 train loss {float(l8)} vs {float(l1)}")
+    worst = 0.0
+    for a, b in zip(leaves(g8), leaves(g1)):
+        rel = ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30)).item()
+        worst = max(worst, rel)
+    check(worst == 0.0, f"EP8 vs EP1 gradients: worst leaf {worst:.3g} of its max")
+    del g8, g1, nodrop, one, params, model
+    torch.cuda.empty_cache()
+    # a reduced config's one-step gradients: the card's kernels (f32 routes)
+    # against the CPU's plain versions
+    small = dataclasses.replace(cfg.reduced(), n_experts=8)
+    ctx_s = ParallelContext(ep_size=8, group_size=4, device="cpu")
+    m_cpu = build_model(small, ctx_s)
+    p_cpu = m_cpu.init(seed)
+    sb = SyntheticLM(DataConfig(vocab=small.vocab, seq_len=128, global_batch=2,
+                                seed=seed)).batch(0)
+    lc, gc = loss_and_grads(m_cpu, p_cpu, to_device(sb, "cpu"))
+    lg, gg = loss_and_grads(build_model(small, dataclasses.replace(ctx_s, device="cuda")),
+                            map_tree(lambda t: t.to(dev), p_cpu), to_device(sb, dev))
+    small_worst = max(((a.cpu() - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                      for a, b in zip(leaves(gg), leaves(gc)))
+    small_loss = abs(float(lg) - float(lc))
+    check(small_worst <= 1e-4 and small_loss <= 1e-5 * abs(float(lc)),
+          f"reduced train step card vs CPU: loss {small_loss:.3g}, grads {small_worst:.3g}")
+    print(f"[8 train parity] capacity factor 8 (dropped {int(st['dropped'])}): EP8 vs EP1 loss "
+          f"{float(l8):.5f} vs {float(l1):.5f} (|diff| {loss_err:.3g}), gradients worst leaf "
+          f"max|diff| / max|leaf| {worst:.3g} (limit 0 for both: each expert's rows arrive in "
+          f"the same order on EP 8 as on EP 1, so every sum sees the same operands); "
+          f"reduced config f32 one step, card vs CPU plain: loss |diff| {small_loss:.3g} "
+          f"(limit 1e-5 x |loss|), gradients worst leaf {small_worst:.3g} (limit 1e-4: f32 "
+          f"sums in other orders)", flush=True)
+
+    # ---- 9. token_scatter_add against its plain version -------------------------
+    # rows of at most two sources round once, so they equal the plain version
+    # (the CPU's, summed in order) bit for bit; more sources sum in another
+    # order: within one bf16 rounding of the largest value
+    parts = []
+    for i, (g, idx, n, _) in enumerate(rec_sa.calls):
+        out = ts_ops.token_scatter_add(g, idx, n)
+        again = ts_ops.token_scatter_add(g, idx, n)
+        ref = ts_ops.token_scatter_add_ref(g.cpu(), idx.cpu(), n)
+        key = torch.where(idx < 0, n, idx.clamp_max(n - 1))
+        mult = int(torch.bincount(key, minlength=n + 1)[:n].max())
+        err = _max_err(out.cpu(), ref)
+        ok = err == 0.0 if mult <= 2 else err <= 2.0 ** -8 * ref.float().abs().max().item()
+        same = torch.equal(out, again)
+        check(ok, f"token_scatter_add call {i} g {tuple(g.shape)}: max|err| {err:.3g} "
+              f"with at most {mult} sources a row")
+        check(same, f"token_scatter_add call {i}: a second run gave other bits")
+        parts.append(f"{i}: {tuple(g.shape)} -> {n} rows, <= {mult} sources, max|err| "
+                     f"{err:g}, {'same bits' if same else 'DIFFER'}")
+    print(f"[9 kernel] token_scatter_add on the {len(rec_sa.calls)} backward calls of phase 7's "
+          f"warm-up step: " + "; ".join(parts), flush=True)
+
+    def scatter_report(g, idx, n):
+        valid = idx >= 0
+        safe, src = idx.clamp(0, n - 1)[valid], g[valid]
+        acc = torch.zeros((n, g.shape[1]), dtype=g.dtype, device=dev)
+        moved = (int(valid.sum()) + n) * g.shape[1] * g.element_size() \
+            + idx.numel() * idx.element_size()
+        return dict(
+            ms=time_ms(lambda: ts_ops.token_scatter_add(g, idx, n), 20),
+            device_ms=device_ms(lambda: ts_ops.token_scatter_add(g, idx, n), 20),
+            plain_ms=time_ms(lambda: ts_ops.token_scatter_add_ref(g, idx, n), 10),
+            library_ms=time_ms(lambda: acc.index_add_(0, safe, src), 20),
+            library_device_ms=device_ms(lambda: acc.index_add_(0, safe, src), 20),
+            bound_ms=moved / PEAK_BYTES_S * 1e3, bound_by="bytes",
+            max_abs_err=_max_err(ts_ops.token_scatter_add(g, idx, n),
+                                 ts_ops.token_scatter_add_ref(g, idx, n)),
+            shape=f"g {tuple(g.shape)} {str(g.dtype)[6:]} -> {n} rows "
+                  f"({int(valid.sum())} read)")
+
+    # the dispatch pack's backward (token rows, read up to top_k times) and
+    # one relay round's (a permutation of 128 KiB chunk rows)
+    pack = next(c for c in rec_sa.calls if c[0].shape[1] == cfg.d_model
+                and c[1].numel() > c[2])
+    relay = next(c for c in rec_sa.calls if c[0].shape[1] == cfg.d_model * 16
+                 and c[1].numel() == c[2] and bool((c[1] >= 0).all()))
+    report = scatter_report(*pack[:3])
+    report["relay round backward"] = scatter_report(*relay[:3])
+    for label, r in (("dispatch pack backward", report),
+                     ("relay round backward", report["relay round backward"])):
+        print(f"[9 kernel] token_scatter_add {label}: {r['shape']}: kernel {r['ms']:.4f} ms "
+              f"({r['device_ms']:.4f} on the device, {r['device_ms'] / r['bound_ms']:.2f}x its "
+              f"bound), plain {r['plain_ms']:.4f} ms, index_add_ {r['library_ms']:.4f} ms "
+              f"({r['library_device_ms']:.4f} on the device), bound {r['bound_ms']:.4f} ms "
+              f"(bytes)", flush=True)
+    del rec_sa
+    torch.cuda.empty_cache()
+    return report, counts_train
+
+
 def relay_phase(torch, check, seed: int, dev):
-    """Phase 10 -> (relay_copy's report, its launches through its entry point)."""
+    """Phase 13 -> (relay_copy's report, its launches through its entry point)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.relay_copy.ops import (
         parity_slot_map,
@@ -347,7 +578,7 @@ def relay_phase(torch, check, seed: int, dev):
     torch.cuda.synchronize()
     launches = launch_counts()["relay_copy"]
     check(torch.equal(y, x), "relay_copy entry point: not bit-exact")
-    print(f"[10 relay] relay_copy [{n}, {d}], chunks of {bc} rows: {', '.join(parts)}; "
+    print(f"[13 relay] relay_copy [{n}, {d}], chunks of {bc} rows: {', '.join(parts)}; "
           f"bf16 parity: kernel {report['ms']:.4f} ms, plain (clone) "
           f"{report['plain_ms']:.4f} ms, copy_ {report['library_ms']:.4f} ms, bound "
           f"{report['bound_ms']:.4f} ms (bytes); entry point relay_copy(x): "
@@ -693,24 +924,38 @@ def main() -> int:
         check(c > 0, f"{kname} never launched on the paper-moe-8e path")
     print(f"[6 kernels] launches prefill {counts_prefill}, generate {counts_gen} "
           f"({time.perf_counter() - t_start:.0f} s so far)", flush=True)
-    del model8, model1, nodrop, engine, params, logits8, logits1, logits8nd
+    del model8, model1, nodrop, engine, params, logits8, logits1, logits8nd, rec_tg, rec_sort
+    del rec_ffn, rec_fa, rec_dec, calls, x_pad, blk, wg, wu, wd, q, k, v, kk, vv, x, idx
     torch.cuda.empty_cache()
 
-    # ---- 7-9. xlstm-125m -------------------------------------------------------
+    # ---- 7-9. paper-moe-8e training ---------------------------------------------
+    report["token_scatter_add"], counts_train = train_phases(torch, np, check, args.seed,
+                                                             dev, smi)
+    train_kernels = ("token_gather", "token_scatter_add", "grouped_ffn_blocked",
+                     "flash_attention")
+    for kname in MOE_KERNELS:
+        launches[kname] += counts_train[kname]
+    launches["token_scatter_add"] = counts_train["token_scatter_add"]
+    print(f"[9 kernel] ({time.perf_counter() - t_start:.0f} s so far)", flush=True)
+
+    # ---- 10-12. xlstm-125m -----------------------------------------------------
     report["mlstm_scan"], launches["mlstm_scan"] = xlstm_phases(
         torch, np, check, compare, args.seed, dev)
-    print(f"[9 generate] ({time.perf_counter() - t_start:.0f} s so far)", flush=True)
+    print(f"[12 generate] ({time.perf_counter() - t_start:.0f} s so far)", flush=True)
 
-    # ---- 10. relay_copy --------------------------------------------------------
+    # ---- 13. relay_copy -------------------------------------------------------
     report["relay_copy"], launches["relay_copy"] = relay_phase(torch, check, args.seed, dev)
 
-    # ---- 11. kernels on their paths ----------------------------------------------
+    # ---- 14. kernels on their paths ---------------------------------------------
+    for kname in train_kernels:
+        check(counts_train[kname] > 0, f"{kname} never launched on the training path")
     check(launches["mlstm_scan"] > 0, "mlstm_scan never launched on the xlstm-125m path")
     check(launches["relay_copy"] > 0, "relay_copy never launched by its entry point")
-    print(f"[11 kernels] launches: paper-moe-8e path (phases 4-5) "
-          f"{ {k: launches[k] for k in MOE_KERNELS} }; xlstm-125m path (phases 8-9) "
-          f"mlstm_scan {launches['mlstm_scan']}; relay_copy's own entry point "
-          f"(phase 10; no serving path calls it) relay_copy {launches['relay_copy']} "
+    print(f"[14 kernels] launches: paper-moe-8e serving (phases 4-5) "
+          f"{ {k: counts_prefill[k] + counts_gen[k] for k in MOE_KERNELS} }; paper-moe-8e "
+          f"training (phase 7's 3 timed steps) { {k: counts_train[k] for k in train_kernels} }; "
+          f"xlstm-125m path (phases 11-12) mlstm_scan {launches['mlstm_scan']}; relay_copy's "
+          f"own entry point (phase 13; no path calls it) relay_copy {launches['relay_copy']} "
           f"({time.perf_counter() - t_start:.0f} s in all)", flush=True)
 
     kernels = []

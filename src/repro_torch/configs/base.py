@@ -115,6 +115,8 @@ ARCH_IDS: List[str] = [
     "paper-moe-8e",
     # the ssm family: alternating sLSTM / mLSTM blocks
     "xlstm-125m",
+    # small MoE; the example trainer's presets derive from it
+    "granite-moe-1b-a400m",
 ]
 
 _REGISTRY: Dict[str, ModelConfig] = {}

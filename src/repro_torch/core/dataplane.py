@@ -223,7 +223,9 @@ class NimbleAllToAll:
         ok = ok & (ranks[:, None] != ranks[None, :])[..., None]
         y = token_gather(state, torch.where(ok, row, -1).reshape(-1))
         y = y.view(n, n, C, E)
-        y[ranks, ranks] = x[ranks, ranks]                        # local traffic
+        # local traffic, written in place: safe under autograd because
+        # token_gather's backward saves its index only, not its output
+        y[ranks, ranks] = x[ranks, ranks]
         return y
 
 

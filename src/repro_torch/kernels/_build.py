@@ -23,7 +23,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-KERNELS = ("token_gather", "grouped_ffn", "flash_attention", "mlstm_scan", "relay_copy")
+KERNELS = ("token_gather", "token_scatter_add", "grouped_ffn", "flash_attention",
+           "mlstm_scan", "relay_copy")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -36,8 +37,9 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 #: count their bf16 tensor-core routes (the serving path's); the ``_f32``
 #: names count their float32 CUDA-core routes.
 LAUNCHES: Dict[str, int] = {
-    "token_gather": 0, "grouped_ffn_blocked": 0, "grouped_ffn_blocked_f32": 0,
-    "flash_attention": 0, "flash_attention_f32": 0, "mlstm_scan": 0, "relay_copy": 0}
+    "token_gather": 0, "token_scatter_add": 0, "grouped_ffn_blocked": 0,
+    "grouped_ffn_blocked_f32": 0, "flash_attention": 0, "flash_attention_f32": 0,
+    "mlstm_scan": 0, "relay_copy": 0}
 
 
 def _nvcc() -> str:

@@ -5,7 +5,10 @@ launches a CUDA kernel (``csrc/flash_attention.cu``) on CUDA tensors, by
 dtype: bfloat16 on tensor cores (wgmma, K/V tiles by TMA), float32 on CUDA
 cores.  It uses :func:`mha_ref`, the plain version, only on CPU tensors.
 :func:`attention` keeps the reference's shape rule (``ops.py:104-116``):
-the kernel for ``Sq >= 128``, the plain version below that.  The reference's
+the kernel for ``Sq >= 128``, the plain version below that.  The kernel's
+gradient is an ``autograd.Function`` whose backward mirrors the
+reference's ``_attention_tpu`` VJP (``ops.py:80-101``): the plain
+attention recomputed in float32 and differentiated.  The reference's
 ``chunked_attention`` (its non-TPU long-sequence path) is not ported yet.
 """
 
@@ -16,6 +19,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from .. import _build
 
@@ -56,9 +60,8 @@ def mha_ref(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     return torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
-                    q_offset: int = 0) -> torch.Tensor:
-    """Online-softmax attention; GQA via Hkv | H."""
+def _flash(q, k, v, *, causal: bool, window: Optional[int], q_offset: int) -> torch.Tensor:
+    """The forward, without a graph: the kernel on CUDA, the plain version on the CPU."""
     if q.device.type == "cpu":
         return mha_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
@@ -91,6 +94,48 @@ def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = Non
     _build.LAUNCHES[count] += 1
     return o
 
+
+def flash_attention_bwd(q, k, v, g, *, causal: bool = True, window: Optional[int] = None,
+                        q_offset: int = 0):
+    """(dq, dk, dv) for the output's gradient g: the VJP of the plain attention.
+
+    Recomputed in float32 from q, k, v through :func:`mha_ref` and taken by
+    ``torch.autograd.grad``: the function whose VJP the reference takes
+    (``chunked_attention``, ``ops.py:90-98``), with the same mask and GQA
+    grouping.  Gradients come back in the inputs' dtypes.
+    """
+    with torch.enable_grad():
+        qf, kf, vf = (t.detach().float().requires_grad_(True) for t in (q, k, v))
+        o = mha_ref(qf, kf, vf, causal=causal, window=window, q_offset=q_offset)
+        dq, dk, dv = torch.autograd.grad(o, (qf, kf, vf), g.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The reference's ``_attention_tpu`` custom VJP: kernel forward, plain backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = dict(causal=causal, window=window, q_offset=q_offset)
+        return _flash(q, k, v, **ctx.mask)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return (*flash_attention_bwd(*ctx.saved_tensors, g, **ctx.mask), None, None, None)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Online-softmax attention; GQA via Hkv | H.
+
+    Differentiable in q, k and v (``flash_attention_bwd``); without a
+    gradient to take it builds no graph.
+    """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, window, q_offset)
+    return _flash(q, k, v, causal=causal, window=window, q_offset=q_offset)
 
 
 def attention(q, k, v, causal: bool = True, window: Optional[int] = None,

@@ -11,6 +11,10 @@ and
      token counts (``_block_rows``), so blocks of padding are skipped;
   3. gathers the results back into the original order.
 
+Its gradient (:func:`grouped_ffn_bwd`, through an ``autograd.Function``)
+is the VJP of the reference's ``grouped_ffn_ref``, as the reference's
+``_grouped_ffn`` custom VJP takes it (``ops.py:163-195``), in plain torch.
+
 :func:`grouped_ffn_blocked` launches the hand-written CUDA kernels
 (``csrc/grouped_ffn.cu``) on CUDA tensors, by dtype: bfloat16 on tensor cores
 (wgmma fed by TMA, a bf16 ``[M, F]`` scratch between the passes), float32 on
@@ -27,6 +31,7 @@ import ctypes
 
 import torch
 import torch.nn.functional as F_
+from torch.autograd.function import once_differentiable
 
 from .. import _build
 from ..token_scatter.ops import token_gather
@@ -207,20 +212,112 @@ def grouped_ffn_blocked(x, block_expert, wg, wu, wd, *, block_tokens: int,
     return y
 
 
-def grouped_ffn(x, expert_id, wg, wu, wd, *, block_tokens: int = 128):
-    """out[i] = SwiGLU_{expert_id[i]}(x[i]); rows with expert_id < 0 -> 0."""
-    n = x.shape[0]
-    order, pos, blk_expert, m_pad = _arrange(expert_id, wg.shape[0], block_tokens)
-    # sort/pad as a gather: padded row pos[i] takes token order[i]; the rows
-    # of invalid tokens all land on m_pad - 1, which no valid token uses
-    valid_sorted = expert_id[order] >= 0
-    src = torch.full((m_pad,), -1, dtype=torch.int64, device=x.device)
-    src.index_put_((pos,), torch.where(valid_sorted, order, -1))
+def _layout(expert_id: torch.Tensor, n_experts: int, block: int):
+    """``_arrange``'s sort/pad as two gather indices, and its block experts.
+
+    ``src`` [m_pad] fills the padded layout: padded row pos[i] takes token
+    order[i], and the rows of invalid tokens all land on m_pad - 1, which no
+    valid token uses.  ``back`` [n] reads each token's row back out (-1 for
+    an invalid token).
+    """
+    order, pos, blk_expert, m_pad = _arrange(expert_id, n_experts, block)
+    dev = expert_id.device
+    src = torch.full((m_pad,), -1, dtype=torch.int64, device=dev)
+    src.index_put_((pos,), torch.where(expert_id[order] >= 0, order, -1))
+    back = torch.empty(expert_id.shape[0], dtype=torch.int64, device=dev)
+    back[order] = pos
+    return src, torch.where(expert_id >= 0, back, -1), blk_expert
+
+
+def _grouped_ffn_forward(x, expert_id, wg, wu, wd, block_tokens: int):
+    """sort/pad gather, blocked kernel, unsort gather; no graph."""
+    src, back, blk_expert = _layout(expert_id, wg.shape[0], block_tokens)
     x_pad = token_gather(x.contiguous(), src)
     y_pad = grouped_ffn_blocked(x_pad, blk_expert.to(torch.int32), wg, wu, wd,
                                 block_tokens=block_tokens,
                                 block_rows=_block_rows(expert_id, wg.shape[0], block_tokens))
-    back = torch.empty(n, dtype=torch.int64, device=x.device)
-    back[order] = pos
-    back = torch.where(expert_id >= 0, back, -1)
     return token_gather(y_pad, back)
+
+
+#: the backward pads each expert's rows to a multiple of this, so its
+#: products take few distinct shapes: the experts' row counts change every
+#: step, and cuBLAS picks an algorithm on the host for each new shape while
+#: the card waits
+_BWD_ROWS = 256
+
+
+def grouped_ffn_bwd(g, x, expert_id, wg, wu, wd):
+    """The VJP of ``grouped_ffn_ref``: (gx, gwg, gwu, gwd) for the output's gradient g.
+
+    Expert by expert over that expert's rows, in ``_arrange``'s order (a
+    stable sort by expert, each expert's rows padded with zero rows to a
+    multiple of ``_BWD_ROWS``, gathered with ``token_gather``): it
+    recomputes ``a = x wg``, ``b = x wu`` and ``h = silu(a) b``, then
+
+        gwd = h^T g,  dh = g wd^T,  da = dh b silu'(a),  db = dh silu(a),
+        gx = da wg^T + db wu^T,  gwg = x^T da,  gwu = x^T db.
+
+    Zero rows add nothing to the weights' gradients.  Products take
+    operands in the weights' dtype and sum in float32 (``torch.matmul``, as
+    the reference leaves them to XLA); the SwiGLU derivative is float32.
+    Rows with ``expert_id < 0`` get zero gradient.  One read of the
+    experts' row counts on the host slices the rows.
+    """
+    n_exp = wg.shape[0]
+    dt = wg.dtype
+    key = torch.where(expert_id < 0, n_exp, expert_id).long()
+    counts = torch.bincount(key, minlength=n_exp + 1)[:n_exp].tolist()
+    rows = [-(-c // _BWD_ROWS) * _BWD_ROWS for c in counts]
+    m_used = sum(rows)
+    gwg, gwu, gwd = (torch.zeros_like(w) for w in (wg, wu, wd))
+    if m_used == 0:
+        return torch.zeros_like(x), gwg, gwu, gwd
+    src, back, _ = _layout(expert_id, n_exp, _BWD_ROWS)
+    src = src[:m_used]                  # the segments; invalid tokens' row lies past them
+    xs = token_gather(x.contiguous(), src).to(dt)
+    gs = token_gather(g.contiguous(), src).to(dt)
+    dxs = torch.empty((m_used, x.shape[1]), dtype=torch.float32, device=x.device)
+    lo = 0
+    for e, r in enumerate(rows):
+        if r == 0:
+            continue
+        xe, ge = xs[lo:lo + r], gs[lo:lo + r]
+        a = (xe @ wg[e]).float()
+        b = (xe @ wu[e]).float()
+        sa = torch.sigmoid(a)
+        silu = a * sa
+        torch.mm((silu * b).to(dt).T, ge, out=gwd[e])
+        dh = (ge @ wd[e].T).float()
+        da = (dh * b * sa * (1 + a * (1 - sa))).to(dt)
+        db = (dh * silu).to(dt)
+        torch.mm(xe.T, da, out=gwg[e])
+        torch.mm(xe.T, db, out=gwu[e])
+        dxs[lo:lo + r] = (da @ wg[e].T).float() + (db @ wu[e].T).float()
+        lo += r
+    return token_gather(dxs.to(x.dtype), back), gwg, gwu, gwd
+
+
+class _GroupedFFN(torch.autograd.Function):
+    """The reference's ``_grouped_ffn`` custom VJP: kernel forward, plain backward."""
+
+    @staticmethod
+    def forward(ctx, x, expert_id, wg, wu, wd, block_tokens):
+        ctx.save_for_backward(x, expert_id, wg, wu, wd)
+        return _grouped_ffn_forward(x, expert_id, wg, wu, wd, block_tokens)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        gx, gwg, gwu, gwd = grouped_ffn_bwd(g, *ctx.saved_tensors)
+        return gx, None, gwg, gwu, gwd, None
+
+
+def grouped_ffn(x, expert_id, wg, wu, wd, *, block_tokens: int = 128):
+    """out[i] = SwiGLU_{expert_id[i]}(x[i]); rows with expert_id < 0 -> 0.
+
+    Differentiable in ``x`` and the weights (``grouped_ffn_bwd``); without
+    a gradient to take it builds no graph.
+    """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, wg, wu, wd)):
+        return _GroupedFFN.apply(x, expert_id, wg, wu, wd, block_tokens)
+    return _grouped_ffn_forward(x, expert_id, wg, wu, wd, block_tokens)

@@ -1,10 +1,20 @@
-"""Row gather ``out[i] = x[idx[i]]`` (zero row where ``idx[i] < 0``).
+"""Row gather ``out[i] = x[idx[i]]`` (zero row where ``idx[i] < 0``) and its backward.
 
 Counterpart of ``repro/kernels/token_scatter``.  :func:`token_gather`
 launches the hand-written CUDA kernel (``csrc/token_gather.cu``) on a CUDA
 tensor and uses :func:`token_gather_ref`, the plain version, only on a CPU
 tensor.  :func:`geometry` is the kernel's launch geometry, computed here so
 that a CPU test can check that it covers every byte of every row once.
+
+Where ``x`` needs a gradient (and grad mode is on), :func:`token_gather`
+is an ``autograd.Function`` whose backward is the reference's ``_bwd``
+(``ops.py:30-36``): ``gx[n] = sum of g[i] over idx[i] = n`` for
+``idx[i] >= 0`` (indices past the last row clip to it), no gradient for
+``idx``.  It saves only ``idx`` and ``N``.  The backward runs
+:func:`token_scatter_add`, the port's own kernel
+(``csrc/token_scatter_add.cu``; the reference's is an XLA scatter-add):
+sources summed in increasing ``i`` in float32, without atomics, so a second
+run gives the same bits.
 """
 
 from __future__ import annotations
@@ -14,6 +24,7 @@ import functools
 from typing import NamedTuple, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from .. import _build
 
@@ -21,9 +32,12 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
     ctypes.c_longlong, ctypes.c_void_p]
+_ADD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [
+    ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+    ctypes.c_longlong, ctypes.c_void_p]
 
-THREADS = 256       #: threads a block (csrc/token_gather.cu)
-UNROLL = 4          #: loads in flight a thread (csrc/token_gather.cu: kUnroll)
+THREADS = 256       #: threads a block (csrc/token_gather.cu, csrc/token_scatter_add.cu)
+UNROLL = 4          #: words in flight a thread (both kernels' kUnroll)
 SEG_BYTES = 16384   #: bytes of a row one unit copies at most
 
 
@@ -66,6 +80,24 @@ def _entry():
     return _build.function("token_gather", "token_gather", _ARGTYPES)
 
 
+@functools.lru_cache(maxsize=None)
+def _add_entry():
+    return _build.function("token_scatter_add", "token_scatter_add", _ADD_ARGTYPES)
+
+
+def _check_cuda(name: str, t: torch.Tensor, idx: torch.Tensor) -> None:
+    if t.device.type != "cuda" or idx.device != t.device:
+        raise ValueError(f"{name}: tensor on {t.device}, idx on {idx.device}")
+    if t.dim() != 2 or idx.dim() != 1:
+        raise ValueError(f"{name}: tensor {tuple(t.shape)}, idx {tuple(idx.shape)}")
+    if t.dtype not in _DTYPES:
+        raise TypeError(f"{name}: unsupported dtype {t.dtype}")
+    if idx.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"{name}: index dtype {idx.dtype}")
+    if not (t.is_contiguous() and idx.is_contiguous()):
+        raise ValueError(f"{name}: tensor and idx must be contiguous")
+
+
 def token_gather_ref(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Plain version: ``out[i] = x[clip(idx[i])]`` for ``idx[i] >= 0`` else 0."""
     safe = idx.clamp(0, x.shape[0] - 1).long()
@@ -74,20 +106,11 @@ def token_gather_ref(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                                                               device=x.device))
 
 
-def token_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """x: [N, D] float32 or bfloat16, idx: [M] int32/int64 -> [M, D]."""
+def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The forward, without a graph: the kernel on CUDA, the plain version on the CPU."""
     if x.device.type == "cpu":
         return token_gather_ref(x, idx)
-    if x.device.type != "cuda" or idx.device != x.device:
-        raise ValueError(f"token_gather: x on {x.device}, idx on {idx.device}")
-    if x.dim() != 2 or idx.dim() != 1:
-        raise ValueError(f"token_gather: x {tuple(x.shape)}, idx {tuple(idx.shape)}")
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"token_gather: unsupported dtype {x.dtype}")
-    if idx.dtype not in (torch.int32, torch.int64):
-        raise TypeError(f"token_gather: index dtype {idx.dtype}")
-    if not (x.is_contiguous() and idx.is_contiguous()):
-        raise ValueError("token_gather: x and idx must be contiguous")
+    _check_cuda("token_gather", x, idx)
     if x.shape[0] == 0:
         raise ValueError("token_gather: x has no rows")
     m = idx.shape[0]
@@ -101,4 +124,85 @@ def token_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                    torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "token_gather")
     _build.LAUNCHES["token_gather"] += 1
+    return out
+
+
+class _TokenGather(torch.autograd.Function):
+    """``token_gather`` with the reference's scatter-add VJP."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.n_rows = x.shape[0]
+        return _gather(x, idx)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return token_scatter_add(g.contiguous(), idx, ctx.n_rows), None
+
+
+def token_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x: [N, D] float32 or bfloat16, idx: [M] int32/int64 -> [M, D].
+
+    Differentiable in ``x``; a call whose ``x`` needs no gradient builds no
+    graph.
+    """
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _TokenGather.apply(x, idx)
+    return _gather(x, idx)
+
+
+# -- the backward: scatter-add of rows ----------------------------------------------
+
+
+def token_scatter_add_ref(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Plain version: ``gx[r] = sum of g[i] over clip(idx[i]) = r, idx[i] >= 0``.
+
+    Summed in float32 by ``index_add_`` and cast to ``g``'s dtype once.
+    """
+    valid = idx >= 0
+    safe = idx.clamp(0, n - 1).long()[valid]
+    out = torch.zeros((n, g.shape[1]), dtype=torch.float32, device=g.device)
+    return out.index_add_(0, safe, g[valid].float()).to(g.dtype)
+
+
+def inverse_index(idx: torch.Tensor, n: int):
+    """(order [M] int64, offsets [n + 1] int64): output row r sums the rows
+    ``order[offsets[r]:offsets[r + 1]]`` of g, in increasing i.
+
+    A stable sort of the clipped 32-bit index (negative entries sort last,
+    past ``offsets[n]``) and each row's first position in it by a binary
+    search: device ops, no read on the host (``bincount`` on CUDA reads
+    its input's maximum back).
+    """
+    key = torch.where(idx < 0, n, idx.clamp_max(n - 1)).to(torch.int32)
+    sorted_key, order = torch.sort(key, stable=True)
+    rows = torch.arange(n + 1, dtype=torch.int32, device=idx.device)
+    return order, torch.searchsorted(sorted_key, rows)
+
+
+def token_scatter_add(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """g: [M, D] float32 or bfloat16, idx: [M] int32/int64 -> gx [n, D] in g's dtype."""
+    if g.device.type == "cpu":
+        return token_scatter_add_ref(g, idx, n)
+    _check_cuda("token_scatter_add", g, idx)
+    if idx.shape[0] != g.shape[0]:
+        raise ValueError(f"token_scatter_add: g {tuple(g.shape)}, idx {tuple(idx.shape)}")
+    if n < 1:
+        raise ValueError(f"token_scatter_add: {n} output rows")
+    out = torch.empty((n, g.shape[1]), dtype=g.dtype, device=g.device)
+    if g.shape[1] == 0:
+        return out
+    if g.shape[0] == 0:
+        return out.zero_()
+    order, offsets = inverse_index(idx, n)
+    row_bytes = g.shape[1] * g.element_size()
+    geo = geometry(row_bytes, n, (g.data_ptr() | out.data_ptr()) & 15)
+    err = _add_entry()(g.data_ptr(), order.data_ptr(), offsets.data_ptr(), out.data_ptr(), n,
+                       row_bytes, int(g.dtype == torch.bfloat16), geo.word, geo.seg_words,
+                       geo.group, *geo.grid, torch.cuda.current_stream(g.device).cuda_stream)
+    _build.check(err, "token_scatter_add")
+    _build.LAUNCHES["token_scatter_add"] += 1
     return out

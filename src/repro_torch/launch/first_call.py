@@ -2,23 +2,26 @@
 
     python -m repro_torch.launch.first_call [--time] [--kernels NAME ...]
 
-builds the redesigned kernels (the grouped FFN, flash, ``token_gather`` and
-``mlstm_scan``) and prints nvcc's register, shared-memory and spill report
+builds the redesigned kernels (the grouped FFN, flash, ``token_gather``,
+``token_scatter_add`` and ``mlstm_scan``) and prints nvcc's register, shared-memory and spill report
 for each of their kernels.  Then it holds each against its plain version,
 smallest first, and stops at the first stage that fails (exit 1):
 
   1. one tile each: the FFN at M 64, D 128, F 128, E 1 (also with Wd = I,
      which shows pass 1 alone, and with X = I, which shows pass 2's
      weights), flash at one 64-row tile for Dh 64 and 128, causal or not;
-     ``token_gather`` on 8 rows of 128 bytes; ``mlstm_scan`` on one chunk
-     of 64 steps at dh 64;
+     ``token_gather`` and ``token_scatter_add`` on 8 rows of 128 bytes;
+     ``mlstm_scan`` on one chunk of 64 steps at dh 64;
   2. ragged shapes: the FFN at F 192 for block_tokens 64 and 128, with and
      without ``block_rows`` (padding rows exactly 0); flash with Sq 200 or
      130 and Sk 200 or 300 under the causal, window, offset and full masks;
      ``token_gather`` on rows that are no multiple of a segment, 64-byte
      rows, 8 KiB rows and offset views (the 4- and 2-byte routes);
      ``mlstm_scan`` with S no multiple of the chunk, dh 100, 50 and 192, a
-     chunk of 8, and a carried state.
+     chunk of 8, and a carried state; ``token_scatter_add`` (token_gather's
+     backward) on 6- and 12-byte rows, rows of several segments, the
+     dispatch pack's backward (8192 rows of 8 KiB onto 2048) and offset
+     views.
 
 Where a check fails it prints the error's map in 8 x 8 blocks, which shows
 a misplaced operand (a wrong descriptor stride or swizzle) at a glance.
@@ -52,7 +55,8 @@ from ..kernels.mlstm_scan import ops as ms
 from ..kernels.token_scatter import ops as tg
 from .kernel_times import device_ms, gather_inputs, mlstm_flops, mlstm_inputs, time_ms
 
-KERNELS = ("grouped_ffn", "flash_attention", "token_gather", "mlstm_scan")
+KERNELS = ("grouped_ffn", "flash_attention", "token_gather", "token_scatter_add",
+           "mlstm_scan")
 PEAK_F32 = 67e12                           # f32 on CUDA cores
 
 
@@ -174,6 +178,28 @@ def _gather_stages(check, rng, dev) -> None:
               tg.token_gather_ref(x, idx), 0.0)
 
 
+def _scatter_stages(check, rng, dev) -> None:
+    def case(n, m, d, dtype, offset=0):
+        flat = torch.as_tensor(rng.normal(size=(m * d + offset,)), dtype=dtype, device=dev)
+        g = flat[offset:].view(m, d)
+        idx = torch.as_tensor(rng.integers(-3, n + 3, size=(m,)), device=dev)
+        out = tg.token_scatter_add(g, idx, n)
+        torch.cuda.synchronize()
+        tol = 2.0 ** -8 if dtype == torch.bfloat16 else 1e-6   # >2 sources: sum order
+        check(f"token_scatter_add {m} rows of [{d}] {str(dtype)[6:]} -> {n} (offset {offset})",
+              out, tg.token_scatter_add_ref(g.cpu(), idx.cpu(), n).to(dev), tol)
+
+    case(8, 8, 64, torch.bfloat16)
+    if not check.ok:
+        return
+    case(40, 90, 3, torch.float32)                     # 12-byte rows: 4-byte words
+    case(40, 90, 3, torch.bfloat16)                    # 6-byte rows: 2-byte words
+    case(64, 100, 65536 + 24, torch.bfloat16)          # several segments, a ragged one
+    case(2048, 8192, 4096, torch.bfloat16)             # the dispatch pack's backward
+    for dtype in (torch.float32, torch.bfloat16):      # offset views
+        case(300, 500, 4104, dtype, offset=1)
+
+
 def _mlstm_stages(check, rng, dev) -> None:
     def case(b, h, s, dh, chunk, split=None):
         a = mlstm_inputs(dev, int(rng.integers(1 << 30)), b, h, s, dh)
@@ -287,6 +313,29 @@ def _time_main_shapes(dev, seed: int) -> None:
             if ev.device_type == DeviceType.CUDA and frag in ev.key:
                 print(f"  {label}: {ev.self_device_time_total / 1e3:.3f} ms", flush=True)
 
+    # the FFN's plain-torch backward at the same shapes: 8 products of
+    # 2 n d f operations each (4 recompute and weight, 4 input gradients)
+    g = torch.randn(n, d, generator=gen, device=dev).to(bf)
+
+    def bwd():
+        return ffn.grouped_ffn_bwd(g, x, eid, wg, wu, wd)
+
+    bwd_ms = time_ms(bwd, 3)
+    print(f"grouped_ffn_bwd [{n}, {d}] bf16 (E {e}, F {f}): {bwd_ms:.3f} ms by events, bound "
+          f"{16.0 * n * d * f / 989e12 * 1e3:.3f} ms (operations at 989 TFLOP/s)", flush=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        bwd()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = sorted(((ev.self_device_time_total, ev.count, ev.key) for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0),
+                  reverse=True)
+    busy = sum(r[0] for r in rows) / 1e3
+    print(f"  profiled: wall {wall * 1e3:.2f} ms, device busy {busy:.2f} ms", flush=True)
+    for t, count, key in rows[:10]:
+        print(f"  {t / 1e3:8.3f} ms {count:4d} calls  {key[:90]}", flush=True)
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -308,7 +357,8 @@ def main(argv=None) -> int:
     check = _Checks()
     rng = np.random.default_rng(args.seed)
     stages = {"grouped_ffn": _ffn_stages, "flash_attention": _flash_stages,
-              "token_gather": _gather_stages, "mlstm_scan": _mlstm_stages}
+              "token_gather": _gather_stages, "token_scatter_add": _scatter_stages,
+              "mlstm_scan": _mlstm_stages}
     for name in args.kernels:
         stages[name](check, rng, dev)
         if not check.ok:

@@ -1,6 +1,6 @@
-"""Where the device time goes in the port's serving path, by kernel.
+"""Where the device time goes in the port's serving and training paths, by kernel.
 
-    python -m repro_torch.launch.profile [--arch ARCH] [--out DIR]
+    python -m repro_torch.launch.profile [--arch ARCH] [--train] [--out DIR]
 
 builds ``--arch`` at full width on the card (bf16, random weights from
 ``--seed``), warms it up, then traces under ``torch.profiler`` one prefill
@@ -9,13 +9,20 @@ requests.  paper-moe-8e (the default) runs on 8 EP ranks in groups of 4
 with NIMBLE dispatch, prefills 4 x 512 tokens and generates 8 tokens after
 a prompt of 8; xlstm-125m prefills 4 x 2048 tokens and generates 16 tokens
 after a prompt of 128.  For each it prints the wall time, the summed device
-time, the device's idle share, and the kernels that took the most device
-time.  With ``--out`` the Chrome traces are written to ``DIR``.
+time, the device's idle share, the kernels that took the most device
+time, and the device's longest idle gaps with the host ops in flight
+across each.  ``--train`` profiles instead one AdamW train step of paper-moe-8e at
+full width (bf16, EP 8 in groups of 4, NIMBLE, 4 x 512 tokens from
+``SyntheticLM``) after a warm-up step.  With ``--out`` the Chrome traces
+are written to ``DIR``.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
+import tempfile
 import time
 from pathlib import Path
 
@@ -25,14 +32,17 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from ..configs.base import get_config
+from ..data.pipeline import DataConfig, SyntheticLM, to_device
 from ..models.registry import build_model
+from ..optim import adamw
 from ..serve.engine import ServeEngine
 from ..sharding.context import ParallelContext
+from ..train.step import make_train_step
 
 #: kernel-name fragments of the port's own CUDA kernels (demangled, as the
 #: profiler shows them); the FFN and flash have a bf16 tensor-core route
 #: (``tc::``) and a float32 CUDA-core route each
-OWN = {"gather_rows": "token_gather",
+OWN = {"gather_rows": "token_gather", "scatter_add_rows": "token_scatter_add",
        "ffn_tc<true>": "grouped_ffn_blocked pass 1 (tensor cores)",
        "ffn_tc<false>": "grouped_ffn_blocked pass 2 (tensor cores)",
        "ffn_gate_up": "grouped_ffn_blocked pass 1 (f32)",
@@ -66,15 +76,74 @@ def _report(label: str, prof, wall_s: float, n_tok: int, top: int = 12) -> None:
         print(f"[profile]   {t / 1e3:9.3f} ms {count:6d} calls  {t / busy_us:6.3f}  {name}")
 
 
+def _gaps(prof, top: int = 5, min_ms: float = 0.5) -> None:
+    """The device's longest idle gaps, each with the host ops in flight across it."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    dev = sorted((e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")),
+                 key=lambda e: e["ts"])
+    ops = [e for e in events if e.get("cat") == "cpu_op"]
+    gaps, end = [], None
+    for e in dev:
+        if end is not None and e["ts"] - end > min_ms * 1e3:
+            gaps.append((e["ts"] - end, end, e["name"]))
+        end = e["ts"] + e["dur"] if end is None else max(end, e["ts"] + e["dur"])
+    print(f"[profile]   {len(gaps)} device idle gaps over {min_ms} ms, "
+          f"{sum(g[0] for g in gaps) / 1e3:.1f} ms in all", flush=True)
+    for dur, start, nxt in sorted(gaps, reverse=True)[:top]:
+        over = sorted((o for o in ops if o["ts"] <= start and o["ts"] + o["dur"] >= start + dur),
+                      key=lambda o: o["dur"])
+        host = " < ".join(dict.fromkeys(o["name"][:48] for o in over[:3])) or "no host op"
+        print(f"[profile]     {dur / 1e3:6.3f} ms idle before {nxt[:40]}; host in {host}",
+              flush=True)
+
+
+def _profile(label: str, fn, n_tok: int, out, top: int = 12) -> None:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _report(label, prof, wall, n_tok, top)
+    _gaps(prof)
+    if out is not None:
+        prof.export_chrome_trace(str(out / f"{label.split()[0]}.json"))
+
+
+def _train(seed: int, out) -> None:
+    """One warm-up step, then one profiled step of paper-moe-8e training."""
+    cfg = get_config("paper-moe-8e")
+    ctx = ParallelContext(ep_size=8, group_size=4, moe_mode="nimble",
+                          param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
+    model = build_model(cfg, ctx)
+    params = model.init(seed)
+    state = adamw.init(params)
+    step = make_train_step(model, adamw.AdamWConfig(warmup_steps=2))
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=512, global_batch=4, seed=seed))
+    batches = [to_device(data.batch(i), "cuda") for i in range(2)]
+    params, state, _ = step(params, state, batches[0])
+    torch.cuda.synchronize()
+    _profile("train 4x512 step", lambda: step(params, state, batches[1]), 4 * 512, out, 24)
+    print(f"[profile] {cfg.name} train on {torch.cuda.get_device_name(0)}")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="paper-moe-8e", choices=sorted(SHAPES))
+    ap.add_argument("--train", action="store_true",
+                    help="profile a paper-moe-8e train step instead of serving")
     ap.add_argument("--out", default=None, help="directory for Chrome traces")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     out = Path(args.out) if args.out else None
     if out is not None:
         out.mkdir(parents=True, exist_ok=True)
+    if args.train:
+        _train(args.seed, out)
+        return
 
     cfg = get_config(args.arch)
     ep, seq, n_prompt, n_new = SHAPES[args.arch]
@@ -97,14 +166,7 @@ def main(argv=None) -> None:
             (f"generate 4 x ({n_prompt}+{n_new})", 4 * n_new,       # new tokens
              lambda: engine.generate(prompts, n_new=n_new)),
         ):
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            _report(label, prof, wall, n_tok)
-            if out is not None:
-                prof.export_chrome_trace(str(out / f"{label.split()[0]}.json"))
+            _profile(label, fn, n_tok, out)
     print(f"[profile] {cfg.name} on {torch.cuda.get_device_name(0)}")
 
 

@@ -28,9 +28,7 @@ from ..configs.base import get_config
 from ..kernels import _build
 from ..models.registry import build_model
 from ..serve.engine import ServeEngine
-from ..sharding.context import ParallelContext
-
-_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+from ..sharding.context import DTYPES, ParallelContext
 
 
 def main(argv=None):
@@ -39,7 +37,7 @@ def main(argv=None):
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--ep", type=int, default=None,
                     help="expert-parallel ranks (moe only; default 8)")
-    ap.add_argument("--dtype", default="bf16", choices=sorted(_DTYPES))
+    ap.add_argument("--dtype", default="bf16", choices=sorted(DTYPES))
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=8)
@@ -52,7 +50,7 @@ def main(argv=None):
     ep = args.ep if args.ep is not None else (8 if cfg.arch_type == "moe" else 1)
     if args.reduced:
         cfg = dataclasses.replace(cfg.reduced(), n_experts=cfg.n_experts)
-    dt = _DTYPES[args.dtype]
+    dt = DTYPES[args.dtype]
     ctx = ParallelContext(ep_size=ep, group_size=min(4, ep), moe_mode="nimble",
                           param_dtype=dt, compute_dtype=dt, device=args.device)
     try:

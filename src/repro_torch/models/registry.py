@@ -1,7 +1,7 @@
 """Model facade: the reference's ``Model`` interface for the ported families.
 
 ``build_model(cfg, ctx)`` returns a :class:`Model` exposing
-``init / forward / init_cache / decode_step`` with the reference's
+``init / forward / loss / init_cache / decode_step`` with the reference's
 signatures, apart from ``init`` taking an integer seed.  The port supports
 the ``moe`` family (without attention biases) and the ``ssm`` family
 (xLSTM).  Only the ``moe`` family takes the expert layer (``moe_apply``)
@@ -67,6 +67,19 @@ class Model:
         if isinstance(out, tuple):
             return out                   # (logits, aux)
         return out, torch.zeros((), dtype=torch.float32, device=out.device)
+
+    def loss(self, params, batch: Dict[str, torch.Tensor], *, window=None,
+             aux_weight: float = 0.01, stats: Optional[dict] = None) -> torch.Tensor:
+        """Mean next-token NLL (``log_softmax`` in float32) + ``aux_weight`` x aux.
+
+        The reference's ``Model.loss`` (``registry.py:59-68``); ``stats`` as
+        in :meth:`forward`.
+        """
+        logits, aux = self.forward(params, batch, window=window, stats=stats)
+        labels = batch["labels"].long()
+        lp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(lp, -1, labels[..., None])[..., 0]
+        return nll.mean() + aux_weight * aux
 
     def cache_len(self, shape: InputShape) -> int:
         if self.cfg.arch_type == "ssm":

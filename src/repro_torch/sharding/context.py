@@ -36,3 +36,6 @@ class ParallelContext:
 
 
 SINGLE = ParallelContext()
+
+#: the launchers' ``--dtype`` names
+DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}

@@ -31,9 +31,21 @@ from repro_torch.kernels.grouped_ffn.ops import (
 )
 from repro_torch.kernels.mlstm_scan.ops import mlstm_scan, mlstm_scan_chunked_ref
 from repro_torch.kernels.relay_copy.ops import parity_slot_map, relay_copy, relay_copy_ref
-from repro_torch.kernels.token_scatter.ops import geometry, token_gather, token_gather_ref
+from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+from repro_torch.kernels.grouped_ffn.ops import grouped_ffn_bwd
+from repro_torch.kernels.token_scatter.ops import (
+    geometry,
+    token_gather,
+    token_gather_ref,
+    token_scatter_add,
+    token_scatter_add_ref,
+)
 from repro_torch.models.registry import build_model
+from repro_torch.optim import adamw
 from repro_torch.sharding.context import ParallelContext
+from repro_torch.train.step import make_train_step
+from repro_torch.tree import leaves, map_tree
 
 pytestmark = pytest.mark.torch_port
 
@@ -468,3 +480,172 @@ def test_relay_copy_refuses_bad_maps(cuda):
         relay_copy(x, torch.zeros(2, dtype=torch.int64, device=cuda), block_chunk=256)
     with pytest.raises(ValueError):
         relay_copy(x, torch.zeros(2, dtype=torch.int32), block_chunk=256)
+
+
+# --------------------------------------------------------------------------- #
+# token_scatter_add (token_gather's backward) and the training path
+# --------------------------------------------------------------------------- #
+
+
+def _scatter_case(rng, n, d, dtype, idx_dtype, device, offset=0):
+    """g and idx where output row r has r % 4 sources (0-3), plus indices
+    below 0 (dropped) and past n - 1 (clipped onto row n - 1)."""
+    rows = np.repeat(np.arange(n), np.arange(n) % 4)
+    idx = np.concatenate([rows, [-1, -5, n + 3]])
+    idx = rng.permutation(idx)
+    m = idx.size
+    flat = torch.as_tensor(rng.normal(size=(m * d + offset,)), dtype=dtype, device=device)
+    g = flat[offset:].view(m, d)
+    return g, torch.as_tensor(idx, dtype=idx_dtype, device=device)
+
+
+def _check_scatter(g, idx, n, out):
+    # rows of at most two sources round once: bit-exact against the CPU's
+    # plain version; three sources sum in another order: one f32 rounding,
+    # so within 2^-8 of the row's magnitude after bf16 rounding (1e-6 in f32)
+    want = token_scatter_add_ref(g.cpu(), idx.cpu(), n)
+    got = out.cpu()
+    key = torch.where(idx.cpu() < 0, n, idx.cpu().clamp_max(n - 1))
+    mult = torch.bincount(key, minlength=n + 1)[:n]
+    low = mult <= 2
+    assert torch.equal(got[low], want[low])
+    tol = 2.0 ** -8 if g.dtype == torch.bfloat16 else 1e-6
+    err = (got.float() - want.float()).abs().max(1).values
+    assert bool((err <= tol * (want.float().abs().max(1).values + 1e-30)).all())
+
+
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,offset", [
+    (40, 3, 0),          # 12- or 6-byte rows: 4- and 2-byte words
+    (64, 64, 0),
+    (300, 4096, 0),      # the dispatch's 8 KiB bf16 rows
+    (64, 65536, 0),      # a 128 KiB payload row: several segments a row
+    (50, 65536 + 24, 0),  # not a multiple of the segment
+    (100, 4104, 1),      # an offset view: the 4-byte (f32) or 2-byte (bf16) route
+])
+def test_token_scatter_add_matches_plain(cuda, dtype, idx_dtype, n, d, offset):
+    rng = np.random.default_rng(n + d + offset)
+    g, idx = _scatter_case(rng, n, d, dtype, idx_dtype, cuda, offset)
+    before = launch_counts()["token_scatter_add"]
+    out = token_scatter_add(g, idx, n)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and tuple(out.shape) == (n, d)
+    assert launch_counts()["token_scatter_add"] == before + 1
+    _check_scatter(g, idx, n, out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_token_scatter_add_is_deterministic(cuda, dtype):
+    # no atomics: a second run gives the same bits, also at 3 sources a row
+    g, idx = _scatter_case(np.random.default_rng(5), 1000, 4096, dtype, torch.int64, cuda)
+    first = token_scatter_add(g, idx, 1000)
+    for _ in range(3):
+        assert torch.equal(token_scatter_add(g, idx, 1000), first)
+
+
+def test_token_scatter_add_edge_cases(cuda):
+    g = torch.ones((4, 8), device=cuda)
+    out = token_scatter_add(g, torch.full((4,), -1, device=cuda), 3)
+    assert torch.equal(out, torch.zeros((3, 8), device=cuda))
+    empty = token_scatter_add(g[:0], torch.zeros(0, dtype=torch.int64, device=cuda), 5)
+    assert torch.equal(empty, torch.zeros((5, 8), device=cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_token_gather_backward_on_card_equals_cpu(cuda, dtype):
+    rng = np.random.default_rng(2)
+    x = torch.as_tensor(rng.normal(size=(50, 256)), dtype=dtype)
+    idx = torch.as_tensor(rng.integers(-2, 52, size=(120,)))
+    g = torch.as_tensor(rng.normal(size=(120, 256)), dtype=dtype)
+    grads = []
+    for dev in ("cpu", cuda):
+        xx = x.to(dev).requires_grad_(True)
+        grads.append(torch.autograd.grad(token_gather(xx, idx.to(dev)), xx, g.to(dev))[0])
+    _check_scatter(g, idx, 50, grads[1])
+    tol = 2.0 ** -8 if dtype == torch.bfloat16 else 1e-6
+    assert (grads[1].cpu().float() - grads[0].float()).abs().max() <= tol * grads[0].float(
+        ).abs().max()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+def test_grouped_ffn_backward_on_card_equals_cpu(cuda, dtype, tol):
+    # through the autograd Function on the card (kernel forward, torch
+    # backward) against the CPU's plain backward in f32.  f32: products in
+    # another order; bf16: operands and a, b, dh rounded to bf16
+    rng = np.random.default_rng(4)
+    m, d, f, e = 700, 256, 512, 4
+    x, wg, wu, wd = (torch.as_tensor(rng.normal(size=s) * sc, dtype=torch.float32) for s, sc in
+                     (((m, d), 0.5), ((e, d, f), 0.05), ((e, d, f), 0.05), ((e, f, d), 0.05)))
+    eid = torch.as_tensor(rng.integers(-1, e, size=(m,)))
+    g = torch.as_tensor(rng.normal(size=(m, d)), dtype=torch.float32)
+    want = grouped_ffn_bwd(g, x, eid, wg, wu, wd)
+    live = [t.to(cuda, dtype).requires_grad_(True) for t in (x, wg, wu, wd)]
+    y = grouped_ffn(live[0], eid.to(cuda), *live[1:], block_tokens=64)
+    got = torch.autograd.grad(y, live, g.to(cuda, dtype))
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        assert (a.cpu().float() - b).abs().max() <= tol * b.abs().max()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", ["causal", "window", "offset"])
+def test_flash_backward_on_card_equals_cpu(cuda, dtype, tol, case):
+    # f32: the softmax backward dS = P (dP - sum(P dP)) cancels, so the
+    # card's and the CPU's sums in other orders differ by up to about 2e-5
+    # of the largest gradient; bf16: q, k, v and the gradients round
+    kw = {"causal": dict(causal=True, window=None, q_offset=0),
+          "window": dict(causal=True, window=60, q_offset=0),
+          "offset": dict(causal=True, window=None, q_offset=40)}[case]
+    rng = np.random.default_rng(6)
+    q, k, v, g = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32) for s in
+                  ((2, 4, 200, 64), (2, 2, 240 if case == "offset" else 200, 64),
+                   (2, 2, 240 if case == "offset" else 200, 64), (2, 4, 200, 64)))
+    want = flash_attention_bwd(q, k, v, g, **kw)
+    live = [t.to(cuda, dtype).requires_grad_(True) for t in (q, k, v)]
+    o = flash_attention(*live, **kw)
+    got = torch.autograd.grad(o, live, g.to(cuda, dtype))
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        assert (a.cpu().float() - b).abs().max() <= tol * b.abs().max()
+
+
+def test_reduced_train_step_on_card_equals_cpu(cuda, monkeypatch):
+    # paper-moe-8e reduced (8 experts, EP 8 in groups of 4, nimble), f32: one
+    # step's loss, grad_norm and every gradient leaf on the card (its
+    # kernels, the FFN and flash on their f32 routes) against the CPU's plain
+    # versions; f32 sums in other orders: 1e-4 of each leaf's largest value
+    cfg = dataclasses.replace(get_config("paper-moe-8e").reduced(), n_experts=8,
+                              moe_capacity_factor=8.0)
+    seen = {}
+    orig = adamw.update
+
+    def record(cfg_, params, grads, state):
+        seen.setdefault("grads", []).append([t.detach().cpu().clone() for t in leaves(grads)])
+        return orig(cfg_, params, grads, state)
+
+    monkeypatch.setattr(adamw, "update", record)
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=128, global_batch=2,
+                                   seed=1)).batch(0)
+    metrics = []
+    before = launch_counts()
+    weights = build_model(cfg, ParallelContext(ep_size=8, group_size=4, device="cpu")).init(0)
+    for dev in ("cpu", "cuda"):
+        ctx = ParallelContext(ep_size=8, group_size=4, device=dev)
+        model = build_model(cfg, ctx)
+        params = map_tree(lambda t: t.to(dev, copy=True), weights)
+        step = make_train_step(model, adamw.AdamWConfig(lr=1e-3, warmup_steps=2))
+        stats = {}
+        _, _, m = step(params, adamw.init(params), to_device(batch, dev), stats=stats)
+        assert int(stats["dropped"]) == 0
+        metrics.append({k: float(v) for k, v in m.items()})
+    after = launch_counts()
+    for name in ("token_gather", "token_scatter_add", "grouped_ffn_blocked_f32",
+                 "flash_attention_f32"):
+        assert after[name] > before[name], name
+    cpu, card = metrics
+    for key in ("loss", "grad_norm", "lr"):
+        assert abs(card[key] - cpu[key]) <= 1e-4 * abs(cpu[key]), key
+    for a, b in zip(seen["grads"][1], seen["grads"][0]):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()
