@@ -43,10 +43,15 @@ port's six CUDA kernels from ``src/repro_torch/csrc``, all at once, then:
   9. holds ``token_scatter_add`` (``token_gather``'s backward, the port's
      own kernel) against its plain version on the backward calls phase 7's
      warm-up step made: bit-exact where no row has more than two sources, the
-     same bits on a second run; times it beside its bound and ``index_add_``;
+     same bits on a second run, its inverse-index launch equal to the plain
+     stable sort and search; times it beside its bound and ``index_add_``,
+     split on the device into the inverse-index launch and the row sums
+     (beside the plain sort and search), and a relay round's beside
+     ``token_gather`` on the same rows;
  10. holds ``mlstm_scan`` against its plain version on the inputs of
      xlstm-125m's first mLSTM layer at a 4 x 2048 prefill (float32), and
-     times both;
+     times both; checks that an input that needs a gradient raises (the
+     kernel has no backward);
  11. prefills xlstm-125m at full width (bf16) for 4 requests of 2048 tokens,
      holds the chunked (kernel) forward against the per-step mLSTM forward
      at 4 x 256 tokens (float32 and bf16), and a reduced xlstm config on the
@@ -56,13 +61,16 @@ port's six CUDA kernels from ``src/repro_torch/csrc``, all at once, then:
      prefill logits against the kernel-path ``forward(last_only=True)``;
  13. holds ``relay_copy`` bit for bit against its plain version on
      [8192, 4096] bf16, f32 and int32 inputs under the parity, swapped and
-     all-zeros slot maps, times it against ``Tensor.copy_``, and calls it
-     once through its own entry point (nothing in the serving paths, or in
-     the JAX package, calls it);
+     all-zeros slot maps, times it against ``Tensor.copy_`` by events and on
+     the device, checks that an input that needs a gradient raises, and
+     calls it through its own entry point on each route (nothing in the
+     serving paths, or in the JAX package, calls it): the TMA bulk route at
+     [8192, 4096], the 4- and 2-byte word routes on 420- and 210-byte chunks;
  14. checks that each path launched every kernel of its own: phase 7's
-     timed steps ``token_gather``, ``token_scatter_add``, the FFN and flash
-     (bf16 routes), phases 11 and 12 ``mlstm_scan``, phase 13's entry-point
-     call ``relay_copy``.
+     timed steps ``token_gather``, ``token_scatter_add`` (and its
+     inverse-index launch), the FFN and flash (bf16 routes), phases 11 and
+     12 ``mlstm_scan``, phase 13's entry-point calls each route of
+     ``relay_copy``.
 
 It prints one line per phase, the card's name and power limit as
 ``nvidia-smi`` reports them, a JSON line of per-kernel numbers, and as its
@@ -144,6 +152,21 @@ class Recorder:
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.orig)
+
+
+def _raises_under_grad(torch, run, args) -> bool:
+    """True when ``run`` raises RuntimeError for each input made to need a
+    gradient, and runs under ``torch.no_grad`` on the same inputs."""
+    for i in range(len(args)):
+        live = [a.clone().requires_grad_(j == i) for j, a in enumerate(args)]
+        try:
+            run(live)
+            return False
+        except RuntimeError:
+            pass
+        with torch.no_grad():
+            run(live)
+    return True
 
 
 def _max_err(out, ref) -> float:
@@ -239,11 +262,16 @@ def xlstm_phases(torch, np, check, compare, seed: int, dev):
         bound_ms=max(t_ops, t_bytes) * 1e3,
         bound_by="operations" if t_ops >= t_bytes else "bytes",
     )
+    grad_raises = _raises_under_grad(
+        torch, lambda a: mlstm_scan(*a, chunk=chunk)[0],
+        [t[:, :, :2 * L].contiguous() for t in (q, k, v, ig, lf)])
+    check(grad_raises, "mlstm_scan: an input that needs a gradient did not raise on the card")
     print(f"[10 kernel] mlstm_scan: q/k/v {tuple(q.shape)} f32, chunk {L}: kernel "
           f"{ms_report['ms']:.4f} ms, plain {ms_report['plain_ms']:.4f} ms, library none, "
           f"bound {ms_report['bound_ms']:.4f} ms ({ms_report['bound_by']}: "
-          f"{flops / 1e9:.3f} GFLOP at 67 TFLOP/s, {nbytes / 1e6:.1f} MB at 3.35 TB/s)",
-          flush=True)
+          f"{flops / 1e9:.3f} GFLOP at 67 TFLOP/s, {nbytes / 1e6:.1f} MB at 3.35 TB/s); "
+          f"an input that needs a gradient {'raises' if grad_raises else 'DOES NOT RAISE'} "
+          f"(no backward; under torch.no_grad the same call runs)", flush=True)
 
     # ---- 11. prefill ---------------------------------------------------------
     reset_launch_counts()
@@ -479,6 +507,10 @@ def train_phases(torch, np, check, seed: int, dev, smi: str):
         out = ts_ops.token_scatter_add(g, idx, n)
         again = ts_ops.token_scatter_add(g, idx, n)
         ref = ts_ops.token_scatter_add_ref(g.cpu(), idx.cpu(), n)
+        # the inverse-index launch against the plain stable sort and search
+        inv, inv_ref = ts_ops.build_inverse_index(idx, n), ts_ops.inverse_index(idx, n)
+        check(all(torch.equal(a, b) for a, b in zip(inv, inv_ref)),
+              f"token_scatter_add call {i}: the inverse index differs from the plain one")
         key = torch.where(idx < 0, n, idx.clamp_max(n - 1))
         mult = int(torch.bincount(key, minlength=n + 1)[:n].max())
         err = _max_err(out.cpu(), ref)
@@ -488,9 +520,19 @@ def train_phases(torch, np, check, seed: int, dev, smi: str):
               f"with at most {mult} sources a row")
         check(same, f"token_scatter_add call {i}: a second run gave other bits")
         parts.append(f"{i}: {tuple(g.shape)} -> {n} rows, <= {mult} sources, max|err| "
-                     f"{err:g}, {'same bits' if same else 'DIFFER'}")
+                     f"{err:g}, {'same bits' if same else 'DIFFER'}, index of "
+                     f"{-(-(n + 1) // ts_ops.INDEX_KEYS)} block(s) "
+                     f"{'= plain' if torch.equal(inv[0], inv_ref[0]) else '!= plain'}")
+    # the index launch of one block (n + 1 <= INDEX_KEYS row ids) on the
+    # pack's indices, clipped onto 300 rows
+    g, idx = rec_sa.calls[-1][:2]
+    one = all(torch.equal(a, b) for a, b in zip(ts_ops.build_inverse_index(idx, 300),
+                                                 ts_ops.inverse_index(idx, 300)))
+    check(one, "the inverse index of one block differs from the plain one")
     print(f"[9 kernel] token_scatter_add on the {len(rec_sa.calls)} backward calls of phase 7's "
-          f"warm-up step: " + "; ".join(parts), flush=True)
+          f"warm-up step (the inverse index by its own launch, against the plain stable sort "
+          f"and search): " + "; ".join(parts) + f"; the index of one block ({idx.numel()} "
+          f"indices clipped onto 300 rows) {'= plain' if one else '!= plain'}", flush=True)
 
     def scatter_report(g, idx, n):
         valid = idx >= 0
@@ -501,6 +543,8 @@ def train_phases(torch, np, check, seed: int, dev, smi: str):
         return dict(
             ms=time_ms(lambda: ts_ops.token_scatter_add(g, idx, n), 20),
             device_ms=device_ms(lambda: ts_ops.token_scatter_add(g, idx, n), 20),
+            index_device_ms=device_ms(lambda: ts_ops.build_inverse_index(idx, n), 20),
+            plain_index_device_ms=device_ms(lambda: ts_ops.inverse_index(idx, n), 20),
             plain_ms=time_ms(lambda: ts_ops.token_scatter_add_ref(g, idx, n), 10),
             library_ms=time_ms(lambda: acc.index_add_(0, safe, src), 20),
             library_device_ms=device_ms(lambda: acc.index_add_(0, safe, src), 20),
@@ -518,27 +562,37 @@ def train_phases(torch, np, check, seed: int, dev, smi: str):
                  and c[1].numel() == c[2] and bool((c[1] >= 0).all()))
     report = scatter_report(*pack[:3])
     report["relay round backward"] = scatter_report(*relay[:3])
+    # the same bytes forward: token_gather over the round's g and permutation
+    report["relay round backward"]["gather_device_ms"] = device_ms(
+        lambda: ts_ops.token_gather(*relay[:2]), 20)
     for label, r in (("dispatch pack backward", report),
                      ("relay round backward", report["relay round backward"])):
         print(f"[9 kernel] token_scatter_add {label}: {r['shape']}: kernel {r['ms']:.4f} ms "
               f"({r['device_ms']:.4f} on the device, {r['device_ms'] / r['bound_ms']:.2f}x its "
-              f"bound), plain {r['plain_ms']:.4f} ms, index_add_ {r['library_ms']:.4f} ms "
-              f"({r['library_device_ms']:.4f} on the device), bound {r['bound_ms']:.4f} ms "
-              f"(bytes)", flush=True)
+              f"bound; of it the inverse-index launch {r['index_device_ms']:.4f} and the row "
+              f"sums {r['device_ms'] - r['index_device_ms']:.4f}; the plain sort and search "
+              f"{r['plain_index_device_ms']:.4f}), "
+              + (f"token_gather on the same g and idx {r['gather_device_ms']:.4f} on the "
+                 f"device (kernel {r['device_ms'] / r['gather_device_ms']:.3f}x), "
+                 if "gather_device_ms" in r else "")
+              + f"plain {r['plain_ms']:.4f} ms, "
+              f"index_add_ {r['library_ms']:.4f} ms ({r['library_device_ms']:.4f} on the "
+              f"device), bound {r['bound_ms']:.4f} ms (bytes)", flush=True)
     del rec_sa
     torch.cuda.empty_cache()
     return report, counts_train
 
 
 def relay_phase(torch, check, seed: int, dev):
-    """Phase 13 -> (relay_copy's report, its launches through its entry point)."""
+    """Phase 13 -> (relay_copy's report, its launches through its entry point,
+    by route)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.relay_copy.ops import (
         parity_slot_map,
         relay_copy,
         relay_copy_ref,
     )
-    from repro_torch.launch.kernel_times import time_ms
+    from repro_torch.launch.kernel_times import device_ms, time_ms
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     n, d, bc = 8192, 4096, 256
@@ -566,23 +620,39 @@ def relay_phase(torch, check, seed: int, dev):
     nbytes = 2 * x.numel() * x.element_size() + smap.numel() * 4
     report = dict(
         ms=time_ms(lambda: relay_copy(x, smap, block_chunk=bc), 20),
+        device_ms=device_ms(lambda: relay_copy(x, smap, block_chunk=bc), 20),
         plain_ms=time_ms(lambda: relay_copy_ref(x, smap, block_chunk=bc), 20),
         library_ms=time_ms(lambda: out.copy_(x), 20),
+        library_device_ms=device_ms(lambda: out.copy_(x), 20),
         max_abs_err=_max_err(relay_copy(x, smap, block_chunk=bc), x),
         bound_ms=nbytes / PEAK_BYTES_S * 1e3, bound_by="bytes",
     )
     del inputs
-    # its own entry point, as a caller would use it: default map and chunk
+    grad_raises = _raises_under_grad(torch, lambda a: relay_copy(a[0], block_chunk=bc),
+                                     [x[:2 * bc].float()])
+    check(grad_raises, "relay_copy: an input that needs a gradient did not raise on the card")
+    # its own entry point, as a caller would use it (default map and chunk),
+    # on each route: the bulk route, then 420- and 210-byte chunks (4- and
+    # 2-byte words)
+    small = {"f32": torch.randn((45, 7), generator=gen, device=dev)}
+    small["bf16"] = small["f32"].to(torch.bfloat16)
     reset_launch_counts()
     y = relay_copy(x)
+    ys = {k: relay_copy(v, block_chunk=15) for k, v in small.items()}
     torch.cuda.synchronize()
-    launches = launch_counts()["relay_copy"]
-    check(torch.equal(y, x), "relay_copy entry point: not bit-exact")
+    counts = launch_counts()
+    launches = {k: counts[k] for k in ("relay_copy", "relay_copy_w4", "relay_copy_w2")}
+    check(torch.equal(y, x) and all(torch.equal(ys[k], small[k]) for k in small),
+          "relay_copy entry point: not bit-exact")
     print(f"[13 relay] relay_copy [{n}, {d}], chunks of {bc} rows: {', '.join(parts)}; "
-          f"bf16 parity: kernel {report['ms']:.4f} ms, plain (clone) "
-          f"{report['plain_ms']:.4f} ms, copy_ {report['library_ms']:.4f} ms, bound "
-          f"{report['bound_ms']:.4f} ms (bytes); entry point relay_copy(x): "
-          f"{launches} launch, exact", flush=True)
+          f"bf16 parity: kernel {report['ms']:.4f} ms ({report['device_ms']:.4f} on the "
+          f"device, {report['bound_ms'] / report['device_ms']:.3f} of its bound), plain "
+          f"(clone) {report['plain_ms']:.4f} ms, copy_ {report['library_ms']:.4f} ms "
+          f"({report['library_device_ms']:.4f} on the device), bound "
+          f"{report['bound_ms']:.4f} ms (bytes); entry point relay_copy(x) on [8192, 4096] "
+          f"bf16 and [45, 7] f32 and bf16 in chunks of 15 rows: launches by route "
+          f"{launches}, exact; an input that needs a gradient "
+          f"{'raises' if grad_raises else 'DOES NOT RAISE'} (no backward)", flush=True)
     return report, launches
 
 
@@ -931,8 +1001,8 @@ def main() -> int:
     # ---- 7-9. paper-moe-8e training ---------------------------------------------
     report["token_scatter_add"], counts_train = train_phases(torch, np, check, args.seed,
                                                              dev, smi)
-    train_kernels = ("token_gather", "token_scatter_add", "grouped_ffn_blocked",
-                     "flash_attention")
+    train_kernels = ("token_gather", "token_scatter_add", "token_scatter_index",
+                     "grouped_ffn_blocked", "flash_attention")
     for kname in MOE_KERNELS:
         launches[kname] += counts_train[kname]
     launches["token_scatter_add"] = counts_train["token_scatter_add"]
@@ -944,18 +1014,20 @@ def main() -> int:
     print(f"[12 generate] ({time.perf_counter() - t_start:.0f} s so far)", flush=True)
 
     # ---- 13. relay_copy -------------------------------------------------------
-    report["relay_copy"], launches["relay_copy"] = relay_phase(torch, check, args.seed, dev)
+    report["relay_copy"], relay_routes = relay_phase(torch, check, args.seed, dev)
+    launches["relay_copy"] = relay_routes["relay_copy"]
 
     # ---- 14. kernels on their paths ---------------------------------------------
     for kname in train_kernels:
         check(counts_train[kname] > 0, f"{kname} never launched on the training path")
     check(launches["mlstm_scan"] > 0, "mlstm_scan never launched on the xlstm-125m path")
-    check(launches["relay_copy"] > 0, "relay_copy never launched by its entry point")
+    for route, c in relay_routes.items():
+        check(c > 0, f"{route} never launched by relay_copy's entry point")
     print(f"[14 kernels] launches: paper-moe-8e serving (phases 4-5) "
           f"{ {k: counts_prefill[k] + counts_gen[k] for k in MOE_KERNELS} }; paper-moe-8e "
           f"training (phase 7's 3 timed steps) { {k: counts_train[k] for k in train_kernels} }; "
           f"xlstm-125m path (phases 11-12) mlstm_scan {launches['mlstm_scan']}; relay_copy's "
-          f"own entry point (phase 13; no path calls it) relay_copy {launches['relay_copy']} "
+          f"own entry point (phase 13; no path calls it) by route {relay_routes} "
           f"({time.perf_counter() - t_start:.0f} s in all)", flush=True)
 
     kernels = []

@@ -1,5 +1,5 @@
-// Hopper building blocks for the port's tensor-core kernels: mbarriers, TMA
-// loads, wgmma shared-memory descriptors and instructions, and the host-side
+// Hopper building blocks for the port's kernels: mbarriers, TMA loads, bulk
+// copies, wgmma shared-memory descriptors and instructions, and the host-side
 // encoding of TMA tensor maps.
 //
 // Conventions shared by every kernel that includes this header:
@@ -85,6 +85,46 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// ---- bulk copies (no tensor map: contiguous bytes, 16-byte aligned, sizes a
+// multiple of 16) -------------------------------------------------------------
+
+// global -> shared, completion of `bytes` on the mbarrier `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// shared -> global, in the thread's current bulk group
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// until at most N of the thread's bulk groups are still reading shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// until at most N of the thread's bulk groups are incomplete (writes done)
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// order this thread's view of shared memory before the async proxy's next use
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---- wgmma ------------------------------------------------------------------

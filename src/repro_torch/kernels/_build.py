@@ -35,11 +35,15 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 #: launches of each CUDA kernel; a wrapper adds one where it launches its
 #: kernel, and nowhere else.  ``grouped_ffn_blocked`` and ``flash_attention``
 #: count their bf16 tensor-core routes (the serving path's); the ``_f32``
-#: names count their float32 CUDA-core routes.
+#: names count their float32 CUDA-core routes.  ``token_scatter_index``
+#: counts the inverse-index launch (``token_scatter_add`` makes one before
+#: its row sums); ``relay_copy`` counts its TMA bulk route, ``relay_copy_w4``
+#: and ``relay_copy_w2`` its 4- and 2-byte word routes.
 LAUNCHES: Dict[str, int] = {
-    "token_gather": 0, "token_scatter_add": 0, "grouped_ffn_blocked": 0,
-    "grouped_ffn_blocked_f32": 0, "flash_attention": 0, "flash_attention_f32": 0,
-    "mlstm_scan": 0, "relay_copy": 0}
+    "token_gather": 0, "token_scatter_add": 0, "token_scatter_index": 0,
+    "grouped_ffn_blocked": 0, "grouped_ffn_blocked_f32": 0, "flash_attention": 0,
+    "flash_attention_f32": 0, "mlstm_scan": 0, "relay_copy": 0, "relay_copy_w4": 0,
+    "relay_copy_w2": 0}
 
 
 def _nvcc() -> str:

@@ -246,6 +246,32 @@ def _grouped_ffn_forward(x, expert_id, wg, wu, wd, block_tokens: int):
 _BWD_ROWS = 256
 
 
+def _mm_f32(a, b):
+    """``a @ b`` as float32: the exact products of the operands summed in float32.
+
+    bf16 operands on the card take one cuBLAS product with a float32 output
+    (``torch.mm(..., out_dtype=torch.float32)``); the CPU has no kernel for
+    that, so there the operands are upcast first.
+    """
+    if a.dtype == torch.float32:
+        return a @ b
+    if a.device.type == "cuda":
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+def _hi_lo(t, dt):
+    """A float32 [r, F] as an operand of dtype ``dt``: ``t`` itself for
+    float32, else [2r, F]: ``t`` rounded to ``dt`` over the rest rounded to
+    ``dt``.  A product over the rows then sums both halves (against the
+    other operand's rows stacked twice) and carries ``t`` to about 2^-17 of
+    its value, in one product with twice the depth."""
+    if dt == torch.float32:
+        return t
+    hi = t.to(dt)
+    return torch.cat((hi, (t - hi.float()).to(dt)))
+
+
 def grouped_ffn_bwd(g, x, expert_id, wg, wu, wd):
     """The VJP of ``grouped_ffn_ref``: (gx, gwg, gwu, gwd) for the output's gradient g.
 
@@ -257,11 +283,21 @@ def grouped_ffn_bwd(g, x, expert_id, wg, wu, wd):
         gwd = h^T g,  dh = g wd^T,  da = dh b silu'(a),  db = dh silu(a),
         gx = da wg^T + db wu^T,  gwg = x^T da,  gwu = x^T db.
 
-    Zero rows add nothing to the weights' gradients.  Products take
-    operands in the weights' dtype and sum in float32 (``torch.matmul``, as
-    the reference leaves them to XLA); the SwiGLU derivative is float32.
-    Rows with ``expert_id < 0`` get zero gradient.  One read of the
-    experts' row counts on the host slices the rows.
+    Zero rows add nothing to the weights' gradients.  The reference's VJP
+    of ``grouped_ffn_ref`` computes in float32 and rounds only its outputs;
+    here products take operands in the weights' dtype and sum in float32.
+    ``a``, ``b``, ``dh`` and gx's two terms come out in float32
+    (:func:`_mm_f32`), and the SwiGLU derivative is float32.  ``h``,
+    ``da`` and ``db`` must enter the next products as operands in the
+    weights' dtype: with bf16 weights that is the one rounding a bf16
+    tensor-core product needs.  For the weights' gradients, sums over
+    every row of an expert, that rounding alone would double the error
+    (each operand's rounding adds about as much as the output's), so
+    ``h``, ``da`` and ``db`` enter them as their bf16 value plus their
+    bf16 residual (:func:`_hi_lo`), in one product of twice the depth;
+    gx's terms, sums over F, take the bf16 value alone.  Rows with
+    ``expert_id < 0`` get zero gradient.  One read of the experts' row
+    counts on the host slices the rows.
     """
     n_exp = wg.shape[0]
     dt = wg.dtype
@@ -282,17 +318,19 @@ def grouped_ffn_bwd(g, x, expert_id, wg, wu, wd):
         if r == 0:
             continue
         xe, ge = xs[lo:lo + r], gs[lo:lo + r]
-        a = (xe @ wg[e]).float()
-        b = (xe @ wu[e]).float()
+        a = _mm_f32(xe, wg[e])
+        b = _mm_f32(xe, wu[e])
         sa = torch.sigmoid(a)
         silu = a * sa
-        torch.mm((silu * b).to(dt).T, ge, out=gwd[e])
-        dh = (ge @ wd[e].T).float()
-        da = (dh * b * sa * (1 + a * (1 - sa))).to(dt)
-        db = (dh * silu).to(dt)
-        torch.mm(xe.T, da, out=gwg[e])
-        torch.mm(xe.T, db, out=gwu[e])
-        dxs[lo:lo + r] = (da @ wg[e].T).float() + (db @ wu[e].T).float()
+        xx, gg = (xe, ge) if dt == torch.float32 else (torch.cat((xe, xe)),
+                                                        torch.cat((ge, ge)))
+        torch.mm(_hi_lo(silu * b, dt).T, gg, out=gwd[e])
+        dh = _mm_f32(ge, wd[e].T)
+        da = _hi_lo(dh * b * sa * (1 + a * (1 - sa)), dt)
+        db = _hi_lo(dh * silu, dt)
+        torch.mm(xx.T, da, out=gwg[e])
+        torch.mm(xx.T, db, out=gwu[e])
+        dxs[lo:lo + r] = _mm_f32(da[:r], wg[e].T) + _mm_f32(db[:r], wu[e].T)
         lo += r
     return token_gather(dxs.to(x.dtype), back), gwg, gwu, gwd
 

@@ -10,6 +10,10 @@ one, as ``mlstm_forward_chunked(state=...)`` does.  :func:`mlstm_scan_ref`
 is the per-step cell recurrence (the reference's ``ref.py``), the oracle of
 both.
 
+The CUDA route has no backward: with grad mode on and an input that needs
+a gradient it raises, so a gradient is never silently lost (the plain
+version on the CPU differentiates by autograd).
+
 Layout: q, k, v [B, H, S, dh] and ig, lf [B, H, S], all float32 (q and k
 pre-scaled as in ``_mlstm_qkvif``; lf is the log-sigmoid forget gate).  A
 state is ``{"C": [B, H, dh, dh], "n": [B, H, dh], "m": [B, H]}``.
@@ -130,6 +134,11 @@ def mlstm_scan(q, k, v, ig, lf, *, chunk: int = 64, state: Optional[State] = Non
     if q.device.type == "cpu":
         return mlstm_scan_chunked_ref(q, k, v, ig, lf, chunk=chunk, state=state)
     dev = q.device
+    if torch.is_grad_enabled() and any(
+            a.requires_grad for a in (q, k, v, ig, lf, *(state or {}).values())):
+        raise RuntimeError("mlstm_scan: the CUDA kernel has no backward yet; an input "
+                           "needs a gradient (run under torch.no_grad(), or on the CPU "
+                           "through the plain version)")
     if dev.type != "cuda" or any(a.device != dev for a in (k, v, ig, lf)):
         raise ValueError("mlstm_scan: q, k, v, ig, lf must be on one CUDA device")
     if any(a.dtype != torch.float32 for a in (q, k, v, ig, lf)):

@@ -13,8 +13,10 @@ is an ``autograd.Function`` whose backward is the reference's ``_bwd``
 ``idx``.  It saves only ``idx`` and ``N``.  The backward runs
 :func:`token_scatter_add`, the port's own kernel
 (``csrc/token_scatter_add.cu``; the reference's is an XLA scatter-add):
-sources summed in increasing ``i`` in float32, without atomics, so a second
-run gives the same bits.
+one launch builds the inverse index (a counting sort, equal to
+:func:`inverse_index`, the plain version), a second sums each row's
+sources in increasing ``i`` in float32 (a single source is copied as it
+is), without atomics on data, so a second run gives the same bits.
 """
 
 from __future__ import annotations
@@ -32,13 +34,17 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
     ctypes.c_longlong, ctypes.c_void_p]
-_ADD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [
+_ADD_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_longlong] + [
+    ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
     ctypes.c_longlong, ctypes.c_void_p]
+_INDEX_ARGTYPES = [ctypes.c_void_p] + [ctypes.c_longlong] * 2 + [ctypes.c_int] + [
+    ctypes.c_void_p] * 3
 
 THREADS = 256       #: threads a block (csrc/token_gather.cu, csrc/token_scatter_add.cu)
 UNROLL = 4          #: words in flight a thread (both kernels' kUnroll)
 SEG_BYTES = 16384   #: bytes of a row one unit copies at most
+INDEX_KEYS = 512    #: row ids one block of the inverse-index launch counts (kKeys)
 
 
 class Geometry(NamedTuple):
@@ -83,6 +89,11 @@ def _entry():
 @functools.lru_cache(maxsize=None)
 def _add_entry():
     return _build.function("token_scatter_add", "token_scatter_add", _ADD_ARGTYPES)
+
+
+@functools.lru_cache(maxsize=None)
+def _index_entry():
+    return _build.function("token_scatter_add", "token_scatter_index", _INDEX_ARGTYPES)
 
 
 def _check_cuda(name: str, t: torch.Tensor, idx: torch.Tensor) -> None:
@@ -169,13 +180,13 @@ def token_scatter_add_ref(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.T
 
 
 def inverse_index(idx: torch.Tensor, n: int):
-    """(order [M] int64, offsets [n + 1] int64): output row r sums the rows
-    ``order[offsets[r]:offsets[r + 1]]`` of g, in increasing i.
+    """Plain version of the inverse index: (order [M] int64, offsets [n + 1]
+    int64); output row r sums the rows ``order[offsets[r]:offsets[r + 1]]``
+    of g, in increasing i.
 
     A stable sort of the clipped 32-bit index (negative entries sort last,
     past ``offsets[n]``) and each row's first position in it by a binary
-    search: device ops, no read on the host (``bincount`` on CUDA reads
-    its input's maximum back).
+    search.  :func:`build_inverse_index` is its kernel.
     """
     key = torch.where(idx < 0, n, idx.clamp_max(n - 1)).to(torch.int32)
     sorted_key, order = torch.sort(key, stable=True)
@@ -183,8 +194,42 @@ def inverse_index(idx: torch.Tensor, n: int):
     return order, torch.searchsorted(sorted_key, rows)
 
 
+def _index_checks(idx: torch.Tensor, n: int) -> None:
+    if n < 1 or n >= 2**31 - 1 or idx.shape[0] >= 2**31 - 1:
+        raise ValueError(f"inverse index: {n} rows, {idx.shape[0]} indices")
+
+
+def build_inverse_index(idx: torch.Tensor, n: int):
+    """:func:`inverse_index` by the hand-written launch (``csrc/token_scatter_add.cu``,
+    ``inverse_index``): a counting sort in one launch, no host read-back.
+
+    Equal to :func:`inverse_index` bit for bit; on a CPU tensor it is that
+    plain version.  One block per ``INDEX_KEYS`` of the ``n + 1`` row ids
+    (the last for ``idx < 0``), each reading every index.
+    """
+    if idx.device.type == "cpu":
+        return inverse_index(idx, n)
+    if idx.device.type != "cuda" or idx.dim() != 1 or not idx.is_contiguous():
+        raise ValueError(f"build_inverse_index: idx {tuple(idx.shape)} on {idx.device}")
+    if idx.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"build_inverse_index: index dtype {idx.dtype}")
+    _index_checks(idx, n)
+    order = torch.empty(idx.shape[0], dtype=torch.int64, device=idx.device)
+    offsets = torch.empty(n + 1, dtype=torch.int64, device=idx.device)
+    err = _index_entry()(idx.data_ptr(), idx.shape[0], n, idx.element_size(),
+                         order.data_ptr(), offsets.data_ptr(),
+                         torch.cuda.current_stream(idx.device).cuda_stream)
+    _build.check(err, "token_scatter_index")
+    _build.LAUNCHES["token_scatter_index"] += 1
+    return order, offsets
+
+
 def token_scatter_add(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
-    """g: [M, D] float32 or bfloat16, idx: [M] int32/int64 -> gx [n, D] in g's dtype."""
+    """g: [M, D] float32 or bfloat16, idx: [M] int32/int64 -> gx [n, D] in g's dtype.
+
+    On CUDA one call, two launches: the inverse index
+    (:func:`build_inverse_index`'s) and the row sums.
+    """
     if g.device.type == "cpu":
         return token_scatter_add_ref(g, idx, n)
     _check_cuda("token_scatter_add", g, idx)
@@ -197,12 +242,16 @@ def token_scatter_add(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tenso
         return out
     if g.shape[0] == 0:
         return out.zero_()
-    order, offsets = inverse_index(idx, n)
+    _index_checks(idx, n)
+    order = torch.empty(idx.shape[0], dtype=torch.int64, device=g.device)
+    offsets = torch.empty(n + 1, dtype=torch.int64, device=g.device)
     row_bytes = g.shape[1] * g.element_size()
     geo = geometry(row_bytes, n, (g.data_ptr() | out.data_ptr()) & 15)
-    err = _add_entry()(g.data_ptr(), order.data_ptr(), offsets.data_ptr(), out.data_ptr(), n,
-                       row_bytes, int(g.dtype == torch.bfloat16), geo.word, geo.seg_words,
-                       geo.group, *geo.grid, torch.cuda.current_stream(g.device).cuda_stream)
+    err = _add_entry()(g.data_ptr(), idx.data_ptr(), idx.element_size(), idx.shape[0],
+                       order.data_ptr(), offsets.data_ptr(), out.data_ptr(), n, row_bytes,
+                       int(g.dtype == torch.bfloat16), geo.word, geo.seg_words, geo.group,
+                       *geo.grid, torch.cuda.current_stream(g.device).cuda_stream)
     _build.check(err, "token_scatter_add")
+    _build.LAUNCHES["token_scatter_index"] += 1
     _build.LAUNCHES["token_scatter_add"] += 1
     return out

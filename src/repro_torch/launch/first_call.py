@@ -3,15 +3,17 @@
     python -m repro_torch.launch.first_call [--time] [--kernels NAME ...]
 
 builds the redesigned kernels (the grouped FFN, flash, ``token_gather``,
-``token_scatter_add`` and ``mlstm_scan``) and prints nvcc's register, shared-memory and spill report
-for each of their kernels.  Then it holds each against its plain version,
+``token_scatter_add``, ``mlstm_scan`` and ``relay_copy``) and prints
+nvcc's register, shared-memory and spill report for each of their kernels.  Then it holds each against its plain version,
 smallest first, and stops at the first stage that fails (exit 1):
 
   1. one tile each: the FFN at M 64, D 128, F 128, E 1 (also with Wd = I,
      which shows pass 1 alone, and with X = I, which shows pass 2's
      weights), flash at one 64-row tile for Dh 64 and 128, causal or not;
-     ``token_gather`` and ``token_scatter_add`` on 8 rows of 128 bytes;
-     ``mlstm_scan`` on one chunk of 64 steps at dh 64;
+     ``token_gather`` and ``token_scatter_add`` on 8 rows of 128 bytes
+     (first the inverse-index launch alone, bit for bit against the plain
+     sort and search); ``mlstm_scan`` on one chunk of 64 steps at dh 64;
+     ``relay_copy`` on one tile of 2 KiB;
   2. ragged shapes: the FFN at F 192 for block_tokens 64 and 128, with and
      without ``block_rows`` (padding rows exactly 0); flash with Sq 200 or
      130 and Sk 200 or 300 under the causal, window, offset and full masks;
@@ -21,7 +23,10 @@ smallest first, and stops at the first stage that fails (exit 1):
      chunk of 8, and a carried state; ``token_scatter_add`` (token_gather's
      backward) on 6- and 12-byte rows, rows of several segments, the
      dispatch pack's backward (8192 rows of 8 KiB onto 2048) and offset
-     views.
+     views, after the inverse index on five and seventeen blocks; ``relay_copy``
+     at [8192, 4096] in bf16, f32 and int32 (the bulk route), on 420- and
+     210-byte chunks and offset views (the 4- and 2-byte routes), each
+     under the parity, swapped and all-zeros maps.
 
 Where a check fails it prints the error's map in 8 x 8 blocks, which shows
 a misplaced operand (a wrong descriptor stride or swizzle) at a glance.
@@ -52,11 +57,12 @@ from ..kernels import _build
 from ..kernels.flash_attention import ops as fa
 from ..kernels.grouped_ffn import ops as ffn
 from ..kernels.mlstm_scan import ops as ms
+from ..kernels.relay_copy import ops as rl
 from ..kernels.token_scatter import ops as tg
 from .kernel_times import device_ms, gather_inputs, mlstm_flops, mlstm_inputs, time_ms
 
 KERNELS = ("grouped_ffn", "flash_attention", "token_gather", "token_scatter_add",
-           "mlstm_scan")
+           "mlstm_scan", "relay_copy")
 PEAK_F32 = 67e12                           # f32 on CUDA cores
 
 
@@ -178,7 +184,24 @@ def _gather_stages(check, rng, dev) -> None:
               tg.token_gather_ref(x, idx), 0.0)
 
 
+def _index_stage(check, rng, dev, n, m) -> None:
+    idx = torch.as_tensor(rng.integers(-3, n + 3, size=(m,)), device=dev)
+    order, offsets = tg.build_inverse_index(idx, n)
+    torch.cuda.synchronize()
+    want = tg.inverse_index(idx, n)
+    check(f"inverse index {m} indices -> {n} rows ({-(-(n + 1) // tg.INDEX_KEYS)} blocks)",
+          torch.cat((order, offsets))[:, None], torch.cat(want)[:, None], 0.0)
+
+
 def _scatter_stages(check, rng, dev) -> None:
+    _index_stage(check, rng, dev, 8, 8)
+    if not check.ok:
+        return
+    _index_stage(check, rng, dev, 2048, 8192)             # five blocks
+    _index_stage(check, rng, dev, 8192, 4096)             # seventeen blocks
+    if not check.ok:
+        return
+
     def case(n, m, d, dtype, offset=0):
         flat = torch.as_tensor(rng.normal(size=(m * d + offset,)), dtype=dtype, device=dev)
         g = flat[offset:].view(m, d)
@@ -225,6 +248,34 @@ def _mlstm_stages(check, rng, dev) -> None:
     case(1, 4, 320, 192, 64)
     case(2, 1, 8, 192, 64)                              # a chunk of 8
     case(1, 2, 300, 100, 64, split=130)
+
+
+def _relay_stages(check, rng, dev) -> None:
+    def case(n, d, bc, dtype, offset=0):
+        flat = torch.as_tensor(rng.integers(-1000, 1000, size=(n * d + offset,)), dtype=dtype,
+                               device=dev)
+        x = flat[offset:].view(n, d)
+        k = n // bc
+        for name, smap in (("parity", rl.parity_slot_map(k, dev)),
+                           ("swapped", 1 - rl.parity_slot_map(k, dev)),
+                           ("zeros", torch.zeros(k, dtype=torch.int32, device=dev))):
+            out = rl.relay_copy(x, smap, block_chunk=bc)
+            torch.cuda.synchronize()
+            word = rl.geometry(k, bc * d * x.element_size(), (x.data_ptr() | out.data_ptr())
+                               & 15, rl._sm_count(out.device.index)).word
+            check(f"relay_copy [{n}, {d}] {str(dtype)[6:]} chunks of {bc}, {name} map "
+                  f"({word}-byte route)", out, x, 0.0)
+
+    case(16, 64, 16, torch.bfloat16)                   # one tile of 2 KiB
+    if not check.ok:
+        return
+    case(512, 128, 64, torch.float32)
+    for dtype in (torch.bfloat16, torch.float32, torch.int32):
+        case(8192, 4096, 256, dtype)                   # phase 13's shapes
+    case(45, 7, 15, torch.float32)                     # 420-byte chunks: 4-byte words
+    case(45, 7, 15, torch.bfloat16)                    # 210-byte chunks: 2-byte words
+    case(512, 128, 64, torch.float32, offset=1)        # offset views
+    case(512, 128, 64, torch.bfloat16, offset=1)
 
 
 def _time_gather(dev, seed: int) -> None:
@@ -358,7 +409,7 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(args.seed)
     stages = {"grouped_ffn": _ffn_stages, "flash_attention": _flash_stages,
               "token_gather": _gather_stages, "token_scatter_add": _scatter_stages,
-              "mlstm_scan": _mlstm_stages}
+              "mlstm_scan": _mlstm_stages, "relay_copy": _relay_stages}
     for name in args.kernels:
         stages[name](check, rng, dev)
         if not check.ok:

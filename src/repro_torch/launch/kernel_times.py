@@ -1,12 +1,13 @@
-"""Time ``token_gather`` and ``mlstm_scan`` at the serving paths' shapes.
+"""Time ``token_gather``, ``mlstm_scan`` and ``relay_copy`` at the paths' shapes.
 
     PYTHONPATH=src python -P src/repro_torch/launch/kernel_times.py [--seed N]
 
-It uses only the two kernels' public calls, ``token_gather(x, idx)`` and
-``mlstm_scan(q, k, v, ig, lf, chunk=...)``, so it runs on the
-``repro_torch`` package of any checkout put on ``PYTHONPATH`` (``-P``
-keeps this file's directory off the import path): two trees can then be
-compared on one card in one call.  Inputs are synthetic, from ``--seed``:
+It uses only the three kernels' public calls, ``token_gather(x, idx)``,
+``mlstm_scan(q, k, v, ig, lf, chunk=...)`` and ``relay_copy(x, slot_map,
+block_chunk=...)``, so it runs on the ``repro_torch`` package of any
+checkout put on ``PYTHONPATH`` (``-P`` keeps this file's directory off the
+import path): two trees can then be compared on one card in one call.
+Inputs are synthetic, from ``--seed``:
 
   * ``token_gather`` on a prefill relay round (1024 of 1024 rows of
     128 KiB, bf16, a permutation), a decode step's relay round (200 rows of
@@ -18,7 +19,11 @@ compared on one card in one call.  Inputs are synthetic, from ``--seed``:
     3.35 TB/s;
   * ``mlstm_scan`` on xlstm-125m layer 0's prefill shapes (q/k/v [4, 4,
     2048, 192] f32, chunk 64) against its f32 operations bound at 67
-    TFLOP/s.
+    TFLOP/s;
+  * ``relay_copy`` on [8192, 4096] bf16 in chunks of 256 rows under the
+    parity map (``chip_smoke.py`` phase 13's shape) beside ``Tensor.copy_``,
+    by CUDA events and on the device, with its bound: the bytes read and
+    written and the map at 3.35 TB/s.
 
 It prints one line a measurement and, last, a JSON object of them all.
 """
@@ -112,6 +117,7 @@ def main(argv=None) -> int:
         print("kernel_times: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.kernels.mlstm_scan.ops import mlstm_scan
+    from repro_torch.kernels.relay_copy.ops import parity_slot_map, relay_copy
     from repro_torch.kernels.token_scatter.ops import token_gather
 
     dev = torch.device("cuda")
@@ -142,6 +148,23 @@ def main(argv=None) -> int:
     print(f"mlstm_scan q/k/v {tuple(q.shape)} f32, chunk {L}: {ms:.4f} ms "
           f"({out['mlstm_scan']['device_ms']:.4f} on the device), bound "
           f"{out['mlstm_scan']['bound_ms']:.4f} ms", flush=True)
+    del q, k, v, ig, lf
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    x = torch.randn((8192, 4096), generator=gen, device=dev).to(torch.bfloat16)
+    smap = parity_slot_map(8192 // 256, dev)
+    y = torch.empty_like(x)
+    r = dict(ms=time_ms(lambda: relay_copy(x, smap, block_chunk=256), 20),
+             device_ms=device_ms(lambda: relay_copy(x, smap, block_chunk=256), 20),
+             copy_ms=time_ms(lambda: y.copy_(x), 20),
+             copy_device_ms=device_ms(lambda: y.copy_(x), 20),
+             bound_ms=(2 * x.numel() * 2 + smap.numel() * 4) / PEAK_BYTES_S * 1e3)
+    if not torch.equal(relay_copy(x, smap, block_chunk=256), x):
+        print("kernel_times: relay_copy is not an exact copy", file=sys.stderr)
+        return 1
+    out["relay_copy"] = r
+    print(f"relay_copy [8192, 4096] bf16, chunks of 256 rows, parity map: {r['ms']:.4f} ms "
+          f"({r['device_ms']:.4f} on the device), copy_ {r['copy_ms']:.4f} ms "
+          f"({r['copy_device_ms']:.4f}), bound {r['bound_ms']:.4f} ms", flush=True)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -43,6 +43,7 @@ from ..train.step import make_train_step
 #: profiler shows them); the FFN and flash have a bf16 tensor-core route
 #: (``tc::``) and a float32 CUDA-core route each
 OWN = {"gather_rows": "token_gather", "scatter_add_rows": "token_scatter_add",
+       "inverse_index<": "token_scatter_add's inverse index",
        "ffn_tc<true>": "grouped_ffn_blocked pass 1 (tensor cores)",
        "ffn_tc<false>": "grouped_ffn_blocked pass 2 (tensor cores)",
        "ffn_gate_up": "grouped_ffn_blocked pass 1 (f32)",
@@ -50,7 +51,8 @@ OWN = {"gather_rows": "token_gather", "scatter_add_rows": "token_scatter_add",
        "flash_tc<": "flash_attention (tensor cores)", "flash_fwd": "flash_attention (f32)",
        "mlstm_delta": "mlstm_scan 1/3 (chunk state updates)",
        "mlstm_prefix": "mlstm_scan 2/3 (stabilizer chain, prefix over chunks)",
-       "mlstm_out": "mlstm_scan 3/3 (chunk outputs)", "relay_stage": "relay_copy"}
+       "mlstm_out": "mlstm_scan 3/3 (chunk outputs)", "relay_bulk": "relay_copy",
+       "relay_words": "relay_copy (word routes)"}
 
 #: per architecture: EP ranks, prefill length, prompt length, new tokens
 SHAPES = {"paper-moe-8e": (8, 512, 8, 8), "xlstm-125m": (1, 2048, 128, 16)}

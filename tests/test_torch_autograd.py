@@ -18,10 +18,13 @@ import torch
 
 from repro.kernels.flash_attention.ops import chunked_attention as j_chunked
 from repro.kernels.grouped_ffn import ops as j_ffn_ops
+from repro.kernels.grouped_ffn.ref import grouped_ffn_ref as j_ffn_ref
 from repro.kernels.token_scatter.ops import token_gather as j_gather
 from repro_torch.core.moe_comm import MoECommConfig, MoEDispatcher
 from repro_torch.kernels.flash_attention.ops import attention, flash_attention, mha_ref
 from repro_torch.kernels.grouped_ffn.ops import grouped_ffn
+from repro_torch.kernels.mlstm_scan.ops import mlstm_scan, mlstm_scan_ref
+from repro_torch.kernels.relay_copy.ops import relay_copy
 from repro_torch.kernels.token_scatter.ops import (
     inverse_index,
     token_gather,
@@ -125,6 +128,31 @@ def test_inverse_index_lists_each_rows_sources_in_order(dtype):
                                   want.float().numpy())
 
 
+@pytest.mark.parametrize("kernel", ["mlstm_scan", "relay_copy"])
+def test_kernels_without_backward_differentiate_on_the_cpu(kernel):
+    # their CUDA routes raise under a gradient; the plain versions, on the
+    # CPU, keep autograd: relay_copy's gradient is the cotangent itself,
+    # mlstm_scan's that of its per-step recurrence
+    rng = np.random.default_rng(9)
+    if kernel == "relay_copy":
+        x = torch.as_tensor(rng.normal(size=(512, 8)), dtype=torch.float32).requires_grad_(True)
+        g = torch.as_tensor(rng.normal(size=(512, 8)), dtype=torch.float32)
+        (gx,) = torch.autograd.grad(relay_copy(x, block_chunk=128), x, g)
+        assert torch.equal(gx, g)
+        return
+    q, k, v = (torch.as_tensor(rng.normal(size=(1, 2, 24, 8)) * 0.3, dtype=torch.float32)
+               .requires_grad_(True) for _ in range(3))
+    ig = torch.as_tensor(rng.normal(size=(1, 2, 24)) * 0.5, dtype=torch.float32)
+    lf = torch.nn.functional.logsigmoid(
+        torch.as_tensor(rng.normal(size=(1, 2, 24)) + 2.0, dtype=torch.float32))
+    g = torch.as_tensor(rng.normal(size=(1, 2, 24, 8)), dtype=torch.float32)
+    got = torch.autograd.grad(mlstm_scan(q, k, v, ig, lf, chunk=8)[0], (q, k, v), g)
+    want = torch.autograd.grad(mlstm_scan_ref(q, k, v, ig, lf)[0], (q, k, v), g)
+    for a, b in zip(got, want):
+        assert a.abs().max() > 0
+        _close(a.numpy(), b.numpy(), 1e-5)     # f32: chunked vs per-step sums
+
+
 def test_dispatch_sideband_builds_no_graph():
     # the payload carries the gradient; the f32 expert-id sideband does not
     disp = MoEDispatcher(MoECommConfig(n_devices=4, n_experts=8, d_model=8, chunk_tokens=4,
@@ -197,6 +225,54 @@ def test_grouped_ffn_vjp_zero_for_unused_experts_and_all_padding():
         lambda *a: grouped_ffn(a[0], torch.as_tensor(none), *a[1:], block_tokens=32),
         [x, wg, wu, wd], g)
     assert all((t == 0).all() for t in grads)
+
+
+#: the bf16 backward's error against the float64 truth may be at most this
+#: many times the reference's: the reference's VJP of ``grouped_ffn_ref``
+#: rounds only its outputs to bf16, while the port's products also take
+#: ``h``, ``da`` and ``db`` as bf16 operands (one more rounding each); with
+#: ``a``, ``b`` and ``dh`` kept in float32 that costs 1.0-1.16x on the CPU
+_BF16_FFN_VJP_RATIO = 1.5
+
+
+def _ffn_truth_f64(x, eid, wg, wu, wd, g):
+    """The VJP of ``grouped_ffn_ref`` in float64, by torch autograd."""
+    live = [torch.as_tensor(a, dtype=torch.float64).requires_grad_(True)
+            for a in (x, wg, wu, wd)]
+    xx, gg, uu, dd = live
+    out = torch.zeros_like(xx)
+    e_id = torch.as_tensor(eid).long()
+    for e in range(wg.shape[0]):
+        y = (torch.nn.functional.silu(xx @ gg[e]) * (xx @ uu[e])) @ dd[e]
+        out = torch.where((e_id == e)[:, None], y, out)
+    return torch.autograd.grad(out, live, torch.as_tensor(g, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("N,D,F", [(512, 128, 256), (2048, 256, 512)])
+def test_grouped_ffn_vjp_bf16_within_reference_error(N, D, F):
+    # bf16 inputs and cotangent (the values both sides see); the port's
+    # Function (plain forward, grouped_ffn_bwd) against jax.vjp of the
+    # reference's grouped_ffn_ref, each measured against the float64 VJP on
+    # the same bf16 values, as a fraction of each gradient's largest value
+    E = 8
+    x, eid, w, g = _ffn_inputs(N, D, F, E, seed=N + D)
+    bf = [torch.as_tensor(a).to(torch.bfloat16) for a in (x, *w, g)]
+    vals = [t.float().numpy() for t in bf]
+    truth = _ffn_truth_f64(vals[0], eid, *vals[1:4], vals[4])
+    live = [t.clone().requires_grad_(True) for t in bf[:4]]
+    y = grouped_ffn(live[0], torch.as_tensor(eid), *live[1:], block_tokens=128)
+    port = torch.autograd.grad(y, live, bf[4])
+    _, vjp = jax.vjp(lambda *a: j_ffn_ref(a[0], jnp.asarray(eid), *a[1:]),
+                     *(jnp.asarray(v, dtype=jnp.bfloat16) for v in vals[:4]))
+    ref = vjp(jnp.asarray(vals[4], dtype=jnp.bfloat16))
+    for name, p, r, t in zip(("x", "wg", "wu", "wd"), port, ref, truth):
+        assert p.dtype == torch.bfloat16
+        t = t.numpy()
+        scale = np.abs(t).max()
+        err_port = np.abs(p.float().numpy() - t).max() / scale
+        err_ref = np.abs(np.asarray(r.astype(jnp.float32)) - t).max() / scale
+        assert err_port <= _BF16_FFN_VJP_RATIO * err_ref, (
+            f"g{name}: port {err_port:.3g} > {_BF16_FFN_VJP_RATIO} x reference {err_ref:.3g}")
 
 
 # --------------------------------------------------------------------------- #

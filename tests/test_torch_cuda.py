@@ -35,7 +35,9 @@ from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
 from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
 from repro_torch.kernels.grouped_ffn.ops import grouped_ffn_bwd
 from repro_torch.kernels.token_scatter.ops import (
+    build_inverse_index,
     geometry,
+    inverse_index,
     token_gather,
     token_gather_ref,
     token_scatter_add,
@@ -424,6 +426,14 @@ def test_mlstm_scan_carries_state_at_a_ragged_head_dim(cuda):
         _close(st_b[key], st_ref[key])
 
 
+_RELAY_ROUTES = ("relay_copy", "relay_copy_w4", "relay_copy_w2")
+
+
+def _relay_launches():
+    counts = launch_counts()
+    return sum(counts[r] for r in _RELAY_ROUTES)
+
+
 def _relay_input(rng, n, d, dtype, device):
     if dtype == torch.int32:
         return torch.as_tensor(rng.integers(-100, 100, size=(n, d)), dtype=dtype,
@@ -441,13 +451,42 @@ def test_relay_copy_bit_exact_under_every_slot_map(cuda, dtype, n, d, bc):
     maps = [None, parity_slot_map(n_chunks, cuda), 1 - parity_slot_map(n_chunks, cuda),
             torch.zeros(n_chunks, dtype=torch.int32, device=cuda)]
     for slot_map in maps:
-        before = launch_counts()["relay_copy"]
+        before = _relay_launches()
         out = relay_copy(x, slot_map, block_chunk=bc)
         torch.cuda.synchronize()
-        assert launch_counts()["relay_copy"] == before + 1
+        assert _relay_launches() == before + 1
         assert out.dtype == x.dtype and out.data_ptr() != x.data_ptr()
         assert torch.equal(out, x)
         assert torch.equal(out, relay_copy_ref(x, slot_map, block_chunk=bc))
+
+
+@pytest.mark.parametrize("dtype,n,d,bc,offset,route", [
+    (torch.bfloat16, 8192, 4096, 256, 0, "relay_copy"),      # phase 13's shape: bulk
+    (torch.float32, 512, 128, 64, 0, "relay_copy"),
+    (torch.int32, 96, 4, 3, 0, "relay_copy"),                # 48-byte chunks, 16-byte tiles
+    (torch.float32, 45, 7, 15, 0, "relay_copy_w4"),          # 420-byte chunks
+    (torch.int32, 45, 7, 15, 0, "relay_copy_w4"),
+    (torch.bfloat16, 45, 7, 15, 0, "relay_copy_w2"),         # 210-byte chunks
+    (torch.float32, 512, 128, 64, 1, "relay_copy_w4"),       # a view 4 bytes off
+    (torch.bfloat16, 512, 128, 64, 1, "relay_copy_w2"),      # a view 2 bytes off
+])
+def test_relay_copy_takes_each_route_bit_exact(cuda, dtype, n, d, bc, offset, route):
+    # the route follows the chunk size's and both pointers' alignment; every
+    # route is bit-exact under the parity, swapped and all-zeros maps
+    rng = np.random.default_rng(n + d + offset)
+    flat = _relay_input(rng, 1, n * d + offset, dtype, cuda)[0]
+    x = flat[offset:].view(n, d)
+    n_chunks = n // bc
+    for slot_map in (parity_slot_map(n_chunks, cuda), 1 - parity_slot_map(n_chunks, cuda),
+                     torch.zeros(n_chunks, dtype=torch.int32, device=cuda)):
+        before = launch_counts()
+        out = relay_copy(x, slot_map, block_chunk=bc)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        assert {r: after[r] - before[r] for r in _RELAY_ROUTES} == {
+            r: int(r == route) for r in _RELAY_ROUTES}
+        assert torch.equal(out.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                           x.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
 
 
 def test_relay_copy_new_slot_map_reuses_the_loaded_kernel(cuda):
@@ -480,6 +519,31 @@ def test_relay_copy_refuses_bad_maps(cuda):
         relay_copy(x, torch.zeros(2, dtype=torch.int64, device=cuda), block_chunk=256)
     with pytest.raises(ValueError):
         relay_copy(x, torch.zeros(2, dtype=torch.int32), block_chunk=256)
+
+
+@pytest.mark.parametrize("kernel", ["mlstm_scan", "relay_copy"])
+def test_kernel_without_backward_raises_under_grad(cuda, kernel):
+    # the CUDA route has no backward: an input that needs a gradient raises
+    # (a silent zero gradient otherwise); without grad mode, or without such
+    # an input, it runs
+    rng = np.random.default_rng(11)
+    if kernel == "mlstm_scan":
+        args = list(_mlstm_inputs(rng, 1, 2, 64, 16, cuda))
+
+        def run(a):
+            return mlstm_scan(*a, chunk=16)[0]
+    else:
+        args = [_relay_input(rng, 512, 64, torch.float32, cuda)]
+
+        def run(a):
+            return relay_copy(a[0], block_chunk=256)
+    for i in range(len(args)):
+        live = [a.clone().requires_grad_(j == i) for j, a in enumerate(args)]
+        with pytest.raises(RuntimeError, match="backward"):
+            run(live)
+        with torch.no_grad():
+            assert torch.equal(run(live), run(args))
+    assert torch.isfinite(run(args)).all()
 
 
 # --------------------------------------------------------------------------- #
@@ -535,6 +599,63 @@ def test_token_scatter_add_matches_plain(cuda, dtype, idx_dtype, n, d, offset):
     _check_scatter(g, idx, n, out)
 
 
+def _index_case(rng, kind, m, n):
+    if kind == "random":
+        return rng.integers(-3, n + 3, size=(m,))
+    if kind == "permutation":
+        return rng.permutation(max(m, n))[:m] % n
+    if kind == "negative":
+        return np.full((m,), -1)
+    # top-2: tokens sent twice each, the rest of the m slots dropped (-1)
+    tokens = rng.permutation(n)[:min(n, m // 2)]
+    return rng.permutation(np.concatenate([tokens, tokens, np.full(m - 2 * tokens.size, -1)]))
+
+
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("kind", ["random", "permutation", "negative", "top2"])
+@pytest.mark.parametrize("m,n", [
+    (1000, 50),          # one block: n + 1 <= INDEX_KEYS row ids
+    (1024, 1024),        # a relay round's backward: three blocks
+    (8192, 2048),        # the dispatch pack's backward: five blocks
+    (4096, 8192),        # the combine's backward: seventeen blocks
+    (3000, 511),         # exactly one block's row ids
+    (3, 1),
+])
+def test_inverse_index_launch_equals_plain(cuda, kind, m, n, idx_dtype):
+    idx = torch.as_tensor(_index_case(np.random.default_rng(m + n), kind, m, n),
+                          dtype=idx_dtype, device=cuda)
+    before = launch_counts()["token_scatter_index"]
+    order, offsets = build_inverse_index(idx, n)
+    torch.cuda.synchronize()
+    assert launch_counts()["token_scatter_index"] == before + 1
+    want_order, want_offsets = inverse_index(idx, n)
+    assert order.dtype == want_order.dtype and offsets.dtype == want_offsets.dtype
+    assert torch.equal(order, want_order) and torch.equal(offsets, want_offsets)
+
+
+@pytest.mark.parametrize("dtype,bits", [(torch.bfloat16, torch.int16),
+                                        (torch.float32, torch.int32)])
+@pytest.mark.parametrize("d", [4096, 65536, 7])
+def test_token_scatter_add_copies_single_source_rows_bit_for_bit(cuda, dtype, bits, d):
+    # a permutation with drops: every output row has one source or none; a
+    # row with one is its source's bits (-0.0 and NaN payloads included),
+    # a row with none is zeros
+    rng = np.random.default_rng(d)
+    n = 300
+    idx = torch.as_tensor(rng.permutation(n + 40)[:n] - 40, device=cuda)
+    raw = rng.integers(-2**15 if bits == torch.int16 else -2**31,
+                       2**15 if bits == torch.int16 else 2**31, size=(n, d))
+    g = torch.as_tensor(raw, dtype=bits, device=cuda).view(dtype)
+    out = token_scatter_add(g, idx, n)
+    torch.cuda.synchronize()
+    src = torch.full((n,), -1, dtype=torch.int64, device=cuda)
+    keep = idx >= 0
+    src[idx[keep]] = torch.arange(n, device=cuda)[keep]
+    has = src >= 0
+    assert torch.equal(out[has].view(bits), g[src[has]].view(bits))
+    assert not out[~has].view(bits).any()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_token_scatter_add_is_deterministic(cuda, dtype):
     # no atomics: a second run gives the same bits, also at 3 sources a row
@@ -572,7 +693,8 @@ def test_token_gather_backward_on_card_equals_cpu(cuda, dtype):
 def test_grouped_ffn_backward_on_card_equals_cpu(cuda, dtype, tol):
     # through the autograd Function on the card (kernel forward, torch
     # backward) against the CPU's plain backward in f32.  f32: products in
-    # another order; bf16: operands and a, b, dh rounded to bf16
+    # another order; bf16: the inputs, the gradients and gx's operands da
+    # and db round to bf16
     rng = np.random.default_rng(4)
     m, d, f, e = 700, 256, 512, 4
     x, wg, wu, wd = (torch.as_tensor(rng.normal(size=s) * sc, dtype=torch.float32) for s, sc in

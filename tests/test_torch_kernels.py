@@ -24,6 +24,9 @@ from repro.kernels.token_scatter.ref import token_gather_ref as j_gather_ref
 from repro_torch.kernels.flash_attention.ops import attention, flash_attention, mha_ref
 from repro_torch.kernels.grouped_ffn import ops as t_ffn_ops
 from repro_torch.kernels.mlstm_scan.ops import mlstm_scan
+from repro_torch.kernels.relay_copy.ops import SLOT_BYTES as RELAY_SLOT_BYTES
+from repro_torch.kernels.relay_copy.ops import WORD_SLOT_BYTES as RELAY_WORD_SLOT_BYTES
+from repro_torch.kernels.relay_copy.ops import geometry as relay_geometry
 from repro_torch.kernels.relay_copy.ops import parity_slot_map, relay_copy, relay_copy_ref
 from repro_torch.kernels.token_scatter.ops import (
     SEG_BYTES,
@@ -379,6 +382,38 @@ def test_relay_copy_bit_exact_against_reference(n, d, bc, dt, slots):
                                   _np(want) if dt != "i32" else np.asarray(want))
     np.testing.assert_array_equal(parity_slot_map(n // bc).numpy(),
                                   np.asarray(j_parity_slot_map(n // bc)))
+
+
+@pytest.mark.parametrize("n_chunks,chunk_bytes,align", [
+    (32, 2 << 20, 0), (32, 4 << 20, 0), (1, 1 << 26, 0), (4, 65536, 0), (31, 98320, 0),
+    (3, 48, 0), (3, 420, 0), (3, 210, 0), (8, 65536, 4), (8, 65536, 2), (5, 300000, 0)])
+@pytest.mark.parametrize("sms", [132, 7])
+def test_relay_geometry_covers_every_byte_once(n_chunks, chunk_bytes, align, sms):
+    g = relay_geometry(n_chunks, chunk_bytes, align, sms)
+    word = next(w for w in (16, 4, 2) if chunk_bytes % w == 0 and align % w == 0)
+    assert g.word == word and g.tile_bytes % word == 0
+    assert g.tile_bytes <= (RELAY_SLOT_BYTES if word == 16 else RELAY_WORD_SLOT_BYTES)
+    assert (g.tiles_per_chunk - 1) * g.tile_bytes < chunk_bytes
+    assert g.tiles_per_chunk * g.tile_bytes >= chunk_bytes
+    assert 1 <= g.blocks <= n_chunks * g.tiles_per_chunk
+    if word == 16:
+        assert g.blocks <= sms
+
+
+def test_relay_geometry_balances_blocks_and_alternates_slots():
+    # phase 13's shape: 32 chunks of 2 MiB on 132 SMs; 132 blocks, each
+    # within 2% of the average's bytes, and under the parity map at least
+    # 0.9 of each block's consecutive tiles (gridDim.x tiles apart, tile s
+    # in chunk s // tiles_per_chunk) take different slots, so its next load
+    # overlaps its store
+    g = relay_geometry(32, 2 << 20, 0, 132)
+    assert g.word == 16 and g.blocks == 132
+    tiles = 32 * g.tiles_per_chunk
+    busiest = -(-tiles // g.blocks) * g.tile_bytes
+    assert busiest <= 1.02 * 32 * (2 << 20) / g.blocks
+    s = np.arange(tiles)
+    flips = [np.diff((s[b::g.blocks] // g.tiles_per_chunk) % 2) != 0 for b in range(g.blocks)]
+    assert np.concatenate(flips).mean() >= 0.9
 
 
 def test_relay_copy_checks_shapes_like_the_reference():
