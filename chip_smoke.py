@@ -71,6 +71,15 @@ port's six CUDA kernels from ``src/repro_torch/csrc``, all at once, then:
      inverse-index launch), the FFN and flash (bf16 routes), phases 11 and
      12 ``mlstm_scan``, phase 13's entry-point calls each route of
      ``relay_copy``.
+ 15. replays the runtime's scenarios with every replan solved on the card
+     and again on the CPU, and checks that the reports are equal: the paper's
+     testbed (2 nodes x 4) under a drifting hotspot (48 windows), balanced
+     traffic (30) and a link down at window 8 (24), and an 8-node EP group's
+     drift (n=32, 48 windows); prints each scenario's static, adaptive and
+     oracle totals, speedups, replans, solves, cache hits and the link-down
+     recovery window, and the card's solve times (each replan, B=1 and the
+     oracle's B=48 batch at n=8 and n=32) beside the CPU's and the host
+     ``solve_mwu`` sweep's.
 
 It prints one line per phase, the card's name and power limit as
 ``nvidia-smi`` reports them, a JSON line of per-kernel numbers, and as its
@@ -656,6 +665,166 @@ def relay_phase(torch, check, seed: int, dev):
     return report, launches
 
 
+def runtime_phase(torch, np, check, smi: str):
+    """Phase 15: the execution-time planning runtime, card against CPU.
+
+    Replays the paper's testbed scenarios (2 nodes x 4, ``RuntimeConfig()``'s
+    32 MWU iterations) and an 8-node EP group's drift through
+    ``OrchestrationRuntime.run_trace``, ``run_static`` and ``run_oracle`` with
+    every solve on the card, and again on the CPU: the reports must be
+    equal.  Times each solve the card runs (the ``plan_flows_batch`` call,
+    synchronized before and after), and pairs the host ``solve_mwu`` sweep
+    with the card's ``plan_flows_batch`` at n=32."""
+    import statistics
+
+    from repro_torch import runtime as rt
+    from repro_torch.core.mcf import apply_plan_fractions, congestion_lower_bound, solve_mwu
+    from repro_torch.core.schedule import build_planner_tables
+    from repro_torch.core.topology import Topology
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.runtime import controller
+
+    G = 4
+    scenarios = {
+        "drift n=8": (8, rt.drifting_skew_trace(8, 48, dwell=12), None),
+        "balanced n=8": (8, rt.balanced_trace(8, 30), None),
+        "link-down n=8": (8, rt.balanced_trace(8, 24), (8, 0, G)),
+        "drift n=32": (32, rt.drifting_skew_trace(32, 48, dwell=12), None),
+    }
+    pcfg = rt.RuntimeConfig().planner
+    plan = controller.plan_flows_batch
+    solve_ms = []                                   # each card solve's ms
+
+    def timed(d, tables, cfg, **kw):
+        if d.device.type != "cuda":
+            return plan(d, tables, cfg, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plan(d, tables, cfg, **kw)
+        torch.cuda.synchronize()
+        solve_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def warm_ratio(runtime):
+        """The never-replaced warm plan's congestion ratio (Z over the cut
+        bound Z*) on its own uniform demand: the policy's baseline."""
+        n = runtime.topo.n_devices
+        dem = rt.demand_dict(np.full((n, n), 64.0 * runtime.cfg.chunk_bytes))
+        z = apply_plan_fractions(runtime.active_plan, dem, topo=runtime.topo)
+        return z.max_normalized_load() / congestion_lower_bound(runtime.topo, dem)
+
+    for n in (8, 32):                               # device tables and warm launches
+        rt.solve_plans_batch(Topology(n, G), scenarios[f"drift n={n}"][1][:1],
+                             planner_cfg=pcfg, device="cuda")
+    reset_launch_counts()
+    controller.plan_flows_batch = timed
+    results = {}
+    try:
+        for label, (n, trace, ev) in scenarios.items():
+            topo = Topology(n, G)
+            log = (lambda: rt.EventLog([rt.link_down(*ev)])) if ev else (lambda: None)
+            runs = {}
+            for dv in ("cuda", "cpu"):
+                first = len(solve_ms)
+                runtime = rt.OrchestrationRuntime(topo, events=log(), device=dv)
+                adaptive = runtime.run_trace(trace)
+                if dv == "cuda":
+                    card_solves = solve_ms[first:]
+                    warm = warm_ratio(runtime) if not adaptive.stats.replans else None
+                runs[dv] = dict(
+                    adaptive=adaptive,
+                    static=rt.run_static(topo, trace, events=log(), device=dv),
+                    oracle=rt.run_oracle(topo, trace, device=dv),
+                )
+            for arm in ("adaptive", "static", "oracle"):
+                check(runs["cuda"][arm].to_json_obj() == runs["cpu"][arm].to_json_obj(),
+                      f"runtime {label} {arm}: card reports != CPU reports")
+            results[label] = (runs["cuda"], card_solves, warm)
+    finally:
+        controller.plan_flows_batch = plan
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in launch_counts().items() if v}
+
+    def recovery(res, fail_at):
+        pre = np.median([r.completion_s for r in res.reports[:fail_at]])
+        return next((r.window - fail_at for r in res.reports[fail_at:]
+                     if r.completion_s <= 2.0 * pre), None)
+
+    for label, (runs, solves, warm) in results.items():
+        a, s, o = runs["adaptive"], runs["static"], runs["oracle"]
+        ratios = [r.congestion_ratio for r in a.reports]
+        extra = (f"; congestion ratio over the windows {min(ratios):.4f}-{max(ratios):.4f}"
+                 + ("" if warm is None else f", the warm plan's baseline {warm:.4f} "
+                    f"(a replan fires above "
+                    f"{warm * rt.PolicyConfig().degrade_factor:.4f})"))
+        if label.startswith("link-down"):
+            rec = recovery(a, 8)
+            check(a.reports[8].replan_reason == "topology" and rec is not None,
+                  f"runtime {label}: no topology replan or no recovery")
+            extra += (f"; link 0->4 down at w8: replan reason "
+                     f"{a.reports[8].replan_reason!r}, recovered in {rec} window(s), "
+                     f"oracle on the healthy fabric")
+        if label == "drift n=8":
+            check(s.total_completion_s / a.total_completion_s >= 1.3
+                  and a.replan_fraction <= 0.25,
+                  f"runtime {label}: adaptive below 1.3x static or over 25% replans")
+        if label == "balanced n=8":
+            check(a.total_completion_s / s.total_completion_s <= 1.02
+                  and all(w < 2 for w in a.replan_windows),
+                  f"runtime {label}: adaptive over 1.02x static or replans after w1")
+        print(f"[15 runtime] {label}, {len(a.reports)} windows: simulated completion "
+              f"static {s.total_completion_s * 1e3:.4f} ms, adaptive "
+              f"{a.total_completion_s * 1e3:.4f} ms, oracle {o.total_completion_s * 1e3:.4f}"
+              f" ms; adaptive {s.total_completion_s / a.total_completion_s:.4f}x static "
+              f"(adaptive/static {a.total_completion_s / s.total_completion_s:.4f}), oracle "
+              f"{s.total_completion_s / o.total_completion_s:.4f}x; replans "
+              f"{a.stats.replans} at windows {a.replan_windows}, solves {a.stats.solves}, "
+              f"cache hits {a.stats.cache_hits}, swaps {a.stats.swaps}{extra}; card solves "
+              f"of the adaptive run {len(solves)}, median {statistics.median(solves):.3f} "
+              f"ms; "
+              f"card reports = CPU reports", flush=True)
+
+    # solve latency on the card, each call synchronized, beside the host solvers
+    def med_ms(fn, reps, sync):
+        out = []
+        for _ in range(reps):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            if sync:
+                torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(out)
+
+    parts = []
+    for n in (8, 32):
+        topo = Topology(n, G)
+        tables = build_planner_tables(topo)
+        trace = scenarios[f"drift n={n}"][1]
+        one = torch.as_tensor(trace[:1].astype(np.float32))
+        d1, d48 = one.cuda(), torch.as_tensor(trace.astype(np.float32)).cuda()
+        t = dict(
+            card_b1=med_ms(lambda: plan(d1, tables, pcfg), 20, True),
+            card_solve_plans=med_ms(lambda: rt.solve_plans_batch(
+                topo, trace[:1], planner_cfg=pcfg, device="cuda"), 10, True),
+            card_b48=med_ms(lambda: plan(d48, tables, pcfg), 5, True),
+            cpu_b1=med_ms(lambda: plan(one, tables, pcfg), 5, False),
+            host_sweep=med_ms(lambda: solve_mwu(topo, rt.demand_dict(trace[0])), 5,
+                              False),
+        )
+        parts.append(
+            f"n={n}: card plan_flows_batch B=1 {t['card_b1']:.3f} ms, B=48 (the "
+            f"oracle's batch) {t['card_b48']:.3f} ms, solve_plans_batch B=1 with the "
+            f"copy back and plan_from_flows {t['card_solve_plans']:.3f} ms; CPU "
+            f"plan_flows_batch B=1 {t['cpu_b1']:.3f} ms; host solve_mwu sweep "
+            f"{t['host_sweep']:.3f} ms")
+    print(f"[15 runtime] solve times (medians; card calls synchronized before and "
+          f"after; {pcfg.n_iters} MWU iterations; drift window 0) on {smi}: "
+          + "; ".join(parts) + f"; port kernels launched by phase 15: "
+          f"{launched or 'none (the planner loop is plain torch)'}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1029,6 +1198,10 @@ def main() -> int:
           f"xlstm-125m path (phases 11-12) mlstm_scan {launches['mlstm_scan']}; relay_copy's "
           f"own entry point (phase 13; no path calls it) by route {relay_routes} "
           f"({time.perf_counter() - t_start:.0f} s in all)", flush=True)
+
+    # ---- 15. execution-time planning runtime -------------------------------------
+    runtime_phase(torch, np, check, smi)
+    print(f"[15 runtime] ({time.perf_counter() - t_start:.0f} s in all)", flush=True)
 
     kernels = []
     for kname, (src, replaces) in KERNEL_META.items():

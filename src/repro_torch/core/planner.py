@@ -10,13 +10,17 @@ iteration; after T iterations the residual is dumped on the least-hop alive
 path.  Pricing and charging run against the per-pair candidate rows of the
 shared :class:`~repro_torch.core.incidence.PathIncidence`.
 
-Determinism: the load accumulation (JAX's ``segment_sum``) is an
-``index_put_(..., accumulate=True)``.  On CUDA that op sorts the indices and
-sums each resource's contributions in a fixed order, so the loads do not
-change from run to run — unlike ``index_add_``, whose float atomics add in
-a varying order and can flip the argmin between near-equal costs.
-``torch.argmin`` keeps the first minimal index, as ``jnp.argmin`` does.  On
-the CPU the plans equal JAX's bit for bit, and on the card they equal the
+Determinism: each iteration adds its charges to every resource's load in
+one fixed order, the reference's: the load first, then the charging pairs
+in pair order (XLA folds ``loads + segment_sum(...)`` into one scatter-add
+that runs in that order).  The order is static: every candidate row entry
+of every pair, grouped by resource (``_DeviceTables.seg_order``), where the
+candidates not chosen this iteration charge an exact zero.  A
+``torch.segment_reduce`` over a 2-D input adds each segment's values one
+after another, on the CPU and on the card alike, so the loads do not depend
+on how many pairs share a resource or on the device.  ``torch.argmin``
+keeps the first minimal index, as ``jnp.argmin`` does.  On the CPU the
+plans and loads equal JAX's bit for bit, and on the card they equal the
 CPU's (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
 
@@ -46,6 +50,18 @@ class PlannerConfig:
     n_iters: int = 24            # T — static MWU iterations
     chunk_bytes: float = float(1 << 20)  # ε — quantization granularity
     split_threshold: float = float(1 << 20)  # paper: <=1 MB never splits
+    hysteresis: float = 0.5
+
+
+def planner_provenance(cfg: PlannerConfig) -> dict:
+    """Solver-parameter fingerprint of a plan, as the reference records it."""
+    return {
+        "engine": "mwu",
+        "lam": float(cfg.lam),
+        "n_iters": int(cfg.n_iters),
+        "chunk_bytes": float(cfg.chunk_bytes),
+        "hysteresis": float(cfg.hysteresis),
+    }
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +77,11 @@ class _DeviceTables:
     down: torch.Tensor       # [n*n, K] bool
     invalid: torch.Tensor    # [n*n, K] bool
     k_dump: torch.Tensor     # [n*n] int64 — least-hop alive candidate
+    # the load sum's fixed order: per resource r, position r (its load) and
+    # then every candidate row entry charging r, in (pair, k, slot) order,
+    # as positions into [loads (R), charges (n*n*K*MC)]
+    seg_order: torch.Tensor  # [R + entries with mult > 0] int64
+    seg_lengths: torch.Tensor  # [R] int64
 
 
 _DEVICE_CACHE: "collections.OrderedDict[tuple, tuple]" = collections.OrderedDict()
@@ -87,6 +108,20 @@ def device_tables(tables: PlannerTables, device) -> _DeviceTables:
     def t(a, dtype):
         return torch.as_tensor(np.array(a)).to(device=device, dtype=dtype)
 
+    # the load sum's order; a 0-padded slot (mult 0) always charges an exact
+    # zero, so it is left out: the dummy resource's segment is its load alone
+    R = tables.n_resources
+    pos = np.flatnonzero(pc.mask.reshape(-1))
+    rid = pc.rids.reshape(-1)[pos].astype(np.int64)
+    entries = np.argsort(rid, kind="stable")           # by resource, then position
+    counts = np.bincount(rid, minlength=R)
+    lengths = counts + 1
+    start = np.cumsum(lengths) - lengths               # where each segment begins
+    order = np.empty(R + rid.size, dtype=np.int64)
+    order[start] = np.arange(R)
+    rank = np.arange(rid.size) - np.repeat(np.cumsum(counts) - counts, counts)
+    order[start[rid[entries]] + 1 + rank] = R + pos[entries]
+
     dt = _DeviceTables(
         caps=t(tables.caps, torch.float32),
         rids=t(pc.rids, torch.int64),
@@ -97,6 +132,8 @@ def device_tables(tables: PlannerTables, device) -> _DeviceTables:
         down=t(down, torch.bool),
         invalid=t(~pc.valid, torch.bool),
         k_dump=t(k_dump, torch.int64),
+        seg_order=t(order, torch.int64),
+        seg_lengths=t(lengths, torch.int64),
     )
     _DEVICE_CACHE[key] = (tables, dt)
     while len(_DEVICE_CACHE) > _DEVICE_CACHE_CAP:
@@ -108,12 +145,17 @@ def plan_flows_batch(
     demand_bytes: torch.Tensor,        # [B, n, n] float32, zero diagonal
     tables: PlannerTables,
     cfg: PlannerConfig = PlannerConfig(),
+    prev_loads: torch.Tensor | None = None,  # [B, n_resources] or None
+    ext_loads: torch.Tensor | None = None,   # [B, n_resources] or None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plan B demand matrices at once: -> (flows [B, n, n, K], loads [B, R]).
 
-    The reference's ``prev_loads`` (EMA hysteresis) and ``ext_loads``
-    (other tenants' prices) serve its runtime and fabric arbiter, which are
-    not ported yet.
+    ``prev_loads`` is each entry's previous load vector, folded through the
+    EMA (``cfg.hysteresis``) into the returned loads.  ``ext_loads`` is
+    other tenants' committed load (a fabric arbiter's exported prices): it
+    raises resource costs during the solve but is **not** carried into the
+    returned loads, and is never EMA-smoothed; ``None`` keeps the cost
+    expression the unpriced one.
     """
     dev = demand_bytes.device
     tb = device_tables(tables, dev)
@@ -126,18 +168,22 @@ def plan_flows_batch(
     eps = torch.tensor(cfg.chunk_bytes, dtype=torch.float32, device=dev)
     lam = torch.tensor(cfg.lam, dtype=torch.float32, device=dev)
 
-    loads = torch.zeros((B, R), dtype=torch.float32, device=dev)
+    if prev_loads is None:
+        loads = torch.zeros((B, R), dtype=torch.float32, device=dev)
+    else:
+        loads = torch.tensor(cfg.hysteresis, dtype=torch.float32, device=dev) * prev_loads
+    ext = None if ext_loads is None else ext_loads.to(torch.float32)
 
     small = tb.relay[None] & (msg[..., None] <= cfg.split_threshold)  # [B,NN,K]
     flows = torch.zeros((B, NN, K), dtype=torch.float32, device=dev)
     pair = torch.arange(NN, device=dev)
-    batch_off = (torch.arange(B, device=dev) * R)[:, None, None]       # [B,1,1]
     big = torch.tensor(_BIG, dtype=torch.float32, device=dev)
     big_down = torch.tensor(_BIG_DOWN, dtype=torch.float32, device=dev)
     big_inv = torch.tensor(_BIG_INVALID, dtype=torch.float32, device=dev)
 
     for _ in range(cfg.n_iters):
-        costs = loads / tb.caps                                      # [B, R]
+        priced = loads if ext is None else loads + ext
+        costs = priced / tb.caps                                     # [B, R]
         cand = costs[:, tb.rids] * tb.mask                            # [B,NN,K,MC]
         pcK = cand.amax(dim=-1) + tb.pen
         pcK = torch.where(small, big, pcK)
@@ -150,12 +196,13 @@ def plan_flows_batch(
         f = torch.clamp_min(f, 0.0)
         onehot = torch.nn.functional.one_hot(best_k, K).to(torch.float32)
         flows = flows + f[..., None] * onehot
-        rids = tb.rids[pair, best_k]                                  # [B,NN,MC]
-        mult = tb.mult[pair, best_k]
-        seg = torch.zeros(B * R, dtype=torch.float32, device=dev)
-        seg.index_put_(((rids + batch_off).reshape(-1),),
-                       (f[..., None] * mult).reshape(-1), accumulate=True)
-        loads = loads + seg.view(B, R)
+        # every candidate row's charge, zero where the candidate is not chosen
+        charge = (f[..., None, None] * tb.mult) * onehot[..., None]  # [B,NN,K,MC]
+        vals = torch.cat([loads, charge.reshape(B, -1)], dim=1)       # [B, R + L]
+        loads = torch.segment_reduce(
+            vals.t().index_select(0, tb.seg_order), "sum",
+            lengths=tb.seg_lengths, axis=0, unsafe=True,
+        ).t()
         res = res - f
     # residual after T iterations -> least-hop *alive* path
     flows[:, pair, tb.k_dump] += res
@@ -166,9 +213,15 @@ def plan_flows(
     demand_bytes: torch.Tensor,        # [n, n] float32, zero diagonal
     tables: PlannerTables,
     cfg: PlannerConfig = PlannerConfig(),
+    prev_loads: torch.Tensor | None = None,  # [n_resources] or None
+    ext_loads: torch.Tensor | None = None,   # [n_resources] or None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (flows [n, n, K] bytes, resource loads [n_resources])."""
-    flows, loads = plan_flows_batch(demand_bytes[None], tables, cfg)
+    flows, loads = plan_flows_batch(
+        demand_bytes[None], tables, cfg,
+        None if prev_loads is None else prev_loads[None],
+        None if ext_loads is None else ext_loads[None],
+    )
     return flows[0], loads[0]
 
 

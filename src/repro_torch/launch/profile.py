@@ -1,6 +1,6 @@
 """Where the device time goes in the port's serving and training paths, by kernel.
 
-    python -m repro_torch.launch.profile [--arch ARCH] [--train] [--out DIR]
+    python -m repro_torch.launch.profile [--arch ARCH] [--train | --runtime] [--out DIR]
 
 builds ``--arch`` at full width on the card (bf16, random weights from
 ``--seed``), warms it up, then traces under ``torch.profiler`` one prefill
@@ -13,8 +13,12 @@ time, the device's idle share, the kernels that took the most device
 time, and the device's longest idle gaps with the host ops in flight
 across each.  ``--train`` profiles instead one AdamW train step of paper-moe-8e at
 full width (bf16, EP 8 in groups of 4, NIMBLE, 4 x 512 tokens from
-``SyntheticLM``) after a warm-up step.  With ``--out`` the Chrome traces
-are written to ``DIR``.
+``SyntheticLM``) after a warm-up step.  ``--runtime`` profiles the
+execution-time planning runtime: one replan's solve (``solve_plans_batch``
+of one demand matrix, every MWU iteration on the card) on the paper's
+testbed (n=8) and an 8-node EP group (n=32), and the testbed's whole
+drifting-skew replay (48 windows).  With ``--out`` the Chrome traces are
+written to ``DIR``.
 """
 
 from __future__ import annotations
@@ -132,11 +136,35 @@ def _train(seed: int, out) -> None:
     print(f"[profile] {cfg.name} train on {torch.cuda.get_device_name(0)}")
 
 
+def _runtime(out) -> None:
+    """One replan's solve at n=8 and n=32, then a 48-window drift replay."""
+    from .. import runtime as rt
+    from ..core.topology import Topology
+
+    pcfg = rt.RuntimeConfig().planner
+    for n in (8, 32):
+        topo = Topology(n, group_size=4)
+        demand = rt.drifting_skew_trace(n, 1)
+        rt.solve_plans_batch(topo, demand, planner_cfg=pcfg)        # warm-up
+        torch.cuda.synchronize()
+        _profile(f"replan-n{n} solve (B=1, {pcfg.n_iters} MWU iterations)",
+                 lambda: rt.solve_plans_batch(topo, demand, planner_cfg=pcfg), 1, out)
+    topo = Topology(8, group_size=4)
+    trace = rt.drifting_skew_trace(8, 48, dwell=12)
+    rt.OrchestrationRuntime(topo).run_trace(trace[:2])              # warm-up
+    _profile("runtime-drift 48 windows (n=8)",
+             lambda: rt.OrchestrationRuntime(topo).run_trace(trace), 48, out)
+    print(f"[profile] runtime on {torch.cuda.get_device_name(0)} "
+          "(tokens/s above read as solves/s and windows/s)")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="paper-moe-8e", choices=sorted(SHAPES))
     ap.add_argument("--train", action="store_true",
                     help="profile a paper-moe-8e train step instead of serving")
+    ap.add_argument("--runtime", action="store_true",
+                    help="profile the runtime's replan solves instead of serving")
     ap.add_argument("--out", default=None, help="directory for Chrome traces")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -145,6 +173,9 @@ def main(argv=None) -> None:
         out.mkdir(parents=True, exist_ok=True)
     if args.train:
         _train(args.seed, out)
+        return
+    if args.runtime:
+        _runtime(out)
         return
 
     cfg = get_config(args.arch)

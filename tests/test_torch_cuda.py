@@ -45,6 +45,7 @@ from repro_torch.kernels.token_scatter.ops import (
 )
 from repro_torch.models.registry import build_model
 from repro_torch.optim import adamw
+from repro_torch import runtime as rt
 from repro_torch.sharding.context import ParallelContext
 from repro_torch.train.step import make_train_step
 from repro_torch.tree import leaves, map_tree
@@ -348,6 +349,53 @@ def test_planner_on_card_deterministic_and_equal_to_cpu(cuda, n, seed):
     on_card = planner.plan_chunks(dc.to(cuda), tables, cfg, S, rel)
     assert int(on_card[..., 1:].sum()) > 0                  # relays in use
     assert torch.equal(on_card.cpu(), planner.plan_chunks(dc, tables, cfg, S, rel))
+
+
+@pytest.mark.parametrize("n", [8, 32])
+def test_planner_load_sum_on_card_equals_cpu_on_jittered_demand(cuda, n):
+    # real-valued demand: the loads' last bits depend on the order of the
+    # sum, and at n=32 a resource has hundreds of charging entries
+    trace = np.concatenate([rt.drifting_skew_trace(n, 3, dwell=1),
+                            rt.skew_burst_trace(n, 3, burst_window=1)])
+    tables = incidence_for(Topology(n, 4))
+    d = torch.as_tensor(trace.astype(np.float32))
+    prev = torch.rand((len(trace), tables.n_resources), generator=torch.Generator().manual_seed(n)) * 5e8
+    for kw in ({}, {"prev_loads": prev, "ext_loads": prev.flip(0)}):
+        f_cpu, l_cpu = planner.plan_flows_batch(d, tables, **kw)
+        f_gpu, l_gpu = planner.plan_flows_batch(
+            d.to(cuda), tables, **{k: v.to(cuda) for k, v in kw.items()})
+        assert torch.equal(f_gpu.cpu(), f_cpu) and torch.equal(l_gpu.cpu(), l_cpu)
+
+
+@pytest.mark.parametrize("scenario", ["drift", "drift-n32", "link-down"])
+def test_runtime_on_card_equals_cpu(cuda, scenario):
+    n = 32 if scenario == "drift-n32" else 8
+    topo = Topology(n, 4)
+    if scenario == "link-down":
+        trace = rt.balanced_trace(n, 24)
+        events = rt.EventLog([rt.link_down(8, 0, 4)])
+    else:
+        trace, events = rt.drifting_skew_trace(n, 48, dwell=12), None
+    runs = {dev: rt.OrchestrationRuntime(topo, events=events, device=dev).run_trace(trace)
+            for dev in ("cuda", "cpu")}
+    assert runs["cuda"].to_json_obj() == runs["cpu"].to_json_obj()
+    if n == 8:
+        assert rt.run_oracle(topo, trace, device="cuda").to_json_obj() == \
+            rt.run_oracle(topo, trace, device="cpu").to_json_obj()
+
+
+def test_runtime_raises_without_a_card(monkeypatch):
+    # runs on any host: the CUDA device is hidden, and nothing falls back
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    topo = Topology(8, 4)
+    trace = rt.balanced_trace(8, 2)
+    for call in (lambda: rt.OrchestrationRuntime(topo),
+                 lambda: rt.run_static(topo, trace),
+                 lambda: rt.run_oracle(topo, trace),
+                 lambda: rt.solve_plans_batch(topo, trace)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert rt.OrchestrationRuntime(topo, device="cpu").run_trace(trace).stats.windows == 2
 
 
 def _mlstm_inputs(rng, b, h, s, dh, device):
