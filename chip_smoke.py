@@ -79,7 +79,23 @@ port's six CUDA kernels from ``src/repro_torch/csrc``, all at once, then:
      oracle totals, speedups, replans, solves, cache hits and the link-down
      recovery window, and the card's solve times (each replan, B=1 and the
      oracle's B=48 batch at n=8 and n=32) beside the CPU's and the host
-     ``solve_mwu`` sweep's.
+     ``solve_mwu`` sweep's;
+ 16. drives NIMBLE's endpoint API and shared-fabric arbiter on the card:
+     (a) the five fairness sections of ``launch/fairness.py`` (host
+     co-planning, the weight sweep, an arbitrated runtime, four tenants,
+     the three mutual-drift arms) with every runtime replan solved on the
+     card and again on the CPU: every figure and every ``Session.report()``
+     (its topology description aside) must be equal; prints the figures,
+     the card's priced solves (count, median ms) and ``solve_plans_batch``
+     with and without ``ext_loads`` at B=1, n=8; (b) prefills paper-moe-8e
+     at phase 4's width and weights through an arbitrated ``Session``-wired
+     ``ParallelContext``: the logits must equal phase 4's bit for bit, the
+     path's kernels must launch, and the prefill's dispatch demand planned
+     by ``sess.moe_dispatcher(cfg).plan_batched`` on the card must equal
+     the CPU's and the path's own plan, with one telemetry and estimator
+     record per batch entry; (c) the ``skewed_alltoallv`` example on the
+     card, bit-exact in all three modes at hotspots 0.3, 0.7 and 0.9; (d)
+     the API selfcheck's checks 1-5 on the card.
 
 It prints one line per phase, the card's name and power limit as
 ``nvidia-smi`` reports them, a JSON line of per-kernel numbers, and as its
@@ -825,6 +841,207 @@ def runtime_phase(torch, np, check, smi: str):
           f"{launched or 'none (the planner loop is plain torch)'}", flush=True)
 
 
+def _quiet(fn, *args):
+    """``fn(*args)`` with its standard output captured -> (result, text)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue()
+
+
+def session_phase(torch, np, check, smi: str, seed: int, dev, phase4_logits,
+                  phase4_ms: float):
+    """Phase 16: the endpoint API and the shared-fabric arbiter on the card."""
+    import statistics
+
+    from repro_torch import runtime as rt
+    from repro_torch.api import Session, SessionSpec, TopologySpec, selfcheck
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.dataplane import NimbleAllToAll
+    from repro_torch.core.mcf import solve_direct
+    from repro_torch.core.moe_comm import MoECommConfig
+    from repro_torch.core.topology import Topology
+    from repro_torch.examples import skewed_alltoallv
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import fairness
+    from repro_torch.models.registry import build_model
+    from repro_torch.sharding.context import ParallelContext
+
+    t_phase = time.perf_counter()
+    print(f"[16 session] {smi}", flush=True)
+
+    # ---- 16a. the fairness sections, card against CPU -------------------------
+    reports = {"cuda": {}, "cpu": {}}
+    with fairness.timed_solves() as solves:
+        t0 = time.perf_counter()
+        card = fairness.metrics(device="cuda", reports=reports["cuda"])
+        card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = fairness.metrics(device="cpu", reports=reports["cpu"])
+    cpu_s = time.perf_counter() - t0
+    for side in reports.values():
+        for r in side.values():
+            r.pop("topology")
+    for name in fairness.SECTIONS:
+        same = card[name] == cpu[name]
+        check(same, f"fairness {name}: card figures != CPU figures")
+        print(f"[16a fairness] {name}: {fairness.describe(name, card[name])}; card "
+              f"{'=' if same else '!='} CPU", flush=True)
+    check(reports["cuda"] == reports["cpu"],
+          "fairness: a card Session.report() != the CPU's")
+    # the reference code's figures (its bench, rerun with JAX on a CPU)
+    expect = {("host_coplan", "win"): 1.4554899, ("host_coplan", "jain_index"): 0.9983191,
+              ("runtime_adaptive", "win"): 1.2131033, ("four_tenant", "win"): 1.0071764,
+              ("four_tenant", "jain_index"): 0.8889080, ("mutual_drift", "win"): 1.0181673,
+              ("mutual_drift", "win_legacy"): 0.7995681}
+    for (sec, key), val in expect.items():
+        check(round(card[sec][key], 7) == val,
+              f"fairness {sec} {key} {card[sec][key]:.7f} != the reference's {val}")
+    cal = card["mutual_drift"]["arms"]["calibrated"]
+    check(card["runtime_adaptive"]["replans"] == 2 and card["four_tenant"]["solves"] == 6
+          and cal["reprices"] == 3 and cal["price_hints"] == 11,
+          "fairness: replans, solves, reprices or hints differ from the reference's")
+    gated = {k: v["runtime_stats"]["gated"] for k, v in reports["cuda"].items()
+             if "runtime_stats" in v}
+    rt_solves = {k: v["runtime_stats"]["solves"] for k, v in reports["cuda"].items()
+                 if "runtime_stats" in v}
+    priced = [ms for p, ms in solves if p]
+
+    def med_ms(fn, reps):
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(out)
+
+    topo = Topology(8, 4)
+    pcfg = rt.RuntimeConfig().planner
+    one = rt.drifting_skew_trace(8, 1, dwell=1)
+    ext = solve_direct(topo, {(0, 4): 128.0 * 2**20, (4, 0): 128.0 * 2**20}
+                       ).resource_bytes[None]
+    solve = lambda dv, e: rt.solve_plans_batch(topo, one, planner_cfg=pcfg, ext_loads=e,
+                                               device=dv)[0]
+    same_priced = np.array_equal(solve("cuda", ext).resource_bytes,
+                                 solve("cpu", ext).resource_bytes)
+    check(same_priced, "priced solve_plans_batch: card plan != CPU plan")
+    t_plain, t_priced = med_ms(lambda: solve("cuda", None), 15), med_ms(
+        lambda: solve("cuda", ext), 15)
+    print(f"[16a fairness] five sections on the card {card_s:.2f} s, on the CPU "
+          f"{cpu_s:.2f} s; runtime solves on the card (each synchronized): "
+          f"{fairness.solve_summary(solves)}; priced replans' median "
+          f"{statistics.median(priced) if priced else float('nan'):.3f} ms; solves by "
+          f"session {rt_solves}; gated windows {gated}; solve_plans_batch B=1 n=8 "
+          f"({pcfg.n_iters} MWU iterations, the copy back and plan_from_flows included) "
+          f"unpriced {t_plain:.3f} ms, priced (ext_loads) {t_priced:.3f} ms, priced card "
+          f"plan {'=' if same_priced else '!='} CPU; every figure and report card = CPU; "
+          f"on {smi}", flush=True)
+
+    # ---- 16b. paper-moe-8e prefill through a Session ---------------------------
+    cfg = get_config("paper-moe-8e")
+    bf16 = torch.bfloat16
+    ctx8 = ParallelContext(ep_size=8, group_size=4, moe_mode="nimble", param_dtype=bf16,
+                           compute_dtype=bf16, device="cuda")
+    model = build_model(cfg, ctx8)
+    params = model.init(seed)
+    prompts = torch.as_tensor(np.random.default_rng(seed).integers(0, cfg.vocab, (4, 512)),
+                              device=dev)
+    batch = {"tokens": prompts}
+    spec = SessionSpec(topology=TopologySpec(8, 4), adaptivity="arbitrated",
+                       tenant="moe-serve", device="cuda")
+    sess = Session(spec)
+    wired = build_model(cfg, dataclasses.replace(ctx8, session=sess))
+    # warm-up, recording each layer's dispatch demand (the stacked send counts)
+    with Recorder(NimbleAllToAll, "plan_from_counts", keep=cfg.n_layers) as rec:
+        wired.forward(params, batch, last_only=True)
+    torch.cuda.synchronize()
+
+    def timed_prefill(m):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, _ = m.forward(params, batch, last_only=True)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    reset_launch_counts()
+    logits_w, wired_ms = timed_prefill(wired)
+    counts = launch_counts()
+    logits_u, unwired_ms = timed_prefill(model)
+    logits_w2, wired_ms2 = timed_prefill(wired)
+    exact = (torch.equal(logits_w, phase4_logits) and torch.equal(logits_w, logits_u)
+             and torch.equal(logits_w2, logits_w))
+    check(exact, "Session-wired prefill logits != phase 4's unwired logits (bit for bit)")
+    for kname in MOE_KERNELS:
+        check(counts[kname] > 0, f"{kname} never launched on the Session-wired prefill")
+    check(len(sess.runtime.telemetry) == 0,
+          "the Session-wired forward fed the runtime (it plans as the unwired one)")
+    # the dispatch demand through the session's dispatcher, on the card
+    comm_cfg = MoECommConfig(
+        n_devices=8, n_experts=cfg.n_experts, d_model=cfg.d_model,
+        chunk_tokens=ctx8.moe_chunk_tokens, capacity_factor=cfg.moe_capacity_factor,
+        group_size=4, alt_frac=ctx8.moe_alt_frac, mode="nimble", payload_dtype=bf16)
+    n_endpoints = len(sess._endpoints)
+    disp = sess.moe_dispatcher(comm_cfg)
+    check(len(sess._endpoints) == n_endpoints,
+          "plan_batched: the session built a new dispatcher (not the model's)")
+    demand = torch.stack([c[1] for c in rec.calls])                   # [B, n, n]
+    n_assign = prompts.numel() // 8 * cfg.top_k
+    est_calls = []
+    est = sess.runtime.estimator
+    est_update = est.update
+    est.update = lambda D: (est_calls.append(1), est_update(D))[1]
+    plan_card = disp.plan_batched(demand, n_assign)
+    est.update = est_update
+    B = demand.shape[0]
+    with Session(dataclasses.replace(spec, device="cpu")) as cpu_sess:
+        plan_cpu = cpu_sess.moe_dispatcher(comm_cfg).plan_batched(demand.cpu(), n_assign)
+        same_cpu = torch.equal(plan_card.cpu(), plan_cpu) and (
+            sess.runtime.telemetry.to_json_obj() == cpu_sess.runtime.telemetry.to_json_obj())
+    own = torch.stack([c[0].plan_from_counts(demand[b]) for b, c in enumerate(rec.calls)])
+    same_path = torch.equal(plan_card, own)
+    records = (len(sess.runtime.telemetry), len(est_calls))
+    check(plan_card.device.type == "cuda" and same_cpu,
+          "plan_batched on the card != on the CPU (plan or telemetry)")
+    check(same_path, "plan_batched != the plan the path's dispatch used")
+    check(records == (B, B), f"plan_batched fed {records} telemetry/estimator records, "
+          f"not {B} each")
+    report = sess.report()
+    sess.close()
+    print(f"[16b session prefill] {cfg.name} bf16 ep=8 groups of 4 nimble, 4 x 512 tokens, "
+          f"through an arbitrated Session (tenant 'moe-serve', device cuda): logits "
+          f"{'= phase 4 bit for bit' if exact else '!= phase 4'}; prefill {wired_ms:.1f} / "
+          f"{wired_ms2:.1f} ms wired vs {unwired_ms:.1f} ms unwired in this call (phase 4 "
+          f"{phase4_ms:.1f} ms); launches {counts}; plan_batched of the prefill's "
+          f"{B} dispatch demand(s) (n_assign {n_assign}, {int(demand.sum())} chunks) on the "
+          f"card {'= CPU' if same_cpu else '!= CPU'}, {'=' if same_path else '!='} the "
+          f"path's own plan, {int(plan_card[..., 1:].sum())} alt chunks; telemetry/"
+          f"estimator records {records}; report {report['schema']} with "
+          f"{len(report['metrics']['metrics'])} metrics", flush=True)
+    del model, wired, params, logits_w, logits_u, logits_w2, rec
+    torch.cuda.empty_cache()
+
+    # ---- 16c. the endpoint example on the card ---------------------------------
+    results, _ = _quiet(skewed_alltoallv.main, ["--device", "cuda"])
+    exact = all(ok for r in results.values() for ok, _ in r.values())
+    check(exact and len(results) == 3, "skewed_alltoallv on the card: not bit-exact")
+    print("[16c example] skewed_alltoallv on the card through Session.all_to_all: "
+          + "; ".join(f"hotspot {h}: " + ", ".join(
+              f"{m} {'exact' if ok else 'WRONG'} ({t * 1e3:.3f} ms projected)"
+              for m, (ok, t) in r.items()) for h, r in results.items()), flush=True)
+
+    # ---- 16d. the API selfcheck on the card -------------------------------------
+    rc, out = _quiet(selfcheck.main, ["--device", "cuda"])
+    check(rc == 0, f"api selfcheck on the card: {out.strip().splitlines()[-1]}")
+    print("[16d selfcheck] " + " | ".join(
+        line.replace("[selfcheck] ", "") for line in out.strip().splitlines()), flush=True)
+    print(f"[16 session] ({time.perf_counter() - t_phase:.0f} s for phase 16)", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1094,6 +1311,7 @@ def main() -> int:
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     counts_prefill = launch_counts()
+    phase4_logits = logits8                  # held for phase 16's Session-wired prefill
     check(tuple(logits8.shape) == (4, 1, cfg.vocab), f"prefill logits {logits8.shape}")
     check(bool(torch.isfinite(logits8).all()), "prefill logits not finite")
     # parity with the single-device path needs a dispatch that drops nothing:
@@ -1202,6 +1420,10 @@ def main() -> int:
     # ---- 15. execution-time planning runtime -------------------------------------
     runtime_phase(torch, np, check, smi)
     print(f"[15 runtime] ({time.perf_counter() - t_start:.0f} s in all)", flush=True)
+
+    # ---- 16. endpoint API and shared-fabric arbiter -------------------------------
+    session_phase(torch, np, check, smi, args.seed, dev, phase4_logits, prefill_s * 1e3)
+    print(f"[16 session] ({time.perf_counter() - t_start:.0f} s in all)", flush=True)
 
     kernels = []
     for kname, (src, replaces) in KERNEL_META.items():

@@ -20,6 +20,9 @@ runs on one card (or on the CPU):
 
 Modes: ``nimble`` (planned), ``direct`` (static least-hop, NCCL/PXN-like)
 and ``stripe`` (even multirail striping, UCX-like), over the same slots.
+
+The stacked ranks need no mesh axis, so the port's endpoint takes no
+``axis_name``, and :meth:`NimbleAllToAll.from_session` none either.
 """
 
 from __future__ import annotations
@@ -31,7 +34,8 @@ import numpy as np
 import torch
 
 from ..kernels.token_scatter.ops import token_gather
-from .planner import PlannerConfig, plan_chunks
+from .cost import CostModel
+from .planner import PlannerConfig, plan_chunks, plan_flows_batch, quantize_chunks
 from .schedule import (
     CommSchedule,
     PlannerTables,
@@ -78,25 +82,82 @@ class NimbleAllToAll:
         chunk_bytes: float,
         alt_frac: float = 0.5,
         planner_cfg: Optional[PlannerConfig] = None,
+        cost_model: Optional[CostModel] = None,
         mode: str = "nimble",  # nimble | direct | stripe
+        topo: Optional[Topology] = None,
     ):
         if mode not in ("nimble", "direct", "stripe"):
             raise ValueError(f"unknown mode {mode!r}")
         self.mode = mode
-        self.topo = Topology(n_devices, group_size)
+        # ``topo`` lets a Session (or any caller with a non-default fabric:
+        # custom caps, pods, degraded links) supply the exact Topology the
+        # planner should price; geometry must match the dataplane's ranks
+        if topo is not None:
+            if (topo.n_devices, topo.group_size) != (n_devices, group_size):
+                raise ValueError(
+                    f"topology geometry ({topo.n_devices}, "
+                    f"{topo.group_size}) != dataplane geometry "
+                    f"({n_devices}, {group_size})"
+                )
+            self.topo = topo
+        else:
+            self.topo = Topology(n_devices, group_size)
         # direct routes everything on k=0, so it provisions no alternate slots
         if mode == "direct":
             alt_frac = 0.0
         self.sched: CommSchedule = build_schedule(self.topo, max_chunks, alt_frac)
-        self.tables: PlannerTables = build_planner_tables(self.topo)
+        self.tables: PlannerTables = build_planner_tables(self.topo, cost_model)
         self.cfg = planner_cfg or PlannerConfig(chunk_bytes=chunk_bytes)
         if self.cfg.chunk_bytes != chunk_bytes:
             self.cfg = dataclasses.replace(self.cfg, chunk_bytes=chunk_bytes)
         self.rel_of_pair = build_rel_of_pair(n_devices, group_size)
+        # optional execution-time telemetry sink (runtime.LinkTelemetry):
+        # host-driven plan_batch calls harvest planned resource loads into it
+        self.telemetry = None
         self.K = self.sched.K
         self.C = max_chunks
         self._maps = {}
         self._build_static_maps()
+
+    @classmethod
+    def from_session(
+        cls,
+        session,
+        *,
+        max_chunks: int,
+        chunk_bytes: float,
+        alt_frac: float = 0.5,
+        mode: str = "nimble",
+        planner_cfg: Optional[PlannerConfig] = None,
+    ) -> "NimbleAllToAll":
+        """Session-wired endpoint.
+
+        Topology, cost model, and planner defaults come from the session
+        (duck-typed: ``.topo``, ``.cost_model``, ``.spec.planner``,
+        ``.runtime`` — this module never imports ``repro_torch.api``); when
+        the session runs an orchestration runtime, the endpoint's telemetry
+        is attached so host-driven ``plan_batch`` calls feed its monitor
+        stage.  With an all-default session this is constructor-equivalent
+        to hand-wiring ``NimbleAllToAll(...)`` — bit-identical plans.
+        """
+        topo = session.topo
+        comm = cls(
+            topo.n_devices,
+            topo.group_size,
+            max_chunks=max_chunks,
+            chunk_bytes=chunk_bytes,
+            alt_frac=alt_frac,
+            planner_cfg=(
+                planner_cfg if planner_cfg is not None else session.spec.planner
+            ),
+            cost_model=session.cost_model,
+            mode=mode,
+            topo=topo,
+        )
+        runtime = getattr(session, "runtime", None)
+        if runtime is not None:
+            comm.attach_telemetry(runtime.telemetry)
+        return comm
 
     # -- static index maps --------------------------------------------------------
     def _build_static_maps(self) -> None:
@@ -169,6 +230,41 @@ class NimbleAllToAll:
             return share
         return plan_chunks(dc, self.tables, self.cfg, self.sched.S,
                            self.rel_of_pair)
+
+    def attach_telemetry(self, sink) -> None:
+        """Attach a ``runtime.LinkTelemetry`` (or duck-typed) sink.
+
+        Subsequent host-driven :meth:`plan_batch` calls record each planned
+        demand matrix and its per-resource loads via ``sink.record_loads``
+        (self-numbered windows), feeding the orchestration runtime's
+        monitor stage from real plan executions without touching the
+        per-call dataplane path.  Only ``mode="nimble"`` produces a load
+        vector — the static baselines plan elementwise and record nothing.
+        """
+        self.telemetry = sink
+
+    def plan_batch(self, demand_chunks: torch.Tensor) -> torch.Tensor:
+        """Plan a batch of demand matrices in one call: [B, n, n] -> [B, n, n, K].
+
+        Multi-tenant / per-layer entry point: every batch entry is planned
+        by the batched MWU against the same cached incidence tables and
+        quantized to slot capacities, on the demand's device.  Static modes
+        apply their elementwise rules to each entry.
+        """
+        dc = torch.as_tensor(demand_chunks).to(torch.int32)
+        if self.mode != "nimble":
+            return torch.stack([self.plan_from_counts(d) for d in dc])
+        D = dc.to(torch.float32) * self.cfg.chunk_bytes
+        flows, loads = plan_flows_batch(D, self.tables, self.cfg)
+        if self.telemetry is not None:
+            # strip the trailing dummy resource the planner pads with
+            loads_np = loads.cpu().numpy()[:, :-1]
+            D_np = D.cpu().numpy()
+            for b in range(loads_np.shape[0]):
+                self.telemetry.record_loads(None, loads_np[b],
+                                            pair_bytes=D_np[b])
+        return quantize_chunks(flows, dc, self.sched.S, self.rel_of_pair,
+                               self.cfg.chunk_bytes)
 
     # -- execution ------------------------------------------------------------------
     def __call__(

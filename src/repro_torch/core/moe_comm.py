@@ -20,6 +20,9 @@ assignments; overflow assignments are dropped and counted.  The sideband
 is written for kept assignments only.  (The reference writes it at
 ``min(slot, cap - 1)`` for every assignment, so an overflowing one can
 overwrite a kept token's id with -1; the port does not copy that.)
+
+The ranks are stacked, so there is no mesh axis to name: the dispatcher's
+constructor and :meth:`MoEDispatcher.from_session` take no ``axis_name``.
 """
 
 from __future__ import annotations
@@ -31,8 +34,10 @@ import numpy as np
 import torch
 
 from ..kernels.token_scatter.ops import token_gather
+from .cost import CostModel
 from .dataplane import NimbleAllToAll
 from .planner import PlannerConfig
+from .topology import Topology
 
 
 @dataclasses.dataclass
@@ -56,13 +61,60 @@ class MoECommConfig:
 
 
 class MoEDispatcher:
-    """Dispatch/combine helper for one EP group of stacked ranks."""
+    """Dispatch/combine helper for one EP group of stacked ranks.
+
+    ``runtime`` optionally routes dispatch planning through an
+    :class:`~repro_torch.runtime.controller.OrchestrationRuntime`:
+    host-driven batched plans (:meth:`plan_batched`) feed its telemetry and
+    estimator, so drifting expert popularity shows up in the runtime's
+    replan loop.  The per-call dispatch path is unchanged — the runtime
+    observes from the host side only.
+    """
 
     def __init__(self, cfg: MoECommConfig,
-                 planner_cfg: Optional[PlannerConfig] = None):
+                 planner_cfg: Optional[PlannerConfig] = None,
+                 runtime=None,
+                 cost_model: Optional[CostModel] = None,
+                 topo: Optional[Topology] = None):
         self.cfg = cfg
         self._comms: Dict[int, NimbleAllToAll] = {}
         self._planner_cfg = planner_cfg
+        self.runtime = runtime
+        # non-default fabric description for the underlying dataplane
+        # endpoints (Session-supplied; None derives a default Topology from
+        # the comm geometry)
+        self._cost_model = cost_model
+        self._topo = topo
+
+    @classmethod
+    def from_session(cls, session, cfg: MoECommConfig,
+                     planner_cfg: Optional[PlannerConfig] = None
+                     ) -> "MoEDispatcher":
+        """Session-wired dispatcher.
+
+        The session (duck-typed — this module never imports
+        ``repro_torch.api``) supplies the fabric topology, cost model,
+        planner defaults, and — when it runs one — the orchestration
+        runtime, so expert-parallel dispatch demand feeds the runtime's
+        telemetry/estimator without any per-application wiring.  The comm
+        geometry in ``cfg`` must match the session's fabric.
+        """
+        topo = session.topo
+        if (cfg.n_devices, cfg.group_size) != (topo.n_devices,
+                                               topo.group_size):
+            raise ValueError(
+                f"MoE comm geometry ({cfg.n_devices}, {cfg.group_size}) != "
+                f"session fabric ({topo.n_devices}, {topo.group_size})"
+            )
+        return cls(
+            cfg,
+            planner_cfg=(
+                planner_cfg if planner_cfg is not None else session.spec.planner
+            ),
+            runtime=getattr(session, "runtime", None),
+            cost_model=session.cost_model,
+            topo=topo,
+        )
 
     def capacity_tokens(self, n_assign: int) -> int:
         cfg = self.cfg
@@ -73,16 +125,45 @@ class MoEDispatcher:
     def _comm(self, n_chunks: int) -> NimbleAllToAll:
         if n_chunks not in self._comms:
             itemsize = torch.empty((), dtype=self.cfg.payload_dtype).element_size()
-            self._comms[n_chunks] = NimbleAllToAll(
+            comm = NimbleAllToAll(
                 self.cfg.n_devices,
                 self.cfg.group_size,
                 max_chunks=n_chunks,
                 chunk_bytes=float(self.cfg.chunk_tokens * self.cfg.d_model * itemsize),
                 alt_frac=self.cfg.alt_frac,
                 planner_cfg=self._planner_cfg,
+                cost_model=self._cost_model,
                 mode=self.cfg.mode,
+                topo=self._topo,
             )
+            if self.runtime is not None:
+                comm.attach_telemetry(self.runtime.telemetry)
+            self._comms[n_chunks] = comm
         return self._comms[n_chunks]
+
+    def plan_batched(self, demand_chunks: torch.Tensor, n_assign: int) -> torch.Tensor:
+        """Plan B dispatch rounds in one call: [B, n, n] -> [B, n, n, K].
+
+        Multi-tenant / pipelined entry point: the demand matrices of
+        several MoE layers (or microbatches, or co-located tenants) are
+        planned together by the batched MWU over the shared cached
+        incidence tables, on the demand's device.  ``n_assign`` is the
+        per-round assignment count (T*k), as in :meth:`dispatch`, and fixes
+        the chunk capacity C.
+        """
+        cfg = self.cfg
+        cap_tok = self.capacity_tokens(n_assign)
+        comm = self._comm(cap_tok // cfg.chunk_tokens)
+        if self.runtime is not None:
+            # feed the dispatch demand into the runtime's estimator so MoE
+            # expert-popularity drift participates in its replan decisions;
+            # one update per batch entry, matching the per-window records
+            # the telemetry sink takes in plan_batch
+            D = torch.as_tensor(demand_chunks).cpu().numpy().astype(np.float64) \
+                * float(comm.cfg.chunk_bytes)
+            for b in range(D.shape[0]):
+                self.runtime.estimator.update(D[b])
+        return comm.plan_batch(demand_chunks)
 
     # -- dispatch ----------------------------------------------------------------
     def dispatch(

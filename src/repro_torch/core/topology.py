@@ -20,7 +20,7 @@ and can be swapped for TPU v5e ICI constants via :class:`LinkCaps`.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Mapping, Tuple
+from typing import Callable, Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 
@@ -219,3 +219,46 @@ class Topology:
             f"Topology(devices={self.n_devices}, groups={self.n_groups}x"
             f"{self.group_size}, pods={self.n_pods}, links={counts})"
         )
+
+
+class LinkEventBus:
+    """Synchronous fan-out of link events to every registered listener.
+
+    One physical fabric is shared by N tenants, but each tenant runtime
+    keeps its *own* :class:`~repro_torch.runtime.events.EventLog` and derives its
+    own degraded :class:`Topology`.  Without a shared bus, a NIC flap
+    delivered to one tenant leaves every other tenant planning against a
+    stale fingerprint.  The bus closes that gap: a publisher (typically the
+    fabric arbiter) calls :meth:`publish` once and every subscriber — each
+    tenant's event-scheduling callback — receives the same event batch, so
+    all tenants rebuild their fingerprint-keyed planner tables for the same
+    fabric state.
+
+    Delivery is synchronous and in subscription order; callbacks must not
+    publish re-entrantly.  The payload is opaque to the bus (a sequence of
+    :class:`~repro_torch.runtime.events.LinkEvent` by convention).
+    """
+
+    def __init__(self):
+        self._subs: Dict[int, Callable[[Sequence], None]] = {}
+        self._next_token = 0
+
+    def subscribe(self, callback: Callable[[Sequence], None]) -> int:
+        """Register ``callback(events)``; returns an unsubscribe token."""
+        token = self._next_token
+        self._next_token += 1
+        self._subs[token] = callback
+        return token
+
+    def unsubscribe(self, token: int) -> None:
+        self._subs.pop(token, None)
+
+    def publish(self, events: Sequence) -> int:
+        """Deliver ``events`` to every subscriber; returns listener count."""
+        events = list(events)
+        for callback in list(self._subs.values()):
+            callback(events)
+        return len(self._subs)
+
+    def __len__(self) -> int:
+        return len(self._subs)

@@ -8,9 +8,10 @@ MoE LM with its experts over 4 expert-parallel ranks in 2 groups of 2
 ("nodes"), stacked in one process on the card (or on the CPU with
 ``--device cpu``): every train step's dispatch and combine is a skewed
 All-to-Allv through the NIMBLE dataplane (live demand -> MWU plan ->
-scheduled relay rounds), forward and backward.  The reference wires its
-dispatchers through a ``repro.api.Session``; the port builds them from the
-``ParallelContext`` until ``api/`` is ported.
+scheduled relay rounds), forward and backward.  The dispatch stack is
+wired through one :class:`repro_torch.api.Session` describing the EP
+fabric (``ParallelContext.session``), as the reference's is: no
+per-application planner or telemetry plumbing.
 
 Presets (the reference's):
     default : granite-moe-8m,   ~8M params, 200 steps, sequence 128
@@ -26,6 +27,7 @@ import time
 
 import numpy as np
 
+from ..api import Session, SessionSpec, TopologySpec
 from ..configs.base import get_config
 from ..data.pipeline import DataConfig, SyntheticLM, to_device
 from ..models.registry import build_model
@@ -66,7 +68,14 @@ def main(argv=None):
         steps = args.steps or 200
         seq = args.seq or 128
 
-    ctx = ParallelContext(ep_size=4, group_size=2, moe_mode=args.mode, device=args.device)
+    # one declarative session describes the EP fabric (4 ranks = 2 "nodes"
+    # x 2) and hands the model ready-wired NIMBLE dispatchers
+    session = Session(SessionSpec(
+        topology=TopologySpec(n_devices=4, group_size=2), tenant="moe-train",
+        device=args.device,
+    ))
+    ctx = ParallelContext(ep_size=4, group_size=2, moe_mode=args.mode,
+                          device=args.device, session=session)
     model = build_model(cfg, ctx)
     params = model.init(args.seed)
     n_par = sum(x.numel() for x in leaves(params))
@@ -94,6 +103,7 @@ def main(argv=None):
     print(f"[moe-train] loss {first:.4f} -> {last:.4f} "
           f"({'improved' if last < first else 'NOT improved'})")
     assert last < first, "training did not reduce loss"
+    session.close()
     return losses
 
 

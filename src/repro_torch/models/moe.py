@@ -121,7 +121,7 @@ def make_moe_ffn(cfg: ModelConfig, ctx: ParallelContext):
         return apply_local
 
     n = ctx.ep_size
-    dispatcher = MoEDispatcher(MoECommConfig(
+    comm_cfg = MoECommConfig(
         n_devices=n,
         n_experts=cfg.n_experts,
         d_model=cfg.d_model,
@@ -131,7 +131,13 @@ def make_moe_ffn(cfg: ModelConfig, ctx: ParallelContext):
         alt_frac=ctx.moe_alt_frac,
         mode=ctx.moe_mode,
         payload_dtype=ctx.compute_dtype,
-    ))
+    )
+    if ctx.session is not None:
+        # endpoint API: the session supplies cost model, planner config,
+        # and (when adaptive) runtime telemetry wiring
+        dispatcher = ctx.session.moe_dispatcher(comm_cfg)
+    else:
+        dispatcher = MoEDispatcher(comm_cfg)
     epd = dispatcher.cfg.experts_per_device
 
     def experts(p, recv, e_local):

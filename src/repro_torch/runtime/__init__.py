@@ -5,7 +5,9 @@ per-resource telemetry, EWMA + skew-burst demand estimation, hysteresis
 replan triggers, a double-buffered plan cache with atomic boundary swaps,
 and link-fault events that rebuild the planner tables.  Each replan is
 solved by the tensor planner on the runtime's device (the card unless the
-caller names the CPU).
+caller names the CPU).  Multiple runtimes sharing one fabric are
+coordinated by the fabric arbiter (``repro_torch.fabric``) via
+``register_runtime``.
 """
 
 from .controller import (

@@ -25,12 +25,22 @@ owns the monitor -> estimate -> replan -> swap loop on one endpoint:
   * topology events (:mod:`~repro_torch.runtime.events`) rebuild the
     cached incidence tables for the degraded fabric and force an immediate
     replan, discarding any in-flight pending plan solved for the old
-    capacities.
+    capacities;
+  * when bound to a :class:`~repro_torch.fabric.FabricArbiter`
+    (``register_runtime``), solves price in peers' committed load
+    (``ext_loads``), replans pass the fabric admission gate (throttled
+    decisions surface as ``replan_reason="gated"``), executed loads are
+    exported to the shared ledger every window (window-stamped, so peers'
+    price-recency decay can fade them), broadcast link events arrive
+    through the shared bus, and a pending plan whose exported prices moved
+    materially between issue and swap boundary is re-solved against live
+    prices before it is allowed in (``FabricArbiter.reprice``).  Unbound
+    (or solo-tenant) behavior is bit-identical to the standalone runtime.
 
-The reference's hooks into its fabric arbiter (priced solves, the
-admission gate, swap-boundary re-pricing), its flight recorder and its
-endpoint API are not part of this module yet; the runtime here is the
-reference's *unbound* runtime, whose reports it reproduces bit for bit.
+The reference's flight-recorder hooks (``attach_recorder``, the
+``recorder=`` argument, the trace spans and ``PlanHandle.provenance``) come
+with the port of ``obs/``; everything else reproduces the reference's
+reports bit for bit, bound or unbound.
 
 Every solve runs on ``device``: the card unless the caller names the CPU.
 The float64 demand is cast to float32 on the host (as the reference's
@@ -151,15 +161,26 @@ class RuntimeConfig:
 
 @dataclasses.dataclass
 class PlanHandle:
-    """One buffered plan: the routing policy plus its provenance."""
+    """One buffered plan: the routing policy plus its provenance.
+
+    ``solved_demand`` / ``solved_prices`` record what the plan was solved
+    *against*, so the swap boundary can re-price it: when the fabric's
+    exported prices moved materially between issue and swap, the pending
+    plan is re-solved on the same demand under live prices.  ``repriced``
+    marks a handle that already went through one re-price round — the
+    retry swaps at its boundary regardless, so a continuously drifting
+    fabric delays a swap by at most one re-solve.
+    """
 
     plan: Plan
     signature: tuple
     version: int
     solved_window: int
-    source: str   # "initial" | "solve" | "cache" | "watchdog"
+    source: str   # "initial" | "solve" | "cache" | "reprice" | "watchdog"
     baseline_ratio: float  # Z/Z* on its own solve demand, for the policy
     solved_demand: Optional[np.ndarray] = None
+    solved_prices: Optional[np.ndarray] = None
+    repriced: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,8 +198,10 @@ class WindowReport:
     replan_reason: str
     cache_hit: bool
     events: Tuple[str, ...]
-    # the policy's raw trigger (the reference's fabric gate may rewrite
-    # replan_reason to "gated"; an unbound runtime never does)
+    # the policy's raw trigger before fabric-gate rewriting: a window with
+    # ``replan_reason="gated"`` keeps its underlying trigger ("congestion",
+    # "staleness", "fabric") here, so report consumers can tell a gated
+    # trigger from a window where no trigger fired at all
     trigger_reason: str = "none"
     # health signals from the estimator / telemetry layers: prediction
     # confidence after this window (decays through blackouts) and the
@@ -199,9 +222,9 @@ class RuntimeStats:
     cache_hits: int = 0
     swaps: int = 0
     events: int = 0
-    reprices: int = 0       # the reference's arbiter re-solves (0 unbound)
+    reprices: int = 0       # stale pendings re-solved on live prices at swap
     watchdog_abandons: int = 0   # pendings past deadline, re-solved live
-    gated: int = 0          # the reference's gated triggers (0 unbound)
+    gated: int = 0          # fired triggers throttled by the fabric gate
 
     def to_json_obj(self) -> dict:
         return tag("runtime_stats", dataclasses.asdict(self))
@@ -228,7 +251,7 @@ class TraceResult:
 
     @property
     def gated_windows(self) -> List[int]:
-        """Windows whose fired trigger was throttled by a fabric gate."""
+        """Windows whose fired trigger was throttled by the fabric gate."""
         return [r.window for r in self.reports if r.replan_reason == "gated"]
 
     def to_json_obj(self) -> dict:
@@ -247,6 +270,38 @@ class TraceResult:
 
 class OrchestrationRuntime:
     """Endpoint-driven monitor -> estimate -> replan -> swap loop."""
+
+    @classmethod
+    def from_session(cls, session) -> "OrchestrationRuntime":
+        """Build the runtime for a :class:`repro_torch.api.Session`.
+
+        Narrow construction hook: the session is duck-typed — only
+        ``.topo``, ``.cost_model`` and ``.spec`` (with ``runtime_config()``,
+        ``policy_config()``, ``estimator``, ``initial_demand`` and
+        ``device``) are read — so this module never imports
+        ``repro_torch.api``.  ``None`` spec fields fall through to the exact
+        constructor defaults, keeping Session-built runtimes bit-identical
+        to hand-wired ``OrchestrationRuntime(topo)`` stacks.
+        """
+        spec = session.spec
+        # policy_config() folds the spec-level calibrated fabric_staleness
+        # into the policy for arbitrated sessions
+        pcfg = spec.policy_config()
+        policy = ReplanPolicy(pcfg) if pcfg is not None else None
+        estimator = (
+            DemandEstimator(session.topo.n_devices, spec.estimator)
+            if spec.estimator is not None
+            else None
+        )
+        return cls(
+            session.topo,
+            session.cost_model,
+            cfg=spec.runtime_config(),
+            policy=policy,
+            estimator=estimator,
+            initial_demand=spec.initial_demand,
+            device=spec.device,
+        )
 
     def __init__(
         self,
@@ -278,6 +333,12 @@ class OrchestrationRuntime:
             collections.OrderedDict()
         )
         self._pending: Optional[Tuple[PlanHandle, int]] = None
+        # fabric-arbiter binding (FabricArbiter.register_runtime): when set,
+        # solves take arbiter-exported prices, replans pass the admission
+        # gate, and executed loads are committed to the shared ledger
+        self._arbiter = None
+        self._tenant: Optional[str] = None
+        self._fabric_window_offset = 0
         self._rebuild_planner()
 
         if initial_demand is None:
@@ -292,27 +353,69 @@ class OrchestrationRuntime:
             source="initial",
         )
 
+    # -- fabric-arbiter binding -------------------------------------------------
+    def bind_arbiter(self, arbiter, tenant: Optional[str]) -> None:
+        """Attach/detach this runtime to a :class:`~repro_torch.fabric.FabricArbiter`.
+
+        Called by ``FabricArbiter.register_runtime`` / ``unregister`` — use
+        those entry points rather than calling this directly, so the
+        ledger, admission gate, and event-bus subscription stay in sync.
+        """
+        self._arbiter = arbiter
+        self._tenant = tenant
+        if arbiter is not None:
+            # align this runtime's window counter with the fabric clock:
+            # commits are stamped in *fabric* windows, so a tenant joining
+            # a fabric that has already run N windows is not priced as N
+            # windows stale (and decayed to nothing) just because its own
+            # counter starts at zero.  On a fresh fabric the offset is 0 —
+            # stamps equal local windows.
+            self._fabric_window_offset = arbiter.state.clock - self._window
+        else:
+            self._fabric_window_offset = 0
+
+    def _arbiter_prices(self) -> Optional[np.ndarray]:
+        """Exported prices for this tenant (None when unbound or alone)."""
+        if self._arbiter is None:
+            return None
+        return self._arbiter.prices_for(self._tenant)
+
     # -- planner / tables -------------------------------------------------------
     def _rebuild_planner(self) -> None:
         self.tables = build_planner_tables(self.topo, self.cm)
         # move the (possibly new) tables' candidate rows to the device once
         device_tables(self.tables, self.device)
 
-    def _solve_batch(self, demands: np.ndarray) -> List[Plan]:
+    def _solve_batch(
+        self, demands: np.ndarray, ext_loads: np.ndarray | None = None
+    ) -> List[Plan]:
         """B demand matrices -> B host plans via one batched solve."""
         self.stats.solves += len(demands)
         return solve_plans_batch(
-            self.topo, demands, self.cm, self.cfg.planner, device=self.device,
+            self.topo, demands, self.cm, self.cfg.planner,
+            ext_loads=ext_loads, device=self.device,
         )
 
+    _PRICES_UNSET = object()   # sentinel: "fetch prices from the arbiter"
+
     def _solve_handle(self, demand: np.ndarray, window: int,
-                      source: str) -> Tuple[PlanHandle, bool]:
-        """Probe the plan cache, solving on a miss; returns (handle, hit)."""
-        sig = self.demand_signature(demand)
+                      source: str,
+                      repriced: bool = False,
+                      prices=_PRICES_UNSET) -> Tuple[PlanHandle, bool]:
+        """Probe the plan cache, solving on a miss; returns (handle, hit).
+
+        ``prices`` lets a caller that already holds the live price vector
+        (the swap-boundary reprice verdict) pass it through instead of
+        recomputing the decayed external load.
+        """
+        if prices is OrchestrationRuntime._PRICES_UNSET:
+            prices = self._arbiter_prices()
+        sig = self.demand_signature(demand, prices)
         plan = self._cache_get(sig)
         cache_hit = plan is not None
         if plan is None:
-            plan = self._solve_batch(demand[None])[0]
+            ext = None if prices is None else prices[None]
+            plan = self._solve_batch(demand[None], ext_loads=ext)[0]
             self._cache_put(sig, plan)
         self._version += 1
         handle = PlanHandle(
@@ -323,25 +426,39 @@ class OrchestrationRuntime:
             source="cache" if cache_hit else source,
             baseline_ratio=self._ratio(plan, demand),
             solved_demand=demand,
+            solved_prices=prices,
+            repriced=repriced,
         )
         return handle, cache_hit
 
     # -- plan cache -------------------------------------------------------------
-    def demand_signature(self, demand: np.ndarray) -> tuple:
+    def demand_signature(
+        self, demand: np.ndarray, prices: Optional[np.ndarray] = None
+    ) -> tuple:
         """(topology fingerprint, scale bucket, quantized shape) cache key.
 
         The shape is quantized to ``signature_levels`` relative levels and
         the magnitude to a power-of-two bucket: MWU split ratios are (up to
         chunk quantization) scale-invariant, so nearby demands share a
         plan; a changed fingerprint (capacities, faults) never matches.
+
+        Arbitrated solves extend the key with the exported price vector,
+        quantized the same way — a plan solved under peers' load must not
+        be served to a solve under different prices (and vice versa).
+        ``prices=None`` leaves the key identical to the unarbitrated one.
         """
-        v = np.asarray(demand, dtype=np.float64)
-        m = float(v.max())
-        if m <= 0:
-            return (self.topo.fingerprint, "zero")
-        q = np.round(v / m * self.cfg.signature_levels).astype(np.int16)
-        return (self.topo.fingerprint, int(round(np.log2(max(m, 1.0)))),
-                q.tobytes())
+        def quantize(v: np.ndarray) -> tuple:
+            v = np.asarray(v, dtype=np.float64)
+            m = float(v.max())
+            if m <= 0:
+                return ("zero",)
+            q = np.round(v / m * self.cfg.signature_levels).astype(np.int16)
+            return (int(round(np.log2(max(m, 1.0)))), q.tobytes())
+
+        sig = (self.topo.fingerprint,) + quantize(demand)
+        if prices is None:
+            return sig
+        return sig + quantize(prices)
 
     def _cache_get(self, sig: tuple) -> Optional[Plan]:
         plan = self._cache.get(sig)
@@ -407,6 +524,22 @@ class OrchestrationRuntime:
     def _maybe_swap(self, window: int) -> bool:
         """Atomic plan swap at the window boundary (never mid-round).
 
+        Arbitrated runtimes re-price the pending plan here: the plan was
+        solved ``solve_delay_windows`` ago under the prices of its issue
+        window, and on a fabric whose peers moved meanwhile those prices
+        describe where everyone *was* — exactly the mutual over-avoidance
+        failure.  When the arbiter's ``reprice`` verdict says the prices
+        moved past ``price_hint_rel`` since issue, the plan **still swaps
+        in** — it was solved on fresher demand than whatever it replaces —
+        but the same demand is immediately re-solved against live prices
+        and the *refined* plan parked as the new pending (swap-and-refine).
+        One refine round per replan chain (``PlanHandle.repriced``): the
+        refined plan swaps at its own boundary regardless, so continuous
+        drift costs at most one extra solve per replan and can never starve
+        the dataplane of swaps.  Refines never charge the admission gate —
+        they complete an already-admitted replan rather than issuing a new
+        one.
+
         A **pending-plan watchdog** guards the issue-to-swap path: a
         pending whose solve is older than ``pending_deadline_windows``
         describes a fabric that no longer exists (window-clock jumps via
@@ -439,8 +572,29 @@ class OrchestrationRuntime:
         if ready > window:
             return False
         self._pending = None
+        if (
+            self._arbiter is not None
+            and not handle.repriced
+            and handle.solved_demand is not None
+        ):
+            verdict = self._arbiter.reprice(
+                self._tenant, handle.solved_prices
+            )
+            if verdict.moved:
+                re_handle, cache_hit = self._solve_handle(
+                    handle.solved_demand, window, "reprice", repriced=True,
+                    prices=verdict.prices,
+                )
+                ready = window + (
+                    1 if cache_hit else max(1, self.cfg.solve_delay_windows)
+                )
+                self._pending = (re_handle, ready)
+                self.stats.reprices += 1
         self._active = handle
         self.stats.swaps += 1
+        # pass the solve provenance: a fabric-pressure hint newer than
+        # the swapped plan's solve must survive the swap (the plan was
+        # priced before the fabric shifted)
         self.policy.notify_swap(handle.solved_window)
         return True
 
@@ -501,6 +655,17 @@ class OrchestrationRuntime:
         self.telemetry.record(
             w, sim, pair_bytes=pair_obs, completion_scale=completion_scale
         )
+        if self._arbiter is not None:
+            # telemetry export: this window's realized per-resource loads
+            # become this tenant's committed load in the shared ledger —
+            # window-stamped so peers' recency decay can fade it, and
+            # fingerprint-tagged so a commit racing a topology rebuild is
+            # rejected by name instead of as an opaque shape error
+            self._arbiter.commit(
+                self._tenant, exec_plan.resource_bytes,
+                window=w + self._fabric_window_offset,
+                fingerprint=self.topo.fingerprint,
+            )
 
         # estimate next-window demand and evaluate the triggers (the
         # estimator degrades gracefully on None / NaN-masked observations)
@@ -515,6 +680,31 @@ class OrchestrationRuntime:
             pending=self._pending is not None,
             topology_event=bool(due),
         )
+        trigger_reason = decision.reason
+        if (
+            decision.replan
+            and self._arbiter is not None
+            and decision.reason != "topology"
+        ):
+            # replan admission gate: a drift burst on one tenant must not
+            # monopolize the shared solver or churn peers' price-keyed
+            # caches; topology-forced replans always pass
+            verdict = self._arbiter.admit(
+                self._tenant, window=w, reason=decision.reason
+            )
+            if not verdict.admitted:
+                decision = dataclasses.replace(
+                    decision, replan=False, reason="gated"
+                )
+                self.stats.gated += 1
+                # the fired trigger disarmed the policy but no swap will
+                # follow — re-arm so the tenant retries once tokens refill
+                self.policy.notify_gated()
+                if trigger_reason == "fabric":
+                    # the pressure that fired was not relieved (no solve
+                    # happened) — restart the soft deadline so the tenant
+                    # retries once its tokens refill
+                    self.policy.notify_fabric_pressure(w)
         cache_hit = False
         if decision.replan:
             _, cache_hit = self._issue_replan(predicted, w)
@@ -535,7 +725,7 @@ class OrchestrationRuntime:
             replan_reason=decision.reason,
             cache_hit=cache_hit,
             events=tuple(ev.describe() for ev in due),
-            trigger_reason=decision.reason,
+            trigger_reason=trigger_reason,
             confidence=float(self.estimator.confidence),
             telemetry_rejected=int(self.telemetry.rejected),
         )
@@ -556,6 +746,17 @@ class OrchestrationRuntime:
         reports = [self.step(trace[w]) for w in range(len(trace))]
         return TraceResult(reports, dataclasses.replace(self.stats))
 
+    # -- fabric-pressure hook ---------------------------------------------------
+    def notify_fabric_pressure(self) -> None:
+        """A fabric "prices moved" hint arrived (arbiter broadcast).
+
+        Peers' committed load shifted materially, so the active plan may
+        be priced stale even while this tenant's own demand is flat.
+        Forwarded to the policy's soft staleness clock; a no-op unless
+        ``PolicyConfig.fabric_staleness`` is set.
+        """
+        self.policy.notify_fabric_pressure(self._window)
+
     # -- dataplane / dispatcher hook --------------------------------------------
     def observe_dispatch(self, demand_bytes: np.ndarray) -> None:
         """Feed externally-executed demand (e.g. MoE dispatch rounds) into
@@ -575,6 +776,12 @@ class OrchestrationRuntime:
                 self.telemetry.record_loads(
                     self._window, plan.resource_bytes, pair_bytes=D
                 )
+                if self._arbiter is not None:
+                    self._arbiter.commit(
+                        self._tenant, plan.resource_bytes,
+                        window=self._window + self._fabric_window_offset,
+                        fingerprint=self.topo.fingerprint,
+                    )
             self.estimator.update(D)
             self._window += 1
 

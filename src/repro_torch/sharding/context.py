@@ -11,7 +11,10 @@ the dtypes and the device.
     dispatcher's dataplane mode, chunk size in tokens, and alternate-path
     slot share;
   * ``device`` — where parameters, caches and activations live: the card
-    unless the caller asks for ``"cpu"``.
+    unless the caller asks for ``"cpu"``;
+  * ``session`` — an optional :class:`repro_torch.api.Session` supplying
+    ready-wired MoE dispatchers (cost model, planner config, runtime
+    telemetry); ``None`` builds the dispatcher from this context alone.
 
 ``ep_size == 1`` (``SINGLE``) computes the experts locally.
 """
@@ -19,6 +22,7 @@ the dtypes and the device.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -33,6 +37,7 @@ class ParallelContext:
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
     device: str = "cuda"
+    session: Optional[object] = None
 
 
 SINGLE = ParallelContext()

@@ -398,6 +398,57 @@ def test_runtime_raises_without_a_card(monkeypatch):
     assert rt.OrchestrationRuntime(topo, device="cpu").run_trace(trace).stats.windows == 2
 
 
+@pytest.mark.parametrize("arm", ["legacy", "calibrated"])
+def test_arbitrated_sessions_on_card_equal_cpu(cuda, arm):
+    """Two arbitrated runtime tenants on one fabric (the mutual-drift arm,
+    24 windows): every priced replan solved on the card gives the CPU's
+    figures and reports."""
+    from repro_torch.launch import fairness
+
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        reports = {}
+        rec = fairness.mutual_drift_arm(arm, windows=24, device=dev, reports=reports)
+        for r in reports.values():
+            r.pop("topology")
+        runs[dev] = (rec, reports)
+    assert runs["cuda"] == runs["cpu"]
+    assert runs["cuda"][1][f"mutual_drift {arm} a"]["runtime_stats"]["solves"] > 1
+
+
+@pytest.mark.parametrize("mode", ["nimble", "stripe"])
+def test_plan_batch_on_card_equals_cpu(cuda, mode):
+    from repro_torch.api import Session, SessionSpec, TopologySpec
+
+    rng = np.random.default_rng(3)
+    demand = rng.integers(0, 16, size=(4, 8, 8)).astype(np.int32)
+    for b in range(4):
+        np.fill_diagonal(demand[b], 0)
+    plans, tels = {}, {}
+    for dev in ("cuda", "cpu"):
+        spec = SessionSpec(topology=TopologySpec(8, 4), adaptivity="adaptive", device=dev)
+        with Session(spec) as sess:
+            comm = sess.all_to_all(max_chunks=16, chunk_bytes=1024.0, mode=mode)
+            out = comm.plan_batch(torch.as_tensor(demand, device=dev))
+            assert out.device.type == dev
+            plans[dev], tels[dev] = out.cpu(), sess.runtime.telemetry.to_json_obj()
+    assert torch.equal(plans["cuda"], plans["cpu"])
+    assert tels["cuda"] == tels["cpu"]
+
+
+def test_session_raises_without_a_card(monkeypatch):
+    # runs on any host: the CUDA device is hidden, and nothing falls back
+    from repro_torch.api import Session, SessionSpec, TopologySpec
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for adaptivity in ("static", "adaptive", "arbitrated"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Session(SessionSpec(topology=TopologySpec(8, 4), adaptivity=adaptivity))
+    spec = SessionSpec(topology=TopologySpec(8, 4), adaptivity="arbitrated", device="cpu")
+    with Session(spec) as sess:
+        assert sess.step(rt.balanced_trace(8, 1)[0]).window == 0
+
+
 def _mlstm_inputs(rng, b, h, s, dh, device):
     # the reference's kernel-test inputs (tests/test_mlstm_scan_kernel.py)
     def t(a):

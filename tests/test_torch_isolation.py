@@ -50,5 +50,15 @@ def test_importing_the_port_loads_no_jax():
 
 
 def test_entry_points_default_to_the_card():
+    import inspect
+
+    from repro_torch.api import SessionSpec, TopologySpec
+    from repro_torch.api import selfcheck
+    from repro_torch.launch import fairness
+
     assert ParallelContext().device == "cuda"
     assert SINGLE.device == "cuda"
+    assert SessionSpec(topology=TopologySpec(8, 4)).device == "cuda"
+    for fn in list(fairness.SECTIONS.values()) + [fairness.mutual_drift_arm,
+                                                  *selfcheck.CHECKS]:
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
