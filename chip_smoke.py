@@ -96,6 +96,22 @@ port's six CUDA kernels from ``src/repro_torch/csrc``, all at once, then:
      record per batch entry; (c) the ``skewed_alltoallv`` example on the
      card, bit-exact in all three modes at hotspots 0.3, 0.7 and 0.9; (d)
      the API selfcheck's checks 1-5 on the card.
+ 17. drives NIMBLE's fault harness, serve control plane and flight recorder
+     on the card, each sub-phase against a CPU run of the same port code:
+     (a) the four fault drills of ``launch/drills.py`` (flap, blackout,
+     tenant crash, perturb): every figure and every ``DrillResult`` card =
+     CPU, each schedule's digest equal to ``BENCH_faults.json``'s, the figures
+     equal to the reference code's; (b) all six built-in serve scenarios,
+     both arms, through ``evaluate_scenario``: every ``ServeReport`` and SLO
+     verdict card = CPU, the two fault digests equal to ``BENCH_serve.json``'s,
+     and the churn section; (c) ``flap_under_load`` and the obs section
+     flight-recorded: a valid trace with spans from the serve, runtime, fabric
+     and planner layers under one correlation id, the trace, provenance log
+     and metrics snapshot card = CPU event for event, a complete provenance
+     record for every swap, recorded reports equal to unrecorded ones (70
+     trace events, 8 plans, 7 swaps); (d) the API selfcheck's checks 1-7 on
+     the card.  Prints each sub-phase's card solves (count, median ms) and
+     incidence-table uploads to the card, and the phase's wall time.
 
 It prints one line per phase, the card's name and power limit as
 ``nvidia-smi`` reports them, a JSON line of per-kernel numbers, and as its
@@ -107,6 +123,7 @@ when any check fails.  Weights are random, made from ``--seed``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -1042,6 +1059,212 @@ def session_phase(torch, np, check, smi: str, seed: int, dev, phase4_logits,
     print(f"[16 session] ({time.perf_counter() - t_phase:.0f} s for phase 16)", flush=True)
 
 
+#: the fault schedules' digests as ``BENCH_faults.json`` and ``BENCH_serve.json``
+#: hold them (the reference's seeds; the floats of those files predate its code)
+FAULT_DIGESTS = {
+    "flap": "dc8ddaa2bee31628deed4bced91120a7013fd2a133bf135e8017efd398caf86a",
+    "blackout": "61caea2cf98311dd38330f413ae19c6af9e22edba9b49e7db15963e34a3423eb",
+    "tenant_crash": "7eec5ea3646b3689ac5bd0272a977255b10ca1f28e38e3af42a0b5e746e4b48d",
+    "perturb": "221c6c3d2365eb9f0d39f4e2e23f3fb8ab2493b502458fb8e8c4d4b192e2e93d",
+    "elephant_victim": "3cda2f17a57e2727a90f0466d36a97eba23591165820e183897ecda986fd7c95",
+    "flap_under_load": "a7329c1364ba6572ee49552aa6e420a292700fa9f9c981ae1aa128b0d611f4ad",
+}
+#: the reference code's figures (its benches, rerun with JAX on a CPU)
+DRILL_FIGURES = {
+    ("flap", "topology_replans_backoff"): 4, ("flap", "topology_replans_storm"): 8,
+    ("flap", "suppressed_windows"): 4, ("flap", "recovered_window"): 15,
+    ("flap", "availability"): 0.8571428571428571,
+    ("flap", "prefault_completion_s"): 0.003810177137937085,
+    ("blackout", "adaptive_static_ratio"): 0.7089201621067166,
+    ("blackout", "adaptive_completion_s"): 0.2953325649876276,
+    ("blackout", "missing_windows"): 8,
+    ("tenant_crash", "survivor_solo_ratio"): 1.0, ("tenant_crash", "evictions"): 1,
+    ("tenant_crash", "survivors"): ["A"],
+    ("perturb", "straggler_ratio"): 3.524722348348898,
+    ("perturb", "total_completion_s"): 0.14198466913342306,
+    ("perturb", "telemetry_rejected"): 0,
+    ("steady", "win"): 1.0087846045090592,
+    ("elephant_victim", "win"): 1.3643284145043393,
+    ("elephant_victim", "jain"): 0.9777513524608447,
+    ("flap_under_load", "win"): 2.750643360569997,
+    ("churn", "tail_ratio"): 0.9991283258421211,
+    ("churn", "total_ratio"): 0.9556493285421601,
+}
+
+
+@contextlib.contextmanager
+def table_uploads(torch):
+    """Time each upload of a topology's incidence tables to the card while
+    active (a ``device_tables`` cache miss, synchronized); yields the list of
+    ms.  CPU tables and cache hits pass through."""
+    from repro_torch.core import planner
+    from repro_torch.runtime import controller
+
+    tables, out = controller.device_tables, []
+
+    def upload(tbl, device):
+        dev = torch.device(device)
+        if dev.type != "cuda" or (id(tbl), str(dev)) in planner._DEVICE_CACHE:
+            return tables(tbl, device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = tables(tbl, device)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+        return res
+
+    controller.device_tables = upload
+    try:
+        yield out
+    finally:
+        controller.device_tables = tables
+
+
+def card_work(solves, uploads, mark=(0, 0)) -> str:
+    """The card solves (``fairness.timed_solves``'s list) and table uploads
+    since ``mark`` = (solves, uploads) counted before."""
+    import statistics
+
+    s = [ms for _, ms in solves[mark[0]:]]
+    u = uploads[mark[1]:]
+    med = f", median {statistics.median(s):.3f} ms" if s else ""
+    up = f", median {statistics.median(u):.3f} ms" if u else ""
+    return (f"card solves {len(s)}{med} ({sum(s):.0f} ms in all); table uploads "
+            f"{len(u)}{up} ({sum(u):.1f} ms in all)")
+
+
+def faults_serve_phase(torch, np, check, smi: str):
+    """Phase 17: the fault drills, the serve control plane and the flight
+    recorder on the card, each against a CPU run of the same port code."""
+    from repro_torch.api import selfcheck
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import drills, fairness
+    from repro_torch.obs import FlightRecorder, validate_trace
+    from repro_torch.serve import evaluate_scenario, get_scenario, run_scenario
+    from repro_torch.serve import scenario_names
+
+    t_phase = time.perf_counter()
+    print(f"[17 faults+serve] {smi}", flush=True)
+    reset_launch_counts()
+    with fairness.timed_solves() as solves, table_uploads(torch) as uploads:
+        mark = lambda: (len(solves), len(uploads))
+        # ---- 17a. the fault drills -------------------------------------------
+        m, t0 = mark(), time.perf_counter()
+        rep = {"cuda": {}, "cpu": {}}
+        got = drills.metrics(device="cuda", reports=rep["cuda"],
+                             sections=drills.FAULT_SECTIONS)
+        card_s = time.perf_counter() - t0
+        cpu = drills.metrics(device="cpu", reports=rep["cpu"],
+                             sections=drills.FAULT_SECTIONS)
+        for name in drills.FAULT_SECTIONS:
+            same = got[name] == cpu[name]
+            check(same, f"drill {name}: card figures != CPU figures")
+            check(got[name]["digest"] == FAULT_DIGESTS[name],
+                  f"drill {name}: digest {got[name]['digest']} != BENCH_faults.json's")
+            print(f"[17a drills] {name}: {drills.describe(name, got[name])}; card "
+                  f"{'=' if same else '!='} CPU", flush=True)
+        check(rep["cuda"] == rep["cpu"], "drills: a card DrillResult != the CPU's")
+        print(f"[17a drills] four drills on the card {card_s:.2f} s; "
+              f"{len(rep['cuda'])} DrillResults and report streams card "
+              f"{'=' if rep['cuda'] == rep['cpu'] else '!='} CPU; {card_work(solves, uploads, m)}",
+              flush=True)
+
+        # ---- 17b. the six serve scenarios, both arms, and churn -------------
+        m, t0 = mark(), time.perf_counter()
+        res = {dv: {n: evaluate_scenario(get_scenario(n), device=dv)
+                    for n in scenario_names()} for dv in ("cuda", "cpu")}
+        churn = {dv: drills.churn(device=dv) for dv in ("cuda", "cpu")}
+        serve_s = time.perf_counter() - t0
+        for n in scenario_names():
+            a, b = res["cuda"][n], res["cpu"][n]
+            same = all(a[k].to_json_obj() == b[k].to_json_obj()
+                       for k in ("adaptive", "static")) and a["slo"] == b["slo"]
+            check(same, f"scenario {n}: card reports or SLO != CPU's")
+            check(a["slo"]["pass"], f"scenario {n}: SLO failed on the card")
+            if n in FAULT_DIGESTS:
+                check(a["adaptive"].fault_digest == FAULT_DIGESTS[n],
+                      f"scenario {n}: fault digest != BENCH_serve.json's")
+            win = a["slo"]["gates"]["combined_drain"]["value"]
+            print(f"[17b serve] {n}: SLO {'PASS' if a['slo']['pass'] else 'FAIL'}, win "
+                  f"{win!r}, Jain {a['adaptive'].jain_index!r}, availability "
+                  f"{a['adaptive'].availability!r}, tenants {len(a['adaptive'].tenants)}, "
+                  f"adaptive {a['adaptive'].total_completion_s!r} s; both arms card "
+                  f"{'=' if same else '!='} CPU", flush=True)
+        same = churn["cuda"] == churn["cpu"]
+        check(same, "serve churn section: card != CPU")
+        print(f"[17b serve] churn: {drills.describe('churn', churn['cuda'])}; card "
+              f"{'=' if same else '!='} CPU; six scenarios and churn on both devices "
+              f"{serve_s:.2f} s; {card_work(solves, uploads, m)}", flush=True)
+        figs = dict(got, churn=churn["cuda"])
+        for n, r in res["cuda"].items():
+            figs[n] = {"win": r["slo"]["gates"]["combined_drain"]["value"],
+                       "jain": r["adaptive"].jain_index}
+        for (sec, key), val in DRILL_FIGURES.items():
+            check(figs[sec][key] == val,
+                  f"{sec} {key} {figs[sec][key]!r} != the reference code's {val!r}")
+
+        # ---- 17c. the flight recorder ---------------------------------------
+        m, t0 = mark(), time.perf_counter()
+        spec = get_scenario("flap_under_load")
+        recs = {dv: FlightRecorder("flap-17c") for dv in ("cuda", "cpu")}
+        reps = {dv: run_scenario(spec, "adaptive", recorder=recs[dv], device=dv)
+                for dv in ("cuda", "cpu")}
+        plain = run_scenario(spec, "adaptive", device="cuda").to_json_obj()
+        info = validate_trace(recs["cuda"].export_trace())
+        layers = {"serve", "runtime", "fabric", "planner"} <= set(info["cats"])
+        same = (recs["cuda"].export_trace() == recs["cpu"].export_trace()
+                and recs["cuda"].provenance.to_json_obj()
+                == recs["cpu"].provenance.to_json_obj()
+                and recs["cuda"].metrics_snapshot() == recs["cpu"].metrics_snapshot()
+                and reps["cuda"].to_json_obj() == reps["cpu"].to_json_obj())
+        recorded = reps["cuda"].to_json_obj()
+        recorded.pop("metrics")
+        swapped = recs["cuda"].provenance.swapped()
+        complete = bool(swapped) and all(
+            p.swapped_window is not None and p.trigger and p.signature
+            and p.ready_window is not None for p in swapped)
+        check(layers and info["correlation_id"] == "flap-17c",
+              f"recorded flap_under_load: layers {info['cats']}, corr "
+              f"{info['correlation_id']}")
+        check(same, "recorded flap_under_load: trace, provenance, metrics or report "
+              "card != CPU")
+        check(complete, "recorded flap_under_load: a swap without a complete provenance")
+        check(recorded == plain, "recorded flap_under_load report != unrecorded report")
+        obs = {dv: drills.obs(device=dv, recorder=FlightRecorder("obs-17c"))
+               for dv in ("cuda", "cpu")}
+        wall = {dv: {k: obs[dv].pop(k) for k in drills.OBS_WALL_KEYS} for dv in obs}
+        check(obs["cuda"] == obs["cpu"], "obs section: card figures != CPU figures")
+        check(obs["cuda"]["identical"] and obs["cuda"]["trace_events"] == 70
+              and obs["cuda"]["plans_issued"] == 8 and obs["cuda"]["plans_swapped"] == 7,
+              f"obs section on the card: {obs['cuda']}")
+        print(f"[17c recorder] flap_under_load on the card: {info['events']} trace "
+              f"events, {info['spans']} spans, layers {info['cats']}, corr "
+              f"{info['correlation_id']}; {len(recs['cuda'].provenance)} plans, "
+              f"{len(swapped)} swapped, provenance {'complete' if complete else 'INCOMPLETE'}; "
+              f"trace, provenance, metrics and report card {'=' if same else '!='} CPU; "
+              f"recorded report {'=' if recorded == plain else '!='} unrecorded", flush=True)
+        print(f"[17c recorder] obs section on the card: "
+              f"{drills.describe('obs', {**obs['cuda'], **wall['cuda']})}; card "
+              f"{'=' if obs['cuda'] == obs['cpu'] else '!='} CPU (on the CPU: recorder "
+              f"overhead {wall['cpu']['overhead_ratio']:.4f}x); "
+              f"{time.perf_counter() - t0:.2f} s; {card_work(solves, uploads, m)}", flush=True)
+
+        # ---- 17d. the API selfcheck, seven checks ---------------------------
+        m = mark()
+        rc, out = _quiet(selfcheck.main, ["--device", "cuda"])
+        lines = out.strip().splitlines()
+        check(rc == 0 and lines[-1].startswith("[selfcheck] 7/7 checks passed"),
+              f"api selfcheck on the card: {lines[-1]}")
+        print("[17d selfcheck] " + " | ".join(
+            line.replace("[selfcheck] ", "") for line in lines) + f"; {card_work(solves, uploads, m)}",
+            flush=True)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in launch_counts().items() if v}
+    print(f"[17 faults+serve] all of phase 17: {card_work(solves, uploads)}; port kernels "
+          f"launched {launched or 'none (the planner loop is plain torch)'}; "
+          f"{time.perf_counter() - t_phase:.0f} s for phase 17 on {smi}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1424,6 +1647,10 @@ def main() -> int:
     # ---- 16. endpoint API and shared-fabric arbiter -------------------------------
     session_phase(torch, np, check, smi, args.seed, dev, phase4_logits, prefill_s * 1e3)
     print(f"[16 session] ({time.perf_counter() - t_start:.0f} s in all)", flush=True)
+
+    # ---- 17. fault drills, serve control plane, flight recorder ------------------
+    faults_serve_phase(torch, np, check, smi)
+    print(f"[17 faults+serve] ({time.perf_counter() - t_start:.0f} s in all)", flush=True)
 
     kernels = []
     for kname, (src, replaces) in KERNEL_META.items():

@@ -16,11 +16,20 @@ solve on ``--device`` (the card unless ``cpu`` is named):
   5. **decay**      — price recency: stamped peer loads fade
      monotonically as the fabric clock runs past them, unstamped (host)
      commits never decay, and ``price_decay=None`` exports the raw ledger
-     byte-identically.
+     byte-identically;
+  6. **serve**      — the serving control plane runs the registry's
+     ``minimal`` two-tenant scenario end-to-end through both arms, the
+     scenario survives a JSON round-trip bit-exactly, and the exported
+     report validates against the ``nimble.serve/v1`` schema;
+  7. **obs**        — the flight recorder: the ``minimal`` scenario rerun
+     with tracing attached exports a valid ``nimble.trace/v1`` Chrome trace
+     spanning all four layers under one correlation id, every swap has a
+     provenance record, and the serve report embeds a
+     ``nimble.metrics/v1`` snapshot.
 
-The reference's checks 6 (serve), 7 (obs) and 8 (lint) wait for the
-ports of the serve control plane, the flight recorder and the static
-checker (ROADMAP Queue 1 items 5, 4 and 11).
+The reference's check 8 (lint) runs its static checker over
+``src/repro``, a JAX-specific rule set; it waits for a checker of the
+port's own (ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -245,12 +254,99 @@ def check_price_decay(device: str = "cuda") -> str:
     )
 
 
+def check_serve(device: str = "cuda") -> str:
+    """Minimal two-tenant scenario end-to-end through the control plane:
+    registry round-trip is bit-exact, both arms run, the adaptive report
+    is a valid ``nimble.serve/v1`` record with every roster tenant served
+    for the full horizon."""
+    from ..serve import (
+        ScenarioSpec,
+        get_scenario,
+        run_scenario,
+        validate_serve_record,
+    )
+
+    spec = get_scenario("minimal")
+    back = ScenarioSpec.from_json_obj(spec.to_json_obj())
+    if back != spec:
+        raise AssertionError("minimal scenario JSON round-trip diverged")
+    adaptive = run_scenario(spec, "adaptive", device=device)
+    static = run_scenario(spec, "static", device=device)
+    rec = adaptive.to_json_obj()
+    validate_serve_record(rec)
+    names = {t.name for t in spec.roster()}
+    if set(adaptive.tenants) != names or set(static.tenants) != names:
+        raise AssertionError(
+            f"control plane served {sorted(adaptive.tenants)}, "
+            f"roster {sorted(names)}"
+        )
+    for name, led in adaptive.tenants.items():
+        if led.windows != spec.windows:
+            raise AssertionError(
+                f"tenant {name!r} served {led.windows}/{spec.windows} windows"
+            )
+    return (
+        f"serve: minimal scenario round-trips; both arms ran "
+        f"{spec.windows} windows x {len(names)} tenants, report schema "
+        f"{rec['schema']} valid"
+    )
+
+
+def check_obs(device: str = "cuda") -> str:
+    """Flight-recorded minimal scenario: valid four-layer Chrome trace
+    under one correlation id, provenance for every swap, metrics embedded
+    in the serve record."""
+    from ..jsonio import schema_kind, schema_version
+    from ..obs import FlightRecorder, validate_trace
+    from ..serve import get_scenario, run_scenario
+
+    spec = get_scenario("minimal")
+    recorder = FlightRecorder()
+    report = run_scenario(spec, "adaptive", recorder=recorder, device=device)
+
+    trace = recorder.export_trace()
+    info = validate_trace(trace)  # schema, ts order, nesting, one corr id
+    missing = {"serve", "runtime", "fabric", "planner"} - set(info["cats"])
+    if missing:
+        raise AssertionError(f"trace has no spans from layers {sorted(missing)}")
+    if info["correlation_id"] != recorder.correlation_id:
+        raise AssertionError("trace lost its correlation id")
+
+    # the sessions are already retired — provenance is the audit trail
+    swapped = recorder.provenance.swapped()
+    if not swapped:
+        raise AssertionError("no swap acquired a provenance record")
+    for p in swapped:
+        if p.swapped_window is None or not p.trigger or p.signature is None:
+            raise AssertionError(
+                f"swapped plan v{p.version} has an incomplete provenance "
+                f"record: {p.to_json_obj()}"
+            )
+
+    rec = report.to_json_obj()
+    metrics = rec.get("metrics")
+    if metrics is None or schema_kind(metrics) != "metrics":
+        raise AssertionError("serve record did not embed a metrics snapshot")
+    if schema_version(metrics) != 1:
+        raise AssertionError(f"metrics schema version {metrics.get('schema')}")
+    if not metrics["metrics"]:
+        raise AssertionError("metrics snapshot is empty")
+    return (
+        f"obs: trace {info['events']} events across 4 layers "
+        f"(corr={info['correlation_id']}); {len(recorder.provenance)} plans "
+        f"issued, {len(swapped)} swaps all provenanced; "
+        f"{len(metrics['metrics'])} metrics embedded"
+    )
+
+
 CHECKS = (
     check_static,
     check_adaptive,
     check_arbitrated,
     check_fabric_pressure,
     check_price_decay,
+    check_serve,
+    check_obs,
 )
 
 

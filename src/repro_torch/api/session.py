@@ -4,8 +4,10 @@ Counterpart of ``repro/api/session.py``.  The port's ranks are stacked in
 one process, so its endpoints take no mesh ``axis_name``; the session's
 runtime solves on ``SessionSpec.device`` (the card unless the caller names
 the CPU), and a session asking for the card on a host without one raises.
-The flight recorder is not ported yet: ``recorder=`` takes ``None`` or a
-disabled recorder only.
+``Session(spec, recorder=rec)`` threads a :class:`repro_torch.obs.FlightRecorder`
+to the runtime (from its initial solve on) and to the arbiter, as the
+reference does; a disabled recorder or ``None`` leaves the session
+unrecorded.
 
 One facade owns lifecycle and composition for the whole stack: it builds
 the fabric from a :class:`~repro_torch.api.spec.SessionSpec`, caches the
@@ -81,14 +83,18 @@ class Session:
             spec = SessionSpec(**spec_kwargs)
         elif spec_kwargs:
             raise TypeError("pass either a SessionSpec or its fields, not both")
-        if recorder is not None and getattr(recorder, "enabled", False):
-            raise NotImplementedError(
-                "the port has no flight recorder yet (ROADMAP Queue 1 item 4, "
-                "faults and flight recorder); pass recorder=None"
-            )
         # the card unless the spec names the CPU; no card raises here
         solve_device(spec.device)
         self.spec = spec
+        # flight recorder: stored *before* the runtime is built so the
+        # construction-time initial solve is traced under this session's
+        # correlation id.  None (the default) leaves every layer on its
+        # unrecorded code path.
+        self._recorder = (
+            recorder
+            if recorder is not None and getattr(recorder, "enabled", False)
+            else None
+        )
         self.topo = spec.build_topology()
         self.cost_model = spec.build_cost_model()
         # incidence tables are fingerprint-cached (DESIGN.md §2.2); building
@@ -113,12 +119,22 @@ class Session:
                 spec.tenant, self.runtime, spec.tenant_config()
             )
             self._registered = True
+        if self._recorder is not None and self.arbiter is not None:
+            # shared fabrics: every joining session attaches the same
+            # recorder — idempotent, last attach wins
+            self.arbiter.attach_recorder(self._recorder)
         self._state = "active"
 
     # -- lifecycle ---------------------------------------------------------------
     @property
     def state(self) -> str:
         return self._state
+
+    @property
+    def recorder(self):
+        """The attached :class:`repro_torch.obs.FlightRecorder` (None when the
+        session runs unrecorded)."""
+        return self._recorder
 
     @property
     def fabric(self) -> Optional[FabricArbiter]:
@@ -359,7 +375,7 @@ class Session:
         fabric_fairness/v1`` and ``nimble.fabric_arbiter_stats/v1`` — so
         existing consumers dispatch on the kinds they already know — plus
         a ``nimble.metrics/v1`` snapshot (DESIGN.md §11) collected from the
-        live stack.
+        live stack, whether or not a recorder is attached.
         """
         self._require_active()
         payload: dict = {
@@ -386,10 +402,16 @@ class Session:
         rejections, estimator confidence) under the §11 naming scheme.
 
         Collected from a fresh registry each call — pull-based, so the
-        per-window hot path never pays for it.
+        per-window hot path never pays for it.  With a recorder attached
+        its registry is used instead, folding in anything the layers
+        pushed live (per-window latency histograms).
         """
         from ..obs import MetricsRegistry, collect_session
 
-        reg = MetricsRegistry()
+        reg = (
+            self._recorder.metrics
+            if self._recorder is not None
+            else MetricsRegistry()
+        )
         collect_session(reg, self)
         return reg.snapshot()

@@ -1,8 +1,9 @@
 """Fabric arbiter — weighted congestion pricing over N tenants (DESIGN.md §4).
 
 Counterpart of ``repro/fabric/arbiter.py`` (numpy and the stdlib only),
-without the flight-recorder hooks (``attach_recorder`` and the trace
-instants), which come with the port of ``obs/``.
+flight-recorder hooks included (``attach_recorder``: the ``reprice``,
+``commit``, ``evict``, ``admit`` and ``fault`` instants and the
+``arbitrate`` span on the shared ``fabric`` trace track).
 
 The per-tenant planners (host ``mcf.solve_mwu``, the runtime's jitted
 ``plan_flows_batch``) are endpoint-greedy: each minimizes *its own* max
@@ -169,6 +170,21 @@ class FabricArbiter:
         self._runtimes: Dict[str, object] = {}
         self._bus_tokens: Dict[str, int] = {}
         self._hinted_load: Optional[np.ndarray] = None
+        # flight recorder (repro_torch.obs) — None keeps every hook below a
+        # single branch; fabric events land on one "fabric" trace track
+        # shared by all tenants
+        self._obs = None
+
+    def attach_recorder(self, recorder) -> None:
+        """Attach a :class:`repro_torch.obs.FlightRecorder` (None/disabled detaches).
+
+        Idempotent — every Session joining a shared fabric attaches the
+        same recorder; last attach wins, which is a no-op for one recorder.
+        """
+        if recorder is None or not getattr(recorder, "enabled", False):
+            self._obs = None
+        else:
+            self._obs = recorder
 
     @classmethod
     def from_session(cls, session) -> "FabricArbiter":
@@ -324,6 +340,12 @@ class FabricArbiter:
         moved = self.cfg.price_hint_rel > 0 and rel >= self.cfg.price_hint_rel
         if moved:
             self.stats.reprices += 1
+        if self._obs is not None:
+            self._obs.tracer.instant(
+                "reprice", "fabric", "fabric",
+                {"tenant": name, "moved": moved,
+                 "rel_change": round(rel, 4)},
+            )
         return RepriceDecision(moved=moved, rel_change=rel, prices=prices)
 
     def commit(
@@ -346,6 +368,11 @@ class FabricArbiter:
             name, resource_bytes, window=window, fingerprint=fingerprint
         )
         self.stats.commits += 1
+        if self._obs is not None:
+            self._obs.tracer.instant(
+                "commit", "fabric", "fabric",
+                {"tenant": name, "window": window},
+            )
         self._maybe_publish_price_hint(name)
         self._maybe_evict()
 
@@ -370,6 +397,11 @@ class FabricArbiter:
         for t in stale:
             self.unregister(t)
             self.stats.evictions += 1
+            if self._obs is not None:
+                self._obs.tracer.instant(
+                    "evict", "fabric", "fabric",
+                    {"tenant": t, "staleness": self.state.clock},
+                )
 
     def _maybe_publish_price_hint(
         self, committer: str, require_peers: bool = True
@@ -433,6 +465,12 @@ class FabricArbiter:
             self.stats.admitted += 1
         else:
             self.stats.throttled += 1
+        if self._obs is not None:
+            self._obs.tracer.instant(
+                "admit", "fabric", "fabric",
+                {"tenant": name, "window": window, "reason": reason,
+                 "admitted": verdict.admitted, "verdict": verdict.reason},
+            )
         return verdict
 
     # -- link events ------------------------------------------------------------
@@ -450,6 +488,12 @@ class FabricArbiter:
         converge once the events fall due.  Returns the listener count.
         """
         evs = list(events) if isinstance(events, (list, tuple)) else [events]
+        if self._obs is not None:
+            for ev in evs:
+                self._obs.tracer.instant(
+                    "fault", "fabric", "fabric",
+                    {"event": ev.describe(), "kind": ev.kind},
+                )
         self.state.apply_link_overrides(dict(merge_overrides(evs)))
         self.stats.broadcasts += 1
         return self.bus.publish(evs)
@@ -468,6 +512,11 @@ class FabricArbiter:
         decays geometrically inside each MWU); capped at ``n_sweeps``.
         """
         order = self.tenant_order(demands)
+        span = None
+        if self._obs is not None:
+            span = self._obs.tracer.begin(
+                "arbitrate", "fabric", "fabric", {"tenants": len(order)},
+            )
         plans: Dict[str, Plan] = {}
         solved_prices: Dict[str, Optional[np.ndarray]] = {}
         for _ in range(n_sweeps or self.cfg.n_sweeps):
@@ -488,6 +537,8 @@ class FabricArbiter:
             self.stats.sweeps += 1
             if not moved:
                 break
+        if span is not None:
+            self._obs.tracer.end(span, {"solves": self.stats.solves})
         return plans
 
     # -- accounting -------------------------------------------------------------

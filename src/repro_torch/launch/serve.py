@@ -1,4 +1,26 @@
-"""Serving launcher: batched generation through ``ServeEngine``.
+"""Serving launcher: scenario control plane + batched generation.
+
+Scenario mode — run a registry (or JSON-file) scenario through the
+continuous-traffic control plane and print the SLO verdict, every runtime
+solve on ``--device`` (the card unless ``cpu`` is named):
+
+    python -m repro_torch.launch.serve --scenario steady
+    python -m repro_torch.launch.serve --scenario path/to/spec.json \
+        --mode static --json report.json
+    python -m repro_torch.launch.serve --list-scenarios
+
+With ``--trace-out PATH`` the run is flight-recorded: a
+:class:`repro_torch.obs.FlightRecorder` rides the adaptive arm and the
+resulting ``nimble.trace/v1`` record — valid Chrome/Perfetto trace JSON
+with one correlation id across serve / runtime / fabric / planner — is
+written to PATH (open it at ``ui.perfetto.dev`` or ``chrome://tracing``).
+``--metrics-out PATH`` writes the final ``nimble.metrics/v1`` snapshot;
+either flag also prints trace and plan-provenance summaries:
+
+    python -m repro_torch.launch.serve --scenario flap_under_load \
+        --mode both --device cpu --trace-out t.json
+
+Generation mode — batched generation through ``ServeEngine``:
 
     python -m repro_torch.launch.serve --arch paper-moe-8e --ep 8 \
         --batch 4 --prompt-len 8 --new-tokens 8
@@ -31,8 +53,99 @@ from ..serve.engine import ServeEngine
 from ..sharding.context import DTYPES, ParallelContext
 
 
+def _run_scenario(args) -> int:
+    from ..jsonio import write_json_file
+    from ..obs import FlightRecorder, validate_trace
+    from ..serve import evaluate_scenario, load_scenario, run_scenario
+
+    spec = load_scenario(args.scenario)
+    recorder = None
+    if args.trace_out or args.metrics_out:
+        recorder = FlightRecorder()
+    t0 = time.time()
+    if args.mode == "both":
+        res = evaluate_scenario(spec, recorder=recorder, device=args.device)
+        report, slo = res["adaptive"], res["slo"]
+    else:
+        report = run_scenario(spec, args.mode, recorder=recorder,
+                              device=args.device)
+        slo = None
+    dt = time.time() - t0
+
+    tenants = report.tenants
+    print(
+        f"[serve] scenario {spec.name!r}: {spec.windows} windows, "
+        f"{len(tenants)} tenant(s), mode={report.mode}, solves on "
+        f"{args.device} ({dt:.1f}s)"
+    )
+    print(
+        f"[serve] cluster: total {report.total_completion_s:.4f}s, "
+        f"median {report.median_latency_s() * 1e3:.2f}ms, "
+        f"availability {report.availability:.2f}, "
+        f"Jain {report.jain_index:.3f}"
+    )
+    for name, led in sorted(tenants.items()):
+        life = f"w{led.joined}-" + (
+            f"w{led.left}" if led.left is not None else "end"
+        )
+        print(
+            f"[serve]   {name}: {life} {led.windows}w "
+            f"{led.completion_s:.4f}s drain, {led.replans} replans"
+            + (" (crashed)" if led.crashed else "")
+        )
+    if slo is not None:
+        for gate, v in slo["gates"].items():
+            val = v["value"]
+            shown = f"{val:.3f}" if isinstance(val, float) else str(val)
+            print(
+                f"[serve]   gate {gate}: "
+                f"{'PASS' if v['ok'] else 'FAIL'} "
+                f"(value {shown}, limit {v['limit']})"
+            )
+        print(f"[serve] SLO: {'PASS' if slo['pass'] else 'FAIL'}")
+    if recorder is not None:
+        trace = recorder.export_trace()
+        info = validate_trace(trace)
+        print(
+            f"[serve] trace: {info['events']} events, {info['spans']} spans, "
+            f"layers={sorted(info['cats'])}, corr={info['correlation_id']}"
+        )
+        print(
+            f"[serve] provenance: {len(recorder.provenance)} plans issued, "
+            f"{len(recorder.provenance.swapped())} swapped"
+        )
+        if args.trace_out:
+            write_json_file(args.trace_out, trace)
+            print(f"[serve] trace -> {args.trace_out}")
+        if args.metrics_out:
+            write_json_file(args.metrics_out, recorder.metrics_snapshot())
+            print(f"[serve] metrics -> {args.metrics_out}")
+    if args.json:
+        obj = report.to_json_obj()
+        if slo is not None:
+            obj["slo"] = slo
+        write_json_file(args.json, obj)
+        print(f"[serve] report -> {args.json}")
+    return 0 if slo is None or slo["pass"] else 1
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    # scenario mode
+    ap.add_argument("--scenario", default=None,
+                    help="registry name or scenario JSON path")
+    ap.add_argument("--mode", default="both",
+                    choices=("adaptive", "static", "both"),
+                    help="control-plane arm; 'both' also gates the SLOs")
+    ap.add_argument("--json", default=None,
+                    help="write the nimble.serve/v1 report here")
+    ap.add_argument("--trace-out", metavar="PATH", default=None,
+                    help="flight-record the run and write the "
+                         "nimble.trace/v1 Chrome trace JSON here")
+    ap.add_argument("--metrics-out", metavar="PATH", default=None,
+                    help="write the final nimble.metrics/v1 snapshot here")
+    ap.add_argument("--list-scenarios", action="store_true")
+    # generation mode
     ap.add_argument("--arch", default="paper-moe-8e")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--ep", type=int, default=None,
@@ -46,6 +159,17 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
+    if args.list_scenarios:
+        from ..serve import scenario_names
+
+        print("\n".join(scenario_names()))
+        return 0
+    if args.scenario is not None:
+        return _run_scenario(args)
+    return _run_generate(args, ap)
+
+
+def _run_generate(args, ap):
     cfg = get_config(args.arch)
     ep = args.ep if args.ep is not None else (8 if cfg.arch_type == "moe" else 1)
     if args.reduced:

@@ -37,10 +37,13 @@ owns the monitor -> estimate -> replan -> swap loop on one endpoint:
     prices before it is allowed in (``FabricArbiter.reprice``).  Unbound
     (or solo-tenant) behavior is bit-identical to the standalone runtime.
 
-The reference's flight-recorder hooks (``attach_recorder``, the
-``recorder=`` argument, the trace spans and ``PlanHandle.provenance``) come
-with the port of ``obs/``; everything else reproduces the reference's
-reports bit for bit, bound or unbound.
+With a :class:`~repro_torch.obs.FlightRecorder` attached (``recorder=`` or
+``attach_recorder``) the loop records the reference's trace spans and
+instants, a per-window completion histogram and a
+:class:`~repro_torch.obs.PlanProvenance` for every plan
+(``PlanHandle.provenance``), each hook behind one ``self._obs is None``
+check.  Recorded or not, bound or unbound, the reports are the reference's
+bit for bit.
 
 Every solve runs on ``device``: the card unless the caller names the CPU.
 The float64 demand is cast to float32 on the host (as the reference's
@@ -71,7 +74,12 @@ from ..core.mcf import (
     congestion_lower_bound,
     plan_from_flows,
 )
-from ..core.planner import PlannerConfig, device_tables, plan_flows_batch
+from ..core.planner import (
+    PlannerConfig,
+    device_tables,
+    plan_flows_batch,
+    planner_provenance,
+)
 from ..core.schedule import build_planner_tables
 from ..core.topology import Topology
 from ..jsonio import tag
@@ -181,6 +189,9 @@ class PlanHandle:
     solved_demand: Optional[np.ndarray] = None
     solved_prices: Optional[np.ndarray] = None
     repriced: bool = False
+    # flight-recorder audit record (repro_torch.obs.PlanProvenance) when a
+    # recorder is attached; None on unrecorded runs
+    provenance: Optional[object] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -301,6 +312,10 @@ class OrchestrationRuntime:
             estimator=estimator,
             initial_demand=spec.initial_demand,
             device=spec.device,
+            # flight recorder: passed at construction so the *initial*
+            # solve is traced and provenance-recorded too
+            recorder=getattr(session, "_recorder", None),
+            tenant_label=spec.tenant,
         )
 
     def __init__(
@@ -312,6 +327,8 @@ class OrchestrationRuntime:
         estimator: DemandEstimator | None = None,
         events: EventLog | None = None,
         initial_demand: Optional[np.ndarray] = None,
+        recorder=None,
+        tenant_label: Optional[str] = None,
         device="cuda",
     ):
         self.device = solve_device(device)
@@ -339,6 +356,14 @@ class OrchestrationRuntime:
         self._arbiter = None
         self._tenant: Optional[str] = None
         self._fabric_window_offset = 0
+        # flight recorder (repro_torch.obs): every hook below is guarded by
+        # one ``self._obs is None`` check, so a run without a recorder
+        # executes the unrecorded instruction stream
+        self._obs = None
+        self._obs_label = tenant_label or "runtime"
+        self._fault_context: Tuple[str, ...] = ()
+        if recorder is not None and getattr(recorder, "enabled", False):
+            self._obs = recorder
         self._rebuild_planner()
 
         if initial_demand is None:
@@ -380,6 +405,40 @@ class OrchestrationRuntime:
             return None
         return self._arbiter.prices_for(self._tenant)
 
+    # -- flight recorder --------------------------------------------------------
+    def attach_recorder(self, recorder, tenant: Optional[str] = None) -> None:
+        """Attach a :class:`repro_torch.obs.FlightRecorder` after construction.
+
+        Prefer passing ``recorder=`` to the constructor (or building via a
+        recorded Session) so the initial solve is traced too; this hook
+        exists for already-built runtimes and backfills a provenance
+        record for the current active plan so the audit trail still covers
+        every plan.  A disabled recorder (or ``None``) detaches.
+        """
+        if tenant is not None:
+            self._obs_label = tenant
+        if recorder is None or not getattr(recorder, "enabled", False):
+            self._obs = None
+            return
+        self._obs = recorder
+        if self._active.provenance is None:
+            self._active.provenance = recorder.provenance.issue(
+                tenant=self._obs_label,
+                version=self._active.version,
+                source=self._active.source,
+                trigger="initial",
+                cache_hit=False,
+                issued_window=self._active.solved_window,
+                signature=self._active.signature,
+                demand_bytes=(
+                    float(self._active.solved_demand.sum())
+                    if self._active.solved_demand is not None else 0.0
+                ),
+                baseline_ratio=self._active.baseline_ratio,
+                planner=planner_provenance(self.cfg.planner),
+                prices=self._active.solved_prices,
+            )
+
     # -- planner / tables -------------------------------------------------------
     def _rebuild_planner(self) -> None:
         self.tables = build_planner_tables(self.topo, self.cm)
@@ -401,12 +460,15 @@ class OrchestrationRuntime:
     def _solve_handle(self, demand: np.ndarray, window: int,
                       source: str,
                       repriced: bool = False,
-                      prices=_PRICES_UNSET) -> Tuple[PlanHandle, bool]:
+                      prices=_PRICES_UNSET,
+                      trigger: Optional[str] = None) -> Tuple[PlanHandle, bool]:
         """Probe the plan cache, solving on a miss; returns (handle, hit).
 
         ``prices`` lets a caller that already holds the live price vector
         (the swap-boundary reprice verdict) pass it through instead of
-        recomputing the decayed external load.
+        recomputing the decayed external load.  ``trigger`` is the replan
+        reason recorded in the provenance audit trail (defaults to
+        ``source``).
         """
         if prices is OrchestrationRuntime._PRICES_UNSET:
             prices = self._arbiter_prices()
@@ -415,7 +477,17 @@ class OrchestrationRuntime:
         cache_hit = plan is not None
         if plan is None:
             ext = None if prices is None else prices[None]
-            plan = self._solve_batch(demand[None], ext_loads=ext)[0]
+            if self._obs is not None:
+                # the planner-layer span: the host boundary of the device
+                # solve (its ``plan_flows_batch`` call on ``self.device``)
+                with self._obs.tracer.span(
+                    "solve", "planner", self._obs_label,
+                    {"window": window, "source": source,
+                     "priced": prices is not None},
+                ):
+                    plan = self._solve_batch(demand[None], ext_loads=ext)[0]
+            else:
+                plan = self._solve_batch(demand[None], ext_loads=ext)[0]
             self._cache_put(sig, plan)
         self._version += 1
         handle = PlanHandle(
@@ -429,6 +501,22 @@ class OrchestrationRuntime:
             solved_prices=prices,
             repriced=repriced,
         )
+        if self._obs is not None:
+            handle.provenance = self._obs.provenance.issue(
+                tenant=self._obs_label,
+                version=handle.version,
+                source=handle.source,
+                trigger=trigger or source,
+                cache_hit=cache_hit,
+                issued_window=window,
+                signature=sig,
+                demand_bytes=float(demand.sum()),
+                baseline_ratio=handle.baseline_ratio,
+                planner=planner_provenance(self.cfg.planner),
+                prices=prices,
+                repriced=repriced,
+                fault_context=self._fault_context,
+            )
         return handle, cache_hit
 
     # -- plan cache -------------------------------------------------------------
@@ -558,16 +646,28 @@ class OrchestrationRuntime:
             and window - handle.solved_window > deadline
         ):
             self.stats.watchdog_abandons += 1
+            if handle.provenance is not None:
+                handle.provenance.mark_abandoned()
+            if self._obs is not None:
+                self._obs.tracer.instant(
+                    "replan", "runtime", self._obs_label,
+                    {"window": window, "source": "watchdog",
+                     "abandoned_version": handle.version},
+                )
             live = (
                 self.estimator.predict()
                 if self.estimator.initialized
                 else handle.solved_demand
             )
-            wd_handle, cache_hit = self._solve_handle(live, window, "watchdog")
+            wd_handle, cache_hit = self._solve_handle(
+                live, window, "watchdog", trigger="watchdog"
+            )
             ready = window + (
                 1 if cache_hit else max(1, self.cfg.solve_delay_windows)
             )
             self._pending = (wd_handle, ready)
+            if wd_handle.provenance is not None:
+                wd_handle.provenance.mark_ready(ready)
             return False
         if ready > window:
             return False
@@ -583,13 +683,31 @@ class OrchestrationRuntime:
             if verdict.moved:
                 re_handle, cache_hit = self._solve_handle(
                     handle.solved_demand, window, "reprice", repriced=True,
-                    prices=verdict.prices,
+                    prices=verdict.prices, trigger="reprice",
                 )
                 ready = window + (
                     1 if cache_hit else max(1, self.cfg.solve_delay_windows)
                 )
                 self._pending = (re_handle, ready)
                 self.stats.reprices += 1
+                if re_handle.provenance is not None:
+                    re_handle.provenance.mark_ready(ready)
+            if handle.provenance is not None:
+                handle.provenance.mark_swapped(
+                    window, prices=verdict.prices,
+                    rel_change=verdict.rel_change, repriced=verdict.moved,
+                )
+        elif handle.provenance is not None:
+            handle.provenance.mark_swapped(
+                window, prices=self._arbiter_prices()
+                if self._arbiter is not None else None,
+            )
+        if self._obs is not None:
+            self._obs.tracer.instant(
+                "swap", "runtime", self._obs_label,
+                {"window": window, "version": handle.version,
+                 "source": handle.source, "repriced": handle.repriced},
+            )
         self._active = handle
         self.stats.swaps += 1
         # pass the solve provenance: a fabric-pressure hint newer than
@@ -599,8 +717,11 @@ class OrchestrationRuntime:
         return True
 
     def _issue_replan(self, predicted: np.ndarray, window: int,
-                      source_hint: str = "solve") -> Tuple[PlanHandle, bool]:
-        handle, cache_hit = self._solve_handle(predicted, window, source_hint)
+                      source_hint: str = "solve",
+                      trigger: Optional[str] = None) -> Tuple[PlanHandle, bool]:
+        handle, cache_hit = self._solve_handle(
+            predicted, window, source_hint, trigger=trigger
+        )
         # cache hit swaps at the very next boundary (no solve latency);
         # a miss pays the off-hot-path solve delay first
         ready = window + (
@@ -608,6 +729,15 @@ class OrchestrationRuntime:
         )
         self._pending = (handle, ready)
         self.stats.replans += 1
+        if handle.provenance is not None:
+            handle.provenance.mark_ready(ready)
+        if self._obs is not None:
+            self._obs.tracer.instant(
+                "replan", "runtime", self._obs_label,
+                {"window": window, "reason": trigger or source_hint,
+                 "version": handle.version, "cache_hit": cache_hit,
+                 "ready": ready},
+            )
         return handle, cache_hit
 
     _OBS_UNSET = object()   # sentinel: "telemetry observed the demand as-is"
@@ -628,14 +758,58 @@ class OrchestrationRuntime:
         entries for dropped counters.  ``completion_scale`` inflates the
         measured completion time (straggler windows) without touching the
         routed bytes.
+
+        With a flight recorder attached the window runs inside a
+        ``window`` trace span on this tenant's track (with ``fault`` /
+        ``swap`` / ``replan`` markers nested inside) and observes the
+        completion into the per-tenant latency histogram; without one the
+        wrapper is a single ``None`` check.
         """
+        if self._obs is None:
+            return self._step(
+                demand, observed=observed, completion_scale=completion_scale
+            )
+        tr = self._obs.tracer
+        tr.advance_to(self._window * 1000)
+        span = tr.begin(
+            "window", "runtime", self._obs_label, {"window": self._window}
+        )
+        report = self._step(
+            demand, observed=observed, completion_scale=completion_scale
+        )
+        tr.end(span, {
+            "plan_version": report.plan_version,
+            "congestion_ratio": round(report.congestion_ratio, 4),
+            "reason": report.replan_reason,
+        })
+        self._obs.metrics.histogram(
+            "nimble_runtime_window_completion_s",
+            {"tenant": self._obs_label},
+        ).observe(report.completion_s)
+        return report
+
+    def _step(
+        self,
+        demand: np.ndarray,
+        *,
+        observed=_OBS_UNSET,
+        completion_scale: float = 1.0,
+    ) -> WindowReport:
         w = self._window
         demand = np.asarray(demand, dtype=np.float64)
         if observed is OrchestrationRuntime._OBS_UNSET:
             observed = demand
 
         due = self.events.pop_due(w)
+        self._fault_context = tuple(ev.describe() for ev in due)
         if due:
+            if self._obs is not None:
+                for ev in due:
+                    self._obs.tracer.instant(
+                        "fault", "runtime", self._obs_label,
+                        {"window": w, "event": ev.describe(),
+                         "kind": ev.kind},
+                    )
             self._apply_events(due)
         swapped = self._maybe_swap(w)
 
@@ -707,7 +881,9 @@ class OrchestrationRuntime:
                     self.policy.notify_fabric_pressure(w)
         cache_hit = False
         if decision.replan:
-            _, cache_hit = self._issue_replan(predicted, w)
+            _, cache_hit = self._issue_replan(
+                predicted, w, trigger=decision.reason
+            )
 
         self.stats.windows += 1
         self._window += 1

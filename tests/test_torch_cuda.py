@@ -449,6 +449,73 @@ def test_session_raises_without_a_card(monkeypatch):
         assert sess.step(rt.balanced_trace(8, 1)[0]).window == 0
 
 
+@pytest.mark.parametrize("section", ["flap", "tenant_crash"])
+def test_drill_on_card_equals_cpu(cuda, section):
+    """A fault drill with every solve on the card: the section's figures (its
+    schedule digest included) and every DrillResult or window report equal
+    the CPU's."""
+    from repro_torch.launch import drills
+
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        reports = {}
+        runs[dev] = (drills.SECTIONS[section](device=dev, reports=reports), reports)
+    assert runs["cuda"] == runs["cpu"]
+
+
+def test_scenario_on_card_equals_cpu(cuda):
+    """``elephant_victim`` through both control-plane arms on the card: the
+    ServeReports and the SLO verdict equal the CPU's."""
+    from repro_torch.serve import evaluate_scenario, get_scenario
+
+    res = {dev: evaluate_scenario(get_scenario("elephant_victim"), device=dev)
+           for dev in ("cuda", "cpu")}
+    for arm in ("adaptive", "static"):
+        assert res["cuda"][arm].to_json_obj() == res["cpu"][arm].to_json_obj()
+    assert res["cuda"]["slo"] == res["cpu"]["slo"] and res["cuda"]["slo"]["pass"]
+
+
+def test_recorded_run_on_card_equals_cpu(cuda):
+    """``flap_under_load``'s adaptive arm flight-recorded on the card: the
+    trace event for event, the provenance log and the metrics snapshot equal
+    the CPU's, and the recorded report equals an unrecorded one."""
+    from repro_torch.obs import FlightRecorder, validate_trace
+    from repro_torch.serve import get_scenario, run_scenario
+
+    spec = get_scenario("flap_under_load")
+    recs, reps = {}, {}
+    for dev in ("cuda", "cpu"):
+        recs[dev] = FlightRecorder("card-vs-cpu")
+        reps[dev] = run_scenario(spec, "adaptive", recorder=recs[dev], device=dev)
+    assert reps["cuda"].to_json_obj() == reps["cpu"].to_json_obj()
+    assert recs["cuda"].export_trace() == recs["cpu"].export_trace()
+    assert recs["cuda"].provenance.to_json_obj() == recs["cpu"].provenance.to_json_obj()
+    assert recs["cuda"].metrics_snapshot() == recs["cpu"].metrics_snapshot()
+    info = validate_trace(recs["cuda"].export_trace())
+    assert {"serve", "runtime", "fabric", "planner"} <= set(info["cats"])
+    plain = run_scenario(spec, "adaptive", device="cuda").to_json_obj()
+    recorded = reps["cuda"].to_json_obj()
+    recorded.pop("metrics")
+    assert recorded == plain
+
+
+def test_control_plane_raises_without_a_card(monkeypatch):
+    # runs on any host: the CUDA device is hidden, and nothing falls back
+    from repro_torch.launch import drills, serve
+    from repro_torch.serve import ControlPlane, evaluate_scenario, get_scenario
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = get_scenario("minimal")
+    for call in (lambda: ControlPlane(spec),
+                 lambda: ControlPlane(spec, mode="static"),
+                 lambda: evaluate_scenario(spec),
+                 lambda: drills.perturb(),
+                 lambda: serve.main(["--scenario", "minimal"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert ControlPlane(spec, device="cpu").run().windows == spec.windows
+
+
 def _mlstm_inputs(rng, b, h, s, dh, device):
     # the reference's kernel-test inputs (tests/test_mlstm_scan_kernel.py)
     def t(a):

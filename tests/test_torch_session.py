@@ -345,16 +345,24 @@ def test_report_round_trips_and_keeps_the_device_out():
 
 
 def test_session_refuses_an_enabled_recorder():
-    class Rec:
-        enabled = True
+    """What the session refuses and what it takes: an enabled recorder is
+    taken and reaches the runtime and the arbiter, a disabled one leaves the
+    session unrecorded, and a spec together with spec fields is refused."""
+    from repro_torch.obs import FlightRecorder
 
     class Off:
         enabled = False
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        TSession(TSessionSpec(topology=TTopology(N, G), device="cpu"), recorder=Rec())
-    with TSession(TSessionSpec(topology=TTopology(N, G), device="cpu"), recorder=Off()):
-        pass
+    rec = FlightRecorder("taken")
+    with TSession(TSessionSpec(topology=TTopology(N, G), adaptivity="arbitrated",
+                               device="cpu"), recorder=rec) as sess:
+        assert sess.recorder is rec and sess.runtime._obs is rec
+        assert sess.fabric._obs is rec
+        sess.step(jrt.balanced_trace(N, 1)[0])
+    assert len(rec.tracer) > 0 and len(rec.provenance) == 1
+    with TSession(TSessionSpec(topology=TTopology(N, G), device="cpu"),
+                  recorder=Off()) as sess:
+        assert sess.recorder is None
     with pytest.raises(TypeError, match="not both"):
         TSession(TSessionSpec(topology=TTopology(N, G), device="cpu"), tenant="x")
     with TSession(topology=TTopology(N, G), device="cpu") as sess:
@@ -518,7 +526,7 @@ def test_selfcheck_on_cpu(capsys):
 
     assert selfcheck.main(["--device", "cpu"]) == 0
     out = capsys.readouterr().out
-    assert "[selfcheck] 5/5 checks passed on cpu" in out
+    assert "[selfcheck] 7/7 checks passed on cpu" in out
     rec = selfcheck.check_arbitrated(device="cpu")
     from repro.api.selfcheck import check_arbitrated
 
