@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving paths once on one card, and check them.
+"""Drive the PyTorch/CUDA port's paths once on one card, and check them.
 
     python3 chip_smoke.py
 
@@ -50,8 +50,8 @@ port's six CUDA kernels from ``src/repro_torch/csrc``, all at once, then:
      ``token_gather`` on the same rows;
  10. holds ``mlstm_scan`` against its plain version on the inputs of
      xlstm-125m's first mLSTM layer at a 4 x 2048 prefill (float32), and
-     times both; checks that an input that needs a gradient raises (the
-     kernel has no backward);
+     times both; under a gradient, checks that the kernel runs the forward
+     and the gradients equal the CPU's plain version's within 1e-4;
  11. prefills xlstm-125m at full width (bf16) for 4 requests of 2048 tokens,
      holds the chunked (kernel) forward against the per-step mLSTM forward
      at 4 x 256 tokens (float32 and bf16), and a reduced xlstm config on the
@@ -112,6 +112,29 @@ port's six CUDA kernels from ``src/repro_torch/csrc``, all at once, then:
      trace events, 8 plans, 7 swaps); (d) the API selfcheck's checks 1-7 on
      the card.  Prints each sub-phase's card solves (count, median ms) and
      incidence-table uploads to the card, and the phase's wall time.
+ 18. trains xlstm-125m at full width (bf16, 4 x 2048 tokens from
+     ``SyntheticLM``, AdamW, a warm-up step and 3 timed steps): step time,
+     tokens/s, the forward's, backward's and optimizer's shares, the peak
+     memory, ``mlstm_scan``'s launches under grad (6 mLSTM layers x 4 steps,
+     checked) and its backward's time a step beside its bound, and the
+     step's backward with and without the sLSTM prefix Functions; gates
+     finite losses and norms, and a reduced xlstm's f32 loss (1e-5) and
+     gradients (1e-4) on the card, through the kernel, against the CPU's;
+ 19. the dense family: trains smollm-135m at full width (bf16, 4 x 2048, as
+     phase 18; flash at head dim 64, 30 layers x 4 steps, checked), holds
+     the flash forward at smollm's shape (9 heads over 3) against
+     ``mha_ref`` and times it beside SDPA and its bound; serves llama3-8b at
+     full width (bf16, 8.03 B parameters): a 4 x 512 prefill with
+     ``last_only`` (flash at head dim 128, one launch a layer, checked) and
+     ``ServeEngine.generate`` of 4 requests, 8 + 8 tokens, the engine's step
+     prefill against the forward; gates reduced smollm-135m and qwen2.5-14b
+     (its QKV biases nonzero) in f32, logits and gradients card vs CPU;
+ 20. saves phase 18's parameters and optimizer state with ``ckpt``, restores
+     them on the card and takes one more step from each: params, moments,
+     step and loss must be equal bit for bit; holds the index's keys, meta
+     and structure and the ``.npz`` keys against the reference's
+     ``_flatten`` and ``_structure`` (ported here, numpy only); runs
+     ``launch/selftest.main(["--device", "cuda"])``.
 
 It prints one line per phase, the card's name and power limit as
 ``nvidia-smi`` reports them, a JSON line of per-kernel numbers, and as its
@@ -304,16 +327,27 @@ def xlstm_phases(torch, np, check, compare, seed: int, dev):
         bound_ms=max(t_ops, t_bytes) * 1e3,
         bound_by="operations" if t_ops >= t_bytes else "bytes",
     )
-    grad_raises = _raises_under_grad(
-        torch, lambda a: mlstm_scan(*a, chunk=chunk)[0],
-        [t[:, :, :2 * L].contiguous() for t in (q, k, v, ig, lf)])
-    check(grad_raises, "mlstm_scan: an input that needs a gradient did not raise on the card")
+    # under a gradient: the kernel's forward and MLSTMScanFunction's backward
+    # against autograd through the plain version on the CPU, on the first
+    # 2 chunks of these inputs (f32 sums in other orders: 1e-4)
+    sub = [t[:, :, :2 * L].contiguous() for t in (q, k, v, ig, lf)]
+    g_out = torch.randn(sub[0].shape, generator=torch.Generator().manual_seed(seed))
+    grads, launched = [], 0
+    for where in (dev, torch.device("cpu")):
+        live = [t.to(where).requires_grad_(True) for t in sub]
+        before = launch_counts()["mlstm_scan"]
+        hh, _ = mlstm_scan(*live, chunk=chunk)
+        grads.append([g.cpu() for g in torch.autograd.grad(hh, live, g_out.to(where))])
+        launched += launch_counts()["mlstm_scan"] - before
+    grad_err = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(*grads))
+    check(launched == 1 and grad_err <= 1e-4,
+          f"mlstm_scan under grad: {launched} launches, gradients {grad_err:.3g} from the CPU's")
     print(f"[10 kernel] mlstm_scan: q/k/v {tuple(q.shape)} f32, chunk {L}: kernel "
           f"{ms_report['ms']:.4f} ms, plain {ms_report['plain_ms']:.4f} ms, library none, "
           f"bound {ms_report['bound_ms']:.4f} ms ({ms_report['bound_by']}: "
           f"{flops / 1e9:.3f} GFLOP at 67 TFLOP/s, {nbytes / 1e6:.1f} MB at 3.35 TB/s); "
-          f"an input that needs a gradient {'raises' if grad_raises else 'DOES NOT RAISE'} "
-          f"(no backward; under torch.no_grad the same call runs)", flush=True)
+          f"under a gradient (the first {2 * L} steps) the kernel launched {launched} time(s) "
+          f"and the gradients are within {grad_err:.3g} of the CPU's (limit 1e-4)", flush=True)
 
     # ---- 11. prefill ---------------------------------------------------------
     reset_launch_counts()
@@ -1265,6 +1299,426 @@ def faults_serve_phase(torch, np, check, smi: str):
           f"{time.perf_counter() - t_phase:.0f} s for phase 17 on {smi}", flush=True)
 
 
+def _step_rows(step, params, state, batches, n_timed: int = 3):
+    """``n_timed`` steps after the caller's warm-up -> (params, state, rows):
+    each step's wall (ended by a sync), loss, norm and phase seconds."""
+    import torch
+
+    rows = []
+    for i in range(1, n_timed + 1):
+        times = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batches[i], times=times)
+        wall = time.perf_counter() - t0                    # the step ends in a sync
+        rows.append(dict(wall=wall, loss=float(m["loss"]), gnorm=float(m["grad_norm"]),
+                         **times))
+    return params, state, rows
+
+
+def _train_line(tag, cfg, n_params, B, S, rows, m0, peak_gb, extra, smi, np, check):
+    """Print a full-width training phase's figures and gate its losses and norms."""
+    losses = [float(m0["loss"])] + [r["loss"] for r in rows]
+    norms = [float(m0["grad_norm"])] + [r["gnorm"] for r in rows]
+    check(bool(np.isfinite(losses).all() and np.isfinite(norms).all()),
+          f"{cfg.name} train losses {losses} or grad norms {norms} not finite")
+    step_ms = float(np.mean([r["wall"] for r in rows])) * 1e3
+    share = {k: float(np.mean([r[k] / r["wall"] for r in rows]))
+             for k in ("forward", "backward", "optimizer")}
+    walls = ", ".join(f"{r['wall'] * 1e3:.1f}" for r in rows)
+    print(f"[{tag}] {cfg.name} bf16, {n_params / 1e6:.2f} M params, batch {B} x {S} from "
+          f"SyntheticLM (seed 0), AdamW: step {walls} ms (mean {step_ms:.1f} ms, "
+          f"{B * S / step_ms * 1e3:.0f} tokens/s; warm-up step excluded); forward "
+          f"{share['forward']:.3f}, backward {share['backward']:.3f}, optimizer "
+          f"{share['optimizer']:.3f} of the step; {extra}peak memory {peak_gb:.2f} GB; "
+          f"on {smi}", flush=True)
+    print(f"[{tag}] loss by step {[round(x, 4) for x in losses]}, grad_norm "
+          f"{[round(x, 4) for x in norms]}", flush=True)
+    return step_ms
+
+
+def _grads_card_vs_cpu(torch, cfg, seed: int, seq: int, bias: bool = False):
+    """A reduced config's f32 loss and gradients on the card against the CPU's
+    plain versions -> (loss |diff| / |loss|, worst leaf max|diff| / max|leaf|,
+    logits max|diff| / max|logits|)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    from repro_torch.models.registry import build_model
+    from repro_torch.sharding.context import ParallelContext
+    from repro_torch.train.step import loss_and_grads
+    from repro_torch.tree import leaves, map_tree
+
+    weights = build_model(cfg, ParallelContext(device="cpu")).init(seed)
+    if bias:                              # qwen2.5's QKV biases, nonzero
+        gen = torch.Generator().manual_seed(seed + 1)
+        for key in ("bq", "bk", "bv"):
+            weights["blocks"]["attn"][key].normal_(generator=gen)
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=2,
+                                   seed=seed)).batch(0)
+    out = []
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, ParallelContext(device=dev))
+        params = map_tree(lambda t: t.to(dev, copy=True), weights)
+        b = to_device(batch, dev)
+        with torch.no_grad():
+            logits, _ = model.forward(params, b)
+        loss, grads = loss_and_grads(model, params, b)
+        out.append((float(loss), [g.cpu() for g in leaves(grads)], logits.float().cpu()))
+    (lc, gc, oc), (lg, gg, og) = out
+    worst = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                for a, b in zip(gg, gc))
+    return (abs(lg - lc) / abs(lc), worst,
+            ((og - oc).abs().max() / oc.abs().max()).item())
+
+
+def xlstm_train_phase(torch, np, check, seed: int, dev, smi: str):
+    """Phase 18 -> (mlstm_scan backward's report, launches under grad, the
+    state phase 20 steps on from)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.mlstm_scan import ops as ms_ops
+    from repro_torch.models import xlstm as xlstm_mod
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.sharding.context import ParallelContext
+    from repro_torch.train.step import _Phases, loss_and_grads, make_train_step
+    from repro_torch.tree import leaves
+
+    t_phase = time.perf_counter()
+    cfg = get_config("xlstm-125m")
+    bf16 = torch.bfloat16
+    model = build_model(cfg, ParallelContext(param_dtype=bf16, compute_dtype=bf16,
+                                             device="cuda"))
+    params = model.init(seed)
+    n_params = sum(p.numel() for p in leaves(params))
+    state = adamw.init(params)
+    step = make_train_step(model, adamw.AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=100))
+    B, S = 4, 2048
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B, seed=seed))
+    batches = [to_device(data.batch(i), dev) for i in range(5)]
+    # the main path: a warm-up step and 3 timed steps, every count set to 0
+    # just before it and read just after
+    reset_launch_counts()
+    params, state, m0 = step(params, state, batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with EventTimer(torch, ms_ops, "mlstm_scan_bwd") as t_bwd:
+        params, state, rows = _step_rows(step, params, state, batches)
+    counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_mlstm = sum(not xlstm_mod.is_slstm_layer(cfg, i) for i in range(cfg.n_layers))
+    check(counts["mlstm_scan"] == 4 * n_mlstm,
+          f"mlstm_scan launched {counts['mlstm_scan']} times under grad in 4 steps, "
+          f"want {4 * n_mlstm}")
+    bwd_ms = t_bwd.total_ms() / 3
+
+    # the backward a step with the prefix Functions (the reference's adjoints)
+    # and without them (autograd through the doubling scans), in turns
+    def backward_ms():
+        ph = _Phases({}, dev)
+        loss_and_grads(model, params, batches[4], phases=ph)
+        return ph.times["backward"] * 1e3
+
+    arms = {"with": [], "without": []}
+    for arm in ("with", "without", "without", "with"):
+        if arm == "without":
+            saved = xlstm_mod.linear_prefix, xlstm_mod.maxplus_prefix
+            xlstm_mod.linear_prefix, xlstm_mod.maxplus_prefix = (xlstm_mod._linear_scan,
+                                                                 xlstm_mod._maxplus_scan)
+        try:
+            arms[arm].append(backward_ms())
+        finally:
+            if arm == "without":
+                xlstm_mod.linear_prefix, xlstm_mod.maxplus_prefix = saved
+    # the least work of mlstm_scan's VJP at a layer's shapes: its products are
+    # the forward's, each transposed twice (2x the forward's operations); bytes:
+    # q, k, v, ig, lf, the cotangent of h and the chunk states read once, the
+    # five gradients written once
+    H, dh = cfg.n_heads, cfg.d_model // cfg.n_heads
+    L = min(cfg.mlstm_chunk, S)
+    nc = -(-S // L)
+    flops = 2 * 2.0 * B * H * nc * (2 * (L * (L + 1) // 2) * dh + 2 * L * dh * dh)
+    nbytes = 4 * (2 * (3 * B * H * S * dh + 2 * B * H * S) + B * H * S * dh
+                  + B * H * nc * (dh * dh + dh + 1))
+    t_ops, t_bytes = flops / PEAK_FLOPS["f32"], nbytes / PEAK_BYTES_S
+    bwd = dict(ms_per_step=bwd_ms, calls_per_step=n_mlstm,
+               bound_ms_per_step=n_mlstm * max(t_ops, t_bytes) * 1e3,
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               backward_with_prefix_functions_ms=float(np.mean(arms["with"])),
+               backward_without_prefix_functions_ms=float(np.mean(arms["without"])))
+    step_ms = _train_line(
+        "18 xlstm train", cfg, n_params, B, S, rows, m0, peak_gb,
+        f"mlstm_scan under grad: {counts['mlstm_scan']} launches in the 4 steps "
+        f"({n_mlstm} layers x 4), its backward (MLSTMScanFunction, plain torch, f32) "
+        f"{bwd_ms:.2f} ms a step ({n_mlstm} calls; bound {bwd['bound_ms_per_step']:.3f} ms, "
+        f"{bwd['bound_by']}); the step's backward with the prefix Functions "
+        f"{bwd['backward_with_prefix_functions_ms']:.1f} ms, without them "
+        f"{bwd['backward_without_prefix_functions_ms']:.1f} ms; ", smi, np, check)
+    bwd["step_ms"] = step_ms
+
+    # gate: a reduced xlstm (an mLSTM and an sLSTM layer, chunk 16) in f32,
+    # the card's kernel + Function against the CPU's plain versions
+    small = dataclasses.replace(get_config("xlstm-125m").reduced(n_layers=2), mlstm_chunk=16)
+    before = launch_counts()["mlstm_scan"]
+    loss_rel, worst, logit_rel = _grads_card_vs_cpu(torch, small, seed, 160)
+    launched = launch_counts()["mlstm_scan"] - before
+    check(launched > 0, "the reduced xlstm step on the card launched no mlstm_scan")
+    check(loss_rel <= 1e-5 and worst <= 1e-4,
+          f"reduced xlstm train step card vs CPU: loss {loss_rel:.3g}, grads {worst:.3g}")
+    print(f"[18 xlstm train] reduced xlstm (2 layers, d 256, chunk 16, S 160) f32 one "
+          f"step, card vs CPU plain: loss |diff| {loss_rel:.3g} of |loss| (limit 1e-5), "
+          f"gradients worst leaf {worst:.3g} of its max (limit 1e-4: f32 sums in other "
+          f"orders), logits {logit_rel:.3g}; mlstm_scan launched {launched} times on the "
+          f"card ({time.perf_counter() - t_phase:.0f} s for phase 18 on {smi})", flush=True)
+    return bwd, counts["mlstm_scan"], (step, params, state, batches[4])
+
+
+def dense_phase(torch, np, check, compare, seed: int, dev, smi: str):
+    """Phase 19 -> (flash's report at smollm's head dim 64, its launches at
+    head dims 64 and 128)."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.kernel_times import time_ms
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.sharding.context import ParallelContext
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import leaves
+
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+    ctx = ParallelContext(param_dtype=bf16, compute_dtype=bf16, device="cuda")
+    # ---- 19a. smollm-135m trains at full width -----------------------------------
+    cfg = get_config("smollm-135m")
+    model = build_model(cfg, ctx)
+    params = model.init(seed)
+    n_params = sum(p.numel() for p in leaves(params))
+    state = adamw.init(params)
+    step = make_train_step(model, adamw.AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=100))
+    B, S = 4, 2048
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B, seed=seed))
+    batches = [to_device(data.batch(i), dev) for i in range(4)]
+    reset_launch_counts()
+    params, state, m0 = step(params, state, batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with EventTimer(torch, fa_ops, "flash_attention_bwd") as t_fa:
+        params, state, rows = _step_rows(step, params, state, batches)
+    counts_train = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(counts_train["flash_attention"] == 4 * cfg.n_layers,
+          f"smollm training launched flash {counts_train['flash_attention']} times, "
+          f"want {4 * cfg.n_layers} (head dim {cfg.head_dim})")
+    _train_line("19 dense", cfg, n_params, B, S, rows, m0, peak_gb,
+                f"flash_attention (bf16, head dim {cfg.head_dim}, {cfg.n_heads} heads over "
+                f"{cfg.n_kv_heads}) {counts_train['flash_attention']} launches in the 4 steps, "
+                f"its backward (plain torch, f32) {t_fa.total_ms() / 3:.1f} ms a step; ",
+                smi, np, check)
+    # the flash forward at smollm's shape: layer 0's q, k, v of a prefill
+    with torch.no_grad(), Recorder(fa_ops, "flash_attention", keep=1) as rec:
+        model.forward(params, {"tokens": batches[1]["tokens"]}, last_only=True)
+    q, k, v, kw = rec.calls[0]
+    del params, state, model, m0, rec
+    torch.cuda.empty_cache()
+    o = fa_ops.flash_attention(q, k, v, **kw)
+    err = compare("flash_attention", f"bf16 head dim 64 {tuple(q.shape)} over "
+                  f"{tuple(k.shape)}", o, fa_ops.mha_ref(q, k, v, **kw), 1e-2,
+                  "bf16 inputs and output; online vs two-pass softmax")
+    Bq, H, Sq, Dh = q.shape
+    pairs = Bq * H * Sq * (Sq + 1) // 2                  # causal, Sq == Sk
+    t_ops = 4.0 * Dh * pairs / PEAK_FLOPS["bf16"]
+    t_bytes = 2 * (2 * q.numel() + k.numel() + v.numel()) / PEAK_BYTES_S
+    try:
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,  # noqa: E731
+                                                      enable_gqa=True)
+        sdpa()
+    except TypeError:                      # a torch without enable_gqa
+        kk, vv = (t.repeat_interleave(H // k.shape[1], 1) for t in (k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(q, kk, vv, is_causal=True)  # noqa: E731
+    fa64 = dict(ms=time_ms(lambda: fa_ops.flash_attention(q, k, v, **kw), 20),
+                plain_ms=time_ms(lambda: fa_ops.mha_ref(q, k, v, **kw), 5),
+                library_ms=time_ms(sdpa, 20), max_abs_err=err,
+                bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal")
+    print(f"[19 kernel] flash_attention at head dim 64: {fa64['shape']}: kernel "
+          f"{fa64['ms']:.4f} ms, plain {fa64['plain_ms']:.4f} ms, SDPA is_causal "
+          f"{fa64['library_ms']:.4f} ms, bound {fa64['bound_ms']:.4f} ms "
+          f"({fa64['bound_by']}); max|err| {err:.4g} (limit 1e-2 x max|ref|); on {smi}",
+          flush=True)
+    del q, k, v, o
+    torch.cuda.empty_cache()
+
+    # ---- 19b. llama3-8b serves at full width ---------------------------------------
+    cfg = get_config("llama3-8b")
+    model = build_model(cfg, ctx)
+    params = model.init(seed)
+    n_params = sum(p.numel() for p in leaves(params))
+    rng = np.random.default_rng(seed + 3)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (4, 512)), device=dev)
+    with torch.no_grad():
+        model.forward(params, {"tokens": prompts}, last_only=True)          # warm-up
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = model.forward(params, {"tokens": prompts}, last_only=True)
+        torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    counts_prefill = launch_counts()
+    check(tuple(logits.shape) == (4, 1, cfg.vocab) and bool(torch.isfinite(logits).all()),
+          f"llama3-8b prefill logits {tuple(logits.shape)} not finite or misshapen")
+    check(counts_prefill["flash_attention"] == cfg.n_layers,
+          f"llama3-8b prefill launched flash {counts_prefill['flash_attention']} times, "
+          f"want {cfg.n_layers} (head dim {cfg.head_dim})")
+    engine = ServeEngine(model, params, max_len=16)
+    gprompts = rng.integers(0, cfg.vocab, (4, 8))
+    engine.generate(gprompts, n_new=8)                                     # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = engine.generate(gprompts, n_new=8)
+    gen_s = time.perf_counter() - t0
+    check(ids.shape == (4, 8) and ((ids >= 0) & (ids < cfg.vocab)).all(),
+          f"llama3-8b generated ids {ids.shape}")
+    # the engine's step-by-step prefill ends where the forward does
+    from repro_torch.configs.base import InputShape
+
+    pt = torch.as_tensor(gprompts, device=dev)
+    with torch.no_grad():
+        l_step, _ = engine.prefill(model.init_cache(4, InputShape("serve", 16, 4, "decode")),
+                                   pt)
+        l_fwd = model.forward(params, {"tokens": pt}, last_only=True)[0][:, 0]
+    step_err = compare("llama3-8b engine prefill vs forward", "bf16 last logits", l_step,
+                       l_fwd, 5e-2, "bf16 activations through 32 layers, decode attention "
+                       "vs the forward's")
+    print(f"[19 serve] {cfg.name} bf16, {n_params / 1e9:.3f} B params "
+          f"({n_params * 2 / 1e9:.2f} GB): prefill 4 x 512 (last_only) {prefill_s * 1e3:.1f} "
+          f"ms, {prompts.numel() / prefill_s:.0f} tokens/s, flash_attention launches (head "
+          f"dim {cfg.head_dim}) {counts_prefill['flash_attention']}; generate 4 requests, "
+          f"prompt 8, 8 new tokens, greedy: {gen_s:.2f} s, {ids.size / gen_s:.1f} new "
+          f"tokens/s (warm-up run excluded); step prefill vs forward max|diff| "
+          f"{step_err:.4g}; ids {ids[:, :4].tolist()}; on {smi}", flush=True)
+    del params, model, engine, logits, l_step, l_fwd
+    torch.cuda.empty_cache()
+
+    # ---- 19c. gate: reduced configs, card against CPU (f32) -----------------------
+    parts = []
+    before = launch_counts()["flash_attention_f32"]
+    for arch, bias in (("smollm-135m", False), ("qwen2.5-14b", True)):
+        small = get_config(arch).reduced()
+        loss_rel, worst, logit_rel = _grads_card_vs_cpu(torch, small, seed, 160, bias=bias)
+        check(loss_rel <= 1e-5 and worst <= 1e-4 and logit_rel <= 1e-4,
+              f"reduced {arch} card vs CPU: logits {logit_rel:.3g}, loss {loss_rel:.3g}, "
+              f"grads {worst:.3g}")
+        parts.append(f"{arch}{' (QKV bias)' if bias else ''}: logits {logit_rel:.3g}, loss "
+                     f"{loss_rel:.3g}, gradients worst leaf {worst:.3g}")
+    launched = launch_counts()["flash_attention_f32"] - before
+    check(launched > 0, "the reduced dense configs launched no f32 flash on the card")
+    print(f"[19 dense parity] reduced (2 layers, d 256, 4 heads of 64, S 160) f32, card vs "
+          f"CPU plain, each relative to the CPU's largest value: " + "; ".join(parts)
+          + f" (limits 1e-4, loss 1e-5: f32 sums in other orders); flash f32 launched "
+          f"{launched} times ({time.perf_counter() - t_phase:.0f} s for phase 19 on {smi})",
+          flush=True)
+    return fa64, counts_train["flash_attention"], counts_prefill["flash_attention"]
+
+
+def _ref_flatten(tree, prefix=""):
+    """The reference's ``checkpoint/ckpt.py::_flatten`` (numpy only)."""
+    if isinstance(tree, dict):
+        out = []
+        for k in sorted(tree):
+            out += _ref_flatten(tree[k], f"{prefix}{k}/")
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = []
+        for i, v in enumerate(tree):
+            out += _ref_flatten(v, f"{prefix}{i}/")
+        return out
+    return [(prefix.rstrip("/"), tree)]
+
+
+def _ref_structure(tree):
+    """The reference's ``checkpoint/ckpt.py::_structure``."""
+    if isinstance(tree, dict):
+        return {"__kind__": "dict", "items": {k: _ref_structure(v) for k, v in tree.items()}}
+    if hasattr(tree, "_fields"):
+        return {"__kind__": "namedtuple", "name": type(tree).__name__,
+                "items": [_ref_structure(v) for v in tree]}
+    if isinstance(tree, tuple):
+        return {"__kind__": "tuple", "items": [_ref_structure(v) for v in tree]}
+    if isinstance(tree, list):
+        return {"__kind__": "list", "items": [_ref_structure(v) for v in tree]}
+    return {"__kind__": "leaf"}
+
+
+def ckpt_selftest_phase(torch, np, check, xlstm_state, smi: str):
+    """Phase 20: a checkpoint round trip on the card, the index against the
+    reference's, and the selftest on the card."""
+    import tempfile
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.launch import selftest
+    from repro_torch.optim import adamw
+    from repro_torch.tree import leaves
+
+    t_phase = time.perf_counter()
+    step, params, state, batch = xlstm_state
+    tree = {"params": params, "opt": state}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        d = ckpt.save(tmp, state.step, tree)
+        save_s = time.perf_counter() - t0
+        size_mb = sum(f.stat().st_size for f in Path(d).iterdir()) / 1e6
+        t0 = time.perf_counter()
+        got, at = ckpt.restore(tmp, namedtuple_types={"OptState": adamw.OptState})
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        # the index and the .npz keys as the reference's _flatten / _structure
+        # give them for this tree (bfloat16 leaves: numpy's dtype name via
+        # ml_dtypes, which the reference's np.asarray carries)
+        index = json.loads(Path(d, "index.json").read_bytes())
+        flat = _ref_flatten(tree)
+        keys = [k for k, _ in flat]
+
+        def dtype_name(x):
+            return "int32" if isinstance(x, int) else str(x.dtype).replace("torch.", "")
+        meta = {k: {"shape": list(getattr(x, "shape", ())), "dtype": dtype_name(x), "shard": 0}
+                for k, x in flat}
+        with np.load(Path(d, "shard_0.npz")) as z:
+            npz_keys = sorted(z.files)
+        same_index = (index["keys"] == keys and index["meta"] == meta
+                      and index["structure"] == _ref_structure(tree)
+                      and npz_keys == sorted(keys) and index["step"] == state.step)
+    check(same_index, "the checkpoint's index or .npz keys differ from the reference's")
+    on_card = all(x.device.type == "cuda" for x in leaves(got) if hasattr(x, "device"))
+    check(at == state.step and got["opt"].step == state.step and on_card,
+          f"restored step {at} / {got['opt'].step}, on the card {on_card}")
+    # one more step from each: the round trip must change nothing
+    p_a, s_a, m_a = step(params, state, batch)
+    p_b, s_b, m_b = step(got["params"], got["opt"], batch)
+    pairs = list(zip(leaves({"p": p_a, "m": s_a.m, "v": s_a.v}),
+                     leaves({"p": p_b, "m": s_b.m, "v": s_b.v})))
+    exact = (all(torch.equal(a, b) for a, b in pairs) and s_a.step == s_b.step
+             and float(m_a["loss"]) == float(m_b["loss"])
+             and float(m_a["grad_norm"]) == float(m_b["grad_norm"]))
+    check(exact, "a step after the checkpoint round trip differs from the step without it")
+    print(f"[20 ckpt] xlstm-125m after phase 18's steps (step {state.step}): saved "
+          f"{len(keys)} leaves, {size_mb:.1f} MB in {save_s:.2f} s, restored on the card in "
+          f"{restore_s:.2f} s; index keys, meta, structure and .npz keys "
+          f"{'= the reference' if same_index else '!= the reference'}'s _flatten/_structure; "
+          f"one more step from the restored state: params ({len(pairs)} leaves with the "
+          f"moments), optimizer state and loss {float(m_b['loss']):.5f} "
+          f"{'equal bit for bit' if exact else 'DIFFER'}; on {smi}", flush=True)
+    rc = selftest.main(["--device", "cuda"])
+    check(rc == 0, f"the selftest on the card returned {rc}")
+    print(f"[20 selftest] selftest.main(['--device', 'cuda']) -> {rc} "
+          f"({time.perf_counter() - t_phase:.0f} s for phase 20 on {smi})", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1652,6 +2106,30 @@ def main() -> int:
     faults_serve_phase(torch, np, check, smi)
     print(f"[17 faults+serve] ({time.perf_counter() - t_start:.0f} s in all)", flush=True)
 
+    # ---- 18. xlstm-125m training ------------------------------------------------------
+    extra = {}
+    mlstm_bwd, grad_launches, xlstm_state = xlstm_train_phase(torch, np, check, args.seed,
+                                                              dev, smi)
+    launches["mlstm_scan"] += grad_launches
+    extra["mlstm_scan"] = {"launches_under_grad": grad_launches,
+                           "backward_ms_per_step": mlstm_bwd["ms_per_step"],
+                           "backward_bound_ms_per_step": mlstm_bwd["bound_ms_per_step"]}
+    print(f"[18 xlstm train] ({time.perf_counter() - t_start:.0f} s in all)", flush=True)
+
+    # ---- 19. the dense family: smollm-135m training, llama3-8b serving ----------------
+    fa64, fa_dh64, fa_dh128 = dense_phase(torch, np, check, compare, args.seed, dev, smi)
+    launches["flash_attention"] += fa_dh64 + fa_dh128
+    extra["flash_attention"] = {
+        "launches_head_dim_64": fa_dh64, "launches_head_dim_128_llama3": fa_dh128,
+        "head_dim_64": {k: fa64[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                             "bound_by", "max_abs_err")}}
+    print(f"[19 dense] ({time.perf_counter() - t_start:.0f} s in all)", flush=True)
+
+    # ---- 20. checkpoints and the selftest -------------------------------------------
+    ckpt_selftest_phase(torch, np, check, xlstm_state, smi)
+    del xlstm_state
+    print(f"[20 selftest] ({time.perf_counter() - t_start:.0f} s in all)", flush=True)
+
     kernels = []
     for kname, (src, replaces) in KERNEL_META.items():
         r = report[kname]
@@ -1660,6 +2138,7 @@ def main() -> int:
             "launches": launches[kname], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **extra.get(kname, {}),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     if check.failed:

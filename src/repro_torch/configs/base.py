@@ -117,6 +117,11 @@ ARCH_IDS: List[str] = [
     "xlstm-125m",
     # small MoE; the example trainer's presets derive from it
     "granite-moe-1b-a400m",
+    # the dense (llama-style) family; smollm-135m is the trainer's default
+    "smollm-135m",
+    "tinyllama-1.1b",
+    "llama3-8b",
+    "qwen2.5-14b",
 ]
 
 _REGISTRY: Dict[str, ModelConfig] = {}

@@ -1,0 +1,19 @@
+"""Qwen2.5-14B [hf:Qwen/Qwen2.5-0.5B family] — GQA kv=8, QKV bias.
+
+Copy of ``repro/configs/qwen2_5_14b.py``.
+"""
+from .base import ModelConfig, register
+
+register(ModelConfig(
+    name="qwen2.5-14b",
+    arch_type="dense",
+    n_layers=48,
+    d_model=5120,
+    n_heads=40,
+    n_kv_heads=8,
+    d_ff=13824,
+    vocab=152064,
+    qkv_bias=True,
+    rope_theta=1e6,
+    window=4096,
+))

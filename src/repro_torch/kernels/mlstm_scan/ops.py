@@ -10,9 +10,16 @@ one, as ``mlstm_forward_chunked(state=...)`` does.  :func:`mlstm_scan_ref`
 is the per-step cell recurrence (the reference's ``ref.py``), the oracle of
 both.
 
-The CUDA route has no backward: with grad mode on and an input that needs
-a gradient it raises, so a gradient is never silently lost (the plain
-version on the CPU differentiates by autograd).
+Under a gradient the CUDA route is an ``autograd.Function``
+(:class:`MLSTMScanFunction`): the kernel runs the forward and leaves each
+chunk's input state (C_in, n_in, m_in) in its scratch tensor, which the
+Function keeps; :func:`mlstm_scan_bwd` is the backward, the VJP of
+:func:`_chunk_body` in float32 over every chunk, with the carried state's
+cotangent (dC, dn, dm) flowing from each chunk into the one before it.  It
+mirrors what the reference differentiates: XLA's autodiff of the
+``lax.scan`` over ``_mlstm_chunk_body`` in ``mlstm_forward_chunked``
+(``models/xlstm.py:125-205``); the reference has no Pallas backward.  The
+plain version on the CPU differentiates by autograd.
 
 Layout: q, k, v [B, H, S, dh] and ig, lf [B, H, S], all float32 (q and k
 pre-scaled as in ``_mlstm_qkvif``; lf is the log-sigmoid forget gate).  A
@@ -26,6 +33,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from .. import _build
 
@@ -67,6 +75,18 @@ def mlstm_scan_ref(q, k, v, ig, lf, state: Optional[State] = None
     return torch.stack(hs, dim=2), {"C": C, "n": n, "m": m}
 
 
+def _cummax(g: torch.Tensor) -> torch.Tensor:
+    """Cumulative max along dim 2, as a one-hot selection of g [B, H, L].
+
+    The same values as ``torch.cummax``; its gradient reaches each step's
+    argmax through a product and a sum, where ``cummax``'s backward is a
+    scatter-add whose atomics make the card's sums vary from run to run.
+    """
+    idx = torch.cummax(g, dim=2).indices
+    hot = idx[..., :, None] == torch.arange(g.shape[2], device=g.device)
+    return (hot.to(g.dtype) * g[..., None, :]).sum(dim=3)
+
+
 def _chunk_body(st: State, q, k, v, ig, lf) -> Tuple[State, torch.Tensor]:
     """One chunk of L steps; q, k, v [B, H, L, dh], ig, lf [B, H, L].
 
@@ -77,7 +97,7 @@ def _chunk_body(st: State, q, k, v, ig, lf) -> Tuple[State, torch.Tensor]:
     C_in, n_in, m_in = st["C"], st["n"], st["m"]
     Lf = torch.cumsum(lf, dim=2)                           # [B,H,L]
     g = ig - Lf
-    u = torch.maximum(m_in[..., None], torch.cummax(g, dim=2).values)
+    u = torch.maximum(m_in[..., None], _cummax(g))
     m = Lf + u                                             # global m_t
     # intra-chunk causal weights W[t, j] = e^{g_j - u_t}  (j <= t)
     seg = g[..., None, :] - u[..., :, None]                # [B,H,Lt,Lj]
@@ -112,6 +132,22 @@ def _pad(q, k, v, ig, lf, chunk: int):
     return q, k, v, ig, lf, L
 
 
+def _chunk_loop(q, k, v, ig, lf, L: int, st: State, keep: bool):
+    """The chunk body over padded inputs -> (h, final state, each chunk's
+    input state stacked on a chunk axis when ``keep``, else None)."""
+    hs, ins = [], []
+    for c0 in range(0, q.shape[2], L):
+        sl = slice(c0, c0 + L)
+        if keep:
+            ins.append(st)
+        st, h = _chunk_body(st, q[:, :, sl], k[:, :, sl], v[:, :, sl], ig[:, :, sl],
+                            lf[:, :, sl])
+        hs.append(h)
+    chunk_in = (tuple(torch.stack([a[key] for a in ins], dim=2) for key in ("C", "n", "m"))
+                if keep else None)
+    return torch.cat(hs, dim=2), st, chunk_in
+
+
 def mlstm_scan_chunked_ref(q, k, v, ig, lf, *, chunk: int = 64,
                            state: Optional[State] = None
                            ) -> Tuple[torch.Tensor, State]:
@@ -119,26 +155,17 @@ def mlstm_scan_chunked_ref(q, k, v, ig, lf, *, chunk: int = 64,
     b, hh, s, dh = q.shape
     st = state if state is not None else init_state(b, hh, dh, q.device)
     q, k, v, ig, lf, L = _pad(q, k, v, ig, lf, chunk)
-    hs = []
-    for c0 in range(0, q.shape[2], L):
-        sl = slice(c0, c0 + L)
-        st, h = _chunk_body(st, q[:, :, sl], k[:, :, sl], v[:, :, sl], ig[:, :, sl],
-                            lf[:, :, sl])
-        hs.append(h)
-    return torch.cat(hs, dim=2)[:, :, :s], st
+    h, st, _ = _chunk_loop(q, k, v, ig, lf, L, st, keep=False)
+    return h[:, :, :s], st
 
 
-def mlstm_scan(q, k, v, ig, lf, *, chunk: int = 64, state: Optional[State] = None
-               ) -> Tuple[torch.Tensor, State]:
-    """-> (h [B, H, S, dh] float32, final state); ``state=None`` starts at zero."""
-    if q.device.type == "cpu":
-        return mlstm_scan_chunked_ref(q, k, v, ig, lf, chunk=chunk, state=state)
+def _launch(q, k, v, ig, lf, chunk: int, state: Optional[State]):
+    """The kernel on CUDA tensors -> (h, final state, each chunk's input state).
+
+    The chunk states are views into the kernel's scratch tensor:
+    C_in [B, H, chunks, dh, dh], n_in [B, H, chunks, dh], m_in [B, H, chunks].
+    """
     dev = q.device
-    if torch.is_grad_enabled() and any(
-            a.requires_grad for a in (q, k, v, ig, lf, *(state or {}).values())):
-        raise RuntimeError("mlstm_scan: the CUDA kernel has no backward yet; an input "
-                           "needs a gradient (run under torch.no_grad(), or on the CPU "
-                           "through the plain version)")
     if dev.type != "cuda" or any(a.device != dev for a in (k, v, ig, lf)):
         raise ValueError("mlstm_scan: q, k, v, ig, lf must be on one CUDA device")
     if any(a.dtype != torch.float32 for a in (q, k, v, ig, lf)):
@@ -159,16 +186,17 @@ def mlstm_scan(q, k, v, ig, lf, *, chunk: int = 64, state: Optional[State] = Non
                 raise ValueError(f"mlstm_scan: state[{key!r}] {tuple(a.shape)} "
                                  f"{a.dtype} on {a.device}, want {shape} float32")
     q, k, v, ig, lf, L = _pad(q, k, v, ig, lf, chunk)
-    q, k, v, ig, lf = (a.contiguous() for a in (q, k, v, ig, lf))
+    q, k, v, ig, lf = (a.detach().contiguous() for a in (q, k, v, ig, lf))
     h = torch.empty_like(q)
     # scratch: each chunk's state update, replaced in place by its C_in and
     # n_in, then (Lf_L, G) and m_in of each chunk
     nc = q.shape[2] // L
-    work = torch.empty(b * hh * nc * (dh * dh + dh + 3), dtype=torch.float32, device=dev)
+    E = dh * dh + dh
+    work = torch.empty(b * hh * nc * (E + 3), dtype=torch.float32, device=dev)
     out = {"C": torch.empty((b, hh, dh, dh), dtype=torch.float32, device=dev),
            "n": torch.empty((b, hh, dh), dtype=torch.float32, device=dev),
            "m": torch.empty((b, hh), dtype=torch.float32, device=dev)}
-    st_in = ([state[key].contiguous() for key in ("C", "n", "m")]
+    st_in = ([state[key].detach().contiguous() for key in ("C", "n", "m")]
              if state is not None else [])
     ptrs = [a.data_ptr() for a in st_in] or [None, None, None]   # NULL: the zero state
     fn = _build.function("mlstm_scan", "mlstm_scan", _ARGTYPES)
@@ -178,4 +206,164 @@ def mlstm_scan(q, k, v, ig, lf, *, chunk: int = 64, state: Optional[State] = Non
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "mlstm_scan")
     _build.LAUNCHES["mlstm_scan"] += 1
-    return h[:, :, :s], out
+    cn = work[:b * hh * nc * E].view(b, hh, nc, E)
+    chunk_in = (cn[..., :dh * dh].view(b, hh, nc, dh, dh), cn[..., dh * dh:],
+                work[b * hh * nc * (E + 2):].view(b, hh, nc))
+    return h[:, :, :s], out, chunk_in
+
+
+def _reverse_scan(a: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """y_c = a_c y_{c+1} + u_c along dim 2 (0 after the last), by log-depth
+    doubling on the flipped sequence; ``a`` broadcasts against ``u``."""
+    a, u = torch.flip(a, [2]), torch.flip(u, [2])
+    shift, n = 1, u.shape[2]
+    while shift < n:
+        u = torch.cat([u[:, :, :shift], u[:, :, shift:] + a[:, :, shift:] * u[:, :, :-shift]],
+                      dim=2)
+        a = torch.cat([a[:, :, :shift], a[:, :, shift:] * a[:, :, :-shift]], dim=2)
+        shift *= 2
+    return torch.flip(u, [2])
+
+
+def mlstm_scan_bwd(q, k, v, ig, lf, chunk_in, final, dh_out, dstate: State, *,
+                   chunk: int = 64):
+    """The VJP of the chunked scan, given each chunk's input and the final state.
+
+    q, k, v, ig, lf are the forward's (unpadded) inputs, ``chunk_in`` the
+    (C_in, n_in, m_in) of every chunk on a chunk axis (the kernel's scratch,
+    or the plain loop's), ``final`` the forward's final (C, n), ``dh_out``
+    the cotangent of h and ``dstate`` that of the final state.  -> ((dq, dk,
+    dv, dig, dlf), the cotangent of the initial state), float32 throughout.
+
+    Chunk c's body maps (its inputs x_c, its input state s_c) to (h_c, its
+    output state s'_c), and s'_c is s_{c+1}: the cotangent of s_c is the VJP
+    of h_c alone plus A_c^T ds'_c, A_c the state map's Jacobian in s_c, and
+    ds'_c is the cotangent of s_{c+1}.  Every chunk's body is recomputed
+    from its own input state at once (the chunks stacked on the head axis)
+    and differentiated by autograd twice, for h and then, once the chain
+    has given every ds'_c, for the output states.  The carry (dC, dn, dm)
+    runs from each chunk into the one before it through A_c^T, which is
+    linear and in closed form, so the whole chain is three reverse linear
+    scans over the chunks:
+
+      dC_in = decay dC',  dn_in = decay dn',
+      dm_in = decay (<dC', C_in> + <dn', n_in>)
+              + sel (dm' - <dC', C'> - <dn', n'>),
+
+    with decay = e^{m_in - u_L}, u_L = max(m_in, G), G the chunk's largest
+    i_j - Lf_j, and sel the max's gradient in m_in (1, 1/2 at a tie, 0) as
+    torch takes it.
+    """
+    s = q.shape[2]
+    q, k, v, ig, lf, L = _pad(*(a.detach().float() for a in (q, k, v, ig, lf)), chunk)
+    b, hh, sp, dh = q.shape
+    nc = sp // L
+    C_in, n_in, m_in = (a.detach() for a in chunk_in)
+
+    def steps(a):
+        """[B, H, S', ...] -> [B, H * nc, L, ...]: each chunk a head of its own"""
+        return a.reshape(b, hh * nc, L, *a.shape[3:])
+
+    def states(a):
+        """[B, H, nc, ...] -> [B, H * nc, ...]"""
+        return a.reshape(b, hh * nc, *a.shape[3:])
+
+    dh_c = steps(F.pad(dh_out.float(), (0, 0, 0, sp - s)))
+    with torch.enable_grad():
+        xs = [steps(a).requires_grad_(True) for a in (q, k, v, ig, lf)]
+        st = {key: states(a).requires_grad_(True)
+              for key, a in zip(("C", "n", "m"), (C_in, n_in, m_in))}
+        st_out, h = _chunk_body(st, *xs)
+        g_h = torch.autograd.grad(h, (*xs, st["C"], st["n"], st["m"]), dh_c,
+                                  retain_graph=True)
+    hC, hn, hm = (g.view(b, hh, nc, *g.shape[2:]) for g in g_h[5:])
+    # the carry, last chunk first: linear recurrences in (dC, dn) and then
+    # in dm, each one reverse scan over the chunks
+    igc, lfc = ig.view(b, hh, nc, L), lf.view(b, hh, nc, L)
+    G = (igc - torch.cumsum(lfc, dim=3)).amax(dim=3)
+    u_L = torch.maximum(m_in, G)
+    decay = torch.exp(m_in - u_L)
+    sel = (m_in > G).float() + 0.5 * (m_in == G).float()
+    C_next = torch.cat([C_in[:, :, 1:], final[0].float()[:, :, None]], dim=2)
+    n_next = torch.cat([n_in[:, :, 1:], final[1].float()[:, :, None]], dim=2)
+    dC_f, dn_f, dm_f = (dstate[key].float() for key in ("C", "n", "m"))
+
+    def carry(a, h_part, last):
+        """(the input state's cotangent of every chunk, its output state's):
+        d_in_c = a_c d_out_c + h_part_c with d_out_c = d_in_{c+1}, last after
+        the last chunk"""
+        a = a.view(*a.shape, *([1] * (h_part.dim() - a.dim())))
+        u = h_part.clone()
+        u[:, :, -1] += a[:, :, -1] * last
+        d_in = _reverse_scan(a, u)
+        return d_in, torch.cat([d_in[:, :, 1:], last[:, :, None]], dim=2)
+
+    (dC, dC_out), (dn, dn_out) = carry(decay, hC, dC_f), carry(decay, hn, dn_f)
+    into = (dC_out * C_in).sum((3, 4)) + (dn_out * n_in).sum(3)
+    outof = (dC_out * C_next).sum((3, 4)) + (dn_out * n_next).sum(3)
+    dm, dm_out = carry(sel, decay * into - sel * outof + hm, dm_f)
+    d_out = (dC_out, dn_out, dm_out)
+    with torch.enable_grad():
+        g_s = torch.autograd.grad((st_out["C"], st_out["n"], st_out["m"]), xs,
+                                  [states(d) for d in d_out], allow_unused=True)
+    grads = tuple((a if b_ is None else a + b_).reshape(b, hh, sp, *a.shape[3:])[:, :, :s]
+                  for a, b_ in zip(g_h[:5], g_s))              # q reaches no state
+    return grads, {"C": dC[:, :, 0], "n": dn[:, :, 0], "m": dm[:, :, 0]}
+
+
+class MLSTMScanFunction(torch.autograd.Function):
+    """``mlstm_scan`` under a gradient: the kernel's forward on CUDA tensors
+    (the plain chunk loop on CPU tensors), :func:`mlstm_scan_bwd` backward.
+
+    Inputs (chunk, q, k, v, ig, lf, C0, n0, m0), the state tensors ``None``
+    for the zero state; outputs (h, C, n, m).
+    """
+
+    @staticmethod
+    def forward(ctx, chunk, q, k, v, ig, lf, C0, n0, m0):
+        state = None if C0 is None else {"C": C0, "n": n0, "m": m0}
+        if q.device.type == "cpu":
+            b, hh, s, dh = q.shape
+            st = state if state is not None else init_state(b, hh, dh, q.device)
+            qp, kp, vp, igp, lfp, L = _pad(q, k, v, ig, lf, chunk)
+            h, out, chunk_in = _chunk_loop(qp, kp, vp, igp, lfp, L, st, keep=True)
+            h = h[:, :, :s]
+        else:
+            h, out, chunk_in = _launch(q, k, v, ig, lf, chunk, state)
+        ctx.save_for_backward(q, k, v, ig, lf, *chunk_in, out["C"], out["n"])
+        ctx.chunk, ctx.has_state = chunk, state is not None
+        return h, out["C"], out["n"], out["m"]
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dh_out, dC, dn, dm):
+        q, k, v, ig, lf, C_in, n_in, m_in, C1, n1 = ctx.saved_tensors
+        grads, dst = mlstm_scan_bwd(q, k, v, ig, lf, (C_in, n_in, m_in), (C1, n1), dh_out,
+                                    {"C": dC, "n": dn, "m": dm}, chunk=ctx.chunk)
+        dst = [dst[key] for key in ("C", "n", "m")] if ctx.has_state else [None] * 3
+        return (None, *grads, *dst)
+
+
+def mlstm_scan_function(q, k, v, ig, lf, *, chunk: int = 64, state: Optional[State] = None
+                        ) -> Tuple[torch.Tensor, State]:
+    """:class:`MLSTMScanFunction` on either device -> (h, final state)."""
+    st = [state[key] for key in ("C", "n", "m")] if state is not None else [None] * 3
+    h, C, n, m = MLSTMScanFunction.apply(chunk, q, k, v, ig, lf, *st)
+    return h, {"C": C, "n": n, "m": m}
+
+
+def mlstm_scan(q, k, v, ig, lf, *, chunk: int = 64, state: Optional[State] = None
+               ) -> Tuple[torch.Tensor, State]:
+    """-> (h [B, H, S, dh] float32, final state); ``state=None`` starts at zero.
+
+    Differentiable on both devices: by :class:`MLSTMScanFunction` on the
+    card, by autograd through the plain version on the CPU; without a
+    gradient to take it builds no graph.
+    """
+    if q.device.type == "cpu":
+        return mlstm_scan_chunked_ref(q, k, v, ig, lf, chunk=chunk, state=state)
+    if torch.is_grad_enabled() and any(
+            a.requires_grad for a in (q, k, v, ig, lf, *(state or {}).values())):
+        return mlstm_scan_function(q, k, v, ig, lf, chunk=chunk, state=state)
+    h, out, _ = _launch(q, k, v, ig, lf, chunk, state)
+    return h, out

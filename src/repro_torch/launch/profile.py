@@ -8,12 +8,13 @@ builds ``--arch`` at full width on the card (bf16, random weights from
 requests.  paper-moe-8e (the default) runs on 8 EP ranks in groups of 4
 with NIMBLE dispatch, prefills 4 x 512 tokens and generates 8 tokens after
 a prompt of 8; xlstm-125m prefills 4 x 2048 tokens and generates 16 tokens
-after a prompt of 128.  For each it prints the wall time, the summed device
+after a prompt of 128; llama3-8b prefills 4 x 512 and generates 8 after 8.  For each it prints the wall time, the summed device
 time, the device's idle share, the kernels that took the most device
 time, and the device's longest idle gaps with the host ops in flight
-across each.  ``--train`` profiles instead one AdamW train step of paper-moe-8e at
-full width (bf16, EP 8 in groups of 4, NIMBLE, 4 x 512 tokens from
-``SyntheticLM``) after a warm-up step.  ``--runtime`` profiles the
+across each.  ``--train`` profiles instead one AdamW train step of ``--arch`` at
+full width (bf16, tokens from ``SyntheticLM``) after a warm-up step:
+paper-moe-8e on EP 8 in groups of 4 with NIMBLE dispatch, 4 x 512 tokens;
+xlstm-125m and smollm-135m on one rank, 4 x 2048 tokens.  ``--runtime`` profiles the
 execution-time planning runtime: one replan's solve (``solve_plans_batch``
 of one demand matrix, every MWU iteration on the card) on the paper's
 testbed (n=8) and an 8-node EP group (n=32), and the testbed's whole
@@ -59,7 +60,10 @@ OWN = {"gather_rows": "token_gather", "scatter_add_rows": "token_scatter_add",
        "relay_words": "relay_copy (word routes)"}
 
 #: per architecture: EP ranks, prefill length, prompt length, new tokens
-SHAPES = {"paper-moe-8e": (8, 512, 8, 8), "xlstm-125m": (1, 2048, 128, 16)}
+SHAPES = {"paper-moe-8e": (8, 512, 8, 8), "xlstm-125m": (1, 2048, 128, 16),
+          "llama3-8b": (1, 512, 8, 8)}
+#: per architecture: EP ranks, tokens a sequence of a train step (batch 4)
+TRAIN_SHAPES = {"paper-moe-8e": (8, 512), "xlstm-125m": (1, 2048), "smollm-135m": (1, 2048)}
 
 
 def _report(label: str, prof, wall_s: float, n_tok: int, top: int = 12) -> None:
@@ -119,20 +123,21 @@ def _profile(label: str, fn, n_tok: int, out, top: int = 12) -> None:
         prof.export_chrome_trace(str(out / f"{label.split()[0]}.json"))
 
 
-def _train(seed: int, out) -> None:
-    """One warm-up step, then one profiled step of paper-moe-8e training."""
-    cfg = get_config("paper-moe-8e")
-    ctx = ParallelContext(ep_size=8, group_size=4, moe_mode="nimble",
+def _train(arch: str, seed: int, out) -> None:
+    """One warm-up step, then one profiled train step of ``arch``."""
+    cfg = get_config(arch)
+    ep, seq = TRAIN_SHAPES[arch]
+    ctx = ParallelContext(ep_size=ep, group_size=min(4, ep), moe_mode="nimble",
                           param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
     model = build_model(cfg, ctx)
     params = model.init(seed)
     state = adamw.init(params)
     step = make_train_step(model, adamw.AdamWConfig(warmup_steps=2))
-    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=512, global_batch=4, seed=seed))
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=4, seed=seed))
     batches = [to_device(data.batch(i), "cuda") for i in range(2)]
     params, state, _ = step(params, state, batches[0])
     torch.cuda.synchronize()
-    _profile("train 4x512 step", lambda: step(params, state, batches[1]), 4 * 512, out, 24)
+    _profile(f"train 4x{seq} step", lambda: step(params, state, batches[1]), 4 * seq, out, 24)
     print(f"[profile] {cfg.name} train on {torch.cuda.get_device_name(0)}")
 
 
@@ -160,9 +165,9 @@ def _runtime(out) -> None:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="paper-moe-8e", choices=sorted(SHAPES))
+    ap.add_argument("--arch", default="paper-moe-8e", choices=sorted({*SHAPES, *TRAIN_SHAPES}))
     ap.add_argument("--train", action="store_true",
-                    help="profile a paper-moe-8e train step instead of serving")
+                    help="profile a train step instead of serving")
     ap.add_argument("--runtime", action="store_true",
                     help="profile the runtime's replan solves instead of serving")
     ap.add_argument("--out", default=None, help="directory for Chrome traces")
@@ -172,8 +177,10 @@ def main(argv=None) -> None:
     if out is not None:
         out.mkdir(parents=True, exist_ok=True)
     if args.train:
-        _train(args.seed, out)
+        _train(args.arch, args.seed, out)
         return
+    if args.arch not in SHAPES:
+        ap.error(f"{args.arch} is profiled with --train only")
     if args.runtime:
         _runtime(out)
         return

@@ -26,11 +26,14 @@ Generation mode — batched generation through ``ServeEngine``:
         --batch 4 --prompt-len 8 --new-tokens 8
     python -m repro_torch.launch.serve --arch xlstm-125m \
         --batch 4 --prompt-len 128 --new-tokens 16
+    python -m repro_torch.launch.serve --arch llama3-8b \
+        --batch 4 --prompt-len 8 --new-tokens 8
 
 runs the model at full width on the card with random weights from
-``--seed``.  A MoE model runs expert-parallel over ``--ep`` stacked ranks
-(default 8) in groups of up to 4 with NIMBLE dispatch; the ssm family
-(xLSTM) has no experts, so ``--ep`` above 1 is refused for it.  One
+``--seed`` (without a card it exits non-zero unless ``--device cpu`` is
+given).  A MoE model runs expert-parallel over ``--ep`` stacked ranks
+(default 8) in groups of up to 4 with NIMBLE dispatch; the dense and ssm
+families have no experts, so ``--ep`` above 1 is refused for them.  One
 generation of the same requests runs first as a warm-up (its time is
 printed too), so the timed one pays no first-call costs.  ``--reduced``
 shrinks the model to smoke-test widths and ``--device cpu`` runs on the
@@ -182,6 +185,9 @@ def _run_generate(args, ap):
     except ValueError as e:               # e.g. --ep > 1 for a family without experts
         ap.error(str(e))
     if args.device.startswith("cuda"):
+        if not torch.cuda.is_available():
+            ap.error("no CUDA device: the port serves on the card; pass --device cpu "
+                     "to serve on the host")
         _build.build()                    # compile before the clock starts
     params = model.init(args.seed)
     engine = ServeEngine(model, params, max_len=args.prompt_len + args.new_tokens)

@@ -1,20 +1,26 @@
-"""Training launcher: a few AdamW steps of a MoE model on the card.
+"""Training launcher: AdamW steps of a dense, MoE or xLSTM model on the card.
 
+    python -m repro_torch.launch.train --arch smollm-135m --steps 5 \
+        --batch 4 --seq 2048
+    python -m repro_torch.launch.train --arch xlstm-125m --steps 5 \
+        --batch 4 --seq 2048 --ckpt-dir ckpts --ckpt-every 5
     python -m repro_torch.launch.train --arch paper-moe-8e --steps 5 \
         --batch 4 --seq 512
-    python -m repro_torch.launch.train --arch paper-moe-8e --reduced \
+    python -m repro_torch.launch.train --arch smollm-135m --reduced \
         --device cpu --dtype f32 --steps 20 --batch 4 --seq 64
 
-Counterpart of ``repro/launch/train.py``: the same flags, the same
-``SyntheticLM`` batches and AdamW, the same log lines, ending with
-``loss a -> b (improved|NOT improved)``.  It adds the port's serving flags:
-the model runs expert-parallel over ``--ep`` stacked ranks (default 8) in
-groups of ``--group-size`` (default up to 4) with ``--mode`` dispatch, in
-``--dtype`` (bf16 by default) on ``--device`` (the card by default).
-``--reduced`` shrinks the model to smoke-test widths and keeps its expert
-count, so the EP ranks still split the experts.  Only the moe family
-trains: the ssm family's training needs the ``mlstm_scan`` backward, which
-is not ported.  Checkpoint flags wait for the port of ``checkpoint/``.
+Counterpart of ``repro/launch/train.py``: the same flags (``smollm-135m`` by
+default), the same ``SyntheticLM`` batches and AdamW, the same log lines,
+ending with ``loss a -> b (improved|NOT improved)``, and checkpoints of
+``{"params", "opt"}`` every ``--ckpt-every`` steps under ``--ckpt-dir``
+(``checkpoint/ckpt.py``, the reference's format).  It adds the port's
+flags: a MoE model runs expert-parallel over ``--ep`` stacked ranks (8 by
+default; 1 for the families without experts) in groups of
+``--group-size`` (default up to 4) with ``--mode`` dispatch; every model
+runs in ``--dtype`` (bf16 by default) on ``--device`` (the card by
+default; without one the launcher exits non-zero unless ``--device cpu``
+is given).  ``--reduced`` shrinks the model to smoke-test widths and keeps
+its expert count, so the EP ranks still split the experts.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import time
 import numpy as np
 import torch
 
+from ..checkpoint import ckpt
 from ..configs.base import get_config
 from ..data.pipeline import DataConfig, SyntheticLM, to_device
 from ..kernels import _build
@@ -38,7 +45,7 @@ from ..tree import leaves
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="paper-moe-8e")
+    ap.add_argument("--arch", default="smollm-135m")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
@@ -49,8 +56,11 @@ def parse_args(argv=None):
                     help="use the smoke-scale reduced config (keeping its experts)")
     ap.add_argument("--layers", type=int, default=None)
     ap.add_argument("--d-model", type=int, default=None)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
-    ap.add_argument("--ep", type=int, default=8, help="expert-parallel ranks")
+    ap.add_argument("--ep", type=int, default=None,
+                    help="expert-parallel ranks (default 8 for moe, else 1)")
     ap.add_argument("--group-size", type=int, default=None,
                     help="ranks per node on the NIMBLE axis (default min(4, ep))")
     ap.add_argument("--mode", default="nimble", choices=["nimble", "direct", "stripe"])
@@ -75,22 +85,23 @@ def build_cfg(args):
 def main(argv=None):
     ap, args = parse_args(argv)
     cfg = build_cfg(args)
-    if cfg.arch_type != "moe":
-        ap.error(f"{cfg.name}: only the moe family trains in the port (the "
-                 f"{cfg.arch_type} family needs backward kernels not ported yet)")
+    ep = args.ep if args.ep is not None else (8 if cfg.arch_type == "moe" else 1)
     dt = DTYPES[args.dtype]
-    ctx = ParallelContext(ep_size=args.ep, group_size=args.group_size or min(4, args.ep),
+    ctx = ParallelContext(ep_size=ep, group_size=args.group_size or min(4, ep),
                           moe_mode=args.mode, param_dtype=dt, compute_dtype=dt,
                           device=args.device)
     try:
         model = build_model(cfg, ctx)
-    except ValueError as e:
+    except ValueError as e:               # e.g. --ep > 1 for a family without experts
         ap.error(str(e))
     on_card = torch.device(args.device).type == "cuda"
+    if on_card and not torch.cuda.is_available():
+        ap.error("no CUDA device: the port trains on the card; pass --device cpu "
+                 "to train on the host")
     where = torch.cuda.get_device_name(0) if on_card else args.device
     print(f"[train] {cfg.name}: {cfg.n_layers}L d={cfg.d_model} "
           f"vocab={cfg.vocab} arch={cfg.arch_type}")
-    print(f"[train] ep={args.ep} groups of {ctx.group_size} {args.mode} {args.dtype} "
+    print(f"[train] ep={ep} groups of {ctx.group_size} {args.mode} {args.dtype} "
           f"on {where}")
     if on_card:
         _build.build()                    # compile before the clock starts
@@ -116,6 +127,8 @@ def main(argv=None):
             print(f"[train] step {step:5d} loss {losses[-1]:.4f} "
                   f"gnorm {float(metrics['grad_norm']):.3f} "
                   f"lr {float(metrics['lr']):.2e} ({dt_s:.1f}s)", flush=True)
+        if args.ckpt_every and args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+            ckpt.save(args.ckpt_dir, step + 1, {"params": params, "opt": opt_state})
     first = np.mean(losses[: max(3, len(losses) // 10)])
     last = np.mean(losses[-max(3, len(losses) // 10):])
     print(f"[train] loss {first:.4f} -> {last:.4f} "

@@ -1,8 +1,9 @@
-"""Shared model layers: RMS norm, RoPE, GQA attention with a ring-buffer cache.
+"""Shared model layers: RMS norm, RoPE, GQA attention with a ring-buffer cache, SwiGLU.
 
-Counterpart of ``repro/models/layers.py`` (the parts the MoE model uses).
-Parameters are plain dicts of tensors with the reference's keys and
-layouts.  Full-sequence attention goes through the ``attention`` dispatch
+Counterpart of ``repro/models/layers.py`` (the parts the dense, MoE and
+xLSTM models use).  Parameters are plain dicts of tensors with the
+reference's keys and layouts; ``lead`` gives stacked leaves a leading
+layer axis, as the reference's ``vmap``-ed block inits do.  Full-sequence attention goes through the ``attention`` dispatch
 (the flash kernel for ``Sq >= 128``); the decode step is plain tensor code,
 as in the reference.
 """
@@ -28,6 +29,54 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, device,
     return w.to(dtype)
 
 
+def embed_init(gen: torch.Generator, vocab: int, d: int, dtype, device):
+    """N(0, 0.02^2) embeddings [vocab, d], as the reference scales them."""
+    return (torch.randn((vocab, d), generator=gen, device=device) * 0.02).to(dtype)
+
+
+def init_attention(gen: torch.Generator, d_model: int, n_heads: int, n_kv: int,
+                   head_dim: int, dtype, device, qkv_bias: bool = False,
+                   lead: Tuple[int, ...] = ()) -> Params:
+    """GQA projections; zero q, k, v biases with ``qkv_bias`` (qwen2.5)."""
+    p = {"wq": dense_init(gen, d_model, n_heads * head_dim, dtype, device, lead),
+         "wk": dense_init(gen, d_model, n_kv * head_dim, dtype, device, lead),
+         "wv": dense_init(gen, d_model, n_kv * head_dim, dtype, device, lead),
+         "wo": dense_init(gen, n_heads * head_dim, d_model, dtype, device, lead)}
+    if qkv_bias:
+        for key, width in (("bq", n_heads), ("bk", n_kv), ("bv", n_kv)):
+            p[key] = torch.zeros((*lead, width * head_dim), dtype=dtype, device=device)
+    return p
+
+
+def attention_shapes(d_model: int, n_heads: int, n_kv: int, head_dim: int,
+                     qkv_bias: bool = False, lead: Tuple[int, ...] = ()) -> Dict[str, tuple]:
+    """The shapes of :func:`init_attention`'s leaves."""
+    shapes = {"wq": (*lead, d_model, n_heads * head_dim),
+              "wk": (*lead, d_model, n_kv * head_dim),
+              "wv": (*lead, d_model, n_kv * head_dim),
+              "wo": (*lead, n_heads * head_dim, d_model)}
+    if qkv_bias:
+        shapes.update(bq=(*lead, n_heads * head_dim), bk=(*lead, n_kv * head_dim),
+                      bv=(*lead, n_kv * head_dim))
+    return shapes
+
+
+def init_swiglu(gen: torch.Generator, d_model: int, d_ff: int, dtype, device,
+                lead: Tuple[int, ...] = ()) -> Params:
+    return {"wg": dense_init(gen, d_model, d_ff, dtype, device, lead),
+            "wu": dense_init(gen, d_model, d_ff, dtype, device, lead),
+            "wd": dense_init(gen, d_ff, d_model, dtype, device, lead)}
+
+
+def swiglu(p: Params, x: torch.Tensor) -> torch.Tensor:
+    return (torch.nn.functional.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+
+
+def layer(blocks: Params, i: int) -> Params:
+    """Layer i's parameters out of a stacked ``blocks`` tree (views)."""
+    return {k: (layer(v, i) if isinstance(v, dict) else v[i]) for k, v in blocks.items()}
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
@@ -50,6 +99,8 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor
 def _project_qkv(p: Params, x, n_heads, n_kv, head_dim):
     b, s, _ = x.shape
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(b, s, n_heads, head_dim).transpose(1, 2)
     k = k.reshape(b, s, n_kv, head_dim).transpose(1, 2)
     v = v.reshape(b, s, n_kv, head_dim).transpose(1, 2)

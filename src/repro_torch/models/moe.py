@@ -22,6 +22,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.moe_comm import MoECommConfig, MoEDispatcher
@@ -37,8 +38,7 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, object]:
     """The parameter tree's shapes, keyed as the reference's."""
     Lr, D, E, F = cfg.n_layers, cfg.d_model, cfg.n_experts, cfg.d_ff
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    attn = {"wq": (Lr, D, H * dh), "wk": (Lr, D, Hkv * dh),
-            "wv": (Lr, D, Hkv * dh), "wo": (Lr, H * dh, D)}
+    attn = L.attention_shapes(D, H, Hkv, dh, cfg.qkv_bias, lead=(Lr,))
     return {
         "embed": (cfg.vocab, D),
         "blocks": {
@@ -61,12 +61,10 @@ def init(seed: int, cfg: ModelConfig, ctx: ParallelContext = SINGLE):
     def dense(d_in, d_out, lead=(Lr,)):
         return L.dense_init(gen, d_in, d_out, dt, dev, lead=lead)
 
-    attn = {"wq": dense(D, H * dh), "wk": dense(D, Hkv * dh),
-            "wv": dense(D, Hkv * dh), "wo": dense(H * dh, D)}
+    attn = L.init_attention(gen, D, H, Hkv, dh, dt, dev, cfg.qkv_bias, lead=(Lr,))
     ones = torch.ones((Lr, D), dtype=dt, device=dev)
     return {
-        "embed": (torch.randn((cfg.vocab, D), generator=gen, device=dev)
-                  * 0.02).to(dt),
+        "embed": L.embed_init(gen, cfg.vocab, D, dt, dev),
         "blocks": {
             "ln1": ones.clone(), "attn": attn, "ln2": ones.clone(),
             "router": dense(D, E),
@@ -76,12 +74,6 @@ def init(seed: int, cfg: ModelConfig, ctx: ParallelContext = SINGLE):
         "final_norm": torch.ones((D,), dtype=dt, device=dev),
         "lm_head": dense(D, cfg.vocab, ()),
     }
-
-
-def _layer(blocks, i: int):
-    """Layer i's parameters out of the stacked ``blocks`` tree."""
-    return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
-            for k, v in blocks.items()}
 
 
 def _router(p, xf: torch.Tensor, cfg: ModelConfig):
@@ -182,6 +174,18 @@ def _add_dropped(stats: Optional[dict], dropped) -> None:
         stats["dropped"] = stats.get("dropped", 0) + dropped
 
 
+def _block_fwd(p, x, cfg: ModelConfig, moe_apply, window):
+    """One block -> (x, aux, dropped)."""
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    x = x + L.attention_forward(
+        p["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+        head_dim=cfg.head_dim, rope_theta=cfg.rope_theta, causal=True,
+        window=window)
+    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    y, aux, dropped = moe_apply(p, h)
+    return x + y, aux, dropped
+
+
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
             ctx: ParallelContext = SINGLE, *, window=None, last_only: bool = False,
             moe_apply=None, stats: Optional[dict] = None
@@ -189,22 +193,20 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
     """tokens [B, S] -> (logits [B, S, V] or [B, 1, V], aux_loss scalar).
 
     ``stats``, when given, accumulates the dispatcher's capacity drops
-    under ``"dropped"``.
+    under ``"dropped"``.  With ``ctx.remat`` each block's activations are
+    recomputed in the backward (``torch.utils.checkpoint``), as the
+    reference's ``jax.checkpoint`` does.
     """
     moe_apply = moe_apply or make_moe_ffn(cfg, ctx)
     x = params["embed"][tokens].to(ctx.compute_dtype)
     blocks = params["blocks"]
     auxs = []
     for i in range(blocks["ln1"].shape[0]):
-        p = _layer(blocks, i)
-        h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-        x = x + L.attention_forward(
-            p["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-            head_dim=cfg.head_dim, rope_theta=cfg.rope_theta, causal=True,
-            window=window)
-        h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-        y, aux, dropped = moe_apply(p, h)
-        x = x + y
+        args = (L.layer(blocks, i), x, cfg, moe_apply, window)
+        if ctx.remat and torch.is_grad_enabled():
+            x, aux, dropped = checkpoint(_block_fwd, *args, use_reentrant=False)
+        else:
+            x, aux, dropped = _block_fwd(*args)
         auxs.append(aux)
         _add_dropped(stats, dropped)
     if last_only:
@@ -230,7 +232,7 @@ def decode_step(params, cache, token: torch.Tensor, pos: int, cfg: ModelConfig,
     x = params["embed"][token][:, None, :].to(ctx.compute_dtype)
     blocks = params["blocks"]
     for i in range(blocks["ln1"].shape[0]):
-        p = _layer(blocks, i)
+        p = L.layer(blocks, i)
         c = {k: v[i] for k, v in cache.items()}
         h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
         x = x + L.attention_decode(

@@ -3,9 +3,10 @@
 ``build_model(cfg, ctx)`` returns a :class:`Model` exposing
 ``init / forward / loss / init_cache / decode_step`` with the reference's
 signatures, apart from ``init`` taking an integer seed.  The port supports
-the ``moe`` family (without attention biases) and the ``ssm`` family
-(xLSTM).  Only the ``moe`` family takes the expert layer (``moe_apply``)
-and the ``stats`` accumulator of capacity drops.
+the ``dense`` family (llama-style), the ``moe`` family and the ``ssm``
+family (xLSTM).  Only the ``moe`` family takes the expert layer
+(``moe_apply``) and the ``stats`` accumulator of capacity drops; the
+attention families take ``window``.
 """
 
 from __future__ import annotations
@@ -18,9 +19,9 @@ import torch
 
 from ..configs.base import InputShape, ModelConfig
 from ..sharding.context import SINGLE, ParallelContext
-from . import moe, xlstm
+from . import dense, moe, xlstm
 
-_FAMILIES = {"moe": moe, "ssm": xlstm}
+_FAMILIES = {"dense": dense, "moe": moe, "ssm": xlstm}
 
 # decode cache length policy: sub-quadratic archs keep O(1)/windowed state
 _LONG = "long_500k"
@@ -60,7 +61,7 @@ class Model:
                 last_only: bool = False, stats: Optional[dict] = None):
         """-> (logits, aux); ``stats`` (moe only) accumulates capacity drops."""
         extra = self._extra(stats)
-        if self.cfg.arch_type == "moe":
+        if self.mod is not xlstm:        # attention-free: no window to apply
             extra["window"] = window
         out = self.mod.forward(params, batch["tokens"], self.cfg, self.ctx,
                                last_only=last_only, **extra)
@@ -100,9 +101,7 @@ class Model:
 
 def build_model(cfg: ModelConfig, ctx: ParallelContext = SINGLE) -> Model:
     mod = family(cfg)
-    if cfg.qkv_bias:
-        raise ValueError(f"{cfg.name}: attention biases are not ported yet")
-    if mod is xlstm and ctx.ep_size > 1:
-        raise ValueError(f"{cfg.name}: the ssm family has no experts to place; "
-                         f"ep_size must be 1, got {ctx.ep_size}")
+    if mod is not moe and ctx.ep_size > 1:
+        raise ValueError(f"{cfg.name}: the {cfg.arch_type} family has no experts to "
+                         f"place; ep_size must be 1, got {ctx.ep_size}")
     return Model(cfg, ctx, mod)

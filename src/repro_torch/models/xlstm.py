@@ -1,6 +1,6 @@
 """xLSTM blocks [arXiv:2405.04517]: alternating sLSTM and mLSTM layers.
 
-Counterpart of ``repro/models/xlstm.py``, forward only.
+Counterpart of ``repro/models/xlstm.py``.
 
 * **mLSTM**: per-head matrix memory C [dh, dh] with stabilized exponential
   input and forget gates.  The full-sequence forward runs chunkwise-parallel
@@ -9,8 +9,9 @@ Counterpart of ``repro/models/xlstm.py``, forward only.
 * **sLSTM**: scalar memory per channel with the same stabilizer.  Its gates
   depend only on the layer input, so the full-sequence forward factors into
   a max-plus prefix and two linear prefixes (``slstm_assoc``), computed
-  here by log-depth doubling where the reference uses ``associative_scan``;
-  the decode step runs the per-step cell.
+  here by log-depth doubling where the reference uses ``associative_scan``,
+  each with the reference's hand-written adjoint as its backward; the
+  decode step runs the per-step cell.
 
 Attention-free: NIMBLE's dispatch has nothing to balance, and the model is
 built without it.  Parameters keep the reference's tree: ``blocks`` is a
@@ -23,6 +24,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from ..configs.base import ModelConfig
 from ..kernels.mlstm_scan.ops import init_state as init_mlstm_scan_state
@@ -209,7 +211,7 @@ def _slstm_cell(state: State, z, ig, fg, og) -> Tuple[State, torch.Tensor]:
     return {"c": c, "n": n, "m": m_new, "h": h}, h
 
 
-def linear_prefix(a: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+def _linear_scan(a: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """y_t = a_t y_{t-1} + u_t along dim 1, by log-depth doubling.
 
     Elements combine as (a1, u1) . (a2, u2) = (a1 a2, u1 a2 + u2), as in the
@@ -223,7 +225,7 @@ def linear_prefix(a: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return u
 
 
-def maxplus_prefix(s: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def _maxplus_scan(s: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """m_t = max(m_{t-1} + s_t, v_t) along dim 1, by log-depth doubling.
 
     Elements combine as (s1, v1) . (s2, v2) = (s1 + s2, max(v1 + s2, v2)).
@@ -235,6 +237,74 @@ def maxplus_prefix(s: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         s = torch.cat([s[:, :shift], s[:, :-shift] + s[:, shift:]], dim=1)
         shift *= 2
     return v
+
+
+def _reverse_linear_scan(a_next: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """c_t = g_t + a_next_t c_{t+1}: the forward scan on flipped inputs."""
+    return torch.flip(_linear_scan(torch.flip(a_next, [1]), torch.flip(g, [1])), [1])
+
+
+def _next(x: torch.Tensor) -> torch.Tensor:
+    """x_{t+1} along dim 1, 0 after the last step."""
+    return torch.cat([x[:, 1:], torch.zeros_like(x[:, :1])], dim=1)
+
+
+class _LinearPrefix(torch.autograd.Function):
+    """The reference's ``linear_prefix`` custom VJP (xlstm.py:254-283): the
+    adjoint is a reverse linear recurrence c̄_t = ȳ_t + a_{t+1} c̄_{t+1},
+    with ā_t = c̄_t y_{t-1} and ū_t = c̄_t."""
+
+    @staticmethod
+    def forward(ctx, a, u):
+        y = _linear_scan(a, u)
+        ctx.save_for_backward(a, y)
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        a, y = ctx.saved_tensors
+        cbar = _reverse_linear_scan(_next(a), g)
+        y_prev = torch.cat([torch.zeros_like(y[:, :1]), y[:, :-1]], dim=1)
+        return cbar * y_prev, cbar
+
+
+class _MaxplusPrefix(torch.autograd.Function):
+    """The reference's ``maxplus_prefix`` custom VJP (xlstm.py:286-330): the
+    cotangent follows the carry selections sel_t = (m_{t-1} + s_t >= v_t),
+    c̄_t = m̄_t + sel_{t+1} c̄_{t+1}, s̄ = sel c̄ and v̄ = (1 - sel) c̄."""
+
+    @staticmethod
+    def forward(ctx, s, v):
+        m = _maxplus_scan(s, v)
+        ctx.save_for_backward(s, v, m)
+        return m
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        s, v, m = ctx.saved_tensors
+        m_prev = torch.cat([torch.full_like(m[:, :1], float("-inf")), m[:, :-1]], dim=1)
+        sel = (m_prev + s >= v).to(g.dtype)            # 1: the carry is selected
+        cbar = _reverse_linear_scan(_next(sel), g)
+        return sel * cbar, (1.0 - sel) * cbar
+
+
+def linear_prefix(a: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """y_t = a_t y_{t-1} + u_t along dim 1; differentiable by the reference's
+    adjoint (:class:`_LinearPrefix`) when an input needs a gradient."""
+    if torch.is_grad_enabled() and (a.requires_grad or u.requires_grad):
+        return _LinearPrefix.apply(a, u)
+    return _linear_scan(a, u)
+
+
+def maxplus_prefix(s: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """m_t = max(m_{t-1} + s_t, v_t) along dim 1; differentiable by the
+    reference's adjoint (:class:`_MaxplusPrefix`) when an input needs a
+    gradient."""
+    if torch.is_grad_enabled() and (s.requires_grad or v.requires_grad):
+        return _MaxplusPrefix.apply(s, v)
+    return _maxplus_scan(s, v)
 
 
 def _slstm_gates(p, x: torch.Tensor, cfg: ModelConfig):

@@ -10,6 +10,8 @@ the dtypes and the device.
   * ``moe_mode`` / ``moe_chunk_tokens`` / ``moe_alt_frac`` — the
     dispatcher's dataplane mode, chunk size in tokens, and alternate-path
     slot share;
+  * ``remat`` — recompute each block's activations in the backward
+    (``torch.utils.checkpoint``) instead of keeping them;
   * ``device`` — where parameters, caches and activations live: the card
     unless the caller asks for ``"cpu"``;
   * ``session`` — an optional :class:`repro_torch.api.Session` supplying
@@ -36,6 +38,7 @@ class ParallelContext:
     moe_alt_frac: float = 0.5
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
+    remat: bool = False                    # activation checkpoint per block
     device: str = "cuda"
     session: Optional[object] = None
 

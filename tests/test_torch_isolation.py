@@ -54,11 +54,13 @@ def test_entry_points_default_to_the_card():
 
     from repro_torch.api import SessionSpec, TopologySpec
     from repro_torch.api import selfcheck
-    from repro_torch.launch import fairness
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.launch import fairness, train
 
     assert ParallelContext().device == "cuda"
     assert SINGLE.device == "cuda"
     assert SessionSpec(topology=TopologySpec(8, 4)).device == "cuda"
     for fn in list(fairness.SECTIONS.values()) + [fairness.mutual_drift_arm,
-                                                  *selfcheck.CHECKS]:
+                                                  *selfcheck.CHECKS, ckpt.restore]:
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    assert train.parse_args([])[1].device == "cuda"
