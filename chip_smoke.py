@@ -117,9 +117,12 @@ port's six CUDA kernels from ``src/repro_torch/csrc``, all at once, then:
      tokens/s, the forward's, backward's and optimizer's shares, the peak
      memory, ``mlstm_scan``'s launches under grad (6 mLSTM layers x 4 steps,
      checked) and its backward's time a step beside its bound, and the
-     step's backward with and without the sLSTM prefix Functions; gates
-     finite losses and norms, and a reduced xlstm's f32 loss (1e-5) and
-     gradients (1e-4) on the card, through the kernel, against the CPU's;
+     step's backward with and without the sLSTM prefix Functions; holds
+     ``mlstm_cummax_bwd`` (the chunk body's cummax VJP, two launches a layer
+     a step, checked) on the warm-up step's first call against its plain
+     version, exactly, and times it; gates finite losses and norms, and a
+     reduced xlstm's f32 loss (1e-5) and gradients (1e-4) on the card,
+     through the kernels, against the CPU's;
  19. the dense family: trains smollm-135m at full width (bf16, 4 x 2048, as
      phase 18; flash at head dim 64, 30 layers x 4 steps, checked), holds
      the flash forward at smollm's shape (9 heads over 3) against
@@ -134,7 +137,23 @@ port's six CUDA kernels from ``src/repro_torch/csrc``, all at once, then:
      step and loss must be equal bit for bit; holds the index's keys, meta
      and structure and the ``.npz`` keys against the reference's
      ``_flatten`` and ``_structure`` (ported here, numpy only); runs
-     ``launch/selftest.main(["--device", "cuda"])``.
+     ``launch/selftest.main(["--device", "cuda"])``;
+ 21. serves qwen3-moe-235b-a22b cut to 1 layer (bf16, 3.73 B parameters,
+     EP 8, prefill 4 x 512 and 4 requests of 8 + 8 tokens) and trains
+     granite-moe-1b-a400m (bf16, 4 x 512, a warm-up and 3 timed steps);
+     holds the FFN at E 128 / F 1536 and E 32 / F 512, flash at GQA 16:1,
+     and the first ``token_gather`` call of every shape on both paths and
+     the first ``token_scatter_add`` call of every shape in granite's
+     backward against their plain versions; launches checked; gates a
+     reduced qwen3 (E 16, top-8, head dim 128) card vs CPU;
+ 22. serves and trains zamba2-1.2b (bf16, 4 x 2048, remat as
+     ``launch/train.py::needs_remat`` says), flash at [4, 32, 2048, 64]
+     against its plain version, the SSD scan's time a layer; gates a
+     reduced zamba2 card vs CPU and decode against forward on the card;
+ 23. serves whisper-small (1500 stub frames, 4 x 448 tokens) and
+     internvl2-2b (256 patches + 512 tokens), flash non-causal, Sq != Sk
+     and GQA 2:1 against its plain version, launches checked; gates the
+     reduced configs card vs CPU and runs ``serve_multiarch --adaptive``.
 
 It prints one line per phase, the card's name and power limit as
 ``nvidia-smi`` reports them, a JSON line of per-kernel numbers, and as its
@@ -172,6 +191,10 @@ KERNEL_META = {
     "token_scatter_add": ("src/repro_torch/csrc/token_scatter_add.cu",
                           "none: no Pallas kernel; the port's own kernel for the XLA "
                           "scatter-add VJP at src/repro/kernels/token_scatter/ops.py:30"),
+    "mlstm_cummax_bwd": ("src/repro_torch/csrc/mlstm_scan.cu",
+                         "none: no Pallas kernel; the port's own kernel for the VJP of "
+                         "lax.cummax (taken through lax.associative_scan) at "
+                         "src/repro/models/xlstm.py:145"),
 }
 MOE_KERNELS = ("token_gather", "grouped_ffn_blocked", "flash_attention")
 
@@ -199,18 +222,28 @@ def _to(tree, device, dtype=None):
 
 
 class Recorder:
-    """Records the arguments of a module-level function while installed."""
+    """Records the arguments (cloned) of a module-level function while
+    installed: its first ``keep`` calls in ``calls``, or, given ``key`` (a
+    function of the arguments), the first call of each key in ``first`` and
+    the calls of each key in ``counts``."""
 
-    def __init__(self, module, name, keep: int = 8):
-        self.module, self.name, self.keep = module, name, keep
-        self.calls = []
+    def __init__(self, module, name, keep: int = 8, key=None):
+        self.module, self.name, self.keep, self.key = module, name, keep, key
+        self.calls, self.first, self.counts = [], {}, {}
         self.orig = getattr(module, name)
 
     def __enter__(self):
+        def kept(args, kw):
+            return tuple(a.clone() if hasattr(a, "clone") else a for a in args) + (dict(kw),)
+
         def rec(*args, **kw):
-            if len(self.calls) < self.keep:
-                self.calls.append(tuple(a.clone() if hasattr(a, "clone") else a
-                                        for a in args) + (dict(kw),))
+            if self.key is not None:
+                k = self.key(*args, **kw)
+                self.counts[k] = self.counts.get(k, 0) + 1
+                if k not in self.first:
+                    self.first[k] = kept(args, kw)
+            elif len(self.calls) < self.keep:
+                self.calls.append(kept(args, kw))
             return self.orig(*args, **kw)
         setattr(self.module, self.name, rec)
         return self
@@ -272,6 +305,59 @@ def print_gather(label, r) -> None:
           f"bound), plain {r['plain_ms']:.4f} ms, index_select {r['library_ms']:.4f} ms "
           f"({r['library_device_ms']:.4f} on the device), bound {r['bound_ms']:.4f} ms "
           f"(bytes)", flush=True)
+
+
+def check_scatter(torch, check, ts_ops, g, idx, n, label: str) -> str:
+    """token_scatter_add on one captured call against its plain version, its
+    inverse-index launch against the plain stable sort and search, and a
+    second run's bits -> a summary.  Rows of at most two sources round once,
+    so they equal the plain version (the CPU's, summed in order) bit for bit;
+    more sources sum in another order: within one bf16 rounding of the
+    largest value."""
+    out = ts_ops.token_scatter_add(g, idx, n)
+    again = ts_ops.token_scatter_add(g, idx, n)
+    ref = ts_ops.token_scatter_add_ref(g.cpu(), idx.cpu(), n)
+    inv, inv_ref = ts_ops.build_inverse_index(idx, n), ts_ops.inverse_index(idx, n)
+    check(all(torch.equal(a, b) for a, b in zip(inv, inv_ref)),
+          f"token_scatter_add {label}: the inverse index differs from the plain one")
+    key = torch.where(idx < 0, n, idx.clamp_max(n - 1))
+    mult = int(torch.bincount(key, minlength=n + 1)[:n].max())
+    err = _max_err(out.cpu(), ref)
+    ok = err == 0.0 if mult <= 2 else err <= 2.0 ** -8 * ref.float().abs().max().item()
+    same = torch.equal(out, again)
+    check(ok, f"token_scatter_add {label} g {tuple(g.shape)}: max|err| {err:.3g} "
+          f"with at most {mult} sources a row")
+    check(same, f"token_scatter_add {label}: a second run gave other bits")
+    return (f"{tuple(g.shape)} -> {n} rows, <= {mult} sources, max|err| {err:g}, "
+            f"{'same bits' if same else 'DIFFER'}, index of "
+            f"{-(-(n + 1) // ts_ops.INDEX_KEYS)} block(s) "
+            f"{'= plain' if torch.equal(inv[0], inv_ref[0]) else '!= plain'}")
+
+
+def scatter_report(torch, ts_ops, g, idx, n) -> dict:
+    """token_scatter_add on one captured call: times, bound and error.  The
+    bound counts the rows read (index >= 0) and written and the indices at
+    3.35 TB/s; ``index_add_`` over the valid rows is the yardstick."""
+    from repro_torch.launch.kernel_times import device_ms, time_ms
+
+    valid = idx >= 0
+    safe, src = idx.clamp(0, n - 1)[valid], g[valid]
+    acc = torch.zeros((n, g.shape[1]), dtype=g.dtype, device=g.device)
+    moved = (int(valid.sum()) + n) * g.shape[1] * g.element_size() \
+        + idx.numel() * idx.element_size()
+    return dict(
+        ms=time_ms(lambda: ts_ops.token_scatter_add(g, idx, n), 20),
+        device_ms=device_ms(lambda: ts_ops.token_scatter_add(g, idx, n), 20),
+        index_device_ms=device_ms(lambda: ts_ops.build_inverse_index(idx, n), 20),
+        plain_index_device_ms=device_ms(lambda: ts_ops.inverse_index(idx, n), 20),
+        plain_ms=time_ms(lambda: ts_ops.token_scatter_add_ref(g, idx, n), 10),
+        library_ms=time_ms(lambda: acc.index_add_(0, safe, src), 20),
+        library_device_ms=device_ms(lambda: acc.index_add_(0, safe, src), 20),
+        bound_ms=moved / PEAK_BYTES_S * 1e3, bound_by="bytes",
+        max_abs_err=_max_err(ts_ops.token_scatter_add(g, idx, n),
+                             ts_ops.token_scatter_add_ref(g, idx, n)),
+        shape=f"g {tuple(g.shape)} {str(g.dtype)[6:]} -> {n} rows "
+              f"({int(valid.sum())} read)")
 
 
 def xlstm_phases(torch, np, check, compare, seed: int, dev):
@@ -575,30 +661,8 @@ def train_phases(torch, np, check, seed: int, dev, smi: str):
           f"sums in other orders)", flush=True)
 
     # ---- 9. token_scatter_add against its plain version -------------------------
-    # rows of at most two sources round once, so they equal the plain version
-    # (the CPU's, summed in order) bit for bit; more sources sum in another
-    # order: within one bf16 rounding of the largest value
-    parts = []
-    for i, (g, idx, n, _) in enumerate(rec_sa.calls):
-        out = ts_ops.token_scatter_add(g, idx, n)
-        again = ts_ops.token_scatter_add(g, idx, n)
-        ref = ts_ops.token_scatter_add_ref(g.cpu(), idx.cpu(), n)
-        # the inverse-index launch against the plain stable sort and search
-        inv, inv_ref = ts_ops.build_inverse_index(idx, n), ts_ops.inverse_index(idx, n)
-        check(all(torch.equal(a, b) for a, b in zip(inv, inv_ref)),
-              f"token_scatter_add call {i}: the inverse index differs from the plain one")
-        key = torch.where(idx < 0, n, idx.clamp_max(n - 1))
-        mult = int(torch.bincount(key, minlength=n + 1)[:n].max())
-        err = _max_err(out.cpu(), ref)
-        ok = err == 0.0 if mult <= 2 else err <= 2.0 ** -8 * ref.float().abs().max().item()
-        same = torch.equal(out, again)
-        check(ok, f"token_scatter_add call {i} g {tuple(g.shape)}: max|err| {err:.3g} "
-              f"with at most {mult} sources a row")
-        check(same, f"token_scatter_add call {i}: a second run gave other bits")
-        parts.append(f"{i}: {tuple(g.shape)} -> {n} rows, <= {mult} sources, max|err| "
-                     f"{err:g}, {'same bits' if same else 'DIFFER'}, index of "
-                     f"{-(-(n + 1) // ts_ops.INDEX_KEYS)} block(s) "
-                     f"{'= plain' if torch.equal(inv[0], inv_ref[0]) else '!= plain'}")
+    parts = [f"{i}: " + check_scatter(torch, check, ts_ops, g, idx, n, f"call {i}")
+             for i, (g, idx, n, _) in enumerate(rec_sa.calls)]
     # the index launch of one block (n + 1 <= INDEX_KEYS row ids) on the
     # pack's indices, clipped onto 300 rows
     g, idx = rec_sa.calls[-1][:2]
@@ -610,34 +674,14 @@ def train_phases(torch, np, check, seed: int, dev, smi: str):
           f"and search): " + "; ".join(parts) + f"; the index of one block ({idx.numel()} "
           f"indices clipped onto 300 rows) {'= plain' if one else '!= plain'}", flush=True)
 
-    def scatter_report(g, idx, n):
-        valid = idx >= 0
-        safe, src = idx.clamp(0, n - 1)[valid], g[valid]
-        acc = torch.zeros((n, g.shape[1]), dtype=g.dtype, device=dev)
-        moved = (int(valid.sum()) + n) * g.shape[1] * g.element_size() \
-            + idx.numel() * idx.element_size()
-        return dict(
-            ms=time_ms(lambda: ts_ops.token_scatter_add(g, idx, n), 20),
-            device_ms=device_ms(lambda: ts_ops.token_scatter_add(g, idx, n), 20),
-            index_device_ms=device_ms(lambda: ts_ops.build_inverse_index(idx, n), 20),
-            plain_index_device_ms=device_ms(lambda: ts_ops.inverse_index(idx, n), 20),
-            plain_ms=time_ms(lambda: ts_ops.token_scatter_add_ref(g, idx, n), 10),
-            library_ms=time_ms(lambda: acc.index_add_(0, safe, src), 20),
-            library_device_ms=device_ms(lambda: acc.index_add_(0, safe, src), 20),
-            bound_ms=moved / PEAK_BYTES_S * 1e3, bound_by="bytes",
-            max_abs_err=_max_err(ts_ops.token_scatter_add(g, idx, n),
-                                 ts_ops.token_scatter_add_ref(g, idx, n)),
-            shape=f"g {tuple(g.shape)} {str(g.dtype)[6:]} -> {n} rows "
-                  f"({int(valid.sum())} read)")
-
     # the dispatch pack's backward (token rows, read up to top_k times) and
     # one relay round's (a permutation of 128 KiB chunk rows)
     pack = next(c for c in rec_sa.calls if c[0].shape[1] == cfg.d_model
                 and c[1].numel() > c[2])
     relay = next(c for c in rec_sa.calls if c[0].shape[1] == cfg.d_model * 16
                  and c[1].numel() == c[2] and bool((c[1] >= 0).all()))
-    report = scatter_report(*pack[:3])
-    report["relay round backward"] = scatter_report(*relay[:3])
+    report = scatter_report(torch, ts_ops, *pack[:3])
+    report["relay round backward"] = scatter_report(torch, ts_ops, *relay[:3])
     # the same bytes forward: token_gather over the round's g and permutation
     report["relay round backward"]["gather_device_ms"] = device_ms(
         lambda: ts_ops.token_gather(*relay[:2]), 20)
@@ -1340,8 +1384,9 @@ def _train_line(tag, cfg, n_params, B, S, rows, m0, peak_gb, extra, smi, np, che
 def _grads_card_vs_cpu(torch, cfg, seed: int, seq: int, bias: bool = False):
     """A reduced config's f32 loss and gradients on the card against the CPU's
     plain versions -> (loss |diff| / |loss|, worst leaf max|diff| / max|leaf|,
-    logits max|diff| / max|logits|)."""
-    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    logits max|diff| / max|logits|).  The audio and vlm families get their stub
+    inputs (``add_modality_stubs``)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, add_modality_stubs, to_device
     from repro_torch.models.registry import build_model
     from repro_torch.sharding.context import ParallelContext
     from repro_torch.train.step import loss_and_grads
@@ -1352,8 +1397,9 @@ def _grads_card_vs_cpu(torch, cfg, seed: int, seq: int, bias: bool = False):
         gen = torch.Generator().manual_seed(seed + 1)
         for key in ("bq", "bk", "bv"):
             weights["blocks"]["attn"][key].normal_(generator=gen)
-    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=2,
-                                   seed=seed)).batch(0)
+    batch = add_modality_stubs(SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                                       global_batch=2, seed=seed)).batch(0),
+                               cfg, rng_seed=seed)
     out = []
     for dev in ("cpu", "cuda"):
         model = build_model(cfg, ParallelContext(device=dev))
@@ -1370,12 +1416,14 @@ def _grads_card_vs_cpu(torch, cfg, seed: int, seq: int, bias: bool = False):
             ((og - oc).abs().max() / oc.abs().max()).item())
 
 
-def xlstm_train_phase(torch, np, check, seed: int, dev, smi: str):
+def xlstm_train_phase(torch, np, check, compare, seed: int, dev, smi: str):
     """Phase 18 -> (mlstm_scan backward's report, launches under grad, the
-    state phase 20 steps on from)."""
+    chunk body's cummax VJP's report and launches, the state phase 20 steps
+    on from)."""
     from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.kernel_times import device_ms, time_ms
     from repro_torch.kernels.mlstm_scan import ops as ms_ops
     from repro_torch.models import xlstm as xlstm_mod
     from repro_torch.models.registry import build_model
@@ -1399,7 +1447,8 @@ def xlstm_train_phase(torch, np, check, seed: int, dev, smi: str):
     # the main path: a warm-up step and 3 timed steps, every count set to 0
     # just before it and read just after
     reset_launch_counts()
-    params, state, m0 = step(params, state, batches[0])
+    with Recorder(ms_ops, "cummax_bwd", keep=1) as rec_cm:
+        params, state, m0 = step(params, state, batches[0])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with EventTimer(torch, ms_ops, "mlstm_scan_bwd") as t_bwd:
@@ -1410,6 +1459,31 @@ def xlstm_train_phase(torch, np, check, seed: int, dev, smi: str):
     check(counts["mlstm_scan"] == 4 * n_mlstm,
           f"mlstm_scan launched {counts['mlstm_scan']} times under grad in 4 steps, "
           f"want {4 * n_mlstm}")
+    # the chunk body's cummax VJP: once in each of mlstm_scan_bwd's two passes
+    check(counts["mlstm_cummax_bwd"] == 2 * 4 * n_mlstm,
+          f"mlstm_cummax_bwd launched {counts['mlstm_cummax_bwd']} times in 4 steps, "
+          f"want {2 * 4 * n_mlstm}")
+    g, dy, _ = rec_cm.calls[0]
+    err = compare("mlstm_cummax_bwd", f"warm-up step's first call g {tuple(g.shape)}",
+                  ms_ops.cummax_bwd(g, dy), ms_ops.cummax_bwd_ref(g, dy), 0.0,
+                  "sums of at most two products by 1, 1/2 or 0, each rounded once")
+    same = torch.equal(ms_ops.cummax_bwd(g, dy), ms_ops.cummax_bwd(g, dy))
+    check(same, "mlstm_cummax_bwd: a second run gave other bits")
+    t_ops = 8.0 * g.numel() / PEAK_FLOPS["f32"]      # each step's compares, products, sums
+    t_bytes = 3 * 4 * g.numel() / PEAK_BYTES_S       # g, dy read, dg written
+    cm = dict(ms=time_ms(lambda: ms_ops.cummax_bwd(g, dy), 20),
+              device_ms=device_ms(lambda: ms_ops.cummax_bwd(g, dy), 20),
+              plain_ms=time_ms(lambda: ms_ops.cummax_bwd_ref(g, dy), 5), library_ms=None,
+              max_abs_err=err, bound_ms=max(t_ops, t_bytes) * 1e3,
+              bound_by="operations" if t_ops >= t_bytes else "bytes",
+              shape=f"g {tuple(g.shape)} f32")
+    print(f"[18 kernel] mlstm_cummax_bwd {cm['shape']}: kernel {cm['ms']:.4f} ms "
+          f"({cm['device_ms']:.4f} on the device), plain "
+          f"(autograd through the scan's recursion) {cm['plain_ms']:.4f} ms, bound "
+          f"{cm['bound_ms']:.5f} ms ({cm['bound_by']}); no library call computes this VJP; "
+          f"{counts['mlstm_cummax_bwd']} launches in the 4 steps, a second run "
+          f"{'same bits' if same else 'DIFFERS'}", flush=True)
+    del rec_cm, g, dy
     bwd_ms = t_bwd.total_ms() / 3
 
     # the backward a step with the prefix Functions (the reference's adjoints)
@@ -1470,19 +1544,17 @@ def xlstm_train_phase(torch, np, check, seed: int, dev, smi: str):
           f"gradients worst leaf {worst:.3g} of its max (limit 1e-4: f32 sums in other "
           f"orders), logits {logit_rel:.3g}; mlstm_scan launched {launched} times on the "
           f"card ({time.perf_counter() - t_phase:.0f} s for phase 18 on {smi})", flush=True)
-    return bwd, counts["mlstm_scan"], (step, params, state, batches[4])
+    return bwd, counts["mlstm_scan"], cm, counts["mlstm_cummax_bwd"], \
+        (step, params, state, batches[4])
 
 
 def dense_phase(torch, np, check, compare, seed: int, dev, smi: str):
     """Phase 19 -> (flash's report at smollm's head dim 64, its launches at
     head dims 64 and 128)."""
-    import torch.nn.functional as F
-
     from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.launch.kernel_times import time_ms
     from repro_torch.models.registry import build_model
     from repro_torch.optim import adamw
     from repro_torch.serve.engine import ServeEngine
@@ -1525,33 +1597,9 @@ def dense_phase(torch, np, check, compare, seed: int, dev, smi: str):
     q, k, v, kw = rec.calls[0]
     del params, state, model, m0, rec
     torch.cuda.empty_cache()
-    o = fa_ops.flash_attention(q, k, v, **kw)
-    err = compare("flash_attention", f"bf16 head dim 64 {tuple(q.shape)} over "
-                  f"{tuple(k.shape)}", o, fa_ops.mha_ref(q, k, v, **kw), 1e-2,
-                  "bf16 inputs and output; online vs two-pass softmax")
-    Bq, H, Sq, Dh = q.shape
-    pairs = Bq * H * Sq * (Sq + 1) // 2                  # causal, Sq == Sk
-    t_ops = 4.0 * Dh * pairs / PEAK_FLOPS["bf16"]
-    t_bytes = 2 * (2 * q.numel() + k.numel() + v.numel()) / PEAK_BYTES_S
-    try:
-        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,  # noqa: E731
-                                                      enable_gqa=True)
-        sdpa()
-    except TypeError:                      # a torch without enable_gqa
-        kk, vv = (t.repeat_interleave(H // k.shape[1], 1) for t in (k, v))
-        sdpa = lambda: F.scaled_dot_product_attention(q, kk, vv, is_causal=True)  # noqa: E731
-    fa64 = dict(ms=time_ms(lambda: fa_ops.flash_attention(q, k, v, **kw), 20),
-                plain_ms=time_ms(lambda: fa_ops.mha_ref(q, k, v, **kw), 5),
-                library_ms=time_ms(sdpa, 20), max_abs_err=err,
-                bound_ms=max(t_ops, t_bytes) * 1e3,
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
-                shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal")
-    print(f"[19 kernel] flash_attention at head dim 64: {fa64['shape']}: kernel "
-          f"{fa64['ms']:.4f} ms, plain {fa64['plain_ms']:.4f} ms, SDPA is_causal "
-          f"{fa64['library_ms']:.4f} ms, bound {fa64['bound_ms']:.4f} ms "
-          f"({fa64['bound_by']}); max|err| {err:.4g} (limit 1e-2 x max|ref|); on {smi}",
-          flush=True)
-    del q, k, v, o
+    fa64 = flash_report(torch, fa_ops, compare, q, k, v, kw,
+                        f"at smollm's head dim 64 (phase 19)")
+    del q, k, v
     torch.cuda.empty_cache()
 
     # ---- 19b. llama3-8b serves at full width ---------------------------------------
@@ -1717,6 +1765,542 @@ def ckpt_selftest_phase(torch, np, check, xlstm_state, smi: str):
     check(rc == 0, f"the selftest on the card returned {rc}")
     print(f"[20 selftest] selftest.main(['--device', 'cuda']) -> {rc} "
           f"({time.perf_counter() - t_phase:.0f} s for phase 20 on {smi})", flush=True)
+
+
+def _flash_key(q, k, v, **kw):
+    return (tuple(q.shape), tuple(k.shape), kw["causal"])
+
+
+def _ffn_key(x, blk, wg, wu, wd, **kw):
+    return (tuple(x.shape), tuple(wg.shape))
+
+
+def _gather_key(x, idx, **kw):
+    return (tuple(x.shape), str(x.dtype)[6:], idx.numel())
+
+
+def _scatter_key(g, idx, n, **kw):
+    return (tuple(g.shape), str(g.dtype)[6:], idx.numel(), n)
+
+
+def gather_recorders(stack):
+    """Recorders (``_gather_key``) of token_gather in each module of the MoE
+    path that calls it, entered on ``stack``."""
+    from repro_torch.core import dataplane, moe_comm
+    from repro_torch.kernels.grouped_ffn import ops as ffn_ops
+
+    return [stack.enter_context(Recorder(mod, "token_gather", key=_gather_key))
+            for mod in (moe_comm, dataplane, ffn_ops)]
+
+
+def check_gathers(torch, compare, recs, label: str) -> dict:
+    """token_gather on the first call of each shape the recorders saw,
+    against its plain version (exact) -> {key: (x, idx)}."""
+    from repro_torch.kernels.token_scatter import ops as ts_ops
+
+    calls = {}
+    for r in recs:
+        for k, c in r.first.items():
+            calls.setdefault(k, c[:2])
+    for k, (x, idx) in calls.items():
+        compare("token_gather", f"{label} x {k[0]} {k[1]} idx [{k[2]}]",
+                ts_ops.token_gather(x, idx), ts_ops.token_gather_ref(x, idx), 0.0,
+                "a copy is exact")
+    return calls
+
+
+def flash_report(torch, fa_ops, compare, q, k, v, kw, label: str) -> dict:
+    """flash_attention on one call's inputs against ``mha_ref`` (bf16, 1e-2 x
+    max|ref|), timed beside it, one SDPA call and the bound.  The bound
+    counts the score pairs this call's mask keeps (4 dh flops each) at the
+    bf16 peak, and q, k, v read and o written once at 3.35 TB/s; SDPA runs
+    ``is_causal`` where the call is plain causal, else with the boolean mask,
+    and takes the kv heads as they are (``enable_gqa``) where it can."""
+    import torch.nn.functional as F
+
+    from repro_torch.launch.kernel_times import time_ms
+
+    B, H, Sq, Dh = q.shape
+    Sk = k.shape[2]
+    o = fa_ops.flash_attention(q, k, v, **kw)
+    err = compare("flash_attention", label, o, fa_ops.mha_ref(q, k, v, **kw), 1e-2,
+                  "bf16 inputs and output; online vs two-pass softmax")
+    mask = fa_ops._mask(Sq, Sk, kw["causal"], kw["window"], kw["q_offset"], q.device)
+    pairs = int(mask.sum()) * B * H
+    t_ops = 4.0 * Dh * pairs / PEAK_FLOPS["bf16"]
+    t_bytes = 2 * (2 * q.numel() + k.numel() + v.numel()) / PEAK_BYTES_S
+    plain_causal = (kw["causal"] and kw["window"] is None and kw["q_offset"] == 0
+                    and Sq == Sk)
+    sdpa_kw = dict(is_causal=True) if plain_causal else (
+        dict(attn_mask=mask) if kw["causal"] or kw["window"] is not None else {})
+    kk, vv = k, v
+    try:
+        F.scaled_dot_product_attention(q, kk, vv, enable_gqa=True, **sdpa_kw)
+        sdpa_kw["enable_gqa"] = True
+    except TypeError:                      # a torch without enable_gqa
+        kk, vv = (t.repeat_interleave(H // k.shape[1], 1) for t in (k, v))
+    r = dict(ms=time_ms(lambda: fa_ops.flash_attention(q, k, v, **kw), 20),
+             plain_ms=time_ms(lambda: fa_ops.mha_ref(q, k, v, **kw), 3),
+             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                 q, kk, vv, **sdpa_kw), 20),
+             max_abs_err=err, bound_ms=max(t_ops, t_bytes) * 1e3,
+             bound_by="operations" if t_ops >= t_bytes else "bytes",
+             shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 "
+                   f"{'causal' if kw['causal'] else 'non-causal'}")
+    print(f"  flash_attention {label}: {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+          f"ms ({r['bound_by']})", flush=True)
+    return r
+
+
+def ffn_report(torch, ffn_ops, compare, call, label: str) -> dict:
+    """grouped_ffn_blocked on one call's sorted, padded rows against its plain
+    version (bf16, 1e-2 x max|ref|), timed beside it, the per-expert matmul
+    loop over the token rows (the library yardstick) and the bound: 6 D F
+    flops a token row at the bf16 peak, and the token rows read and written
+    and each used expert's three matrices read once at 3.35 TB/s."""
+    import torch.nn.functional as F
+
+    from repro_torch.launch.kernel_times import time_ms
+
+    x, blk, wg, wu, wd, kw = call
+    bt, rows = kw["block_tokens"], kw["block_rows"]
+    valid = int(rows.sum())
+    used = sorted(set(blk[rows > 0].tolist()))
+    D, Fd = x.shape[1], wg.shape[2]
+    segs = []
+    for b, e in enumerate(blk.tolist()):
+        lo, hi = b * bt, b * bt + int(rows[b])
+        if hi == lo:
+            continue
+        if segs and segs[-1][0] == e and segs[-1][2] == lo:
+            segs[-1][2] = hi
+        else:
+            segs.append([e, lo, hi])
+
+    def library():
+        out = torch.zeros_like(x)
+        for e, lo, hi in segs:
+            xe = x[lo:hi]
+            out[lo:hi] = (F.silu(xe @ wg[e]) * (xe @ wu[e])) @ wd[e]
+        return out
+
+    def run():
+        return ffn_ops.grouped_ffn_blocked(x, blk, wg, wu, wd, block_tokens=bt, block_rows=rows)
+
+    def plain():
+        return ffn_ops.grouped_ffn_blocked_ref(x, blk, wg, wu, wd, block_tokens=bt,
+                                               block_rows=rows)
+
+    err = compare("grouped_ffn_blocked", label, run(), plain(), 1e-2,
+                  "H rounds to bf16 between the passes, f32 sums, y rounds to bf16")
+    t_ops = 6.0 * valid * D * Fd / PEAK_FLOPS["bf16"]
+    t_bytes = (2 * valid * D + 3 * len(used) * D * Fd) * 2 / PEAK_BYTES_S
+    r = dict(ms=time_ms(run, 5), plain_ms=time_ms(plain, 2), library_ms=time_ms(library, 5),
+             max_abs_err=err, bound_ms=max(t_ops, t_bytes) * 1e3,
+             bound_by="operations" if t_ops >= t_bytes else "bytes",
+             shape=f"x [{x.shape[0]}, {D}] bf16 ({valid} token rows), E {wg.shape[0]} "
+                   f"({len(used)} used), F {Fd}, block_tokens {bt}")
+    print(f"  grouped_ffn_blocked {label}: {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.4f} ms, matmul loop {r['library_ms']:.4f} ms, bound "
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+    return r
+
+
+def _serve_figures(torch, np, model, params, batch, vocab, rng, extra_prefill=None):
+    """A full-width model's prefill (``last_only``, after a warm-up) and
+    ``ServeEngine.generate`` of 4 requests, 8 + 8 tokens, greedy (after a
+    warm-up) -> (prefill seconds, logits, launches of the prefill, generate
+    seconds, ids, launches of the timed generation)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve.engine import ServeEngine
+
+    with torch.no_grad():
+        model.forward(params, batch, last_only=True)                       # warm-up
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, _ = model.forward(params, batch, last_only=True, **(extra_prefill or {}))
+        torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    counts_prefill = launch_counts()
+    engine = ServeEngine(model, params, max_len=16)
+    prompts = rng.integers(0, vocab, (4, 8))
+    engine.generate(prompts, n_new=8)                                      # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    ids = engine.generate(prompts, n_new=8)
+    gen_s = time.perf_counter() - t0
+    return prefill_s, logits, counts_prefill, gen_s, ids, launch_counts()
+
+
+def moe_family_phase(torch, np, check, compare, seed: int, dev, smi: str):
+    """Phase 21 -> (the FFN's reports at E 128 and E 32, flash's at qwen3's
+    GQA 16:1, token_gather's and token_scatter_add's at the largest call of
+    each path, launches of the four kernels on the phase's paths)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.grouped_ffn import ops as ffn_ops
+    from repro_torch.kernels.token_scatter import ops as ts_ops
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.sharding.context import ParallelContext
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import leaves
+
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+    ctx8 = ParallelContext(ep_size=8, group_size=4, moe_mode="nimble", param_dtype=bf16,
+                           compute_dtype=bf16, device="cuda")
+    rng = np.random.default_rng(seed + 21)
+    ffn, fa, tg, sa = {}, {}, {}, {}
+    launches = {"grouped_ffn_blocked": 0, "flash_attention": 0, "token_gather": 0,
+                "token_scatter_add": 0}
+    # ---- 21a. qwen3-moe-235b-a22b, one layer at full width, serves ------------
+    cfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b"), n_layers=1)
+    model = build_model(cfg, ctx8)
+    params = model.init(seed)
+    n_params = sum(p.numel() for p in leaves(params))
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (4, 512)), device=dev)}
+    with contextlib.ExitStack() as stack, torch.no_grad():
+        log_ffn = stack.enter_context(Recorder(ffn_ops, "grouped_ffn_blocked", key=_ffn_key))
+        log_fa = stack.enter_context(Recorder(fa_ops, "flash_attention", key=_flash_key))
+        log_tg = gather_recorders(stack)
+        model.forward(params, batch, last_only=True)                       # capture
+    stats = {}
+    prefill_s, logits, c_pre, gen_s, ids, c_gen = _serve_figures(
+        torch, np, model, params, batch, cfg.vocab, rng, dict(stats=stats))
+    check(tuple(logits.shape) == (4, 1, cfg.vocab) and bool(torch.isfinite(logits).all()),
+          f"qwen3 prefill logits {tuple(logits.shape)} not finite or misshapen")
+    check(ids.shape == (4, 8) and ((ids >= 0) & (ids < cfg.vocab)).all(),
+          f"qwen3 generated ids {ids.shape}")
+    check(c_pre["grouped_ffn_blocked"] == cfg.n_layers and c_pre["flash_attention"] ==
+          cfg.n_layers and c_pre["token_gather"] > 0 and c_pre["token_scatter_add"] == 0,
+          f"qwen3 prefill launches {c_pre}: want the FFN and flash once a layer")
+    check(c_gen["grouped_ffn_blocked"] == 16 * cfg.n_layers and c_gen["flash_attention"] == 0,
+          f"qwen3 generate launches {c_gen}: want the FFN once a layer a decode step "
+          f"(8 prompt + 8 new), no flash (Sq 1 takes the plain attention)")
+    for name in launches:
+        launches[name] += c_pre[name] + c_gen[name]
+    print(f"[21 qwen3] {cfg.name} with 1 of its 94 layers, bf16, {n_params / 1e9:.3f} B "
+          f"params ({n_params * 2 / 1e9:.2f} GB), ep=8 groups of 4 nimble, E {cfg.n_experts} "
+          f"top-{cfg.top_k}, 64 heads of 128 over 4: prefill 4 x 512 (last_only) "
+          f"{prefill_s * 1e3:.1f} ms, {4 * 512 / prefill_s:.0f} tokens/s, dropped "
+          f"{int(stats['dropped'])} of {4 * 512 * cfg.top_k} assignments; generate 4 "
+          f"requests, prompt 8, 8 new tokens, greedy: {gen_s:.2f} s, {ids.size / gen_s:.1f} "
+          f"new tokens/s (warm-up runs excluded); launches prefill {c_pre}, generate "
+          f"{c_gen}; on {smi}", flush=True)
+    ffn["qwen3 E128 top-8 F1536"] = ffn_report(torch, ffn_ops, compare,
+                                               next(iter(log_ffn.first.values())),
+                                               "qwen3 E 128 (16 a rank) F 1536 D 4096")
+    q, k, v, kw = next(iter(log_fa.first.values()))
+    fa["qwen3 GQA 16:1"] = flash_report(torch, fa_ops, compare, q, k, v, kw,
+                                        "qwen3 prefill, 64 heads over 4")
+    gathers = check_gathers(torch, compare, log_tg, "qwen3 prefill")
+    x, idx = max(gathers.values(), key=lambda c: c[0].numel() * c[0].element_size())
+    tg["qwen3 prefill largest"] = gather_report(torch, x, idx, ts_ops.token_gather,
+                                                ts_ops.token_gather_ref)
+    print_gather("qwen3 prefill largest", tg["qwen3 prefill largest"])
+    del model, params, logits, log_ffn, log_fa, log_tg, gathers, q, k, v, x, idx
+    torch.cuda.empty_cache()
+
+    # ---- 21b. granite-moe-1b-a400m trains at full width ----------------------------
+    cfg = get_config("granite-moe-1b-a400m")
+    model = build_model(cfg, ctx8)
+    params = model.init(seed)
+    n_params = sum(p.numel() for p in leaves(params))
+    state = adamw.init(params)
+    step = make_train_step(model, adamw.AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=100))
+    B, S = 4, 512
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B, seed=seed))
+    batches = [to_device(data.batch(i), dev) for i in range(4)]
+    reset_launch_counts()
+    with contextlib.ExitStack() as stack:
+        log_ffn = stack.enter_context(Recorder(ffn_ops, "grouped_ffn_blocked", key=_ffn_key))
+        log_tg = gather_recorders(stack)
+        log_sa = stack.enter_context(Recorder(ts_ops, "token_scatter_add", key=_scatter_key))
+        params, state, m0 = step(params, state, batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows, dropped = [], []
+    for i in (1, 2, 3):
+        times, st = {}, {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batches[i], stats=st, times=times)
+        rows.append(dict(wall=time.perf_counter() - t0, loss=float(m["loss"]),
+                         gnorm=float(m["grad_norm"]), **times))
+        dropped.append(int(st["dropped"]))
+    counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(counts["grouped_ffn_blocked"] == 4 * cfg.n_layers and counts["flash_attention"] ==
+          4 * cfg.n_layers and counts["token_gather"] > 0 and counts["token_scatter_add"] > 0,
+          f"granite training launches {counts}: want the FFN and flash once a layer a "
+          f"step ({4 * cfg.n_layers}), token_gather and token_scatter_add")
+    for name in launches:
+        launches[name] += counts[name]
+    _train_line("21 granite train", cfg, n_params, B, S, rows, m0, peak_gb,
+                f"ep=8 groups of 4 nimble, E {cfg.n_experts} top-{cfg.top_k}, F {cfg.d_ff}; "
+                f"dropped {dropped} of {cfg.n_layers} x {B * S * cfg.top_k} assignments a step "
+                f"(capacity factor {cfg.moe_capacity_factor}); launches in the "
+                f"4 steps: grouped_ffn_blocked {counts['grouped_ffn_blocked']}, flash "
+                f"{counts['flash_attention']}, token_gather {counts['token_gather']}, "
+                f"token_scatter_add {counts['token_scatter_add']}; ",
+                smi, np, check)
+    ffn["granite E32 top-8 F512"] = ffn_report(torch, ffn_ops, compare,
+                                               next(iter(log_ffn.first.values())),
+                                               "granite E 32 (4 a rank) F 512 D 1024")
+    gathers = check_gathers(torch, compare, log_tg, "granite train")
+    x, idx = max(gathers.values(), key=lambda c: c[0].numel() * c[0].element_size())
+    tg["granite train largest"] = gather_report(torch, x, idx, ts_ops.token_gather,
+                                                ts_ops.token_gather_ref)
+    print_gather("granite train largest", tg["granite train largest"])
+    parts = [check_scatter(torch, check, ts_ops, g, idx, n, f"granite {k}")
+             for k, (g, idx, n, _) in log_sa.first.items()]
+    g, idx, n, _ = max(log_sa.first.values(), key=lambda c: c[0].numel())
+    sa["granite train largest"] = scatter_report(torch, ts_ops, g, idx, n)
+    check(len(parts) > 0, "granite's backward made no token_scatter_add call")
+    print(f"[21 kernel] token_scatter_add on the first call of each of the "
+          f"{len(parts)} shapes of granite's warm-up backward: " + "; ".join(parts)
+          + f"; the largest, {sa['granite train largest']['shape']}: kernel "
+          f"{sa['granite train largest']['ms']:.4f} ms, plain "
+          f"{sa['granite train largest']['plain_ms']:.4f} ms, index_add_ "
+          f"{sa['granite train largest']['library_ms']:.4f} ms, bound "
+          f"{sa['granite train largest']['bound_ms']:.4f} ms (bytes)", flush=True)
+    del model, params, state, m0, m, log_ffn, log_tg, log_sa, gathers, x, idx, g
+    torch.cuda.empty_cache()
+
+    # ---- 21c. gate: a reduced qwen3 (its override, GQA, E 16, top-8), card vs CPU ----
+    small = dataclasses.replace(get_config("qwen3-moe-235b-a22b").reduced(),
+                                head_dim_override=128, n_kv_heads=1, n_experts=16, top_k=8)
+    before = launch_counts()
+    loss_rel, worst, logit_rel = _grads_card_vs_cpu(torch, small, seed, 160)
+    after = launch_counts()
+    ran = {k: after[k] - before[k] for k in ("grouped_ffn_blocked_f32", "flash_attention_f32")}
+    check(logit_rel <= 1e-4 and loss_rel <= 1e-5 and worst <= 1e-4 and min(ran.values()) > 0,
+          f"reduced qwen3 card vs CPU: logits {logit_rel:.3g}, loss {loss_rel:.3g}, grads "
+          f"{worst:.3g}, f32 launches {ran}")
+    print(f"[21 moe parity] reduced qwen3 (2 layers, d 256, 4 heads of 128 over 1, E 16, "
+          f"top-8, S 160) f32, card vs CPU plain: logits {logit_rel:.3g} (limit 1e-4), loss "
+          f"{loss_rel:.3g} (limit 1e-5), gradients worst leaf {worst:.3g} (limit 1e-4; f32 "
+          f"sums in other orders); f32 launches {ran} ({time.perf_counter() - t_phase:.0f} s "
+          f"for phase 21 on {smi})", flush=True)
+    return ffn, fa, tg, sa, launches
+
+
+def zamba2_phase(torch, np, check, compare, seed: int, dev, smi: str):
+    """Phase 22 -> (flash's report at zamba2's shape, its launches)."""
+    from repro_torch.configs.base import InputShape, get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.kernel_times import time_ms
+    from repro_torch.launch.train import needs_remat
+    from repro_torch.models import hybrid, ssm
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.sharding.context import ParallelContext
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import leaves
+
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+    # remat as the launcher takes it (each mamba block recomputed in the
+    # backward; no effect on the prefill and decode, which take no gradient)
+    cfg = get_config("zamba2-1.2b")
+    ctx = ParallelContext(param_dtype=bf16, compute_dtype=bf16, device="cuda",
+                          remat=needs_remat(cfg.name))
+    n_attn = hybrid.n_attn_calls(cfg)
+    model = build_model(cfg, ctx)
+    params = model.init(seed)
+    n_params = sum(p.numel() for p in leaves(params))
+    rng = np.random.default_rng(seed + 22)
+    B, S = 4, 2048
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)), device=dev)}
+    with Recorder(fa_ops, "flash_attention", key=_flash_key) as log_fa, \
+            Recorder(ssm, "_ssd_chunked", keep=1) as rec_ssd, torch.no_grad():
+        model.forward(params, batch, last_only=True)                       # capture
+    prefill_s, logits, c_pre, gen_s, ids, c_gen = _serve_figures(
+        torch, np, model, params, batch, cfg.vocab, rng)
+    check(tuple(logits.shape) == (B, 1, cfg.vocab) and bool(torch.isfinite(logits).all()),
+          f"zamba2 prefill logits {tuple(logits.shape)} not finite or misshapen")
+    check(ids.shape == (4, 8) and ((ids >= 0) & (ids < cfg.vocab)).all(),
+          f"zamba2 generated ids {ids.shape}")
+    check(c_pre["flash_attention"] == n_attn and c_gen["flash_attention"] == 0,
+          f"zamba2 flash launches: prefill {c_pre['flash_attention']} (want {n_attn}), "
+          f"generate {c_gen['flash_attention']} (want 0)")
+    print(f"[22 zamba2 serve] {cfg.name} bf16, {n_params / 1e9:.3f} B params, 32 mamba2 "
+          f"layers + {n_attn} calls of the shared attention (32 heads of 64): prefill "
+          f"{B} x {S} (last_only) {prefill_s * 1e3:.1f} ms, {B * S / prefill_s:.0f} tokens/s, "
+          f"flash launches {c_pre['flash_attention']}; generate 4 requests, prompt 8, 8 new "
+          f"tokens, greedy: {gen_s:.2f} s, {ids.size / gen_s:.1f} new tokens/s (warm-up runs "
+          f"excluded); on {smi}", flush=True)
+    q, k, v, kw = next(iter(log_fa.first.values()))
+    report = flash_report(torch, fa_ops, compare, q, k, v, kw, "zamba2 shared attention")
+    del logits, log_fa, q, k, v
+    torch.cuda.empty_cache()
+
+    # ---- 22b. train at full width -----------------------------------------------------
+    state = adamw.init(params)
+    step = make_train_step(model, adamw.AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=100))
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B, seed=seed))
+    batches = [to_device(data.batch(i), dev) for i in range(4)]
+    reset_launch_counts()
+    params, state, m0 = step(params, state, batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with EventTimer(torch, fa_ops, "flash_attention_bwd") as t_fa:
+        params, state, rows = _step_rows(step, params, state, batches)
+    counts = launch_counts()
+    fa_bwd_ms = t_fa.total_ms() / 3
+    # the SSD scan's share: one layer's _ssd_chunked (plain torch, f32) on the
+    # prefill's inputs of layer 0, forward alone and forward + backward; the
+    # step runs it 32 times each way (remat recomputes the forward once more)
+    xs, dts, Bs, Cs, A, D = rec_ssd.calls[0][:6]
+    g_ssd = torch.randn_like(xs)
+
+    def ssd_fwd_bwd():
+        live = [t.detach().requires_grad_(True) for t in (xs, dts, Bs, Cs)]
+        torch.autograd.grad(ssm._ssd_chunked(*live, A, D), live, g_ssd)
+
+    ssd_fwd = time_ms(lambda: ssm._ssd_chunked(xs, dts, Bs, Cs, A, D), 3)
+    ssd_fb = time_ms(ssd_fwd_bwd, 3)
+    n_mamba = hybrid.n_mamba_layers(cfg)
+    ssd_step = n_mamba * (ssd_fwd + ssd_fb)
+    del rec_ssd, xs, dts, Bs, Cs, g_ssd
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(counts["flash_attention"] == 4 * n_attn,
+          f"zamba2 training launched flash {counts['flash_attention']} times, want "
+          f"{4 * n_attn}")
+    _train_line("22 zamba2 train", cfg, n_params, B, S, rows, m0, peak_gb,
+                f"remat (each mamba block recomputed in the backward); flash_attention "
+                f"{counts['flash_attention']} launches in the 4 steps ({n_attn} a step), the "
+                f"attention's plain f32 backward {fa_bwd_ms:.1f} ms a step; _ssd_chunked "
+                f"(plain torch, f32) a layer: forward {ssd_fwd:.2f} ms, forward + backward "
+                f"{ssd_fb:.2f} ms, so about {ssd_step:.0f} ms of the step ({n_mamba} layers, "
+                f"the forward twice); ", smi, np, check)
+    launches = c_pre["flash_attention"] + counts["flash_attention"]
+    del model, params, state, m0
+    torch.cuda.empty_cache()
+
+    # ---- 22c. gates: a reduced zamba2, card vs CPU, and decode vs forward ---------
+    small = get_config("zamba2-1.2b").reduced()
+    before = launch_counts()["flash_attention_f32"]
+    loss_rel, worst, logit_rel = _grads_card_vs_cpu(torch, small, seed, 160)
+    ran = launch_counts()["flash_attention_f32"] - before
+    check(logit_rel <= 1e-4 and loss_rel <= 1e-5 and worst <= 1e-4 and ran > 0,
+          f"reduced zamba2 card vs CPU: logits {logit_rel:.3g}, loss {loss_rel:.3g}, grads "
+          f"{worst:.3g}, f32 flash launches {ran}")
+    small4 = dataclasses.replace(small, attn_every=2, n_layers=4)
+    m4 = build_model(small4, ParallelContext(device="cuda"))
+    p4 = m4.init(seed)
+    toks = torch.as_tensor(rng.integers(0, small4.vocab, (2, 130)), device=dev)
+    with torch.no_grad():
+        full, _ = m4.forward(p4, {"tokens": toks})
+        cache = m4.init_cache(2, InputShape("decode", 130, 2, "decode"))
+        outs = []
+        for i in range(toks.shape[1]):
+            lg, cache = m4.decode_step(p4, cache, toks[:, i], i)
+            outs.append(lg)
+        dec = torch.stack(outs, 1)
+    excess = ((dec - full).abs() - 1e-3 * (1 + full.abs())).max().item()
+    check(excess <= 0, f"reduced zamba2 decode vs forward on the card: excess {excess:.3g} "
+          f"over atol = rtol = 1e-3")
+    print(f"[22 zamba2 parity] reduced zamba2 (2 layers, d 256, 4 heads of 64, S 160) f32, "
+          f"card vs CPU plain: logits {logit_rel:.3g} (limit 1e-4), loss {loss_rel:.3g} "
+          f"(limit 1e-5), gradients worst leaf {worst:.3g} (limit 1e-4), f32 flash launches "
+          f"{ran}; 4 layers (attention every 2), 130 decode steps on the card against its "
+          f"forward: max|diff| {(dec - full).abs().max().item():.3g} (atol = rtol = 1e-3, the "
+          f"reference's) ({time.perf_counter() - t_phase:.0f} s for phase 22 on {smi})",
+          flush=True)
+    return report, launches
+
+
+def audio_vlm_phase(torch, np, check, compare, seed: int, dev, smi: str):
+    """Phase 23 -> (flash's reports at whisper's and internvl2's shapes, its
+    launches)."""
+    import contextlib
+    import io
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import add_modality_stubs, to_device
+    from repro_torch.examples import serve_multiarch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models.registry import build_model
+    from repro_torch.sharding.context import ParallelContext
+    from repro_torch.tree import leaves
+
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+    ctx = ParallelContext(param_dtype=bf16, compute_dtype=bf16, device="cuda")
+    rng = np.random.default_rng(seed + 23)
+    reports, launches = {}, 0
+    for arch, S, want in (
+            ("whisper-small", 448, {((4, 12, 1500, 64), (4, 12, 1500, 64), False): 12,
+                                    ((4, 12, 448, 64), (4, 12, 448, 64), True): 12,
+                                    ((4, 12, 448, 64), (4, 12, 1500, 64), False): 12}),
+            ("internvl2-2b", 512, {((4, 16, 768, 128), (4, 8, 768, 128), True): 24})):
+        cfg = get_config(arch)
+        model = build_model(cfg, ctx)
+        params = model.init(seed)
+        n_params = sum(p.numel() for p in leaves(params))
+        toks = rng.integers(0, cfg.vocab, (4, S)).astype(np.int32)
+        batch = to_device(add_modality_stubs({"tokens": toks, "labels": toks}, cfg,
+                                             rng_seed=seed), dev)
+        batch.pop("labels")
+        with Recorder(fa_ops, "flash_attention", key=_flash_key) as log_fa, torch.no_grad():
+            model.forward(params, batch, last_only=True)                   # capture
+        prefill_s, logits, c_pre, gen_s, ids, c_gen = _serve_figures(
+            torch, np, model, params, batch, cfg.vocab, rng)
+        check(log_fa.counts == want and c_pre["flash_attention"] == sum(want.values()),
+              f"{arch} prefill flash calls {log_fa.counts}, launches "
+              f"{c_pre['flash_attention']}: want {want}")
+        check(tuple(logits.shape) == (4, 1, cfg.vocab) and bool(torch.isfinite(logits).all()),
+              f"{arch} prefill logits {tuple(logits.shape)} not finite or misshapen")
+        check(ids.shape == (4, 8) and ((ids >= 0) & (ids < cfg.vocab)).all(),
+              f"{arch} generated ids {ids.shape}")
+        launches += c_pre["flash_attention"] + c_gen["flash_attention"]
+        inputs = ", ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items())
+        print(f"[23 {arch}] bf16, {n_params / 1e9:.3f} B params: prefill ({inputs}; "
+              f"last_only) {prefill_s * 1e3:.1f} ms, flash launches by (q, k/v, causal) "
+              f"{ {str(k): c for k, c in log_fa.counts.items()} }; generate 4 requests, "
+              f"prompt 8, 8 new tokens, greedy: {gen_s:.2f} s, {ids.size / gen_s:.1f} new "
+              f"tokens/s (warm-up runs excluded)"
+              + ("; the engine decodes against zero encoder states, as the reference's does"
+                 if cfg.arch_type == "audio" else "") + f"; on {smi}", flush=True)
+        for key, call in log_fa.first.items():
+            q, k, v, kw = call
+            label = f"{arch} q {key[0]} k/v {key[1]} {'causal' if key[2] else 'non-causal'}"
+            reports[label] = dict(flash_report(torch, fa_ops, compare, q, k, v, kw, label),
+                                  launches=log_fa.counts[key])
+        del model, params, logits, log_fa, batch
+        torch.cuda.empty_cache()
+
+    # ---- 23c. gates: reduced whisper (150 frames) and internvl2, card vs CPU -------
+    parts = []
+    for arch, kw in (("whisper-small", dict(n_audio_frames=150)), ("internvl2-2b", {})):
+        small = dataclasses.replace(get_config(arch).reduced(), **kw)
+        loss_rel, worst, logit_rel = _grads_card_vs_cpu(torch, small, seed, 160)
+        check(loss_rel <= 1e-4 and worst <= 1e-4 and logit_rel <= 1e-4,
+              f"reduced {arch} card vs CPU: logits {logit_rel:.3g}, loss {loss_rel:.3g}, "
+              f"grads {worst:.3g}")
+        parts.append(f"{arch}: logits {logit_rel:.3g}, loss {loss_rel:.3g}, gradients worst "
+                     f"leaf {worst:.3g}")
+    # the example, on the card, with the runtime and arbiter demos
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        served = serve_multiarch.main(["--adaptive"])
+    lines = out.getvalue().strip().splitlines()
+    check(lines[-1].startswith("[serve] all families served") and len(served) == 4,
+          f"serve_multiarch on the card ended with {lines[-1:]}")
+    print(f"[23 parity] reduced configs (2 layers, d 256, S 160; whisper with 150 frames) "
+          f"f32, card vs CPU plain: " + "; ".join(parts) + " (limits 1e-4); serve_multiarch "
+          f"--adaptive on the card: " + " | ".join(lines[-3:]) +
+          f" ({time.perf_counter() - t_phase:.0f} s for phase 23 on {smi})", flush=True)
+    return reports, launches
 
 
 def main() -> int:
@@ -2108,9 +2692,10 @@ def main() -> int:
 
     # ---- 18. xlstm-125m training ------------------------------------------------------
     extra = {}
-    mlstm_bwd, grad_launches, xlstm_state = xlstm_train_phase(torch, np, check, args.seed,
-                                                              dev, smi)
+    mlstm_bwd, grad_launches, report["mlstm_cummax_bwd"], launches["mlstm_cummax_bwd"], \
+        xlstm_state = xlstm_train_phase(torch, np, check, compare, args.seed, dev, smi)
     launches["mlstm_scan"] += grad_launches
+    extra["mlstm_cummax_bwd"] = {k: report["mlstm_cummax_bwd"][k] for k in ("device_ms", "shape")}
     extra["mlstm_scan"] = {"launches_under_grad": grad_launches,
                            "backward_ms_per_step": mlstm_bwd["ms_per_step"],
                            "backward_bound_ms_per_step": mlstm_bwd["bound_ms_per_step"]}
@@ -2129,6 +2714,25 @@ def main() -> int:
     ckpt_selftest_phase(torch, np, check, xlstm_state, smi)
     del xlstm_state
     print(f"[20 selftest] ({time.perf_counter() - t_start:.0f} s in all)", flush=True)
+
+    # ---- 21-23. the remaining families: qwen3-moe and granite, zamba2, whisper and
+    # internvl2 ---------------------------------------------------------------------------
+    ffn_shapes, fa_shapes, tg_shapes, sa_shapes, moe_launches = moe_family_phase(
+        torch, np, check, compare, args.seed, dev, smi)
+    for kname, c in moe_launches.items():
+        launches[kname] += c
+    print(f"[21 moe] ({time.perf_counter() - t_start:.0f} s in all)", flush=True)
+    fa_shapes["zamba2 causal 32 heads of 64"], z_launches = zamba2_phase(
+        torch, np, check, compare, args.seed, dev, smi)
+    print(f"[22 zamba2] ({time.perf_counter() - t_start:.0f} s in all)", flush=True)
+    av_shapes, av_launches = audio_vlm_phase(torch, np, check, compare, args.seed, dev, smi)
+    fa_shapes.update(av_shapes)
+    launches["flash_attention"] += z_launches + av_launches
+    extra["grouped_ffn_blocked"] = {"shapes": ffn_shapes}
+    extra["token_gather"] = {"shapes": tg_shapes}
+    extra["token_scatter_add"] = {"shapes": sa_shapes}
+    extra["flash_attention"]["shapes"] = fa_shapes
+    print(f"[23 audio+vlm] ({time.perf_counter() - t_start:.0f} s in all)", flush=True)
 
     kernels = []
     for kname, (src, replaces) in KERNEL_META.items():

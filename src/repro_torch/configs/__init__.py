@@ -1,5 +1,6 @@
 from .base import (
     ARCH_IDS,
+    INPUT_SHAPES,
     InputShape,
     ModelConfig,
     all_configs,
@@ -7,5 +8,5 @@ from .base import (
     register,
 )
 
-__all__ = ["ModelConfig", "InputShape", "ARCH_IDS",
+__all__ = ["ModelConfig", "InputShape", "ARCH_IDS", "INPUT_SHAPES",
            "get_config", "all_configs", "register"]

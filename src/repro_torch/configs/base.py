@@ -1,8 +1,9 @@
 """Config system: model dataclass, input shapes and registry.
 
-Copy of ``repro/configs/base.py``, with the registry restricted to the
-architectures the port supports.  One ``configs/<arch>.py`` per
-architecture registers its published configuration.
+Copy of ``repro/configs/base.py``: the same dataclasses, the four assigned
+input shapes and the reference's eleven architectures.  One
+``configs/<arch>.py`` per architecture registers its published
+configuration.
 """
 
 from __future__ import annotations
@@ -105,23 +106,31 @@ class InputShape:
     kind: str                    # train | prefill | decode
 
 
+INPUT_SHAPES: Dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
+
+
 # --------------------------------------------------------------------------- #
 # registry
 # --------------------------------------------------------------------------- #
 
-#: the architectures the port supports so far
 ARCH_IDS: List[str] = [
+    "qwen3-moe-235b-a22b",
+    "tinyllama-1.1b",
+    "zamba2-1.2b",
+    "internvl2-2b",
+    "qwen2.5-14b",
+    "llama3-8b",
+    "granite-moe-1b-a400m",
+    "xlstm-125m",
+    "smollm-135m",
+    "whisper-small",
     # the paper's own evaluation model (§V-D): 8-expert MoE block testbed
     "paper-moe-8e",
-    # the ssm family: alternating sLSTM / mLSTM blocks
-    "xlstm-125m",
-    # small MoE; the example trainer's presets derive from it
-    "granite-moe-1b-a400m",
-    # the dense (llama-style) family; smollm-135m is the trainer's default
-    "smollm-135m",
-    "tinyllama-1.1b",
-    "llama3-8b",
-    "qwen2.5-14b",
 ]
 
 _REGISTRY: Dict[str, ModelConfig] = {}
@@ -135,7 +144,7 @@ def register(cfg: ModelConfig) -> ModelConfig:
 def get_config(arch_id: str) -> ModelConfig:
     if arch_id not in _REGISTRY:
         if arch_id not in ARCH_IDS:
-            raise KeyError(f"unknown or unported architecture {arch_id!r}")
+            raise KeyError(f"unknown architecture {arch_id!r}")
         mod = arch_id.replace("-", "_").replace(".", "_")
         importlib.import_module(f"repro_torch.configs.{mod}")
     return _REGISTRY[arch_id]

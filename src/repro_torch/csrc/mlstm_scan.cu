@@ -549,3 +549,85 @@ extern "C" int mlstm_scan(const float* q, const float* k, const float* v, const 
   return launch<false>(q, k, v, ig, lf, C0, n0, m0, h, C1, n1, m1, work, sc, mi, BH, NC, S, dh,
                        L, s);
 }
+
+// ---------------------------------------------------------------------------
+// The VJP of the chunk body's cumulative max, u_t = max_{j<=t} g_j, as JAX
+// takes it: lax.cummax differentiates through lax.associative_scan(lax.max),
+// whose odd/even recursion combines adjacent steps (pairs, the scan of the
+// pairs, then the even outputs), and lax.max gives each operand of a tie half
+// the cotangent.  One thread takes one row of n <= kMaxL steps: it rebuilds
+// the recursion's levels (e_l: the level's elements, o_l: its scan), sends
+// the cotangent down the levels (the odd outputs and the even combines), and
+// then up through the pairs.  Every cotangent is a sum of at most two
+// products by 1, 1/2 or 0, each rounded once (no FMA), so the result equals
+// the plain version's (autograd through the same recursion) bit for bit.
+// ---------------------------------------------------------------------------
+
+// the share of a max's cotangent that operand x gets against operand y
+__device__ __forceinline__ float tie_share(float d, float x, float y) {
+  return x > y ? d : (x == y ? __fmul_rn(d, 0.5f) : 0.0f);
+}
+
+__global__ void cummax_bwd_kernel(const float* __restrict__ g, const float* __restrict__ dy,
+                                  float* __restrict__ dg, long long rows, int n) {
+  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= rows) return;
+  constexpr int kAll = 2 * kMaxL;   // every level of kMaxL steps: 64 + 32 + ... + 1
+  float e[kAll], o[kAll], dout[kAll], de[kAll];
+  int off[8], len[8];
+  int depth = 0;
+  off[0] = 0;
+  len[0] = n;
+  for (int t = 0; t < n; ++t) e[t] = g[r * n + t];
+  while (len[depth] >= 2) {                         // e_{l+1}[i] = max(e_l[2i], e_l[2i+1])
+    const int lo = off[depth], m = len[depth] / 2;
+    off[depth + 1] = lo + len[depth];
+    len[depth + 1] = m;
+    for (int i = 0; i < m; ++i) e[off[depth + 1] + i] = fmaxf(e[lo + 2 * i], e[lo + 2 * i + 1]);
+    ++depth;
+  }
+  // the scan of each level, deepest first: o_l[2k+1] = o_{l+1}[k], o_l[0] = e_l[0],
+  // o_l[2k+2] = max(o_{l+1}[k], e_l[2k+2])
+  o[off[depth]] = e[off[depth]];
+  for (int l = depth - 1; l >= 0; --l) {
+    const int lo = off[l], up = off[l + 1], nl = len[l];
+    o[lo] = e[lo];
+    for (int k = 0; 2 * k + 1 < nl; ++k) o[lo + 2 * k + 1] = o[up + k];
+    for (int k = 0; 2 * k + 2 < nl; ++k) o[lo + 2 * k + 2] = fmaxf(o[up + k], e[lo + 2 * k + 2]);
+  }
+  // down: each level's cotangent to its elements (de) and to the scan below (dout)
+  for (int t = 0; t < n; ++t) dout[t] = dy[r * n + t];
+  for (int l = 0; l < depth; ++l) {
+    const int lo = off[l], up = off[l + 1], nl = len[l];
+    for (int t = 0; t < nl; ++t) de[lo + t] = 0.0f;
+    de[lo] = dout[lo];
+    for (int k = 0; 2 * k + 1 < nl; ++k) dout[up + k] = dout[lo + 2 * k + 1];
+    for (int k = 0; 2 * k + 2 < nl; ++k) {
+      const float d = dout[lo + 2 * k + 2], x = o[up + k], c = e[lo + 2 * k + 2];
+      dout[up + k] = __fadd_rn(dout[up + k], tie_share(d, x, c));
+      de[lo + 2 * k + 2] = tie_share(d, c, x);
+    }
+  }
+  de[off[depth]] = dout[off[depth]];                // the deepest scan is its element
+  // up: each pair's cotangent to its two operands
+  for (int l = depth - 1; l >= 0; --l) {
+    const int lo = off[l], up = off[l + 1];
+    for (int i = 0; i < len[l + 1]; ++i) {
+      const float d = de[up + i], a = e[lo + 2 * i], b = e[lo + 2 * i + 1];
+      de[lo + 2 * i] = __fadd_rn(de[lo + 2 * i], tie_share(d, a, b));
+      de[lo + 2 * i + 1] = tie_share(d, b, a);
+    }
+  }
+  for (int t = 0; t < n; ++t) dg[r * n + t] = de[t];
+}
+
+extern "C" int mlstm_cummax_bwd(const float* g, const float* dy, float* dg, long long rows,
+                                int n, void* stream) {
+  if (n < 1 || n > kMaxL || rows < 1) return (int)cudaErrorInvalidValue;
+  constexpr int kRowThreads = 128;
+  const long long blocks = (rows + kRowThreads - 1) / kRowThreads;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  cummax_bwd_kernel<<<(unsigned)blocks, kRowThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      g, dy, dg, rows, n);
+  return (int)cudaGetLastError();
+}

@@ -4,8 +4,9 @@ Copy of ``repro/data/pipeline.py`` (numpy only, so its batches equal the
 reference's bit for bit).  The corpus is a stationary Zipf-like token
 process with local bigram structure (so losses fall measurably in the
 example training runs), deterministic in (seed, step, shard): every host
-computes its own shard without coordination.  ``add_modality_stubs`` waits
-for the audio and vlm families.
+computes its own shard without coordination.  ``add_modality_stubs``
+attaches the audio and vlm families' stub inputs, drawn as the reference
+draws them.
 """
 
 from __future__ import annotations
@@ -70,6 +71,30 @@ class SyntheticLM:
             step += 1
 
 
+def add_modality_stubs(batch: Dict[str, np.ndarray], cfg, rng_seed: int = 0
+                       ) -> Dict[str, np.ndarray]:
+    """Attach stub frame/patch embeddings for audio/vlm archs (carve-out)."""
+    rng = np.random.default_rng(rng_seed)
+    B = batch["tokens"].shape[0]
+    if cfg.arch_type == "audio":
+        batch = dict(batch)
+        batch["frames"] = rng.normal(
+            size=(B, cfg.n_audio_frames, cfg.d_model)
+        ).astype(np.float32)
+        # whisper decoder max target length
+        batch["tokens"] = batch["tokens"][:, :448]
+        batch["labels"] = batch["labels"][:, :448]
+    if cfg.arch_type == "vlm":
+        batch = dict(batch)
+        batch["patches"] = rng.normal(
+            size=(B, cfg.n_patches, cfg.d_model)
+        ).astype(np.float32)
+    return batch
+
+
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    """A batch's arrays as int64 tensors on ``device`` (the port's own helper)."""
-    return {k: torch.as_tensor(v, dtype=torch.int64, device=device) for k, v in batch.items()}
+    """A batch's arrays as tensors on ``device`` (the port's own helper): integer
+    arrays as int64, floating ones (frames, patches) keep their dtype."""
+    return {k: torch.as_tensor(v, device=device,
+                               dtype=None if np.asarray(v).dtype.kind == "f" else torch.int64)
+            for k, v in batch.items()}

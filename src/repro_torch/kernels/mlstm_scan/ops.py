@@ -75,16 +75,81 @@ def mlstm_scan_ref(q, k, v, ig, lf, state: Optional[State] = None
     return torch.stack(hs, dim=2), {"C": C, "n": n, "m": m}
 
 
-def _cummax(g: torch.Tensor) -> torch.Tensor:
-    """Cumulative max along dim 2, as a one-hot selection of g [B, H, L].
+def _cummax_tree(g: torch.Tensor) -> torch.Tensor:
+    """Cumulative max along the last dim of g [..., n]: a transcription of
+    ``lax.associative_scan``'s odd/even recursion with ``torch.maximum`` as
+    the combine, so autograd through it takes JAX's gradient of
+    ``lax.cummax`` (``maximum`` halves a tie's cotangent, as ``lax.max``
+    does, down the scan's tree)."""
+    n = g.shape[-1]
+    if n < 2:
+        return g
+    odd = _cummax_tree(torch.maximum(g[..., 0:n - 1:2], g[..., 1::2]))
+    even = torch.maximum(odd if n % 2 else odd[..., :-1], g[..., 2::2])
+    even = torch.cat([g[..., :1], even], dim=-1)           # ceil(n/2) entries
+    pairs = torch.stack([even[..., :n // 2], odd], dim=-1).flatten(-2)
+    return torch.cat([pairs, even[..., n // 2:]], dim=-1)
 
-    The same values as ``torch.cummax``; its gradient reaches each step's
-    argmax through a product and a sum, where ``cummax``'s backward is a
-    scatter-add whose atomics make the card's sums vary from run to run.
+
+def cummax_bwd_ref(g: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`cummax_bwd`: autograd through :func:`_cummax_tree`."""
+    with torch.enable_grad():
+        x = g.detach().requires_grad_(True)
+        (dg,) = torch.autograd.grad(_cummax_tree(x), x, dy)
+    return dg
+
+
+def cummax_bwd(g: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """The VJP of the cumulative max along the last dim of g [..., n], float32:
+    the cotangent dy of the maxima -> g's, as ``jax.grad`` of ``lax.cummax``
+    gives it.  On CUDA tensors one launch of ``mlstm_cummax_bwd``
+    (``csrc/mlstm_scan.cu``, n <= 64), equal to the plain version bit for bit;
+    on CPU tensors :func:`cummax_bwd_ref`."""
+    if g.device.type == "cpu":
+        return cummax_bwd_ref(g, dy)
+    n = g.shape[-1]
+    if g.dtype != torch.float32 or dy.dtype != torch.float32 or dy.device != g.device:
+        raise TypeError("cummax_bwd: g and dy must be float32 on one device")
+    if tuple(dy.shape) != tuple(g.shape) or not 1 <= n <= MAX_CHUNK:
+        raise ValueError(f"cummax_bwd: g {tuple(g.shape)}, dy {tuple(dy.shape)}; "
+                         f"n (1..{MAX_CHUNK})")
+    g, dy = g.detach().contiguous(), dy.contiguous()
+    dg = torch.empty_like(g)
+    fn = _build.function("mlstm_scan", "mlstm_cummax_bwd",
+                         [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
+                                                  ctypes.c_void_p])
+    err = fn(g.data_ptr(), dy.data_ptr(), dg.data_ptr(), g.numel() // n, n,
+             torch.cuda.current_stream(g.device).cuda_stream)
+    _build.check(err, "mlstm_cummax_bwd")
+    _build.LAUNCHES["mlstm_cummax_bwd"] += 1
+    return dg
+
+
+class _CumMax(torch.autograd.Function):
+    """``torch.cummax``'s values, :func:`cummax_bwd` backward."""
+
+    @staticmethod
+    def forward(ctx, g):
+        ctx.save_for_backward(g)
+        return torch.cummax(g, dim=-1).values
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        (g,) = ctx.saved_tensors
+        return cummax_bwd(g, dy)
+
+
+def _cummax(g: torch.Tensor) -> torch.Tensor:
+    """Cumulative max along the last dim of g [B, H, L], with JAX's gradient.
+
+    JAX differentiates ``lax.cummax`` through ``lax.associative_scan`` with
+    ``lax.max``, so a tie's gradient is split in halves down the scan's tree
+    (``torch.cummax``'s backward sends it all to the latest maximum, through
+    a scatter-add).  The backward is :func:`cummax_bwd`: one launch on the
+    card, no atomics, so the card's gradient is the same from run to run.
     """
-    idx = torch.cummax(g, dim=2).indices
-    hot = idx[..., :, None] == torch.arange(g.shape[2], device=g.device)
-    return (hot.to(g.dtype) * g[..., None, :]).sum(dim=3)
+    return _CumMax.apply(g)
 
 
 def _chunk_body(st: State, q, k, v, ig, lf) -> Tuple[State, torch.Tensor]:

@@ -8,17 +8,21 @@ builds ``--arch`` at full width on the card (bf16, random weights from
 requests.  paper-moe-8e (the default) runs on 8 EP ranks in groups of 4
 with NIMBLE dispatch, prefills 4 x 512 tokens and generates 8 tokens after
 a prompt of 8; xlstm-125m prefills 4 x 2048 tokens and generates 16 tokens
-after a prompt of 128; llama3-8b prefills 4 x 512 and generates 8 after 8.  For each it prints the wall time, the summed device
+after a prompt of 128; llama3-8b prefills 4 x 512 and generates 8 after 8;
+zamba2-1.2b prefills 4 x 2048 and whisper-small 4 x 448 tokens over the
+4 x 1500 stub frames of ``add_modality_stubs``, each generating 8 after 8.
+For each it prints the wall time, the summed device
 time, the device's idle share, the kernels that took the most device
 time, and the device's longest idle gaps with the host ops in flight
 across each.  ``--train`` profiles instead one AdamW train step of ``--arch`` at
 full width (bf16, tokens from ``SyntheticLM``) after a warm-up step:
-paper-moe-8e on EP 8 in groups of 4 with NIMBLE dispatch, 4 x 512 tokens;
-xlstm-125m and smollm-135m on one rank, 4 x 2048 tokens.  ``--runtime`` profiles the
-execution-time planning runtime: one replan's solve (``solve_plans_batch``
-of one demand matrix, every MWU iteration on the card) on the paper's
-testbed (n=8) and an 8-node EP group (n=32), and the testbed's whole
-drifting-skew replay (48 windows).  With ``--out`` the Chrome traces are
+paper-moe-8e and granite-moe-1b-a400m on EP 8 in groups of 4 with NIMBLE
+dispatch, 4 x 512 tokens; xlstm-125m, smollm-135m and zamba2-1.2b on one
+rank, 4 x 2048 tokens (each block's activations recomputed in the
+backward where ``launch/train.py::needs_remat`` says so: zamba2-1.2b).  ``--runtime`` profiles the execution-time planning runtime:
+one replan's solve (``solve_plans_batch`` of one demand matrix, every MWU
+iteration on the card) on the paper's testbed (n=8) and an 8-node EP group
+(n=32), and the testbed's whole drifting-skew replay (48 windows).  With ``--out`` the Chrome traces are
 written to ``DIR``.
 """
 
@@ -37,7 +41,8 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from ..configs.base import get_config
-from ..data.pipeline import DataConfig, SyntheticLM, to_device
+from ..data.pipeline import DataConfig, SyntheticLM, add_modality_stubs, to_device
+from .train import needs_remat
 from ..models.registry import build_model
 from ..optim import adamw
 from ..serve.engine import ServeEngine
@@ -61,9 +66,11 @@ OWN = {"gather_rows": "token_gather", "scatter_add_rows": "token_scatter_add",
 
 #: per architecture: EP ranks, prefill length, prompt length, new tokens
 SHAPES = {"paper-moe-8e": (8, 512, 8, 8), "xlstm-125m": (1, 2048, 128, 16),
-          "llama3-8b": (1, 512, 8, 8)}
+          "llama3-8b": (1, 512, 8, 8), "zamba2-1.2b": (1, 2048, 8, 8),
+          "whisper-small": (1, 448, 8, 8)}
 #: per architecture: EP ranks, tokens a sequence of a train step (batch 4)
-TRAIN_SHAPES = {"paper-moe-8e": (8, 512), "xlstm-125m": (1, 2048), "smollm-135m": (1, 2048)}
+TRAIN_SHAPES = {"paper-moe-8e": (8, 512), "xlstm-125m": (1, 2048), "smollm-135m": (1, 2048),
+                "zamba2-1.2b": (1, 2048), "granite-moe-1b-a400m": (8, 512)}
 
 
 def _report(label: str, prof, wall_s: float, n_tok: int, top: int = 12) -> None:
@@ -128,13 +135,15 @@ def _train(arch: str, seed: int, out) -> None:
     cfg = get_config(arch)
     ep, seq = TRAIN_SHAPES[arch]
     ctx = ParallelContext(ep_size=ep, group_size=min(4, ep), moe_mode="nimble",
-                          param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
+                          param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+                          remat=needs_remat(arch))
     model = build_model(cfg, ctx)
     params = model.init(seed)
     state = adamw.init(params)
     step = make_train_step(model, adamw.AdamWConfig(warmup_steps=2))
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=4, seed=seed))
-    batches = [to_device(data.batch(i), "cuda") for i in range(2)]
+    batches = [to_device(add_modality_stubs(data.batch(i), cfg, rng_seed=i), "cuda")
+               for i in range(2)]
     params, state, _ = step(params, state, batches[0])
     torch.cuda.synchronize()
     _profile(f"train 4x{seq} step", lambda: step(params, state, batches[1]), 4 * seq, out, 24)
@@ -192,8 +201,9 @@ def main(argv=None) -> None:
     model = build_model(cfg, ctx)
     params = model.init(args.seed)
     rng = np.random.default_rng(args.seed)
-    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (4, seq)),
-                                       device="cuda")}
+    toks = rng.integers(0, cfg.vocab, (4, seq))
+    batch = to_device(add_modality_stubs({"tokens": toks, "labels": toks}, cfg,
+                                         rng_seed=args.seed), "cuda")
     engine = ServeEngine(model, params, max_len=n_prompt + n_new)
     prompts = rng.integers(0, cfg.vocab, (4, n_prompt))
     with torch.no_grad():

@@ -28,12 +28,15 @@ Generation mode — batched generation through ``ServeEngine``:
         --batch 4 --prompt-len 128 --new-tokens 16
     python -m repro_torch.launch.serve --arch llama3-8b \
         --batch 4 --prompt-len 8 --new-tokens 8
+    python -m repro_torch.launch.serve --arch zamba2-1.2b
 
-runs the model at full width on the card with random weights from
+runs any of the reference's models at full width on the card with random weights from
 ``--seed`` (without a card it exits non-zero unless ``--device cpu`` is
 given).  A MoE model runs expert-parallel over ``--ep`` stacked ranks
-(default 8) in groups of up to 4 with NIMBLE dispatch; the dense and ssm
-families have no experts, so ``--ep`` above 1 is refused for them.  One
+(default 8) in groups of up to 4 with NIMBLE dispatch; the other families
+have no experts, so ``--ep`` above 1 is refused for them.  The audio
+family decodes against zero encoder states, as the reference's engine
+does.  One
 generation of the same requests runs first as a warm-up (its time is
 printed too), so the timed one pays no first-call costs.  ``--reduced``
 shrinks the model to smoke-test widths and ``--device cpu`` runs on the

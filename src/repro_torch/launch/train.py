@@ -1,4 +1,4 @@
-"""Training launcher: AdamW steps of a dense, MoE or xLSTM model on the card.
+"""Training launcher: AdamW steps of any of the reference's models on the card.
 
     python -m repro_torch.launch.train --arch smollm-135m --steps 5 \
         --batch 4 --seq 2048
@@ -6,11 +6,15 @@
         --batch 4 --seq 2048 --ckpt-dir ckpts --ckpt-every 5
     python -m repro_torch.launch.train --arch paper-moe-8e --steps 5 \
         --batch 4 --seq 512
+    python -m repro_torch.launch.train --arch zamba2-1.2b --steps 5 \
+        --batch 4 --seq 2048
     python -m repro_torch.launch.train --arch smollm-135m --reduced \
         --device cpu --dtype f32 --steps 20 --batch 4 --seq 64
 
 Counterpart of ``repro/launch/train.py``: the same flags (``smollm-135m`` by
-default), the same ``SyntheticLM`` batches and AdamW, the same log lines,
+default), the same ``SyntheticLM`` batches with the audio and vlm
+families' stub inputs (``add_modality_stubs``, seeded by the step) and
+AdamW, the same log lines,
 ending with ``loss a -> b (improved|NOT improved)``, and checkpoints of
 ``{"params", "opt"}`` every ``--ckpt-every`` steps under ``--ckpt-dir``
 (``checkpoint/ckpt.py``, the reference's format).  It adds the port's
@@ -19,8 +23,10 @@ default; 1 for the families without experts) in groups of
 ``--group-size`` (default up to 4) with ``--mode`` dispatch; every model
 runs in ``--dtype`` (bf16 by default) on ``--device`` (the card by
 default; without one the launcher exits non-zero unless ``--device cpu``
-is given).  ``--reduced`` shrinks the model to smoke-test widths and keeps
-its expert count, so the EP ranks still split the experts.
+is given); each block's activations are recomputed in the backward
+(``ParallelContext.remat``) for the archs of ``REMAT_ARCHS``, or as
+``--remat`` / ``--no-remat`` say.  ``--reduced`` shrinks the model to smoke-test
+widths and keeps its expert count, so the EP ranks still split the experts.
 """
 
 from __future__ import annotations
@@ -34,13 +40,25 @@ import torch
 
 from ..checkpoint import ckpt
 from ..configs.base import get_config
-from ..data.pipeline import DataConfig, SyntheticLM, to_device
+from ..data.pipeline import DataConfig, SyntheticLM, add_modality_stubs, to_device
 from ..kernels import _build
 from ..models.registry import build_model
 from ..optim import adamw
 from ..sharding.context import DTYPES, ParallelContext
 from ..train.step import make_train_step
 from ..tree import leaves
+
+
+#: the architectures whose train step recomputes each block's activations in
+#: the backward unless told otherwise: kept, zamba2's SSD intermediates pass
+#: the card's 80 GB at 4 x 2048 tokens
+REMAT_ARCHS = frozenset({"zamba2-1.2b"})
+
+
+def needs_remat(arch: str, override=None) -> bool:
+    """Whether ``arch``'s train step recomputes its blocks (``REMAT_ARCHS``),
+    unless ``override`` (``--remat`` / ``--no-remat``) says."""
+    return arch in REMAT_ARCHS if override is None else bool(override)
 
 
 def parse_args(argv=None):
@@ -66,6 +84,9 @@ def parse_args(argv=None):
     ap.add_argument("--mode", default="nimble", choices=["nimble", "direct", "stripe"])
     ap.add_argument("--dtype", default="bf16", choices=sorted(DTYPES))
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--remat", action=argparse.BooleanOptionalAction, default=None,
+                    help="recompute each block's activations in the backward "
+                         "(default: REMAT_ARCHS)")
     return ap, ap.parse_args(argv)
 
 
@@ -78,7 +99,9 @@ def build_cfg(args):
         d = args.d_model or cfg.d_model
         d = max(d // heads, 8) * heads
         cfg = dataclasses.replace(cfg, n_layers=args.layers or cfg.n_layers, d_model=d,
-                                  d_ff=(d * 3 if cfg.d_ff else 0))
+                                  d_ff=(d * 3 if cfg.d_ff else 0),
+                                  n_enc_layers=min(cfg.n_enc_layers,
+                                                   args.layers or cfg.n_enc_layers))
     return cfg
 
 
@@ -89,6 +112,7 @@ def main(argv=None):
     dt = DTYPES[args.dtype]
     ctx = ParallelContext(ep_size=ep, group_size=args.group_size or min(4, ep),
                           moe_mode=args.mode, param_dtype=dt, compute_dtype=dt,
+                          remat=needs_remat(args.arch, args.remat),
                           device=args.device)
     try:
         model = build_model(cfg, ctx)
@@ -119,7 +143,8 @@ def main(argv=None):
     t0 = time.time()
     losses = []
     for step in range(args.steps):
-        batch = to_device(data.batch(step), args.device)
+        batch = to_device(add_modality_stubs(data.batch(step), cfg, rng_seed=step),
+                          args.device)
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         losses.append(float(metrics["loss"]))
         if step % args.log_every == 0 or step == args.steps - 1:

@@ -79,13 +79,16 @@ def _logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig, ctx: ParallelContext = SINGLE,
-            *, window: Optional[int] = None, last_only: bool = False) -> torch.Tensor:
+            *, window: Optional[int] = None, inputs_embeds: Optional[torch.Tensor] = None,
+            last_only: bool = False) -> torch.Tensor:
     """tokens [B, S] -> logits [B, S, V], or [B, 1, V] with ``last_only``
     (the hidden state is sliced before the head).  Full attention unless
-    ``window``.  With ``ctx.remat`` each block's activations are recomputed
+    ``window``.  ``inputs_embeds`` [B, S', D], when given, replaces the
+    tokens' embeddings (the vlm family's patches + text).  With ``ctx.remat`` each block's activations are recomputed
     in the backward (``torch.utils.checkpoint``), as the reference's
     ``jax.checkpoint`` does."""
-    x = params["embed"][tokens].to(ctx.compute_dtype)
+    x = params["embed"][tokens] if inputs_embeds is None else inputs_embeds
+    x = x.to(ctx.compute_dtype)
     for i in range(cfg.n_layers):
         p = L.layer(params["blocks"], i)
         if ctx.remat and torch.is_grad_enabled():

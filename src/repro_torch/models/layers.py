@@ -1,7 +1,7 @@
-"""Shared model layers: RMS norm, RoPE, GQA attention with a ring-buffer cache, SwiGLU.
+"""Shared model layers: norms, RoPE, GQA attention with a ring-buffer cache, SwiGLU,
+the GELU MLP and sinusoidal positions.
 
-Counterpart of ``repro/models/layers.py`` (the parts the dense, MoE and
-xLSTM models use).  Parameters are plain dicts of tensors with the
+Counterpart of ``repro/models/layers.py``.  Parameters are plain dicts of tensors with the
 reference's keys and layouts; ``lead`` gives stacked leaves a leading
 layer axis, as the reference's ``vmap``-ed block inits do.  Full-sequence attention goes through the ``attention`` dispatch
 (the flash kernel for ``Sq >= 128``); the decode step is plain tensor code,
@@ -81,6 +81,14 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tenso
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * w + b
 
 
 def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
@@ -171,3 +179,34 @@ def attention_decode(p: Params, x: torch.Tensor, cache: Params, pos: int, *,
     o = torch.einsum("bhqk,bhkd->bhqd", w, vv).to(x.dtype)
     o = o.transpose(1, 2).reshape(b, 1, n_heads * head_dim)
     return o @ p["wo"]
+
+
+# -- GELU MLP (whisper-style) --------------------------------------------------
+
+
+def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype, device,
+             lead: Tuple[int, ...] = ()) -> Params:
+    return {"w1": dense_init(gen, d_model, d_ff, dtype, device, lead),
+            "b1": torch.zeros((*lead, d_ff), dtype=dtype, device=device),
+            "w2": dense_init(gen, d_ff, d_model, dtype, device, lead),
+            "b2": torch.zeros((*lead, d_model), dtype=dtype, device=device)}
+
+
+def mlp_shapes(d_model: int, d_ff: int, lead: Tuple[int, ...] = ()) -> Dict[str, tuple]:
+    """The shapes of :func:`init_mlp`'s leaves."""
+    return {"w1": (*lead, d_model, d_ff), "b1": (*lead, d_ff),
+            "w2": (*lead, d_ff, d_model), "b2": (*lead, d_model)}
+
+
+def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default is the tanh approximation."""
+    h = torch.nn.functional.gelu(x @ p["w1"] + p["b1"], approximate="tanh")
+    return h @ p["w2"] + p["b2"]
+
+
+def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
+    """[n, d] float32: sines of the first d/2 frequencies, then cosines."""
+    pos = torch.arange(n, device=device, dtype=torch.float32)[:, None]
+    i = torch.arange(d // 2, device=device, dtype=torch.float32)[None, :]
+    ang = pos / torch.pow(torch.tensor(10000.0, device=device), 2 * i / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)

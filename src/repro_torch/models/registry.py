@@ -1,12 +1,14 @@
-"""Model facade: the reference's ``Model`` interface for the ported families.
+"""Model facade: the reference's ``Model`` interface over the six families.
 
 ``build_model(cfg, ctx)`` returns a :class:`Model` exposing
-``init / forward / loss / init_cache / decode_step`` with the reference's
-signatures, apart from ``init`` taking an integer seed.  The port supports
-the ``dense`` family (llama-style), the ``moe`` family and the ``ssm``
-family (xLSTM).  Only the ``moe`` family takes the expert layer
-(``moe_apply``) and the ``stats`` accumulator of capacity drops; the
-attention families take ``window``.
+``init / forward / loss / init_cache / decode_step / supports /
+input_specs`` with the reference's signatures, apart from ``init`` taking
+an integer seed.  The families are the reference's: ``dense``
+(llama-style), ``moe``, ``hybrid`` (zamba2), ``ssm`` (xLSTM), ``audio``
+(whisper) and ``vlm`` (internvl2).  Only the ``moe`` family takes the expert
+layer (``moe_apply``) and the ``stats`` accumulator of capacity drops;
+every family but ``ssm`` takes ``window``; ``audio`` takes the batch's
+``frames`` and ``vlm`` its ``patches``.
 """
 
 from __future__ import annotations
@@ -19,9 +21,10 @@ import torch
 
 from ..configs.base import InputShape, ModelConfig
 from ..sharding.context import SINGLE, ParallelContext
-from . import dense, moe, xlstm
+from . import dense, encdec, hybrid, moe, vlm, xlstm
 
-_FAMILIES = {"dense": dense, "moe": moe, "ssm": xlstm}
+_FAMILIES = {"dense": dense, "moe": moe, "hybrid": hybrid, "ssm": xlstm,
+             "audio": encdec, "vlm": vlm}
 
 # decode cache length policy: sub-quadratic archs keep O(1)/windowed state
 _LONG = "long_500k"
@@ -30,7 +33,7 @@ _LONG = "long_500k"
 def family(cfg: ModelConfig):
     """The model module of ``cfg``'s family."""
     if cfg.arch_type not in _FAMILIES:
-        raise KeyError(f"arch_type {cfg.arch_type!r} is not ported yet")
+        raise KeyError(f"unknown arch_type {cfg.arch_type!r}")
     return _FAMILIES[cfg.arch_type]
 
 
@@ -63,6 +66,10 @@ class Model:
         extra = self._extra(stats)
         if self.mod is not xlstm:        # attention-free: no window to apply
             extra["window"] = window
+        if self.cfg.arch_type == "audio":
+            extra["frames"] = batch["frames"]
+        if self.cfg.arch_type == "vlm":
+            extra["patches"] = batch["patches"]
         out = self.mod.forward(params, batch["tokens"], self.cfg, self.ctx,
                                last_only=last_only, **extra)
         if isinstance(out, tuple):
@@ -74,10 +81,13 @@ class Model:
         """Mean next-token NLL (``log_softmax`` in float32) + ``aux_weight`` x aux.
 
         The reference's ``Model.loss`` (``registry.py:59-68``); ``stats`` as
-        in :meth:`forward`.
+        in :meth:`forward`.  The vlm family's logits cover the patch prefix
+        too: only the text positions are scored.
         """
         logits, aux = self.forward(params, batch, window=window, stats=stats)
         labels = batch["labels"].long()
+        if logits.shape[1] != labels.shape[1]:
+            logits = logits[:, -labels.shape[1]:]
         lp = torch.log_softmax(logits.float(), dim=-1)
         nll = -torch.gather(lp, -1, labels[..., None])[..., 0]
         return nll.mean() + aux_weight * aux
@@ -87,6 +97,8 @@ class Model:
             return 0                     # O(1) recurrent state
         if shape.name == _LONG:
             return self.cfg.window or 4096
+        if self.cfg.arch_type == "audio":
+            return min(shape.seq_len, 448)         # whisper's longest target
         return shape.seq_len
 
     def init_cache(self, batch: int, shape: InputShape):
@@ -97,6 +109,34 @@ class Model:
                     stats: Optional[dict] = None):
         return self.mod.decode_step(params, cache, token, pos, self.cfg, self.ctx,
                                     **self._extra(stats))
+
+    # -- input specs -------------------------------------------------------------
+    def supports(self, shape: InputShape) -> bool:
+        return shape.name not in self.cfg.skip_shapes
+
+    def input_specs(self, shape: InputShape) -> Dict[str, torch.Tensor]:
+        """Stand-ins for every model input: tensors on the ``meta`` device
+        (shape and dtype, no storage), as the reference's ``ShapeDtypeStruct``s."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+
+        def spec(shape_, dtype=torch.int32):
+            return torch.empty(shape_, dtype=dtype, device="meta")
+
+        if shape.kind in ("train", "prefill"):
+            if cfg.arch_type == "audio":
+                # the decoder scores text; the encoder consumes stub frames
+                S = min(S, 448)
+            specs = {"tokens": spec((B, S)), "labels": spec((B, S))}
+            if cfg.arch_type == "audio":
+                specs["frames"] = spec((B, cfg.n_audio_frames, cfg.d_model),
+                                       self.ctx.compute_dtype)
+            if cfg.arch_type == "vlm":
+                specs["patches"] = spec((B, cfg.n_patches, cfg.d_model),
+                                        self.ctx.compute_dtype)
+            return specs
+        # decode: one token against a seq_len-deep cache
+        return {"token": spec((B,)), "pos": spec(())}
 
 
 def build_model(cfg: ModelConfig, ctx: ParallelContext = SINGLE) -> Model:

@@ -1055,3 +1055,149 @@ def test_selftest_on_card(cuda):
     from repro_torch.launch import selftest
 
     assert selftest.main([]) == 0
+
+
+# --------------------------------------------------------------------------- #
+# the remaining families' shapes: flash non-causal with Sq != Sk and GQA
+# 16:1, the grouped FFN at E 128 / F 1536 and E 32 / F 512, the cummax tie
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("case", ["whisper_encoder", "whisper_cross", "qwen3_gqa16",
+                                  "internvl2_gqa2"])
+def test_flash_attention_at_the_new_families_shapes(cuda, dtype, tol, case):
+    # whisper: non-causal over 1500 frames (a ragged last tile), and its
+    # cross-attention, 448 queries over the 1500 frames; qwen3: 64 query
+    # heads over 4 (here 16 over 1); internvl2: 16 over 8 at head dim 128
+    rng = np.random.default_rng(21)
+    b, h, hkv, sq, sk, dh, causal = {
+        "whisper_encoder": (1, 2, 2, 1500, 1500, 64, False),
+        "whisper_cross": (2, 2, 2, 448, 1500, 64, False),
+        "qwen3_gqa16": (1, 16, 1, 512, 512, 128, True),
+        "internvl2_gqa2": (1, 4, 2, 768, 768, 128, True)}[case]
+    q = torch.as_tensor(rng.normal(size=(b, h, sq, dh)), dtype=dtype, device=cuda)
+    k = torch.as_tensor(rng.normal(size=(b, hkv, sk, dh)), dtype=dtype, device=cuda)
+    v = torch.as_tensor(rng.normal(size=(b, hkv, sk, dh)), dtype=dtype, device=cuda)
+    count = "flash_attention" if dtype == torch.bfloat16 else "flash_attention_f32"
+    before = launch_counts()[count]
+    o = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert launch_counts()[count] == before + 1
+    assert (o.float() - mha_ref(q, k, v, causal=causal).float()).abs().max() <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("e,f,d,n", [(128, 1536, 512, 4096), (32, 512, 1024, 2048)])
+def test_grouped_ffn_at_the_moe_families_widths(cuda, dtype, tol, e, f, d, n):
+    # qwen3's 128 experts of F 1536 and granite's 32 of F 512, top-8 rows in
+    # any order with some padding (-1): the sort/pad and the kernel on the
+    # card against the plain version on the CPU in f32
+    rng = np.random.default_rng(e + f)
+    x, wg, wu, wd = _ffn_inputs(rng, n, d, f, e, torch.float32, "cpu")
+    eid = torch.as_tensor(rng.integers(-1, e, size=n))
+    want = grouped_ffn(x, eid, wg, wu, wd, block_tokens=64)
+    count = "grouped_ffn_blocked" if dtype == torch.bfloat16 else "grouped_ffn_blocked_f32"
+    before = launch_counts()[count]
+    got = grouped_ffn(x.to(cuda, dtype), eid.to(cuda),
+                      *(w.to(cuda, dtype) for w in (wg, wu, wd)), block_tokens=64)
+    torch.cuda.synchronize()
+    assert launch_counts()[count] == before + 1
+    assert (got.cpu().float() - want).abs().max() <= tol * want.abs().max()
+    assert not got[eid.to(cuda) < 0].any()
+
+
+def test_chunk_cummax_tie_gradient_on_card_equals_cpu(cuda):
+    # the tie rule (JAX's: halves down the associative scan's tree) on both
+    # devices, one launch of mlstm_cummax_bwd each backward on the card, and
+    # through the chunked mLSTM's VJP with tied input gates
+    from repro_torch.kernels.mlstm_scan.ops import _cummax, mlstm_scan_function
+
+    g = torch.tensor([[[1, 3, 2, 3, 0.5, 3]]])
+    ct = torch.arange(1.0, 7.0)[None, None]
+    grads = []
+    for dev in ("cpu", "cuda"):
+        x = g.to(dev).requires_grad_(True)
+        (gx,) = torch.autograd.grad(_cummax(x), x, ct.to(dev))
+        grads.append(gx.cpu())
+    assert grads[0].tolist() == [[[1, 11, 0, 6, 0, 3]]]
+    assert torch.equal(grads[0], grads[1])
+    rng = np.random.default_rng(9)
+    for n in (1, 2, 3, 7, 16, 33, 64):
+        gn = torch.as_tensor(rng.integers(0, 4, size=(4, 16, n)), dtype=torch.float32)
+        cn = torch.as_tensor(rng.normal(size=(4, 16, n)), dtype=torch.float32)
+        per = []
+        for dev in ("cpu", "cuda"):
+            x = gn.to(dev).requires_grad_(True)
+            before = launch_counts()["mlstm_cummax_bwd"]
+            (gx,) = torch.autograd.grad(_cummax(x), x, cn.to(dev))
+            assert launch_counts()["mlstm_cummax_bwd"] == before + (dev == "cuda")
+            per.append(gx.cpu())
+        assert torch.equal(per[0], per[1]), n
+    b, h, s, dh = 2, 2, 48, 16
+    ins = [torch.as_tensor(rng.normal(size=(b, h, s, dh)) * 0.3, dtype=torch.float32)
+           for _ in range(3)]
+    ins += [torch.as_tensor(rng.integers(-1, 2, size=(b, h, s)), dtype=torch.float32),
+            torch.zeros((b, h, s))]
+    cots = [torch.as_tensor(rng.normal(size=shape), dtype=torch.float32)
+            for shape in ((b, h, s, dh), (b, h, dh, dh), (b, h, dh), (b, h))]
+    out = []
+    for dev in ("cpu", "cuda"):
+        live = [t.to(dev).requires_grad_(True) for t in ins]
+        hh, fin = mlstm_scan_function(*live, chunk=16)
+        got = torch.autograd.grad((hh, fin["C"], fin["n"], fin["m"]), live,
+                                  [c.to(dev) for c in cots])
+        out.append([a.cpu() for a in got])
+    for a, w in zip(out[1], out[0]):
+        assert (a - w).abs().max() <= 1e-4 * w.abs().max()
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "whisper-small", "internvl2-2b",
+                                  "qwen3-moe-235b-a22b"])
+def test_reduced_new_families_train_step_on_card_equals_cpu(cuda, arch):
+    # one f32 step's loss and every gradient leaf on the card (flash's and the
+    # FFN's f32 routes) against the CPU's plain versions, as the dense test
+    # above: loss 1e-5, leaves 1e-4 of each one's largest value; whisper with
+    # 150 frames and qwen3 with its head-dim override, GQA, E 16 and top-8
+    from repro_torch.data.pipeline import add_modality_stubs
+
+    cfg = get_config(arch).reduced()
+    if cfg.arch_type == "audio":
+        cfg = dataclasses.replace(cfg, n_audio_frames=150)
+    if cfg.arch_type == "moe":
+        cfg = dataclasses.replace(cfg, head_dim_override=128, n_kv_heads=1, n_experts=16,
+                                  top_k=8)
+    batch = add_modality_stubs(SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=160,
+                                                      global_batch=2, seed=2)).batch(0), cfg)
+    weights = build_model(cfg, ParallelContext(device="cpu")).init(0)
+    out = []
+    before = launch_counts()["flash_attention_f32"]
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, ParallelContext(device=dev))
+        params = map_tree(lambda t: t.to(dev, copy=True), weights)
+        loss, grads = loss_and_grads(model, params, to_device(batch, dev))
+        out.append((float(loss), [g.cpu() for g in leaves(grads)]))
+    assert launch_counts()["flash_attention_f32"] > before
+    (l_cpu, g_cpu), (l_card, g_card) = out
+    assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu)
+    for a, b in zip(g_card, g_cpu):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+
+
+def test_zamba2_decode_on_card_reproduces_its_forward(cuda):
+    # the reference's rule (tests/test_models.py): decode steps against the
+    # teacher-forced forward within atol = rtol = 1e-3; S 130 sends the
+    # forward's attention through flash
+    from repro_torch.configs.base import InputShape
+
+    cfg = dataclasses.replace(get_config("zamba2-1.2b").reduced(), attn_every=2, n_layers=4)
+    model = build_model(cfg, ParallelContext(device="cuda"))
+    params = model.init(1)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab, (2, 130)),
+                           device=cuda)
+    with torch.no_grad():
+        full, _ = model.forward(params, {"tokens": toks})
+        cache = model.init_cache(2, InputShape("d", 130, 2, "decode"))
+        dec = torch.stack([model.decode_step(params, cache, toks[:, i], i)[0]
+                           for i in range(130)], 1)
+    torch.testing.assert_close(dec, full, atol=1e-3, rtol=1e-3)

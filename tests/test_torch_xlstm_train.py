@@ -4,6 +4,9 @@
   reference's custom-VJP ``linear_prefix`` and ``maxplus_prefix``
   (``models/xlstm.py:254-330``), with a ``maxplus`` case full of exact ties
   that pins the carry selection's ``>=``.
+* The chunk body's cumulative max against ``jax.grad`` of ``lax.cummax``:
+  a tie's gradient split in halves down the associative scan's tree, exact
+  on a seeded sweep of tie-heavy inputs, and through the chunked scan's VJP.
 * ``MLSTMScanFunction`` (the backward the card runs after the kernel's
   forward, here over the plain chunk loop's states) against ``jax.vjp`` of
   the reference's chunked mLSTM scan: the ``lax.scan`` over
@@ -35,6 +38,7 @@ from repro.sharding.context import SINGLE as J_SINGLE
 from repro.train.step import make_train_step as j_make_train_step
 from repro_torch.configs.base import get_config
 from repro_torch.data.pipeline import to_device
+from repro_torch.kernels.mlstm_scan import ops as ms_ops
 from repro_torch.kernels.mlstm_scan.ops import mlstm_scan_function
 from repro_torch.models import xlstm as tx
 from repro_torch.models.registry import build_model
@@ -115,6 +119,70 @@ def test_maxplus_prefix_vjp_ties_select_the_carry():
     got, want = _vjp_pair(jx.maxplus_prefix, tx.maxplus_prefix, (s, v), g)
     for gt, wt in zip(got, want):
         np.testing.assert_array_equal(gt.numpy(), np.asarray(wt))
+
+
+def _cummax_grads(g, ct):
+    """(port's, reference's) gradient of sum(cummax(g) * ct) along the last axis."""
+    want = jax.grad(lambda x: jnp.sum(jax.lax.cummax(x, axis=x.ndim - 1) * ct))(
+        jnp.asarray(g))
+    x = torch.tensor(g, requires_grad=True)
+    y = ms_ops._cummax(x)
+    np.testing.assert_array_equal(y.detach().numpy(),
+                                  torch.cummax(x.detach(), dim=-1).values.numpy())
+    (got,) = torch.autograd.grad(y, x, torch.tensor(ct))
+    return got.numpy(), np.asarray(want)
+
+
+def test_chunk_cummax_splits_a_tie_as_jax_does():
+    # three tied maxima: JAX halves the gradient down its scan's tree; the
+    # latest-argmax rule would give [1, 5, 0, 9, 0, 6]
+    g = np.array([[[1, 3, 2, 3, 0.5, 3]]], np.float32)
+    ct = np.arange(1, 7, dtype=np.float32)[None, None]
+    got, want = _cummax_grads(g, ct)
+    np.testing.assert_array_equal(want[0, 0], [1, 11, 0, 6, 0, 3])
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 6, 7, 12, 16, 17, 31, 33, 48, 64, 69])
+def test_chunk_cummax_gradient_equals_jax_on_ties(n):
+    # 64 rows of values from {0, 1, 2, 3}: ties everywhere, at lengths that
+    # take each branch of the recursion (odd and even at every level); the
+    # gradients are sums of halves of the cotangents and must be equal exactly
+    rng = np.random.default_rng(100 + n)
+    g = rng.integers(0, 4, size=(4, 16, n)).astype(np.float32)
+    ct = rng.normal(size=(4, 16, n)).astype(np.float32)
+    got, want = _cummax_grads(g, ct)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_chunk_body_vjp_on_tied_gates_matches_reference():
+    # lf = 0 and integer input gates: g = ig ties within each chunk.  h does
+    # not depend on the stabilizer u where |n.q| wins its max, but the final
+    # m = Lf_L + u_L does: its cotangent reaches the tied gates
+    b, h, s, dh, chunk = 2, 2, 32, 8, 16
+    rng = np.random.default_rng(9)
+    q, k, v = (rng.normal(size=(b, h, s, dh)).astype(np.float32) * 0.3 for _ in range(3))
+    ig = rng.integers(-1, 2, size=(b, h, s)).astype(np.float32)
+    lf = np.zeros((b, h, s), np.float32)
+    st = [np.zeros((b, h, dh, dh), np.float32), np.zeros((b, h, dh), np.float32),
+          np.full((b, h), -30.0, np.float32)]
+    cots = [rng.normal(size=(b, h, s, dh)).astype(np.float32),
+            rng.normal(size=(b, h, dh, dh)).astype(np.float32),
+            rng.normal(size=(b, h, dh)).astype(np.float32),
+            rng.normal(size=(b, h)).astype(np.float32)]
+    ins = [q, k, v, ig, lf]
+
+    def j_scan(*a):
+        return _j_chunked_scan(*a, *(jnp.asarray(x) for x in st), chunk=chunk)
+
+    _, vjp = jax.vjp(jax.jit(j_scan), *(jnp.asarray(a) for a in ins))
+    want = vjp(tuple(jnp.asarray(c) for c in cots))
+    live = [torch.tensor(a, requires_grad=True) for a in ins]
+    hh, fin = mlstm_scan_function(*live, chunk=chunk)
+    got = torch.autograd.grad((hh, fin["C"], fin["n"], fin["m"]), live,
+                              [torch.tensor(c) for c in cots])
+    for a, w in zip(got, want):
+        _close(a, w, SCAN_TOL)
 
 
 # --------------------------------------------------------------------------- #
