@@ -153,7 +153,25 @@ port's six CUDA kernels from ``src/repro_torch/csrc``, all at once, then:
  23. serves whisper-small (1500 stub frames, 4 x 448 tokens) and
      internvl2-2b (256 patches + 512 tokens), flash non-causal, Sq != Sk
      and GQA 2:1 against its plain version, launches checked; gates the
-     reduced configs card vs CPU and runs ``serve_multiarch --adaptive``.
+     reduced configs card vs CPU and runs ``serve_multiarch --adaptive``;
+ 24. the reference's non-TPU paths in plain torch: (a) ``chunked_attention``
+     on the card against the CPU (keys padded to whole chunks, a window,
+     GQA 4:1, a ``q_offset``; f32 within 1e-5, bf16 1e-2), and
+     ``attention()`` below 128 queries over 4500 keys taking it; (b) the
+     flash kernel's backward, ``chunked_attention``'s VJP, at [4, 9, 2048,
+     64] and [4, 9, 4096, 64] over 3 heads (one and two chunks) and at
+     [4, 32, 512, 128] over 8 (one chunk of 512) against the CPU's and
+     ``mha_ref``'s VJP (f32, 1e-4), and both formulations' ms a call; (c)
+     smollm-135m trains 2 steps at 4 x 4096 (bf16): step ms, tokens/s, the
+     attention backward's ms a step, peak memory, finite losses and norms,
+     and its first flash call against ``mha_ref``; (d) ``grouped_ffn_scan``
+     and ``grouped_ffn_dense`` on the card against the CPU: the same rows
+     dropped, values within 1e-5; (e) ``examples/quickstart`` on the card
+     prints the CPU's figures, and its granite logits equal the CPU's on
+     the same weights within 1e-4.
+     CPU runs held against the card's MoE path pin ``NIMBLE_FFN_IMPL=scan``
+     (``scan_ffn``): above 2 E x 64 rows the CPU's FFN otherwise takes the
+     capacity-dropping dense branch.
 
 It prints one line per phase, the card's name and power limit as
 ``nvidia-smi`` reports them, a JSON line of per-kernel numbers, and as its
@@ -219,6 +237,26 @@ def _to(tree, device, dtype=None):
     if isinstance(tree, list):
         return [_to(v, device, dtype) for v in tree]
     return tree.to(device=device, dtype=dtype or tree.dtype)
+
+
+@contextlib.contextmanager
+def scan_ffn():
+    """``NIMBLE_FFN_IMPL=scan`` while installed.  Above 2 E x 64 rows the CPU's
+    grouped FFN takes, by default, the reference's ``grouped_ffn_dense``,
+    which drops rows by capacity where the card's kernel drops none; a CPU
+    run held against the card pins the drop-free scan, as the reference's
+    tests do."""
+    import os
+
+    old = os.environ.get("NIMBLE_FFN_IMPL")
+    os.environ["NIMBLE_FFN_IMPL"] = "scan"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("NIMBLE_FFN_IMPL")
+        else:
+            os.environ["NIMBLE_FFN_IMPL"] = old
 
 
 class Recorder:
@@ -644,7 +682,8 @@ def train_phases(torch, np, check, seed: int, dev, smi: str):
     p_cpu = m_cpu.init(seed)
     sb = SyntheticLM(DataConfig(vocab=small.vocab, seq_len=128, global_batch=2,
                                 seed=seed)).batch(0)
-    lc, gc = loss_and_grads(m_cpu, p_cpu, to_device(sb, "cpu"))
+    with scan_ffn():
+        lc, gc = loss_and_grads(m_cpu, p_cpu, to_device(sb, "cpu"))
     lg, gg = loss_and_grads(build_model(small, dataclasses.replace(ctx_s, device="cuda")),
                             map_tree(lambda t: t.to(dev), p_cpu), to_device(sb, dev))
     small_worst = max(((a.cpu() - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
@@ -656,7 +695,8 @@ def train_phases(torch, np, check, seed: int, dev, smi: str):
           f"{float(l8):.5f} vs {float(l1):.5f} (|diff| {loss_err:.3g}), gradients worst leaf "
           f"max|diff| / max|leaf| {worst:.3g} (limit 0 for both: each expert's rows arrive in "
           f"the same order on EP 8 as on EP 1, so every sum sees the same operands); "
-          f"reduced config f32 one step, card vs CPU plain: loss |diff| {small_loss:.3g} "
+          f"reduced config f32 one step, card vs CPU plain (the CPU's FFN pinned to the "
+          f"reference's scan, NIMBLE_FFN_IMPL=scan): loss |diff| {small_loss:.3g} "
           f"(limit 1e-5 x |loss|), gradients worst leaf {small_worst:.3g} (limit 1e-4: f32 "
           f"sums in other orders)", flush=True)
 
@@ -1385,7 +1425,7 @@ def _grads_card_vs_cpu(torch, cfg, seed: int, seq: int, bias: bool = False):
     """A reduced config's f32 loss and gradients on the card against the CPU's
     plain versions -> (loss |diff| / |loss|, worst leaf max|diff| / max|leaf|,
     logits max|diff| / max|logits|).  The audio and vlm families get their stub
-    inputs (``add_modality_stubs``)."""
+    inputs (``add_modality_stubs``); the CPU's FFN takes the scan (``scan_ffn``)."""
     from repro_torch.data.pipeline import DataConfig, SyntheticLM, add_modality_stubs, to_device
     from repro_torch.models.registry import build_model
     from repro_torch.sharding.context import ParallelContext
@@ -1405,9 +1445,10 @@ def _grads_card_vs_cpu(torch, cfg, seed: int, seq: int, bias: bool = False):
         model = build_model(cfg, ParallelContext(device=dev))
         params = map_tree(lambda t: t.to(dev, copy=True), weights)
         b = to_device(batch, dev)
-        with torch.no_grad():
-            logits, _ = model.forward(params, b)
-        loss, grads = loss_and_grads(model, params, b)
+        with scan_ffn():
+            with torch.no_grad():
+                logits, _ = model.forward(params, b)
+            loss, grads = loss_and_grads(model, params, b)
         out.append((float(loss), [g.cpu() for g in leaves(grads)], logits.float().cpu()))
     (lc, gc, oc), (lg, gg, og) = out
     worst = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
@@ -2026,14 +2067,15 @@ def moe_family_phase(torch, np, check, compare, seed: int, dev, smi: str):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     rows, dropped = [], []
-    for i in (1, 2, 3):
-        times, st = {}, {}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        params, state, m = step(params, state, batches[i], stats=st, times=times)
-        rows.append(dict(wall=time.perf_counter() - t0, loss=float(m["loss"]),
-                         gnorm=float(m["grad_norm"]), **times))
-        dropped.append(int(st["dropped"]))
+    with EventTimer(torch, fa_ops, "flash_attention_bwd") as t_fa:
+        for i in (1, 2, 3):
+            times, st = {}, {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batches[i], stats=st, times=times)
+            rows.append(dict(wall=time.perf_counter() - t0, loss=float(m["loss"]),
+                             gnorm=float(m["grad_norm"]), **times))
+            dropped.append(int(st["dropped"]))
     counts = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(counts["grouped_ffn_blocked"] == 4 * cfg.n_layers and counts["flash_attention"] ==
@@ -2048,7 +2090,8 @@ def moe_family_phase(torch, np, check, compare, seed: int, dev, smi: str):
                 f"(capacity factor {cfg.moe_capacity_factor}); launches in the "
                 f"4 steps: grouped_ffn_blocked {counts['grouped_ffn_blocked']}, flash "
                 f"{counts['flash_attention']}, token_gather {counts['token_gather']}, "
-                f"token_scatter_add {counts['token_scatter_add']}; ",
+                f"token_scatter_add {counts['token_scatter_add']}; the attention backward "
+                f"(plain torch, f32) {t_fa.total_ms() / 3:.2f} ms a step; ",
                 smi, np, check)
     ffn["granite E32 top-8 F512"] = ffn_report(torch, ffn_ops, compare,
                                                next(iter(log_ffn.first.values())),
@@ -2084,7 +2127,8 @@ def moe_family_phase(torch, np, check, compare, seed: int, dev, smi: str):
           f"reduced qwen3 card vs CPU: logits {logit_rel:.3g}, loss {loss_rel:.3g}, grads "
           f"{worst:.3g}, f32 launches {ran}")
     print(f"[21 moe parity] reduced qwen3 (2 layers, d 256, 4 heads of 128 over 1, E 16, "
-          f"top-8, S 160) f32, card vs CPU plain: logits {logit_rel:.3g} (limit 1e-4), loss "
+          f"top-8, S 160) f32, card vs CPU plain (the CPU's FFN pinned to the reference's "
+          f"drop-free scan, NIMBLE_FFN_IMPL=scan): logits {logit_rel:.3g} (limit 1e-4), loss "
           f"{loss_rel:.3g} (limit 1e-5), gradients worst leaf {worst:.3g} (limit 1e-4; f32 "
           f"sums in other orders); f32 launches {ran} ({time.perf_counter() - t_phase:.0f} s "
           f"for phase 21 on {smi})", flush=True)
@@ -2301,6 +2345,233 @@ def audio_vlm_phase(torch, np, check, compare, seed: int, dev, smi: str):
           f"--adaptive on the card: " + " | ".join(lines[-3:]) +
           f" ({time.perf_counter() - t_phase:.0f} s for phase 23 on {smi})", flush=True)
     return reports, launches
+
+
+def _attn_vjp(torch, fn, q, k, v, g, kw):
+    """(dq, dk, dv) of ``fn`` in float32 at (q, k, v) for the cotangent g."""
+    with torch.enable_grad():
+        live = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+        return torch.autograd.grad(fn(*live, **kw), live, g.float())
+
+
+def nontpu_phase(torch, np, check, compare, seed: int, dev, smi: str):
+    """Phase 24 -> (flash launches of smollm's 4 x 4096 steps, flash's report
+    at their shape, the quickstart's launches, the backward's figures).
+
+    The reference's non-TPU paths in plain torch: ``chunked_attention`` and,
+    through its VJP, the flash kernel's backward; ``grouped_ffn_scan`` and
+    ``grouped_ffn_dense``; the quickstart."""
+    import io
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.grouped_ffn import ops as ffn_ops
+    from repro_torch.launch.kernel_times import time_ms
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.sharding.context import ParallelContext
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import leaves, map_tree
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 24)
+
+    def rel(a, b) -> float:
+        b = b.float().cpu()
+        return ((a.float().cpu() - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+    # ---- 24a. chunked_attention on the card against the CPU ------------------------
+    cases = {          # (b, h, hkv, sq, sk, causal, window, q_offset, chunk), head dim 64
+        "Sk 1000 over chunks of 256 (pad)": (2, 8, 8, 96, 1000, True, None, 904, 256),
+        "window 300": (2, 8, 4, 96, 1000, True, 300, 904, 256),
+        "GQA 4:1": (2, 8, 2, 96, 1024, True, None, 928, 256),
+        "q_offset 200, not causal": (2, 8, 8, 96, 700, False, None, 200, 256),
+    }
+    parts, worst = [], {"f32": 0.0, "bf16": 0.0}
+    for label, (b, h, hkv, sq, sk, causal, window, q_offset, chunk) in cases.items():
+        q, k, v = (torch.as_tensor(rng.normal(size=sh), dtype=torch.float32)
+                   for sh in ((b, h, sq, 64), (b, hkv, sk, 64), (b, hkv, sk, 64)))
+        kw = dict(causal=causal, window=window, q_offset=q_offset, chunk=chunk)
+        for dt, tol in (("f32", 1e-5), ("bf16", 1e-2)):
+            dtype = torch.float32 if dt == "f32" else torch.bfloat16
+            qq, kk, vv = (t.to(dtype) for t in (q, k, v))
+            err = rel(fa_ops.chunked_attention(qq.to(dev), kk.to(dev), vv.to(dev), **kw),
+                      fa_ops.chunked_attention(qq, kk, vv, **kw))
+            worst[dt] = max(worst[dt], err)
+            check(err <= tol, f"chunked_attention {label} {dt}: card vs CPU {err:.3g} > {tol:g}")
+    # attention() below 128 queries over more than 4096 keys: chunked_attention
+    q, k, v = (torch.as_tensor(rng.normal(size=sh), dtype=torch.float32)
+               for sh in ((2, 8, 64, 64), (2, 2, 4500, 64), (2, 2, 4500, 64)))
+    kw = dict(causal=True, window=None, q_offset=4500 - 64)
+    reset_launch_counts()
+    with Recorder(fa_ops, "chunked_attention", keep=1) as rec_ca:
+        out = fa_ops.attention(q.to(dev), k.to(dev), v.to(dev), **kw)
+    torch.cuda.synchronize()
+    took = len(rec_ca.calls) == 1 and not any(launch_counts().values())
+    check(took, "attention() at Sq 64 over Sk 4500 on the card did not take chunked_attention")
+    err_att = rel(out, fa_ops.chunked_attention(q, k, v, **kw))
+    check(err_att <= 1e-5, f"attention() Sq 64 over Sk 4500: card vs CPU {err_att:.3g}")
+    print(f"[24a chunked] chunked_attention card vs CPU (plain torch both), head dim 64, "
+          f"{'; '.join(cases)}: worst f32 {worst['f32']:.3g} (limit 1e-5), bf16 "
+          f"{worst['bf16']:.3g} (limit 1e-2; each relative to the CPU's largest value); "
+          f"attention() at q [2, 8, 64, 64] over k/v [2, 2, 4500, 64] took "
+          f"{'chunked_attention, no kernel launched' if took else 'ANOTHER ROUTE'}, card vs "
+          f"CPU {err_att:.3g}", flush=True)
+
+    # ---- 24b. the flash backward: chunked_attention's VJP --------------------------
+    bwd = {}
+    # smollm's heads at one chunk and at two; paper-moe-8e's 512 keys, one chunk of 512
+    for h, hkv, sk, dh in ((9, 3, 2048, 64), (9, 3, 4096, 64), (32, 8, 512, 128)):
+        q = torch.as_tensor(rng.normal(size=(4, h, sk, dh)), dtype=torch.float32)
+        k, v = (torch.as_tensor(rng.normal(size=(4, hkv, sk, dh)), dtype=torch.float32)
+                for _ in range(2))
+        g = torch.as_tensor(rng.normal(size=q.shape), dtype=torch.float32)
+        kw = dict(causal=True, window=None, q_offset=0)
+        card = [t.to(dev) for t in (q, k, v, g)]
+        live = [t.clone().requires_grad_(True) for t in card[:3]]
+        got = torch.autograd.grad(fa_ops.flash_attention(*live, **kw), live, card[3])
+        want = fa_ops.flash_attention_bwd(q, k, v, g, **kw)                     # the CPU
+        plain = _attn_vjp(torch, fa_ops.mha_ref, *card, kw)                      # mha_ref's VJP
+        e_cpu = max(rel(a, b) for a, b in zip(got, want))
+        e_mha = max(rel(a, b) for a, b in zip(got, plain))
+        shape = f"[4, {h}, {sk}, {dh}] over {hkv} heads"
+        check(e_cpu <= 1e-4 and e_mha <= 1e-4,
+              f"flash backward at {shape}: card vs CPU {e_cpu:.3g}, vs mha_ref's VJP "
+              f"{e_mha:.3g} (limit 1e-4)")
+        del got, want, plain, live
+        qb, kb, vb, gb = (t.to(torch.bfloat16) for t in card)
+        ms_chunked = time_ms(lambda: fa_ops.flash_attention_bwd(qb, kb, vb, gb, **kw), 3)
+        ms_mha = time_ms(lambda: _attn_vjp(torch, fa_ops.mha_ref, qb, kb, vb, gb, kw), 3)
+        flops = 5 * 2 * 4 * h * sk * sk * dh          # S recomputed, dV, dP, dQ, dK
+        bwd[shape] = dict(chunks=-(-sk // fa_ops._CHUNK), chunked_ms=ms_chunked,
+                          mha_ref_ms=ms_mha, err_cpu=e_cpu, err_mha_ref=e_mha,
+                          bound_f32_ms=flops / PEAK_FLOPS["f32"] * 1e3,
+                          bound_bf16_ms=flops / PEAK_FLOPS["bf16"] * 1e3)
+        del q, k, v, g, card, qb, kb, vb, gb
+        torch.cuda.empty_cache()
+    print("[24b flash bwd] " + "; ".join(
+        f"{shape} ({r['chunks']} chunk{'s' * (r['chunks'] > 1)}), causal, "
+        f"f32: card vs CPU {r['err_cpu']:.3g}, vs mha_ref's VJP {r['err_mha_ref']:.3g} "
+        f"(limit 1e-4); bf16 inputs, a call: chunked_attention's VJP {r['chunked_ms']:.2f} ms, "
+        f"mha_ref's VJP {r['mha_ref_ms']:.2f} ms (bound, 5 products, all keys: "
+        f"{r['bound_bf16_ms']:.3f} ms bf16, {r['bound_f32_ms']:.3f} ms f32)"
+        for shape, r in bwd.items()) + f"; on {smi}", flush=True)
+
+    # ---- 24c. smollm-135m trains 2 steps at 4 x 4096 ------------------------------
+    bf16 = torch.bfloat16
+    ctx = ParallelContext(param_dtype=bf16, compute_dtype=bf16, device="cuda")
+    cfg = get_config("smollm-135m")
+    model = build_model(cfg, ctx)
+    params = model.init(seed)
+    n_params = sum(p.numel() for p in leaves(params))
+    state = adamw.init(params)
+    step = make_train_step(model, adamw.AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=100))
+    B, S = 4, 4096
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B, seed=seed))
+    batches = [to_device(data.batch(i), dev) for i in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    walls, bwd_ms, ms = [], [], []
+    rec_fa = Recorder(fa_ops, "flash_attention", keep=1)   # layer 0's call of step 0
+    for i in range(2):
+        with EventTimer(torch, fa_ops, "flash_attention_bwd") as t_fa, \
+                (rec_fa if i == 0 else contextlib.nullcontext()):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batches[i])
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        bwd_ms.append(t_fa.total_ms())
+        ms.append(m)
+    fa_train = launch_counts()["flash_attention"]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(m["loss"]) for m in ms]
+    norms = [float(m["grad_norm"]) for m in ms]
+    check(bool(np.isfinite(losses).all() and np.isfinite(norms).all()),
+          f"smollm-135m at 4 x 4096: losses {losses} or norms {norms} not finite")
+    check(fa_train == 2 * cfg.n_layers,
+          f"smollm-135m at 4 x 4096 launched flash {fa_train} times, want {2 * cfg.n_layers}")
+    print(f"[24c smollm 4k] {cfg.name} bf16, {n_params / 1e6:.2f} M params, batch {B} x {S} "
+          f"(the reference's train_4k length; its batch 256 cut to 4 for one card), AdamW, "
+          f"2 steps: {walls[0]:.1f} ms (first, allocations included) and {walls[1]:.1f} ms, "
+          f"{B * S / walls[1] * 1e3:.0f} tokens/s at the second; the attention backward "
+          f"(chunked_attention's VJP, 2 chunks, f32) {bwd_ms[0]:.1f} and {bwd_ms[1]:.1f} ms a "
+          f"step over {cfg.n_layers} layers; flash launches {fa_train}; peak memory "
+          f"{peak_gb:.2f} GB; losses {[round(x, 4) for x in losses]}, grad_norm "
+          f"{[round(x, 4) for x in norms]}; on {smi}", flush=True)
+    del params, state, model, step, batches, ms, m
+    torch.cuda.empty_cache()
+    q, k, v, kw = rec_fa.calls[0]
+    with torch.no_grad():
+        fa_4k = flash_report(torch, fa_ops, compare, q.detach(), k.detach(), v.detach(), kw,
+                             "at smollm's 4 x 4096 (phase 24c)")
+    del rec_fa, q, k, v
+    torch.cuda.empty_cache()
+
+    # ---- 24d. grouped_ffn_scan and grouped_ffn_dense on the card against the CPU ----
+    n, e, d, f = 4096, 8, 256, 512
+    x = torch.as_tensor(rng.normal(size=(n, d)), dtype=torch.float32)
+    wg, wu, wd = (torch.as_tensor(rng.normal(size=sh) * 0.05, dtype=torch.float32)
+                  for sh in ((e, d, f), (e, d, f), (e, f, d)))
+    p = np.array([0.3] + [0.7 / (e - 1)] * (e - 1))
+    eid = torch.as_tensor(np.where(rng.random(n) < 0.05, -1, rng.choice(e, size=n, p=p)))
+    parts = []
+    for name, fn, kw in (("scan", ffn_ops.grouped_ffn_scan, dict(block_tokens=64)),
+                         ("dense", ffn_ops.grouped_ffn_dense, dict(block_tokens=64)),
+                         ("dense cap 1.0", ffn_ops.grouped_ffn_dense,
+                          dict(block_tokens=64, cap_factor=1.0))):
+        want = fn(x, eid, wg, wu, wd, **kw)
+        got = fn(*(t.to(dev) for t in (x, eid, wg, wu, wd)), **kw)
+        zero_w, zero_g = (want == 0).all(1), (got.cpu() == 0).all(1)
+        err = rel(got, want)
+        same = bool(torch.equal(zero_w, zero_g))
+        check(same and err <= 1e-5, f"grouped_ffn_{name.split()[0]} ({name}) card vs CPU: "
+              f"dropped rows {'equal' if same else 'DIFFER'}, values {err:.3g} (limit 1e-5)")
+        parts.append(f"{name}: {int(zero_w.sum()) - int((eid < 0).sum())} rows dropped on "
+                     f"both, values {err:.3g}")
+    print(f"[24d ffn paths] x [{n}, {d}], E {e} (expert 0 takes 0.3 of the rows), F {f}, "
+          f"blocks of 64, f32, card vs CPU (plain torch both): " + "; ".join(parts)
+          + " (limit 1e-5 of the CPU's largest value)", flush=True)
+
+    # ---- 24e. the port's quickstart on the card --------------------------------------
+    def run(device):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            logits = quickstart.main(["--device", device])
+        # the recorder's correlation id counts recorders in the process
+        return [ln.split("corr=")[0] + ln.split(";", 1)[1] if "corr=" in ln else ln
+                for ln in buf.getvalue().splitlines()], logits
+
+    reset_launch_counts()
+    with Recorder(moe_mod, "forward", keep=1) as rec_qs:
+        card, card_logits = run("cuda")
+    qs_launches = {k: c for k, c in launch_counts().items() if c}
+    cpu, _ = run("cpu")
+    check(card == cpu, "quickstart on the card printed other figures than on the CPU")
+    check(qs_launches.get("grouped_ffn_blocked_f32", 0) > 0 and
+          qs_launches.get("token_gather", 0) > 0,
+          f"the quickstart's granite forward launched {qs_launches}")
+    # each device draws its own weights from the seed: the CPU takes the card's
+    params, tokens, cfg = rec_qs.calls[0][:3]
+    want, _ = build_model(cfg, ParallelContext(device="cpu")).forward(
+        map_tree(lambda t: t.cpu(), params), {"tokens": tokens.cpu()})
+    logit_err = rel(card_logits, want)
+    check(card_logits.shape == want.shape and logit_err <= 1e-4,
+          f"the quickstart's granite logits card vs CPU: {logit_err:.3g} (limit 1e-4)")
+    print(f"[24e quickstart] python -m repro_torch.examples.quickstart on the card: "
+          f"{len(card)} lines, {'equal to the CPU run' if card == cpu else 'NOT the CPU run'}"
+          f" (the correlation id aside); its granite forward (reduced, f32) launched "
+          f"{qs_launches}, logits {tuple(card_logits.shape)} card vs CPU plain {logit_err:.3g} "
+          f"on its weights (limit 1e-4 of the CPU's largest: f32 sums in other orders); the "
+          f"sweep's last row: {[ln for ln in card if ln.startswith('   0.900')]}", flush=True)
+    print(f"[24 non-TPU paths] ({time.perf_counter() - t_phase:.0f} s for phase 24 on {smi})",
+          flush=True)
+    return fa_train, fa_4k, qs_launches, bwd
 
 
 def main() -> int:
@@ -2595,7 +2866,8 @@ def main() -> int:
     p_gpu = _to(p_cpu, dev)
     ms_gpu = build_model(small, dataclasses.replace(ctx_s, device="cuda"))
     toks_s = torch.as_tensor(rng.integers(0, small.vocab, (2, 128)))
-    ls_cpu, _ = ms_cpu.forward(p_cpu, {"tokens": toks_s})
+    with scan_ffn():
+        ls_cpu, _ = ms_cpu.forward(p_cpu, {"tokens": toks_s})
     ls_gpu, _ = ms_gpu.forward(p_gpu, {"tokens": toks_s.to(dev)})
     small_err = (ls_gpu.cpu() - ls_cpu).abs().max().item()
     check(small_err <= 1e-3, f"reduced model card vs CPU: {small_err:.3g}")
@@ -2605,7 +2877,8 @@ def main() -> int:
           f"{tuple(logits8.shape)} finite; with capacity factor 8: max|EP8 - EP1| "
           f"{diff:.4g} (limit 1e-2 x {lscale:.3g}: bf16 logits, same kernel rows "
           f"on both paths); reduced model f32 card vs CPU plain "
-          f"{small_err:.3g} (limit 1e-3: f32 sums in other orders)", flush=True)
+          f"{small_err:.3g} (limit 1e-3: f32 sums in other orders; the CPU's FFN pinned "
+          f"to the reference's drop-free scan, NIMBLE_FFN_IMPL=scan)", flush=True)
 
     # ---- 5. generation -------------------------------------------------------
     reset_launch_counts()
@@ -2733,6 +3006,18 @@ def main() -> int:
     extra["token_scatter_add"] = {"shapes": sa_shapes}
     extra["flash_attention"]["shapes"] = fa_shapes
     print(f"[23 audio+vlm] ({time.perf_counter() - t_start:.0f} s in all)", flush=True)
+
+    # ---- 24. the reference's non-TPU paths: chunked attention (the flash backward),
+    # the grouped FFN's scan and dense branches, the quickstart ----------------------
+    fa_4k, fa_shapes["smollm 4 x 4096 causal 9 heads over 3"], qs_launches, fa_bwd = \
+        nontpu_phase(torch, np, check, compare, args.seed, dev, smi)
+    launches["flash_attention"] += fa_4k
+    launches["token_gather"] += qs_launches.get("token_gather", 0)
+    extra["flash_attention"]["launches_smollm_4x4096"] = fa_4k
+    extra["flash_attention"]["backward_chunked_vjp"] = fa_bwd
+    extra["grouped_ffn_blocked"]["launches_quickstart_f32"] = qs_launches.get(
+        "grouped_ffn_blocked_f32", 0)
+    print(f"[24 non-TPU paths] ({time.perf_counter() - t_start:.0f} s in all)", flush=True)
 
     kernels = []
     for kname, (src, replaces) in KERNEL_META.items():

@@ -1,15 +1,19 @@
-"""Attention: the hand-written flash kernel, its plain version, and the dispatch.
+"""Attention: the hand-written flash kernel, its plain versions, and the dispatch.
 
 Counterpart of ``repro/kernels/flash_attention``.  :func:`flash_attention`
 launches a CUDA kernel (``csrc/flash_attention.cu``) on CUDA tensors, by
 dtype: bfloat16 on tensor cores (wgmma, K/V tiles by TMA), float32 on CUDA
 cores.  It uses :func:`mha_ref`, the plain version, only on CPU tensors.
-:func:`attention` keeps the reference's shape rule (``ops.py:104-116``):
-the kernel for ``Sq >= 128``, the plain version below that.  The kernel's
-gradient is an ``autograd.Function`` whose backward mirrors the
-reference's ``_attention_tpu`` VJP (``ops.py:80-101``): the plain
-attention recomputed in float32 and differentiated.  The reference's
-``chunked_attention`` (its non-TPU long-sequence path) is not ported yet.
+:func:`chunked_attention` is the reference's online softmax over key
+chunks in plain torch (``ops.py:30-77``).  :func:`attention` takes the
+reference's rule (``ops.py:104-116``, :func:`route`) with the card in the
+TPU's place: on the card the kernel for ``Sq >= 128``; below that, and on
+the CPU, :func:`chunked_attention` for ``Sk > 4096`` and :func:`mha_ref`
+otherwise, differentiated by autograd.  The kernel's gradient is an
+``autograd.Function`` whose backward is the reference's ``_attention_tpu``
+VJP (``ops.py:86-98``): the VJP of :func:`chunked_attention`, recomputed
+in float32, over chunks of 2048 keys or of all the keys where there are
+fewer.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F_
 from torch.autograd.function import once_differentiable
 
 from .. import _build
@@ -29,6 +34,8 @@ _ROUTES = {torch.bfloat16: ("flash_attention_tc", "flash_attention"),
 _HEAD_DIMS = (64, 128)
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float] + [
     ctypes.c_int] * 3 + [ctypes.c_void_p]
+#: keys a chunk of :func:`chunked_attention` (the reference's ``_CHUNK``)
+_CHUNK = 2048
 
 
 def _mask(sq: int, sk: int, causal: bool, window: Optional[int], q_offset: int,
@@ -58,6 +65,50 @@ def mha_ref(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     p = torch.exp(s - s.amax(-1, keepdim=True))
     p = p / p.sum(-1, keepdim=True)
     return torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype)
+
+
+def chunked_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+                      q_offset: int = 0, chunk: int = _CHUNK) -> torch.Tensor:
+    """Online softmax over key chunks of ``chunk``: flash's algorithm in plain torch.
+
+    The reference's function in its order of operations: q scaled in
+    float32 before the product, keys padded to whole chunks (the pad
+    masked), GQA by repeating each key head, masked scores ``-1e30``,
+    ``m``, ``l`` and the accumulator in float32 and rescaled by
+    ``exp(m - m_new)``, the output ``acc / max(l, 1e-30)`` in q's dtype.
+    Autograd through the loop keeps each chunk's scores for the backward.
+    """
+    b, h, sq, dh = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = h // hkv
+    nc = -(-sk // chunk)
+    pad = nc * chunk - sk
+    if pad:
+        k = F_.pad(k, (0, 0, 0, pad))
+        v = F_.pad(v, (0, 0, 0, pad))
+    qf = q.float() / (dh ** 0.5)
+    qpos = torch.arange(sq, device=q.device) + q_offset
+    m = torch.full((b, h, sq), -1e30, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, sq, dh), dtype=torch.float32, device=q.device)
+    for ci in range(nc):
+        kb = k[:, :, ci * chunk:(ci + 1) * chunk].repeat_interleave(g, dim=1).float()
+        vb = v[:, :, ci * chunk:(ci + 1) * chunk].repeat_interleave(g, dim=1).float()
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kb)
+        kpos = ci * chunk + torch.arange(chunk, device=q.device)
+        mask = kpos[None, :] < sk
+        if causal:
+            mask = mask & (kpos[None, :] <= qpos[:, None])
+        if window is not None:
+            mask = mask & (kpos[None, :] > qpos[:, None] - window)
+        s = torch.where(mask[None, None], s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vb)
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
 
 
 def _flash(q, k, v, *, causal: bool, window: Optional[int], q_offset: int) -> torch.Tensor:
@@ -97,22 +148,25 @@ def _flash(q, k, v, *, causal: bool, window: Optional[int], q_offset: int) -> to
 
 def flash_attention_bwd(q, k, v, g, *, causal: bool = True, window: Optional[int] = None,
                         q_offset: int = 0):
-    """(dq, dk, dv) for the output's gradient g: the VJP of the plain attention.
+    """(dq, dk, dv) for the output's gradient g: the VJP of :func:`chunked_attention`.
 
-    Recomputed in float32 from q, k, v through :func:`mha_ref` and taken by
-    ``torch.autograd.grad``: the function whose VJP the reference takes
-    (``chunked_attention``, ``ops.py:90-98``), with the same mask and GQA
-    grouping.  Gradients come back in the inputs' dtypes.
+    The reference's ``_bwd`` (``ops.py:90-98``): :func:`chunked_attention`
+    recomputed from q, k and v in float32 and differentiated by
+    ``torch.autograd.grad``.  Gradients come back in the inputs' dtypes.
+    The chunk is the reference's 2048 keys, or all of them where there are
+    fewer: one chunk either way, and the reference's pad to 2048 adds only
+    masked keys, whose probabilities are exact zeros.
     """
     with torch.enable_grad():
         qf, kf, vf = (t.detach().float().requires_grad_(True) for t in (q, k, v))
-        o = mha_ref(qf, kf, vf, causal=causal, window=window, q_offset=q_offset)
+        o = chunked_attention(qf, kf, vf, causal=causal, window=window, q_offset=q_offset,
+                              chunk=min(_CHUNK, k.shape[2]))
         dq, dk, dv = torch.autograd.grad(o, (qf, kf, vf), g.float())
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The reference's ``_attention_tpu`` custom VJP: kernel forward, plain backward."""
+    """The reference's ``_attention_tpu`` custom VJP: kernel forward, chunked backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset):
@@ -138,10 +192,25 @@ def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = Non
     return _flash(q, k, v, causal=causal, window=window, q_offset=q_offset)
 
 
+def route(device_type: str, sq: int, sk: int) -> str:
+    """The function :func:`attention` takes for ``sq`` queries over ``sk`` keys.
+
+    The reference's rule with the card in the TPU's place: the kernel on
+    the card from 128 queries; else :func:`chunked_attention` above ``2 *
+    _CHUNK`` keys and :func:`mha_ref` below.
+    """
+    if device_type == "cuda" and sq >= 128:
+        return "flash_attention"
+    return "chunked_attention" if sk > 2 * _CHUNK else "mha_ref"
+
+
 def attention(q, k, v, causal: bool = True, window: Optional[int] = None,
               q_offset: int = 0) -> torch.Tensor:
     """[B,H,Sq,Dh] x [B,Hkv,Sk,Dh]^2 -> [B,H,Sq,Dh]; GQA via Hkv | H."""
-    if q.shape[2] >= 128:
+    name = route(q.device.type, q.shape[2], k.shape[2])
+    if name == "flash_attention":
         return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                causal=causal, window=window, q_offset=q_offset)
+    if name == "chunked_attention":
+        return chunked_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
     return mha_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)

@@ -20,14 +20,20 @@ is the VJP of the reference's ``grouped_ffn_ref``, as the reference's
 (wgmma fed by TMA, a bf16 ``[M, F]`` scratch between the passes), float32 on
 CUDA cores (an f32 scratch).  It uses :func:`grouped_ffn_blocked_ref`, the
 plain version, only on CPU tensors.
-The reference's capacity-dropping ``dense`` branch and its ``scan`` branch
-are not ported: the blocked kernel is the reference's TPU branch and drops
-nothing.
+
+:func:`grouped_ffn` takes the reference's rule (``ops.py:133-160``) with
+the card in the TPU's place: on the card the blocked kernel, which drops
+nothing; on the CPU, above ``4 * block_tokens`` rows, the reference's
+non-TPU branches in plain torch, differentiated by autograd:
+:func:`grouped_ffn_dense` (one buffer of ``[E, cap, D]`` rows, rows past
+the capacity dropped) when ``N >= 2 E block_tokens`` and
+``NIMBLE_FFN_IMPL`` is not ``"scan"``, else :func:`grouped_ffn_scan`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 import torch.nn.functional as F_
@@ -335,6 +341,54 @@ def grouped_ffn_bwd(g, x, expert_id, wg, wu, wd):
     return token_gather(dxs.to(x.dtype), back), gwg, gwu, gwd
 
 
+def grouped_ffn_scan(x, expert_id, wg, wu, wd, *, block_tokens: int = 128):
+    """The reference's non-TPU scan (``ops.py:55-83``): ``_arrange``'s blocks in float32.
+
+    Every block of the sorted, padded rows goes through its expert's
+    weights (``block_expert``) in three float32 products, batched over the
+    blocks; the output is in ``x``'s dtype.  Drops nothing.
+    """
+    d = x.shape[1]
+    src, back, blk_expert = _layout(expert_id, wg.shape[0], block_tokens)
+    x_pad = torch.where(src[:, None] >= 0, x[src.clamp(min=0)], 0)
+    xb = x_pad.view(-1, block_tokens, d).float()
+    h = F_.silu(torch.bmm(xb, wg[blk_expert].float())) * torch.bmm(xb, wu[blk_expert].float())
+    y_pad = torch.bmm(h, wd[blk_expert].float()).to(x.dtype).view(-1, d)
+    return torch.where(back[:, None] >= 0, y_pad[back.clamp(min=0)], 0)
+
+
+def grouped_ffn_dense(x, expert_id, wg, wu, wd, *, cap_factor: float = 2.0,
+                      block_tokens: int = 64):
+    """The reference's static-capacity segment products (``ops.py:86-130``).
+
+    Rows go into an ``[E, cap, D]`` buffer, each expert's rows in their
+    order, and each expert's weights are read once.  ``cap`` is the
+    reference's, from Python float arithmetic; rows past it are dropped and
+    give 0, as rows with ``expert_id < 0`` do.  The buffer is filled by an
+    accumulating scatter in which a dropped row adds exact zeros at slot
+    ``cap - 1``, so any order of the sums gives the same bits.
+    """
+    E = wg.shape[0]
+    n, d = x.shape
+    cap = max(int(-(-n * cap_factor // (E * block_tokens))), 1) * block_tokens
+    key = torch.where(expert_id < 0, E, expert_id).long()
+    order = torch.argsort(key, stable=True)
+    counts = torch.bincount(key.clamp(0, E), minlength=E + 1)
+    seg_off = torch.cumsum(counts[:-1], 0) - counts[:-1]
+    rank = torch.empty_like(key)
+    rank[order] = torch.arange(n, device=x.device) - seg_off[key[order].clamp(0, E - 1)]
+    kept = (rank < cap) & (expert_id >= 0)
+    e_c = expert_id.long().clamp(0, E - 1)
+    r_c = rank.clamp(max=cap - 1)
+    buf = torch.zeros((E, cap, d), dtype=x.dtype, device=x.device).index_put(
+        (e_c, r_c), torch.where(kept[:, None], x, 0), accumulate=True)
+    bf = buf.float()
+    h = F_.silu(torch.einsum("ecd,edf->ecf", bf, wg.float()))
+    u = torch.einsum("ecd,edf->ecf", bf, wu.float())
+    yb = torch.einsum("ecf,efd->ecd", h * u, wd.float())
+    return torch.where(kept[:, None], yb[e_c, r_c].to(x.dtype), 0)
+
+
 class _GroupedFFN(torch.autograd.Function):
     """The reference's ``_grouped_ffn`` custom VJP: kernel forward, plain backward."""
 
@@ -353,9 +407,18 @@ class _GroupedFFN(torch.autograd.Function):
 def grouped_ffn(x, expert_id, wg, wu, wd, *, block_tokens: int = 128):
     """out[i] = SwiGLU_{expert_id[i]}(x[i]); rows with expert_id < 0 -> 0.
 
-    Differentiable in ``x`` and the weights (``grouped_ffn_bwd``); without
-    a gradient to take it builds no graph.
+    On the card the blocked kernel, differentiable in ``x`` and the weights
+    (``grouped_ffn_bwd``) and without a graph when no gradient is to be
+    taken.  On the CPU the reference's non-TPU rule: above ``4 *
+    block_tokens`` rows :func:`grouped_ffn_dense` (at the reference's
+    capacity factor, 2.0) or :func:`grouped_ffn_scan`, else the blocked
+    kernel's plain version.
     """
+    if x.device.type == "cpu" and x.shape[0] > 4 * block_tokens:
+        dense_worthwhile = x.shape[0] >= 2 * wg.shape[0] * block_tokens
+        if os.environ.get("NIMBLE_FFN_IMPL", "dense") == "scan" or not dense_worthwhile:
+            return grouped_ffn_scan(x, expert_id, wg, wu, wd, block_tokens=block_tokens)
+        return grouped_ffn_dense(x, expert_id, wg, wu, wd, block_tokens=block_tokens)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, wg, wu, wd)):
         return _GroupedFFN.apply(x, expert_id, wg, wu, wd, block_tokens)
     return _grouped_ffn_forward(x, expert_id, wg, wu, wd, block_tokens)

@@ -133,7 +133,12 @@ def make_moe_ffn(cfg: ModelConfig, ctx: ParallelContext):
     epd = dispatcher.cfg.experts_per_device
 
     def experts(p, recv, e_local):
-        """Every rank's received tokens through the grouped FFN, in one call."""
+        """Every rank's received tokens through the grouped FFN, in one call.
+
+        On the CPU it drops the rows the reference's per-rank calls drop:
+        rows and experts both grow by the number of ranks, so the ``dense``
+        branch's test and its capacity per expert are a rank's.
+        """
         d = recv.shape[-1]
         rank = torch.arange(n, device=recv.device)[:, None, None, None]
         eg = torch.where(e_local >= 0, e_local + rank * epd, -1)   # global ids

@@ -21,7 +21,7 @@ from repro.kernels.grouped_ffn import ops as j_ffn_ops
 from repro.kernels.grouped_ffn.ref import grouped_ffn_ref as j_ffn_ref
 from repro.kernels.token_scatter.ops import token_gather as j_gather
 from repro_torch.core.moe_comm import MoECommConfig, MoEDispatcher
-from repro_torch.kernels.flash_attention.ops import attention, flash_attention, mha_ref
+from repro_torch.kernels.flash_attention.ops import attention, flash_attention, mha_ref, route
 from repro_torch.kernels.grouped_ffn.ops import grouped_ffn
 from repro_torch.kernels.mlstm_scan.ops import mlstm_scan, mlstm_scan_ref
 from repro_torch.kernels.relay_copy.ops import relay_copy
@@ -308,15 +308,20 @@ def test_flash_attention_vjp_matches_reference(case):
 
 
 def test_attention_dispatch_differentiates_through_the_kernel_route():
-    # Sq >= 128 takes the flash Function; its gradient equals autograd's
-    # through the plain attention (the same f32 function on the CPU)
+    # Sq >= 128 takes the flash Function on the card (route); the Function's
+    # gradient (chunked_attention's VJP, one chunk here) equals autograd's
+    # through the plain attention, which is what attention() takes on the
+    # CPU: the same f32 function
     rng = np.random.default_rng(1)
     q, k, v = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32).requires_grad_(True)
                for s in ((1, 4, 128, 16), (1, 2, 128, 16), (1, 2, 128, 16)))
-    o = attention(q, k, v, True, 64, 0)
+    assert route("cuda", 128, 128) == "flash_attention" and route("cpu", 128, 128) == "mha_ref"
+    o = flash_attention(q, k, v, causal=True, window=64)
     assert type(o.grad_fn).__name__ == "_FlashAttentionBackward"
     g = torch.as_tensor(rng.normal(size=o.shape), dtype=torch.float32)
     got = torch.autograd.grad(o, (q, k, v), g)
-    want = torch.autograd.grad(mha_ref(q, k, v, causal=True, window=64), (q, k, v), g)
+    plain = attention(q, k, v, True, 64, 0)
+    assert type(plain.grad_fn).__name__ != "_FlashAttentionBackward"
+    want = torch.autograd.grad(plain, (q, k, v), g)
     for a, b in zip(got, want):
         _close(a.numpy(), b.numpy(), 1e-6)

@@ -21,13 +21,20 @@ from repro_torch.core.incidence import incidence_for
 from repro_torch.core.schedule import build_schedule
 from repro_torch.core.topology import Topology
 from repro_torch.kernels import _build, launch_counts
-from repro_torch.kernels.flash_attention.ops import flash_attention, mha_ref
+from repro_torch.kernels.flash_attention.ops import (
+    attention,
+    chunked_attention,
+    flash_attention,
+    mha_ref,
+)
 from repro_torch.kernels.grouped_ffn.ops import (
     _arrange,
     _block_rows,
     grouped_ffn,
     grouped_ffn_blocked,
     grouped_ffn_blocked_ref,
+    grouped_ffn_dense,
+    grouped_ffn_scan,
 )
 from repro_torch.kernels.mlstm_scan.ops import mlstm_scan, mlstm_scan_chunked_ref
 from repro_torch.kernels.relay_copy.ops import parity_slot_map, relay_copy, relay_copy_ref
@@ -143,7 +150,9 @@ def test_grouped_ffn_blocked_matches_plain(cuda, dtype, tol):
 
 
 def test_grouped_ffn_end_to_end_matches_cpu(cuda):
-    # the sort/pad on the card equals the CPU's; f32 sums differ in order
+    # the sort/pad on the card equals the CPU's; f32 sums differ in order.
+    # 300 rows pass 4 x 64, so the CPU takes the reference's grouped_ffn_scan
+    # (under 2 E x 64 rows, whatever NIMBLE_FFN_IMPL says): it drops nothing
     rng = np.random.default_rng(2)
     n, d, f, e = 300, 128, 128, 4
     x, wg, wu, wd = _ffn_inputs(rng, n, d, f, e, torch.float32, "cpu")
@@ -265,7 +274,8 @@ def test_grouped_ffn_block_rows_skips_padding(cuda, dtype, bt):
 
 def test_grouped_ffn_block_rows_on_card_equals_cpu(cuda):
     # _block_rows from device ops equals the CPU's, and the sort/pad path
-    # through it equals the CPU's plain version
+    # through it equals the CPU's plain FFN: at 300 rows over 4 x 64 the
+    # reference's grouped_ffn_scan, which drops nothing
     rng = np.random.default_rng(6)
     eid = torch.as_tensor(rng.integers(-1, 4, size=300))
     assert torch.equal(_block_rows(eid.to(cuda), 4, 64).cpu(), _block_rows(eid, 4, 64))
@@ -958,7 +968,11 @@ def test_reduced_train_step_on_card_equals_cpu(cuda, monkeypatch):
     # paper-moe-8e reduced (8 experts, EP 8 in groups of 4, nimble), f32: one
     # step's loss, grad_norm and every gradient leaf on the card (its
     # kernels, the FFN and flash on their f32 routes) against the CPU's plain
-    # versions; f32 sums in other orders: 1e-4 of each leaf's largest value
+    # versions; f32 sums in other orders: 1e-4 of each leaf's largest value.
+    # The CPU's FFN sees 4096 stacked rows (over 2 E x 64), where its default
+    # branch, grouped_ffn_dense, drops rows by capacity: pin the drop-free
+    # scan, as the reference's tests do
+    monkeypatch.setenv("NIMBLE_FFN_IMPL", "scan")
     cfg = dataclasses.replace(get_config("paper-moe-8e").reduced(), n_experts=8,
                               moe_capacity_factor=8.0)
     seen = {}
@@ -1092,7 +1106,8 @@ def test_flash_attention_at_the_new_families_shapes(cuda, dtype, tol, case):
 def test_grouped_ffn_at_the_moe_families_widths(cuda, dtype, tol, e, f, d, n):
     # qwen3's 128 experts of F 1536 and granite's 32 of F 512, top-8 rows in
     # any order with some padding (-1): the sort/pad and the kernel on the
-    # card against the plain version on the CPU in f32
+    # card against the CPU in f32, where these rows (over 4 x 64, under 2 E x
+    # 64) take the reference's grouped_ffn_scan, which drops nothing
     rng = np.random.default_rng(e + f)
     x, wg, wu, wd = _ffn_inputs(rng, n, d, f, e, torch.float32, "cpu")
     eid = torch.as_tensor(rng.integers(-1, e, size=n))
@@ -1154,11 +1169,14 @@ def test_chunk_cummax_tie_gradient_on_card_equals_cpu(cuda):
 
 @pytest.mark.parametrize("arch", ["zamba2-1.2b", "whisper-small", "internvl2-2b",
                                   "qwen3-moe-235b-a22b"])
-def test_reduced_new_families_train_step_on_card_equals_cpu(cuda, arch):
+def test_reduced_new_families_train_step_on_card_equals_cpu(cuda, arch, monkeypatch):
     # one f32 step's loss and every gradient leaf on the card (flash's and the
     # FFN's f32 routes) against the CPU's plain versions, as the dense test
     # above: loss 1e-5, leaves 1e-4 of each one's largest value; whisper with
-    # 150 frames and qwen3 with its head-dim override, GQA, E 16 and top-8
+    # 150 frames and qwen3 with its head-dim override, GQA, E 16 and top-8.
+    # qwen3's 2560 FFN rows pass 2 E x 64, where the CPU's default branch,
+    # grouped_ffn_dense, drops rows by capacity: pin the drop-free scan
+    monkeypatch.setenv("NIMBLE_FFN_IMPL", "scan")
     from repro_torch.data.pipeline import add_modality_stubs
 
     cfg = get_config(arch).reduced()
@@ -1201,3 +1219,84 @@ def test_zamba2_decode_on_card_reproduces_its_forward(cuda):
         dec = torch.stack([model.decode_step(params, cache, toks[:, i], i)[0]
                            for i in range(130)], 1)
     torch.testing.assert_close(dec, full, atol=1e-3, rtol=1e-3)
+
+
+# --------------------------------------------------------------------------- #
+# the reference's non-TPU paths in plain torch: chunked_attention (and through
+# its VJP the flash kernel's backward), grouped_ffn_scan and grouped_ffn_dense
+# --------------------------------------------------------------------------- #
+
+#: (b, h, hkv, sq, sk, causal, window, q_offset, chunk), head dim 64
+CHUNKED_CASES = {
+    "Sk not a multiple of the chunk": (2, 4, 4, 40, 150, True, None, 110, 64),
+    "window": (1, 4, 2, 20, 300, True, 37, 280, 64),
+    "GQA 4:1": (1, 8, 2, 64, 128, True, None, 64, 64),
+    "q_offset, not causal": (1, 2, 2, 33, 70, False, None, 5, 64),
+    "Sq < 128 over Sk > 4096": (1, 4, 1, 16, 4200, True, None, 4184, 2048),
+}
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("case", list(CHUNKED_CASES))
+def test_chunked_attention_on_card_equals_cpu(cuda, dtype, tol, case):
+    # plain torch on both devices (flash's limits): f32 sums in other
+    # orders; bf16 inputs, f32 arithmetic, the output rounds to bf16.  Below
+    # 128 queries over more than 4096 keys attention() takes it on the card
+    b, h, hkv, sq, sk, causal, window, q_offset, chunk = CHUNKED_CASES[case]
+    rng = np.random.default_rng(sq + sk)
+    q, k, v = (torch.as_tensor(rng.normal(size=s), dtype=dtype)
+               for s in ((b, h, sq, 64), (b, hkv, sk, 64), (b, hkv, sk, 64)))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    want = chunked_attention(q, k, v, chunk=chunk, **kw).float()
+    got = chunked_attention(q.to(cuda), k.to(cuda), v.to(cuda), chunk=chunk, **kw)
+    assert got.dtype == dtype
+    assert (got.cpu().float() - want).abs().max() <= tol * want.abs().max()
+    if sk > 4096:
+        before = launch_counts()
+        got = attention(q.to(cuda), k.to(cuda), v.to(cuda), **kw)
+        torch.cuda.synchronize()
+        assert launch_counts() == before
+        assert (got.cpu().float() - want).abs().max() <= tol * want.abs().max()
+
+
+@pytest.mark.parametrize("case", ["causal", "window", "not causal"])
+@pytest.mark.parametrize("sk", [200, 2100])
+def test_flash_backward_is_chunked_vjp_on_card(cuda, case, sk):
+    # the kernel's backward on the card is chunked_attention's VJP at chunk
+    # 2048 (one chunk at Sk 200, two at 2100): within 1e-4 of the CPU's same
+    # function and of mha_ref's VJP, f32 sums in other orders (the limit of
+    # test_flash_backward_on_card_equals_cpu)
+    kw = dict(causal=case != "not causal", window=300 if case == "window" else None,
+              q_offset=sk - 130 if case != "not causal" else 0)
+    rng = np.random.default_rng(sk)
+    q, k, v, g = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32) for s in
+                  ((2, 4, 130, 64), (2, 2, sk, 64), (2, 2, sk, 64), (2, 4, 130, 64)))
+    want = flash_attention_bwd(q, k, v, g, **kw)
+    live = [t.to(cuda).requires_grad_(True) for t in (q, k, v)]
+    got = torch.autograd.grad(flash_attention(*live, **kw), live, g.to(cuda))
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref = torch.autograd.grad(mha_ref(*plain, **kw), plain, g)
+    for a, b, c in zip(got, want, ref):
+        assert (a.cpu() - b).abs().max() <= 1e-4 * b.abs().max()
+        assert (a.cpu() - c).abs().max() <= 1e-4 * c.abs().max()
+
+
+@pytest.mark.parametrize("fn,kw,skew", [
+    (grouped_ffn_scan, dict(block_tokens=64), False),
+    (grouped_ffn_scan, dict(block_tokens=64), True),
+    (grouped_ffn_dense, dict(block_tokens=64), False),
+    (grouped_ffn_dense, dict(block_tokens=16, cap_factor=1.0), True),
+])
+def test_grouped_ffn_scan_and_dense_on_card_equal_cpu(cuda, fn, kw, skew):
+    # plain torch on both devices: the same rows dropped (dense at capacity
+    # factor 1.0 under a skewed routing drops some), values within 1e-5 of
+    # the largest, f32 sums in other orders
+    rng = np.random.default_rng(11)
+    n, e = 600, 4
+    x, wg, wu, wd = _ffn_inputs(rng, n, 128, 128, e, torch.float32, "cpu")
+    p = [0.7, 0.1, 0.1, 0.1] if skew else None
+    eid = torch.as_tensor(np.where(rng.random(n) < 0.1, -1, rng.choice(e, size=n, p=p)))
+    want = fn(x, eid, wg, wu, wd, **kw)
+    got = fn(*(t.to(cuda) for t in (x, eid, wg, wu, wd)), **kw).cpu()
+    assert torch.equal((got == 0).all(1), (want == 0).all(1))
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()

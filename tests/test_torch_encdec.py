@@ -122,17 +122,21 @@ def test_forward_and_loss_match_reference(setup):
 
 
 def test_long_inputs_take_the_flash_route(setup, monkeypatch):
-    # the attention dispatch sends Sq >= 128 to flash_attention (the encoder's
-    # 150 frames, the decoder's 130 tokens against them); below, the plain one
+    # the attention dispatch sends Sq >= 128 to flash_attention on the card
+    # (the encoder's 150 frames, the decoder's 130 tokens against them);
+    # below, and on the CPU at Sk <= 4096, the plain one (the reference's
+    # non-TPU rule), so every call here reaches mha_ref
     calls = []
-    orig = flash_attention.ops.flash_attention
+    orig = flash_attention.ops.mha_ref
 
     def rec(q, k, v, **kw):
         calls.append((tuple(q.shape), tuple(k.shape), kw["causal"]))
         return orig(q, k, v, **kw)
 
-    monkeypatch.setattr(flash_attention.ops, "flash_attention", rec)
+    monkeypatch.setattr(flash_attention.ops, "mha_ref", rec)
     setup["tmodel"].forward(setup["params"], to_device(setup["batch"], "cpu"))
+    calls = [c for c in calls if flash_attention.ops.route("cuda", c[0][2], c[1][2])
+             == "flash_attention"]
     cfg = setup["tcfg"]
     F, S = cfg.n_audio_frames, setup["batch"]["tokens"].shape[1]
     want = []

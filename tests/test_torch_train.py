@@ -6,8 +6,8 @@ reference's weights carried over by ``params_from_jax`` and a batch from
 ``repro.train.step.make_train_step`` on ``SINGLE`` (the reference's own
 sharded EP step fails on this JAX, so its single-device step is the
 oracle), for the port's EP=1 and its stacked EP=8 at a capacity that drops
-nothing.  The JAX side pins ``NIMBLE_FFN_IMPL=scan``: at these row counts
-its default ``dense`` FFN branch drops rows by capacity.  AdamW is held
+nothing.  Both sides pin ``NIMBLE_FFN_IMPL=scan`` (both packages read it):
+on the CPU the default ``dense`` FFN branch drops rows by capacity.  AdamW is held
 against the reference's fed the reference's own gradients, since AdamW's
 first step is sign-like and would amplify the gradients' float32 noise.
 """
@@ -88,6 +88,7 @@ def ref():
 
 @pytest.mark.parametrize("ep", [1, 8])
 def test_train_step_matches_jax_single(ref, ep, monkeypatch):
+    monkeypatch.setenv("NIMBLE_FFN_IMPL", "scan")       # the pin ``ref`` puts on JAX
     cfg = ref["tcfg"]
     if ep > 1:
         cfg = dataclasses.replace(cfg, moe_capacity_factor=8.0)    # drops nothing
@@ -116,7 +117,8 @@ def test_train_step_matches_jax_single(ref, ep, monkeypatch):
         _close(got.numpy(), want, GRAD_TOL)
 
 
-def test_eval_step_is_the_loss(ref):
+def test_eval_step_is_the_loss(ref, monkeypatch):
+    monkeypatch.setenv("NIMBLE_FFN_IMPL", "scan")       # the pin ``ref`` puts on JAX
     model = build_model(ref["tcfg"], CPU)
     params = params_from_jax(ref["tree"], ref["tcfg"], CPU)
     loss = make_eval_step(model)(params, to_device(ref["batch"], "cpu"))
