@@ -172,6 +172,22 @@ port's six CUDA kernels from ``src/repro_torch/csrc``, all at once, then:
      CPU runs held against the card's MoE path pin ``NIMBLE_FFN_IMPL=scan``
      (``scan_ffn``): above 2 E x 64 rows the CPU's FFN otherwise takes the
      capacity-dropping dense branch.
+ 25. the executor across processes (``torch.distributed``), in an NCCL world
+     of ``torch.cuda.device_count()`` processes (this one when that is 1):
+     (a) the dataplane at phase 3's shapes (both chunk sizes) and at
+     paper-moe-8e's dispatch shapes (8 ranks in groups of 4, 8 chunks of 16
+     tokens x 4096 bf16), in the three modes, through a model group: output,
+     counts and plan bit for bit against the stacked executor and the numpy
+     oracle, the messages sent a hop and ``token_gather``'s launches against
+     the stacked path's; (b) paper-moe-8e at full width (bf16, EP 8 in groups
+     of 4) through a ``ParallelContext`` with a ``(data, model)`` mesh: the
+     prefill logits must equal phase 4's and the warm-up and 3 timed train
+     steps' losses and gradient norms phase 7's, bit for bit (at one process
+     every collective is an identity), and the step ms beside phase 7's;
+     the path's kernels must launch; (c) ``selftest --procs <device_count>``
+     (spawned processes, NCCL).  With one card no hop crosses a process:
+     ``tests/test_torch_dist.py`` holds the exchange between processes on the
+     CPU (gloo).
 
 It prints one line per phase, the card's name and power limit as
 ``nvidia-smi`` reports them, a JSON line of per-kernel numbers, and as its
@@ -614,6 +630,7 @@ def train_phases(torch, np, check, seed: int, dev, smi: str):
     torch.cuda.synchronize()
     reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
     rows = []
     with EventTimer(torch, ffn_ops, "grouped_ffn_bwd") as t_ffn, \
             EventTimer(torch, fa_ops, "flash_attention_bwd") as t_fa:
@@ -645,7 +662,8 @@ def train_phases(torch, np, check, seed: int, dev, smi: str):
           f"{share['forward']:.3f}, backward {share['backward']:.3f}, optimizer "
           f"{share['optimizer']:.3f} of the step; grouped FFN backward (plain torch) "
           f"{ffn_bwd_ms:.2f} ms, attention backward (plain torch, f32) {fa_bwd_ms:.2f} ms a "
-          f"step; peak memory {peak_gb:.2f} GB; on {smi}", flush=True)
+          f"step; peak memory {peak_gb:.2f} GB ({base_gb:.2f} held before the steps); on "
+          f"{smi}", flush=True)
     print(f"[7 train] loss by step {[round(x, 4) for x in losses]}, grad_norm "
           f"{[round(x, 4) for x in norms]}, dropped {[r['dropped'] for r in rows]} of "
           f"{B * S * cfg.top_k} assignments; launches in the 3 timed steps {counts_train}",
@@ -740,7 +758,8 @@ def train_phases(torch, np, check, seed: int, dev, smi: str):
               f"device), bound {r['bound_ms']:.4f} ms (bytes)", flush=True)
     del rec_sa
     torch.cuda.empty_cache()
-    return report, counts_train
+    return report, counts_train, dict(losses=losses, norms=norms, step_ms=step_ms,
+                                      share=share, peak_gb=peak_gb, base_gb=base_gb)
 
 
 def relay_phase(torch, check, seed: int, dev):
@@ -2574,6 +2593,154 @@ def nontpu_phase(torch, np, check, compare, seed: int, dev, smi: str):
     return fa_train, fa_4k, qs_launches, bwd
 
 
+def dist_phase(torch, np, check, seed: int, dev, smi: str, phase4_logits, phase7):
+    """Phase 25: the executor across processes, in an NCCL world of
+    ``device_count()`` processes; -> the MoE path's launches in 25b."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.dataplane import NimbleAllToAll, ref_all_to_allv
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import dist_checks, selftest
+    from repro_torch.launch.dist import local_world
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.sharding.context import ParallelContext
+    from repro_torch.train.step import make_train_step
+
+    t_phase = time.perf_counter()
+    procs = torch.cuda.device_count()
+    cfg = get_config("paper-moe-8e")
+    if procs != 1:
+        # each process needs its own card; this script drives one
+        print(f"[25 dist] {procs} cards: 25a-b run in this process's world of one, "
+              f"25c across all {procs}", flush=True)
+    out = {}
+    with local_world("nccl"):
+        mesh = make_test_mesh(1, 1)
+        group = mesh.get_group("model")
+
+        # ---- 25a. the dataplane through a model group ----------------------------
+        shapes = [("phase 3", dict(n=8, G=4, C=16, E=32, dtype="f32", chunk_bytes=32 * 4)),
+                  ("phase 3, 4 MiB chunks", dict(n=8, G=4, C=16, E=32, dtype="f32",
+                                                  chunk_bytes=4 << 20)),
+                  ("paper-moe-8e dispatch", dict(n=8, G=4, C=8, E=16 * cfg.d_model,
+                                                 dtype="bf16",
+                                                 chunk_bytes=16 * cfg.d_model * 2))]
+        for label, kw in shapes:
+            x_all, counts = dist_checks.exchange_inputs(kw["n"], kw["C"], kw["E"], 0,
+                                                        kw["dtype"])
+            yref, rref = ref_all_to_allv(x_all, counts)
+            reset_launch_counts()
+            got = dist_checks.exchange(group, "cuda", seed=0, **kw)
+            torch.cuda.synchronize()
+            tg_dist = launch_counts()["token_gather"]
+            parts, tg_stacked = [], 0
+            for mode in dist_checks.MODES:
+                comm = NimbleAllToAll(kw["n"], kw["G"], max_chunks=kw["C"], mode=mode,
+                                      chunk_bytes=float(kw["chunk_bytes"]))
+                xt = torch.as_tensor(x_all, device=dev).to(dist_checks.DTYPES[kw["dtype"]])
+                ct = torch.as_tensor(counts, device=dev)
+                reset_launch_counts()
+                y, r = comm(xt, ct)
+                torch.cuda.synchronize()
+                tg_st = launch_counts()["token_gather"]
+                tg_stacked += tg_st
+                plan = dist_checks.plan_digest(comm.plan_from_counts(ct))
+                g = got[mode]
+                exact = (np.array_equal(g["y"], y.float().cpu().numpy())
+                         and np.array_equal(g["recv"], r.cpu().numpy())
+                         and np.array_equal(g["y"], yref) and np.array_equal(g["recv"], rref)
+                         and g["plan"] == plan)
+                check(exact, f"25a {label} {mode}: the executor through a group != the "
+                             f"stacked executor or the oracle")
+                msgs = [m for rnd in g["messages_per_hop"] for m in rnd]
+                check(max(msgs, default=0) == 0, f"25a {label} {mode}: messages at one process")
+                parts.append(f"{mode}: {'exact' if exact else 'WRONG'}, messages a hop "
+                             f"{g['messages_per_hop']}, token_gather launches stacked "
+                             f"{tg_st}")
+                del y, r, xt
+            print(f"[25a dist dataplane] {label} [{kw['n']}, {kw['n']}, {kw['C']}, {kw['E']}] "
+                  f"{kw['dtype']}, 1 process of 8 ranks: {'; '.join(parts)}; token_gather "
+                  f"launches through the group, all three modes {tg_dist}", flush=True)
+            check(tg_dist == tg_stacked, f"25a {label}: token_gather launches through the "
+                                         f"group {tg_dist} != the stacked {tg_stacked}")
+            del x_all, yref, got
+        torch.cuda.empty_cache()
+
+        # ---- 25b. paper-moe-8e at full width through a mesh -------------------------
+        bf16 = torch.bfloat16
+        ctx = ParallelContext(mesh=mesh, ep_size=8, group_size=4, moe_mode="nimble",
+                              param_dtype=bf16, compute_dtype=bf16, device="cuda")
+        model = build_model(cfg, ctx)
+        params = model.init(seed)
+        prompts = torch.as_tensor(np.random.default_rng(seed).integers(0, cfg.vocab, (4, 512)),
+                                  device=dev)
+        reset_launch_counts()
+        with torch.no_grad():
+            logits, _ = model.forward(params, {"tokens": prompts}, last_only=True)
+        torch.cuda.synchronize()
+        same_logits = torch.equal(logits, phase4_logits)
+        check(same_logits, "25b prefill logits through the mesh != phase 4's (bit for bit)")
+        state = adamw.init(params)
+        make_step = make_train_step(model, adamw.AdamWConfig(lr=3e-4, warmup_steps=20,
+                                                             total_steps=100))
+        data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=512, global_batch=4, seed=seed))
+        batches = [to_device(data.batch(i), dev) for i in range(4)]
+        params, state, m0 = make_step(params, state, batches[0])
+        losses, norms, walls = [float(m0["loss"])], [float(m0["grad_norm"])], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_gb = torch.cuda.memory_allocated() / 1e9
+        split = {k: 0.0 for k in ("forward", "backward", "optimizer")}
+        for i in (1, 2, 3):
+            stats, times = {}, {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = make_step(params, state, batches[i], stats=stats, times=times)
+            wall = time.perf_counter() - t0                    # the step ends in a sync
+            walls.append(wall * 1e3)
+            for k in split:
+                split[k] += times[k] / wall / 3
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        counts = launch_counts()
+        for kname in MOE_KERNELS:
+            check(counts[kname] > 0, f"25b: {kname} never launched through the mesh")
+            out[kname] = counts[kname]
+        same_train = losses == phase7["losses"] and norms == phase7["norms"]
+        check(same_train, f"25b losses {losses} / norms {norms} through the mesh != phase "
+                          f"7's {phase7['losses']} / {phase7['norms']}")
+        step_ms = float(np.mean(walls))
+        print(f"[25b dist model] {cfg.name} bf16 full width, mesh (data 1, model 1) of "
+              f"NCCL processes, ep 8 in groups of 4: prefill logits "
+              f"{'= phase 4 bit for bit' if same_logits else '!= phase 4'}; losses "
+              f"{[round(x, 4) for x in losses]} and grad norms "
+              f"{[round(x, 4) for x in norms]} {'= phase 7 bit for bit' if same_train else '!= phase 7'}; "
+              f"step {', '.join(f'{w:.1f}' for w in walls)} ms (mean {step_ms:.1f}) against "
+              f"phase 7's {phase7['step_ms']:.1f} ms in this call; forward, backward "
+              f"(the gradients' all_reduce in it), optimizer "
+              f"{split['forward']:.3f}, {split['backward']:.3f}, {split['optimizer']:.3f} of "
+              f"the step (phase 7: " + ", ".join(f"{phase7['share'][k]:.3f}" for k in split)
+              + f"); peak memory {peak_gb:.2f} GB, {base_gb:.2f} held before the steps "
+              f"(phase 7: {phase7['peak_gb']:.2f}, {phase7['base_gb']:.2f}); launches in "
+              f"prefill + 4 steps {counts}; on {smi}", flush=True)
+        del model, params, state, logits, batches, m, m0
+        torch.cuda.empty_cache()
+
+    # ---- 25c. the selftest across processes ----------------------------------------------
+    rc = selftest.main(["--procs", str(procs)])
+    check(rc == 0, f"selftest --procs {procs} returned {rc}")
+    print(f"[25c dist selftest] selftest --procs {procs} (spawned, NCCL) -> {rc}; with "
+          f"{procs} card{'s' if procs > 1 else ''} "
+          + ("no hop crossed a process: tests/test_torch_dist.py holds the exchange between "
+             "processes on the CPU (gloo, P = 2, 4, 8)" if procs == 1 else
+             f"the hops crossed {procs} processes")
+          + f" ({time.perf_counter() - t_phase:.0f} s for phase 25 on {smi})", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2920,8 +3087,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 7-9. paper-moe-8e training ---------------------------------------------
-    report["token_scatter_add"], counts_train = train_phases(torch, np, check, args.seed,
-                                                             dev, smi)
+    report["token_scatter_add"], counts_train, phase7 = train_phases(
+        torch, np, check, args.seed, dev, smi)
     train_kernels = ("token_gather", "token_scatter_add", "token_scatter_index",
                      "grouped_ffn_blocked", "flash_attention")
     for kname in MOE_KERNELS:
@@ -3018,6 +3185,13 @@ def main() -> int:
     extra["grouped_ffn_blocked"]["launches_quickstart_f32"] = qs_launches.get(
         "grouped_ffn_blocked_f32", 0)
     print(f"[24 non-TPU paths] ({time.perf_counter() - t_start:.0f} s in all)", flush=True)
+
+    # ---- 25. the executor across processes -------------------------------------------
+    dist_launches = dist_phase(torch, np, check, args.seed, dev, smi, phase4_logits, phase7)
+    for kname, c in dist_launches.items():
+        launches[kname] += c
+        extra.setdefault(kname, {})["launches_dist_executor"] = c
+    print(f"[25 dist] ({time.perf_counter() - t_start:.0f} s in all)", flush=True)
 
     kernels = []
     for kname, (src, replaces) in KERNEL_META.items():

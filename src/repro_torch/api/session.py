@@ -214,14 +214,16 @@ class Session:
         alt_frac: float = 0.5,
         mode: str = "nimble",
         planner_cfg: Optional[PlannerConfig] = None,
+        group=None,
     ) -> NimbleAllToAll:
         """Ready-wired dataplane endpoint (telemetry attached when the
         session runs a runtime).  Instances are cached per argument set, so
-        per-layer callers share one schedule + incidence build."""
+        per-layer callers share one schedule + incidence build.  ``group``:
+        the model axis's process group, when the ranks span processes."""
         self._require_active()
         key = (
             "a2a", int(max_chunks), float(chunk_bytes),
-            float(alt_frac), mode, planner_cfg,
+            float(alt_frac), mode, planner_cfg, id(group),
         )
         if key not in self._endpoints:
             self._endpoints[key] = NimbleAllToAll.from_session(
@@ -231,6 +233,7 @@ class Session:
                 alt_frac=alt_frac,
                 mode=mode,
                 planner_cfg=planner_cfg,
+                group=group,
             )
         return self._endpoints[key]
 
@@ -238,16 +241,17 @@ class Session:
         self,
         cfg: MoECommConfig,
         planner_cfg: Optional[PlannerConfig] = None,
+        group=None,
     ) -> MoEDispatcher:
         """Ready-wired expert-parallel dispatcher (runtime-fed when the
-        session is adaptive)."""
+        session is adaptive); ``group`` as in :meth:`all_to_all`."""
         self._require_active()
         key = ("moe", tuple(
             str(v) for v in dataclasses.asdict(cfg).values()
-        ), planner_cfg)
+        ), planner_cfg, id(group))
         if key not in self._endpoints:
             self._endpoints[key] = MoEDispatcher.from_session(
-                self, cfg, planner_cfg=planner_cfg
+                self, cfg, planner_cfg=planner_cfg, group=group
             )
         return self._endpoints[key]
 

@@ -1,8 +1,10 @@
 """Expert-parallel dispatch / combine over the NIMBLE dataplane (paper §V-D).
 
-PyTorch counterpart of ``repro/core/moe_comm.py``, over stacked ranks: every
-tensor carries a leading rank axis of size ``n_devices``, and rank ``r``
-owns experts ``[r * epd, (r + 1) * epd)``.
+PyTorch counterpart of ``repro/core/moe_comm.py``.  A process hosts a block
+of ``L`` consecutive EP ranks (all ``n_devices`` without a model group;
+``n_devices / P`` in a group of ``P`` processes): every tensor carries a
+leading axis of this block's ranks, and rank ``r`` owns experts
+``[r * epd, (r + 1) * epd)`` (expert ids stay global).
 
   1. each rank's token-to-expert assignments are packed into per-destination
      chunk buffers — the "Kernel Scatter" stage, here a gather through the
@@ -21,8 +23,10 @@ is written for kept assignments only.  (The reference writes it at
 ``min(slot, cap - 1)`` for every assignment, so an overflowing one can
 overwrite a kept token's id with -1; the port does not copy that.)
 
-The ranks are stacked, so there is no mesh axis to name: the dispatcher's
-constructor and :meth:`MoEDispatcher.from_session` take no ``axis_name``.
+The dispatcher's constructor and :meth:`MoEDispatcher.from_session` take
+the model axis's process group (``group``), not a mesh axis name.
+``dropped`` counts this process's block; a caller reporting it sums it over
+the group.
 """
 
 from __future__ import annotations
@@ -61,7 +65,7 @@ class MoECommConfig:
 
 
 class MoEDispatcher:
-    """Dispatch/combine helper for one EP group of stacked ranks.
+    """Dispatch/combine helper for one EP group: this process's block of ranks.
 
     ``runtime`` optionally routes dispatch planning through an
     :class:`~repro_torch.runtime.controller.OrchestrationRuntime`:
@@ -75,8 +79,10 @@ class MoEDispatcher:
                  planner_cfg: Optional[PlannerConfig] = None,
                  runtime=None,
                  cost_model: Optional[CostModel] = None,
-                 topo: Optional[Topology] = None):
+                 topo: Optional[Topology] = None,
+                 group=None):
         self.cfg = cfg
+        self.group = group
         self._comms: Dict[int, NimbleAllToAll] = {}
         self._planner_cfg = planner_cfg
         self.runtime = runtime
@@ -88,8 +94,8 @@ class MoEDispatcher:
 
     @classmethod
     def from_session(cls, session, cfg: MoECommConfig,
-                     planner_cfg: Optional[PlannerConfig] = None
-                     ) -> "MoEDispatcher":
+                     planner_cfg: Optional[PlannerConfig] = None,
+                     group=None) -> "MoEDispatcher":
         """Session-wired dispatcher.
 
         The session (duck-typed — this module never imports
@@ -114,6 +120,7 @@ class MoEDispatcher:
             runtime=getattr(session, "runtime", None),
             cost_model=session.cost_model,
             topo=topo,
+            group=group,
         )
 
     def capacity_tokens(self, n_assign: int) -> int:
@@ -135,6 +142,7 @@ class MoEDispatcher:
                 cost_model=self._cost_model,
                 mode=self.cfg.mode,
                 topo=self._topo,
+                group=self.group,
             )
             if self.runtime is not None:
                 comm.attach_telemetry(self.runtime.telemetry)
@@ -168,37 +176,41 @@ class MoEDispatcher:
     # -- dispatch ----------------------------------------------------------------
     def dispatch(
         self,
-        tokens: torch.Tensor,       # [n, T, d] each rank's local tokens
-        expert_idx: torch.Tensor,   # [n, T, k] global expert ids
-        token_valid: Optional[torch.Tensor] = None,  # [n, T] bool ownership
+        tokens: torch.Tensor,       # [L, T, d] the block's ranks' local tokens
+        expert_idx: torch.Tensor,   # [L, T, k] global expert ids
+        token_valid: Optional[torch.Tensor] = None,  # [L, T] bool ownership
     ):
         """Route token copies to expert-owning ranks.
 
-        Returns (recv_tokens [n, n, C, ct, d], expert_local [n, n, C, ct]
-        with -1 padding, state) where ``recv_tokens[r, s]`` is what rank r
-        received from rank s and ``state`` carries what combine needs.
+        Returns (recv_tokens [L, n, C, ct, d], expert_local [L, n, C, ct]
+        with -1 padding, state) where ``recv_tokens[r, s]`` is what the
+        block's rank r received from rank s and ``state`` carries what
+        combine needs.
         """
         cfg = self.cfg
         n, ct, d = cfg.n_devices, cfg.chunk_tokens, cfg.d_model
-        R, T, k = expert_idx.shape
-        if R != n or tuple(tokens.shape) != (n, T, d):
-            raise ValueError(f"dispatch: tokens {tuple(tokens.shape)}, "
-                             f"expert_idx {tuple(expert_idx.shape)}, {n} ranks")
-        dev = tokens.device
+        L, T, k = expert_idx.shape
         A = T * k
         cap_tok = self.capacity_tokens(A)
         C = cap_tok // ct
         comm = self._comm(C)
+        if L != comm.L or tuple(tokens.shape) != (L, T, d):
+            raise ValueError(f"dispatch: tokens {tuple(tokens.shape)}, "
+                             f"expert_idx {tuple(expert_idx.shape)}, {comm.L} ranks "
+                             f"of {n} in this process")
+        dev = tokens.device
         epd = cfg.experts_per_device
-        ranks = torch.arange(n, device=dev)
+        ranks = torch.arange(n, device=dev)                          # destinations
+        local = torch.arange(L, device=dev)
+        mine = comm.r0 + local                                       # global rank ids
 
-        dest = (expert_idx.long() // epd).reshape(n, A)              # [n, A]
+        dest = (expert_idx.long() // epd).reshape(L, A)              # [L, A]
         if token_valid is not None:
             # unowned tokens route to a sentinel, so they enter no buffer
             dest = torch.where(token_valid.repeat_interleave(k, dim=1), dest, n)
         # stable pack: position of each assignment within its destination
         order = torch.argsort(dest, dim=1, stable=True)
-        counts = (dest[:, :, None] == ranks).sum(1)                  # [n, n]
+        counts = (dest[:, :, None] == ranks).sum(1)                  # [L, n]
         offsets = torch.cumsum(counts, 1) - counts
         dest_sorted = torch.gather(dest, 1, order)
         slot_sorted = torch.arange(A, device=dev) - torch.gather(
@@ -210,24 +222,24 @@ class MoEDispatcher:
         # pack as a gather: buffer slot s of destination j holds assignment
         # order[offsets[j] + s] while s < min(counts[j], cap)
         s_ar = torch.arange(cap_tok, device=dev)
-        filled = s_ar < counts.clamp_max(cap_tok)[:, :, None]         # [n, n, cap]
-        a_pos = (offsets[:, :, None] + s_ar).clamp_max(A - 1).reshape(n, -1)
-        a_idx = torch.gather(order, 1, a_pos).view(n, n, cap_tok)
-        tok_row = torch.where(filled, ranks[:, None, None] * T + a_idx // k, -1)
-        x = token_gather(tokens.reshape(n * T, d).to(cfg.payload_dtype),
-                         tok_row.reshape(-1)).view(n, n, C, ct * d)
+        filled = s_ar < counts.clamp_max(cap_tok)[:, :, None]         # [L, n, cap]
+        a_pos = (offsets[:, :, None] + s_ar).clamp_max(A - 1).reshape(L, -1)
+        a_idx = torch.gather(order, 1, a_pos).view(L, n, cap_tok)
+        tok_row = torch.where(filled, local[:, None, None] * T + a_idx // k, -1)
+        x = token_gather(tokens.reshape(L * T, d).to(cfg.payload_dtype),
+                         tok_row.reshape(-1)).view(L, n, C, ct * d)
         # float32 sideband carries expert id + 1, so an empty slot decodes to -1
-        e_row = torch.where(filled, ranks[:, None, None] * A + a_idx, -1)
-        e_plus = (expert_idx.reshape(n * A, 1) + 1).to(torch.float32)
-        e_side = token_gather(e_plus, e_row.reshape(-1)).view(n, n, C, ct)
+        e_row = torch.where(filled, local[:, None, None] * A + a_idx, -1)
+        e_plus = (expert_idx.reshape(L * A, 1) + 1).to(torch.float32)
+        e_side = token_gather(e_plus, e_row.reshape(-1)).view(L, n, C, ct)
 
         send_chunks = ((counts.clamp_max(cap_tok) + ct - 1) // ct).to(torch.int32)
-        plan = comm.plan_from_counts(send_chunks)                    # [n, n, K]
+        plan = comm.plan_from_counts(comm.gather_counts(send_chunks))  # [n, n, K]
         y = comm.execute(x, plan)
         ey = comm.execute(e_side, plan)
 
-        expert_global = torch.round(ey).long() - 1                   # [n, n, C, ct]
-        expert_local = expert_global - (ranks * epd)[:, None, None, None]
+        expert_global = torch.round(ey).long() - 1                   # [L, n, C, ct]
+        expert_local = expert_global - (mine * epd)[:, None, None, None]
         expert_local = torch.where(
             (expert_global >= 0) & (expert_local >= 0) & (expert_local < epd),
             expert_local, -1)
@@ -243,32 +255,32 @@ class MoEDispatcher:
             # also includes the unowned ones of replicated-token mode)
             dropped=(owned & ~kept).sum(),
         )
-        return y.view(n, n, C, ct, d), expert_local, state
+        return y.view(L, n, C, ct, d), expert_local, state
 
     # -- combine -----------------------------------------------------------------
     def combine(
         self,
-        expert_out: torch.Tensor,   # [n, n, C, ct, d] outputs in recv layout
+        expert_out: torch.Tensor,   # [L, n, C, ct, d] outputs in recv layout
         state,
-        gate_w: torch.Tensor,       # [n, T, k] gate weights
+        gate_w: torch.Tensor,       # [L, T, k] gate weights
     ) -> torch.Tensor:
-        """Return expert outputs to token owners and gate-combine: [n, T, d]."""
+        """Return expert outputs to token owners and gate-combine: [L, T, d]."""
         cfg = self.cfg
         n, ct, d = cfg.n_devices, cfg.chunk_tokens, cfg.d_model
-        _, T, k = gate_w.shape
+        L, T, k = gate_w.shape
         C, cap_tok = state["C"], state["cap_tok"]
         comm = self._comm(C)
-        ranks = torch.arange(n, device=expert_out.device)
+        local = torch.arange(L, device=expert_out.device)
 
         # transpose plan: what a rank received per source is what it sends back
         plan_T = state["plan"].transpose(0, 1)
         y = comm.execute(
-            expert_out.reshape(n, n, C, ct * d).to(cfg.payload_dtype), plan_T)
+            expert_out.reshape(L, n, C, ct * d).to(cfg.payload_dtype), plan_T)
         # gather each assignment's processed token from (dest, slot)
-        row = (ranks[:, None] * n + state["dest"].clamp_max(n - 1)) * cap_tok \
+        row = (local[:, None] * n + state["dest"].clamp_max(n - 1)) * cap_tok \
             + state["slot"].clamp_max(cap_tok - 1)
         row = torch.where(state["kept"], row, -1)
-        a_out = token_gather(y.reshape(n * n * cap_tok, d), row.reshape(-1))
-        a_out = a_out.view(n, T, k, d)
+        a_out = token_gather(y.reshape(L * n * cap_tok, d), row.reshape(-1))
+        a_out = a_out.view(L, T, k, d)
         w = gate_w.to(a_out.dtype)[..., None]
         return (a_out * w).sum(dim=2)

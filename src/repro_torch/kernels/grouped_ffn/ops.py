@@ -404,7 +404,8 @@ class _GroupedFFN(torch.autograd.Function):
         return gx, None, gwg, gwu, gwd, None
 
 
-def grouped_ffn(x, expert_id, wg, wu, wd, *, block_tokens: int = 128):
+def grouped_ffn(x, expert_id, wg, wu, wd, *, block_tokens: int = 128,
+                cpu_rule_scale: int = 1):
     """out[i] = SwiGLU_{expert_id[i]}(x[i]); rows with expert_id < 0 -> 0.
 
     On the card the blocked kernel, differentiable in ``x`` and the weights
@@ -412,9 +413,11 @@ def grouped_ffn(x, expert_id, wg, wu, wd, *, block_tokens: int = 128):
     taken.  On the CPU the reference's non-TPU rule: above ``4 *
     block_tokens`` rows :func:`grouped_ffn_dense` (at the reference's
     capacity factor, 2.0) or :func:`grouped_ffn_scan`, else the blocked
-    kernel's plain version.
+    kernel's plain version.  The rule reads ``cpu_rule_scale`` times this
+    call's rows and experts: a call over a part of the experts takes the
+    branch of the call over all of them (the rows per expert are the same).
     """
-    if x.device.type == "cpu" and x.shape[0] > 4 * block_tokens:
+    if x.device.type == "cpu" and x.shape[0] * cpu_rule_scale > 4 * block_tokens:
         dense_worthwhile = x.shape[0] >= 2 * wg.shape[0] * block_tokens
         if os.environ.get("NIMBLE_FFN_IMPL", "dense") == "scan" or not dense_worthwhile:
             return grouped_ffn_scan(x, expert_id, wg, wu, wd, block_tokens=block_tokens)

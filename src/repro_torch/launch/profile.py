@@ -1,6 +1,6 @@
 """Where the device time goes in the port's serving and training paths, by kernel.
 
-    python -m repro_torch.launch.profile [--arch ARCH] [--train | --runtime] [--out DIR]
+    python -m repro_torch.launch.profile [--arch ARCH] [--train [--mesh] | --runtime] [--out DIR]
 
 builds ``--arch`` at full width on the card (bf16, random weights from
 ``--seed``), warms it up, then traces under ``torch.profiler`` one prefill
@@ -19,7 +19,11 @@ full width (bf16, tokens from ``SyntheticLM``) after a warm-up step:
 paper-moe-8e and granite-moe-1b-a400m on EP 8 in groups of 4 with NIMBLE
 dispatch, 4 x 512 tokens; xlstm-125m, smollm-135m and zamba2-1.2b on one
 rank, 4 x 2048 tokens (each block's activations recomputed in the
-backward where ``launch/train.py::needs_remat`` says so: zamba2-1.2b).  ``--runtime`` profiles the execution-time planning runtime:
+backward where ``launch/train.py::needs_remat`` says so: zamba2-1.2b), and
+prints the peak memory allocated in the step; ``--mesh`` profiles it a
+second time through a ``(data 1, model 1)`` mesh of this one process under
+NCCL (``launch/dist.py::local_world``), the executor's path across
+processes at P = 1.  ``--runtime`` profiles the execution-time planning runtime:
 one replan's solve (``solve_plans_batch`` of one demand matrix, every MWU
 iteration on the card) on the paper's testbed (n=8) and an 8-node EP group
 (n=32), and the testbed's whole drifting-skew replay (48 windows).  With ``--out`` the Chrome traces are
@@ -130,11 +134,12 @@ def _profile(label: str, fn, n_tok: int, out, top: int = 12) -> None:
         prof.export_chrome_trace(str(out / f"{label.split()[0]}.json"))
 
 
-def _train(arch: str, seed: int, out) -> None:
-    """One warm-up step, then one profiled train step of ``arch``."""
+def _train(arch: str, seed: int, out, mesh=None) -> None:
+    """One warm-up step, then one profiled train step of ``arch`` (through
+    ``mesh`` when given)."""
     cfg = get_config(arch)
     ep, seq = TRAIN_SHAPES[arch]
-    ctx = ParallelContext(ep_size=ep, group_size=min(4, ep), moe_mode="nimble",
+    ctx = ParallelContext(mesh=mesh, ep_size=ep, group_size=min(4, ep), moe_mode="nimble",
                           param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
                           remat=needs_remat(arch))
     model = build_model(cfg, ctx)
@@ -146,8 +151,13 @@ def _train(arch: str, seed: int, out) -> None:
                for i in range(2)]
     params, state, _ = step(params, state, batches[0])
     torch.cuda.synchronize()
-    _profile(f"train 4x{seq} step", lambda: step(params, state, batches[1]), 4 * seq, out, 24)
-    print(f"[profile] {cfg.name} train on {torch.cuda.get_device_name(0)}")
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    tag = "train" if mesh is None else "train-mesh"
+    _profile(f"{tag} 4x{seq} step", lambda: step(params, state, batches[1]), 4 * seq, out, 24)
+    print(f"[profile] {cfg.name} {tag} on {torch.cuda.get_device_name(0)}: peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, {held / 1e9:.2f} GB held "
+          f"before the step")
 
 
 def _runtime(out) -> None:
@@ -177,6 +187,8 @@ def main(argv=None) -> None:
     ap.add_argument("--arch", default="paper-moe-8e", choices=sorted({*SHAPES, *TRAIN_SHAPES}))
     ap.add_argument("--train", action="store_true",
                     help="profile a train step instead of serving")
+    ap.add_argument("--mesh", action="store_true",
+                    help="with --train, profile the step again through a mesh of one process")
     ap.add_argument("--runtime", action="store_true",
                     help="profile the runtime's replan solves instead of serving")
     ap.add_argument("--out", default=None, help="directory for Chrome traces")
@@ -187,6 +199,13 @@ def main(argv=None) -> None:
         out.mkdir(parents=True, exist_ok=True)
     if args.train:
         _train(args.arch, args.seed, out)
+        if args.mesh:
+            from .dist import local_world
+            from .mesh import make_test_mesh
+
+            torch.cuda.empty_cache()
+            with local_world("nccl"):
+                _train(args.arch, args.seed, out, make_test_mesh(1, 1))
         return
     if args.arch not in SHAPES:
         ap.error(f"{args.arch} is profiled with --train only")

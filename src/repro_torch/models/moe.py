@@ -1,17 +1,29 @@
 """MoE transformer (paper-moe-8e): GQA + RoPE blocks with a top-k routed FFN.
 
 Counterpart of ``repro/models/moe.py``.  With ``ctx.ep_size > 1`` the
-expert layer runs expert-parallel over stacked ranks: tokens are dispatched
-through :class:`~repro_torch.core.moe_comm.MoEDispatcher` (NIMBLE planner +
-scheduled multi-path dataplane), every rank's received tokens go through
-the grouped FFN in one call, and the outputs are combined back.  The token
-layout follows the reference's two ``shard_map`` branches:
+expert layer runs expert-parallel: tokens are dispatched through
+:class:`~repro_torch.core.moe_comm.MoEDispatcher` (NIMBLE planner +
+scheduled multi-path dataplane), the received tokens of this process's
+block of ranks go through the grouped FFN in one call, and the outputs are
+combined back.  Without a mesh every rank is stacked in this process; with
+``ctx.mesh`` the process hosts ``L = ep_size / model`` ranks, holds the
+expert leaves of its block (``[Lr, E L / n, D, F]``, the expert dim over
+"model" as ``sharding/specs.py`` places it) and exchanges with the model
+group's other processes.  The token layout follows the reference's two
+``shard_map`` branches:
 
-  * ``_inner_full`` (token count divisible by ``ep_size``): rank r holds
-    the contiguous rows ``[r T/n, (r+1) T/n)``;
-  * ``_inner_masked`` (small decode batches): every rank holds every
-    token, owns token t when ``t % n == r``, routes only what it owns, and
-    the ranks' outputs are summed (the reference's ``psum``).
+  * ``inner_full`` (this process's token count divisible by ``L``): its
+    tokens are its own (sharded over data x model), and its rank r holds
+    the contiguous rows ``[r T/L, (r+1) T/L)``;
+  * ``inner_masked`` (small decode batches): the tokens are replicated over
+    the model group, rank r owns token t when ``t % n == r`` and routes only
+    what it owns, and the ranks' outputs are summed (the reference's
+    ``psum``: over the block, then ``all_reduce`` over the model group, in
+    the forward only; under a gradient across processes it raises).
+
+The router's load-balance loss is the reference's over the global batch:
+with a mesh its two means are summed over the processes holding distinct
+tokens (every process holds as many).
 
 Parameters keep the reference's tree: ``blocks`` has a leading layer axis,
 ``wg``/``wu`` are [L, E, D, F] and ``wd`` is [L, E, F, D].
@@ -19,9 +31,12 @@ Parameters keep the reference's tree: ``blocks`` has a leading layer axis,
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+import torch.distributed.nn.functional as dist_nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
@@ -76,8 +91,23 @@ def init(seed: int, cfg: ModelConfig, ctx: ParallelContext = SINGLE):
     }
 
 
-def _router(p, xf: torch.Tensor, cfg: ModelConfig):
-    """xf [N, D] -> (top_idx [N,k], top_w [N,k], aux_loss scalar)."""
+def _global_mean(t: torch.Tensor, groups) -> torch.Tensor:
+    """This process's mean -> the mean over every process of ``groups``
+    (each holding as many tokens), with a gradient; ``t`` itself without
+    groups."""
+    if not groups:
+        return t
+    t = t * (1.0 / math.prod(dist.get_world_size(g) for g in groups))
+    for g in groups:
+        t = dist_nn.all_reduce(t, group=g)
+    return t
+
+
+def _router(p, xf: torch.Tensor, cfg: ModelConfig, groups=()):
+    """xf [N, D] -> (top_idx [N,k], top_w [N,k], aux_loss scalar).
+
+    ``groups``: the process groups over which the batch's tokens are
+    spread; the load-balance loss's means are taken over all of them."""
     logits = xf.float() @ p["router"].float()
     probs = torch.softmax(logits, dim=-1)                     # [N, E]
     top_w, top_idx = torch.topk(probs, cfg.top_k, dim=-1)
@@ -86,8 +116,8 @@ def _router(p, xf: torch.Tensor, cfg: ModelConfig):
     frac = torch.zeros(cfg.n_experts, dtype=torch.float32, device=xf.device)
     frac = frac.index_add(0, top_idx.reshape(-1),
                           torch.ones(top_idx.numel(), device=xf.device))
-    frac = frac / top_idx.numel()
-    aux = cfg.n_experts * torch.sum(frac * probs.mean(0))
+    frac = _global_mean(frac / top_idx.numel(), groups)
+    aux = cfg.n_experts * torch.sum(frac * _global_mean(probs.mean(0), groups))
     return top_idx, top_w, aux
 
 
@@ -102,17 +132,22 @@ def _moe_local(p, xf, top_idx, top_w, cfg: ModelConfig):
 
 def make_moe_ffn(cfg: ModelConfig, ctx: ParallelContext):
     """Build the MoE FFN: ``apply(p, x [B,S,D]) -> (y, aux, dropped)``."""
+    group = ctx.model_group
+    # the processes holding distinct tokens (sharded over data x model)
+    mesh_groups = ctx.data_groups + ((group,) if group is not None else ())
     if ctx.ep_size <= 1:
         def apply_local(p, x):
             b, s, d = x.shape
             xf = x.reshape(-1, d)
-            ti, tw, aux = _router(p, xf, cfg)
+            ti, tw, aux = _router(p, xf, cfg, mesh_groups)
             y = _moe_local(p, xf, ti, tw, cfg)
             dropped = torch.zeros((), dtype=torch.int64, device=x.device)
             return y.reshape(b, s, d).to(x.dtype), aux, dropped
         return apply_local
 
     n = ctx.ep_size
+    L = n // ctx.model_procs                 # ranks this process hosts
+    r0 = 0 if group is None else dist.get_rank(group) * L
     comm_cfg = MoECommConfig(
         n_devices=n,
         n_experts=cfg.n_experts,
@@ -127,47 +162,61 @@ def make_moe_ffn(cfg: ModelConfig, ctx: ParallelContext):
     if ctx.session is not None:
         # endpoint API: the session supplies cost model, planner config,
         # and (when adaptive) runtime telemetry wiring
-        dispatcher = ctx.session.moe_dispatcher(comm_cfg)
+        dispatcher = ctx.session.moe_dispatcher(comm_cfg, group=group)
     else:
-        dispatcher = MoEDispatcher(comm_cfg)
+        dispatcher = MoEDispatcher(comm_cfg, group=group)
     epd = dispatcher.cfg.experts_per_device
 
     def experts(p, recv, e_local):
-        """Every rank's received tokens through the grouped FFN, in one call.
+        """The block's received tokens through the grouped FFN, in one call,
+        on the block's experts (ids local to this process's leaves).
 
         On the CPU it drops the rows the reference's per-rank calls drop:
         rows and experts both grow by the number of ranks, so the ``dense``
-        branch's test and its capacity per expert are a rank's.
+        branch's test and its capacity per expert are a rank's; and a block
+        of L ranks takes the branch of the call that stacks all n.
         """
+        if p["wg"].shape[0] != epd * L:
+            raise ValueError(f"expert leaves hold {p['wg'].shape[0]} experts; this "
+                             f"process's {L} ranks own {epd * L}")
         d = recv.shape[-1]
-        rank = torch.arange(n, device=recv.device)[:, None, None, None]
-        eg = torch.where(e_local >= 0, e_local + rank * epd, -1)   # global ids
+        rank = torch.arange(L, device=recv.device)[:, None, None, None]
+        eg = torch.where(e_local >= 0, e_local + rank * epd, -1)
         y = grouped_ffn(recv.reshape(-1, d), eg.reshape(-1), p["wg"], p["wu"],
-                        p["wd"], block_tokens=_BLOCK_TOKENS)
+                        p["wd"], block_tokens=_BLOCK_TOKENS, cpu_rule_scale=n // L)
         return y.view(recv.shape)
 
     def inner_full(p, xf, ti, tw):
         N, d = xf.shape
-        T, k = N // n, ti.shape[-1]
-        recv, e_local, st = dispatcher.dispatch(xf.view(n, T, d), ti.view(n, T, k))
-        out = dispatcher.combine(experts(p, recv, e_local), st, tw.view(n, T, k))
+        T, k = N // L, ti.shape[-1]
+        recv, e_local, st = dispatcher.dispatch(xf.view(L, T, d), ti.view(L, T, k))
+        out = dispatcher.combine(experts(p, recv, e_local), st, tw.view(L, T, k))
         return out.reshape(N, d), st["dropped"]
 
     def inner_masked(p, xf, ti, tw):
         N, d = xf.shape
-        ranks = torch.arange(n, device=xf.device)
+        ranks = r0 + torch.arange(L, device=xf.device)
         owned = (torch.arange(N, device=xf.device) % n)[None, :] == ranks[:, None]
         recv, e_local, st = dispatcher.dispatch(
-            xf.expand(n, N, d), ti.expand(n, *ti.shape), token_valid=owned)
+            xf.expand(L, N, d), ti.expand(L, *ti.shape), token_valid=owned)
         out = dispatcher.combine(experts(p, recv, e_local), st,
-                                 tw.expand(n, *tw.shape))
-        return out.sum(0), st["dropped"]                  # the reference's psum
+                                 tw.expand(L, *tw.shape)).sum(0)
+        if L < n:                            # the reference's psum, across processes
+            if torch.is_grad_enabled() and out.requires_grad:
+                raise RuntimeError(
+                    "the masked MoE branch (tokens replicated over the model group, "
+                    f"{N} tokens for {L} ranks a process) has no gradient across "
+                    "processes; give each process a multiple of its ranks' count of "
+                    "tokens")
+            dist.all_reduce(out, group=group)
+        return out, st["dropped"]
 
     def apply(p, x):
         b, s, d = x.shape
         xf = x.reshape(-1, d)
-        ti, tw, aux = _router(p, xf, cfg)
-        inner = inner_full if xf.shape[0] % n == 0 else inner_masked
+        full = xf.shape[0] % L == 0
+        ti, tw, aux = _router(p, xf, cfg, mesh_groups if full else ctx.data_groups)
+        inner = inner_full if full else inner_masked
         y, dropped = inner(p, xf, ti, tw)
         return y.reshape(b, s, d).to(x.dtype), aux, dropped
 

@@ -21,6 +21,7 @@ import torch
 
 from ..configs.base import InputShape, ModelConfig
 from ..sharding.context import SINGLE, ParallelContext
+from ..sharding.specs import shard_params
 from . import dense, encdec, hybrid, moe, vlm, xlstm
 
 _FAMILIES = {"dense": dense, "moe": moe, "hybrid": hybrid, "ssm": xlstm,
@@ -58,7 +59,9 @@ class Model:
         return {}
 
     def init(self, seed: int):
-        return self.mod.init(seed, self.cfg, self.ctx)
+        """Random weights from ``seed``: with a mesh, this process's blocks of
+        the same weights (``sharding.specs.shard_params``)."""
+        return shard_params(self.mod.init(seed, self.cfg, self.ctx), self.ctx)
 
     def forward(self, params, batch: Dict[str, torch.Tensor], *, window=None,
                 last_only: bool = False, stats: Optional[dict] = None):

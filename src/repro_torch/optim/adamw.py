@@ -19,10 +19,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, NamedTuple, Tuple
+from typing import Any, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..tree import leaves, map_tree
 
@@ -64,8 +65,12 @@ def schedule(cfg: AdamWConfig, step: int) -> float:
     return float(_F32(cfg.lr) * warm * frac)
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, sharded: Optional[Sequence[bool]] = None, group=None) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, as a float32 device scalar.
+
+    ``sharded`` marks the leaves (in leaf order) of which this process holds
+    one block of ``group``'s: their squared norms are summed over the group
+    (one ``all_reduce``) before the sum over leaves, which keeps its order.
 
     Each leaf's norm is the norm of its rows' norms, in float32: one pass
     that reads the leaf once on either device.  The CPU's float32 norm of a
@@ -75,13 +80,21 @@ def global_norm(tree) -> torch.Tensor:
     """
     norms = [torch.linalg.vector_norm(
         torch.linalg.vector_norm(x, 2, dim=-1, dtype=torch.float32), 2) for x in leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(norms).double() ** 2)).float()
+    sq = torch.stack(norms).double() ** 2
+    if group is not None and sharded is not None and any(sharded):
+        mask = torch.as_tensor(list(sharded), device=sq.device)
+        part = torch.where(mask, sq, 0.0)
+        dist.all_reduce(part, group=group)
+        sq = torch.where(mask, part, sq)
+    return torch.sqrt(torch.sum(sq)).float()
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
-    """Scales the leaves in place by min(1, max_norm / norm); -> (grads, norm)."""
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, sharded: Optional[Sequence[bool]] = None,
+                        group=None):
+    """Scales the leaves in place by min(1, max_norm / norm); -> (grads, norm).
+    ``sharded`` and ``group`` as in :func:`global_norm`."""
+    norm = global_norm(grads, sharded, group)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     for g in leaves(grads):
         g.mul_(scale.to(g.dtype))
@@ -89,9 +102,15 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 @torch.no_grad()
-def update(cfg: AdamWConfig, params, grads, state: OptState) -> Tuple[Any, OptState, dict]:
-    """One AdamW step over every leaf, in place; -> (params, state, metrics)."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+def update(cfg: AdamWConfig, params, grads, state: OptState, *,
+           sharded: Optional[Sequence[bool]] = None, group=None
+           ) -> Tuple[Any, OptState, dict]:
+    """One AdamW step over every leaf, in place; -> (params, state, metrics).
+
+    ``sharded`` / ``group``: the leaves of which this process holds one
+    block of the group's (the experts over the model group), for the
+    global norm."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, sharded, group)
     step = state.step + 1
     lr = schedule(cfg, step)
     b1, b2 = cfg.beta1, cfg.beta2

@@ -1,0 +1,321 @@
+"""Partition-spec rules: FSDP over "data", tensor/expert parallel over "model".
+
+Counterpart of ``repro/sharding/specs.py``.  Rules are keyed by parameter
+leaf name (path suffix) with rank templates; stacked-layer leading axes get
+``None`` prefixes automatically.  Any dim whose size its assigned axis does
+not divide falls back to replication (so reduced configs and ragged dims
+never fault).
+
+A spec is a tuple with one entry a dim, each entry an axis name, ``None``
+or a tuple of names, as a ``PartitionSpec``'s entries are (a tuple of one
+name is that name).  Specs are built from a mesh's axis names and sizes
+alone (:func:`mesh_sizes`), so they need no process group: they work on the
+port's ``param_shapes`` trees as the reference's work on ``eval_shape``.
+
+The "pod" axis never appears in param specs: pods are pure data-parallel
+replicas, so parameters are replicated across pods.
+
+The port's train step holds only the expert leaves' "model" placement
+(:func:`held_specs`): dense leaves stay replicated, with no FSDP and no TP.
+The full specs are what the reference places and what a dry-run reads.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Mapping, Sequence, Tuple
+
+import torch
+
+# leaf-name -> spec template (rightmost dims; missing leading dims -> None)
+_RULES = {
+    # embeddings / heads
+    "embed": ("*", "model"),
+    "lm_head": ("*", "model"),
+    "dec_pos": ("*", "model"),
+    # attention (col-parallel in, row-parallel out)
+    "wq": ("data", "model"),
+    "wk": ("data", "model"),
+    "wv": ("data", "model"),
+    "wo": ("model", "data"),
+    "bq": ("model",),
+    "bk": ("model",),
+    "bv": ("model",),
+    # dense mlp
+    "wg": ("data", "model"),
+    "wu": ("data", "model"),
+    "wd": ("model", "data"),
+    "w1": ("data", "model"),
+    "b1": ("model",),
+    "w2": ("model", "data"),
+    "b2": ("*",),
+    "up": ("data", "model"),
+    "down": ("model", "data"),
+    # router (small, replicated)
+    "router": ("*", "*"),
+    # mamba
+    "in_proj": ("data", "model"),
+    "out_proj": ("model", "data"),
+    "conv_w": ("*", "model"),
+    "conv_b": ("model",),
+    "A_log": ("*",),
+    "D": ("*",),
+    "dt_bias": ("*",),
+    "gate_norm": ("model",),
+    # xlstm gates
+    "wi": ("data", "model"),
+    "wf": ("data", "model"),
+    "wz": ("data", "model"),
+    "wo_gate": ("data", "model"),
+    "wg_x": ("data", "model"),
+    "bi": ("*",),
+    "bf": ("*",),
+}
+
+# MoE expert tensors: leading expert dim -> model axis (expert parallelism).
+_MOE_EXPERT_LEAVES = {"wg", "wu", "wd"}
+
+Spec = Tuple[object, ...]
+
+
+def mesh_sizes(mesh) -> Dict[str, int]:
+    """Axis name -> size, in the mesh's order.
+
+    ``mesh`` is a ``torch.distributed.device_mesh.DeviceMesh``, a mapping of
+    axis names to sizes, or ``None`` (one device: every axis of size 1).
+    """
+    if mesh is None:
+        return {}
+    if isinstance(mesh, Mapping):
+        return {str(k): int(v) for k, v in mesh.items()}
+    return {str(a): int(s) for a, s in zip(mesh.mesh_dim_names, mesh.shape)}
+
+
+def _axis_size(sizes: Mapping[str, int], axis) -> int:
+    if isinstance(axis, tuple):
+        return math.prod(sizes.get(a, 1) for a in axis)
+    return sizes.get(axis, 1)
+
+
+def _entry(axes) -> object:
+    """A spec entry from a sequence of axis names (``PartitionSpec``'s form)."""
+    axes = tuple(axes)
+    if not axes:
+        return None
+    return axes[0] if len(axes) == 1 else axes
+
+
+def _shape(leaf) -> Tuple[int, ...]:
+    return tuple(leaf.shape) if hasattr(leaf, "shape") else tuple(leaf)
+
+
+def _is_leaf(node) -> bool:
+    return isinstance(node, torch.Tensor) or hasattr(node, "shape") or (
+        isinstance(node, tuple) and all(isinstance(d, int) for d in node))
+
+
+def is_expert_leaf(path: Sequence, shape: Sequence[int]) -> bool:
+    """An MoE expert tensor: ``wg``/``wu``/``wd`` under ``blocks`` with a
+    layer and an expert dim before the template's."""
+    names = [str(n) for n in path]
+    template = _RULES.get(names[-1]) if names else None
+    return (template is not None and names[-1] in _MOE_EXPERT_LEAVES
+            and "blocks" in names and len(shape) - len(template) >= 2)
+
+
+def leaf_paths(tree, path=()) -> list:
+    """(path, leaf) of every leaf, in the reference's leaf order (``tree.leaves``)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaf_paths(tree[k], path + (k,))]
+    if isinstance(tree, list) or (isinstance(tree, tuple) and not _is_leaf(tree)):
+        return [x for i, t in enumerate(tree) for x in leaf_paths(t, path + (i,))]
+    return [(path, tree)]
+
+
+def expert_leaf_mask(params) -> list:
+    """Per leaf, in leaf order: an MoE expert leaf (held one block a process
+    of the model group under a mesh)."""
+    return [is_expert_leaf(p, _shape(t)) for p, t in leaf_paths(params)]
+
+
+def spec_for_path(path: Sequence, leaf, sizes: Mapping[str, int]) -> Spec:
+    """The spec of the leaf at ``path`` (its keys and list indices)."""
+    shape = _shape(leaf)
+    rank = len(shape)
+    template = _RULES.get(str(path[-1])) if path else None
+    if template is None:
+        return ()                        # norms, scalars, unknown leaves -> replicate
+    if is_expert_leaf(path, shape):
+        # [L, E, ...]: expert dim gets the model axis, inner dims get fsdp
+        inner = ["data" if i == 0 else None for i in range(len(template))]
+        spec = [None] * (rank - len(template) - 1) + ["model"] + inner
+    else:
+        spec = [None] * (rank - len(template)) + [
+            None if a == "*" else a for a in template]
+    # drop axes that don't divide the dim exactly
+    return tuple(None if axis is None or dim % _axis_size(sizes, axis) else axis
+                 for dim, axis in zip(shape, spec))
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _map_with_path(fn, tree, path=()):
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, tree[k], path + (k,)) for k in tree}
+    if isinstance(tree, list) or (isinstance(tree, tuple) and not _is_leaf(tree)):
+        return type(tree)(_map_with_path(fn, t, path + (i,)) for i, t in enumerate(tree))
+    return fn(path, tree)
+
+
+def build_param_specs(params, mesh) -> dict:
+    """Tree of specs matching ``params`` (tensors or ``param_shapes`` tuples)."""
+    sizes = mesh_sizes(mesh)
+    return _map_with_path(lambda path, leaf: spec_for_path(path, leaf, sizes), params)
+
+
+def held_specs(params, mesh) -> dict:
+    """The placement the port's train step holds: the expert dim of each MoE
+    expert leaf over "model", every other dim and leaf replicated."""
+    sizes = mesh_sizes(mesh)
+
+    def one(path, leaf):
+        spec = spec_for_path(path, leaf, sizes)
+        if not is_expert_leaf(path, _shape(leaf)):
+            return (None,) * len(spec)
+        return tuple(a if a == "model" else None for a in spec)
+
+    return _map_with_path(one, params)
+
+
+def local_shard(t: torch.Tensor, spec: Spec, sizes: Mapping[str, int],
+                coord: Mapping[str, int]) -> torch.Tensor:
+    """One process's block of ``t`` under ``spec`` (a view).
+
+    ``coord`` is the process's index along each mesh axis.  A dim placed
+    over several axes is split into their product of blocks, the first axis
+    major, as a ``NamedSharding`` splits it.
+    """
+    out = t
+    for dim, axis in enumerate(spec):
+        if axis is None:
+            continue
+        axes = axis if isinstance(axis, tuple) else (axis,)
+        idx = 0
+        for a in axes:
+            idx = idx * sizes.get(a, 1) + coord.get(a, 0)
+        parts = _axis_size(sizes, axes)
+        if t.shape[dim] % parts:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split into {parts}")
+        step = t.shape[dim] // parts
+        out = out.narrow(dim, idx * step, step)
+    return out
+
+
+def shard_params(params, ctx):
+    """Full parameters -> the blocks this process holds under ``ctx.mesh``
+    (:func:`held_specs`; contiguous copies where a leaf is split, the leaf
+    itself where it is replicated); ``params`` itself without a mesh."""
+    if ctx.mesh is None:
+        return params
+    sizes, coord = mesh_sizes(ctx.mesh), mesh_coord(ctx.mesh)
+
+    def one(path, leaf, spec):
+        if all(a is None for a in spec):
+            return leaf
+        return local_shard(leaf, spec, sizes, coord).contiguous()
+
+    specs = held_specs(params, ctx.mesh)
+    return _map_with_path(lambda path, leaf: one(path, leaf, _at(specs, path)), params)
+
+
+# --------------------------------------------------------------------------- #
+# batch / cache specs
+# --------------------------------------------------------------------------- #
+
+
+def batch_axes(data_axes: Sequence[str]) -> Tuple[str, ...]:
+    """Axes that shard the batch dim (pod + data)."""
+    return tuple(data_axes)
+
+
+def batch_spec(mesh, data_axes: Sequence[str], global_batch: int) -> Spec:
+    sizes = mesh_sizes(mesh)
+    axes = []
+    remaining = global_batch
+    for a in batch_axes(data_axes):
+        sz = _axis_size(sizes, a)
+        if remaining % sz == 0 and sz > 1:
+            axes.append(a)
+            remaining //= sz
+    if not axes:
+        return (None,)
+    return (_entry(axes),)
+
+
+def input_specs_sharding(model_inputs: Mapping, mesh, data_axes: Sequence[str],
+                         global_batch: int) -> Dict[str, Spec]:
+    """Specs for a dict of input stand-ins (``Model.input_specs``)."""
+    sizes = mesh_sizes(mesh)
+    bspec = batch_spec(mesh, data_axes, global_batch)
+
+    def one(name, s):
+        ndim = len(s.shape)
+        if ndim == 0:
+            return ()
+        parts = [bspec[0]] + [None] * (ndim - 1)
+        # modality stubs: shard embedding dim over model
+        if name in ("frames", "patches") and ndim == 3:
+            parts[-1] = "model" if _axis_size(sizes, "model") <= s.shape[-1] else None
+        return tuple(parts)
+
+    return {k: one(k, v) for k, v in model_inputs.items()}
+
+
+def cache_spec_rules(mesh):
+    """KV / state caches: heads (or inner channels) over model, batch over data."""
+    sizes = mesh_sizes(mesh)
+
+    def spec(path, leaf):
+        shape = _shape(leaf)
+        leaf_name = str(path[-1]) if path else ""
+        if leaf_name in ("k", "v") and len(shape) >= 4:
+            # [L, B, Hkv, S, dh] or [B, Hkv, S, dh]
+            parts = [None] * len(shape)
+            if shape[-4] % _axis_size(sizes, "data") == 0:
+                parts[-4] = "data"
+            m = _axis_size(sizes, "model")
+            if shape[-3] % m == 0:
+                parts[-3] = "model"          # shard KV heads (GQA permitting)
+            elif shape[-2] % m == 0:
+                parts[-2] = "model"          # else sequence-shard the cache
+            return tuple(parts)
+        if leaf_name in ("C", "n", "ssm", "conv") and len(shape) >= 2:
+            parts = [None] * len(shape)
+            # batch dim position: [L?, B, ...] — the first dim >= data size
+            ds = _axis_size(sizes, "data")
+            for i, d in enumerate(shape):
+                if ds > 1 and d % ds == 0 and d >= ds:
+                    parts[i] = "data"
+                    break
+            # shard the channel dim over model if divisible
+            ms = _axis_size(sizes, "model")
+            if parts[-1] is None and shape[-1] % ms == 0 and shape[-1] >= ms:
+                parts[-1] = "model"
+            return tuple(parts)
+        return ()
+    return spec
+
+
+def build_cache_specs(cache, mesh) -> dict:
+    return _map_with_path(cache_spec_rules(mesh), cache)
+
+
+def mesh_coord(mesh) -> Dict[str, int]:
+    """This process's index along each axis of a ``DeviceMesh``."""
+    if mesh is None:
+        return {}
+    return dict(zip(mesh_sizes(mesh), mesh.get_coordinate()))

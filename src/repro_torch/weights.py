@@ -10,6 +10,7 @@ import torch
 from .configs.base import ModelConfig
 from .models.registry import family
 from .sharding.context import ParallelContext
+from .sharding.specs import shard_params
 
 
 def params_from_jax(tree: Mapping, cfg: ModelConfig, ctx: ParallelContext):
@@ -18,7 +19,8 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig, ctx: ParallelContext):
     Keys, list lengths and shapes must be the ones ``cfg``'s family expects
     (its ``param_shapes``).  Values are cast to ``ctx.param_dtype`` on
     ``ctx.device``, apart from the leaves the family keeps in float32 (its
-    ``F32_PARAMS``), as the reference does.
+    ``F32_PARAMS``), as the reference does.  With ``ctx.mesh``, this
+    process's blocks (``sharding.specs.shard_params``).
     """
     mod = family(cfg)
     keep_f32 = set(getattr(mod, "F32_PARAMS", ()))
@@ -41,4 +43,4 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig, ctx: ParallelContext):
         dtype = torch.float32 if key in keep_f32 else ctx.param_dtype
         return torch.as_tensor(arr.astype(np.float32)).to(device=ctx.device, dtype=dtype)
 
-    return convert(tree, mod.param_shapes(cfg), "", "")
+    return shard_params(convert(tree, mod.param_shapes(cfg), "", ""), ctx)

@@ -1300,3 +1300,70 @@ def test_grouped_ffn_scan_and_dense_on_card_equal_cpu(cuda, fn, kw, skew):
     got = fn(*(t.to(cuda) for t in (x, eid, wg, wu, wd)), **kw).cpu()
     assert torch.equal((got == 0).all(1), (want == 0).all(1))
     assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+# --------------------------------------------------------------------------- #
+# the executor across processes, on the card: an NCCL world of one process
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_executor_through_nccl_group_equals_stacked(cuda, dtype):
+    # a model group of one process: the stacked code path, no message, the
+    # same token_gather launches, output and counts bit for bit
+    from repro_torch.core.dataplane import NimbleAllToAll, ref_all_to_allv
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import dist_checks
+    from repro_torch.launch.dist import local_world
+    from repro_torch.launch.mesh import make_test_mesh
+
+    x_all, counts = dist_checks.exchange_inputs(8, 16, 64, 3, dtype)
+    yref, rref = ref_all_to_allv(x_all, counts)
+    with local_world("nccl"):
+        group = make_test_mesh(1, 1).get_group("model")
+        reset_launch_counts()
+        got = dist_checks.exchange(group, "cuda", n=8, G=4, C=16, E=64, seed=3, dtype=dtype)
+        torch.cuda.synchronize()
+        through = launch_counts()["token_gather"]
+    reset_launch_counts()
+    for mode in dist_checks.MODES:
+        comm = NimbleAllToAll(8, 4, max_chunks=16, chunk_bytes=64 * 4, mode=mode)
+        y, r = comm(torch.as_tensor(x_all, device=cuda).to(dist_checks.DTYPES[dtype]),
+                    torch.as_tensor(counts, device=cuda))
+        assert np.array_equal(got[mode]["y"], y.float().cpu().numpy())
+        assert np.array_equal(got[mode]["y"], yref)
+        assert np.array_equal(got[mode]["recv"], rref)
+        assert all(m == 0 for rnd in got[mode]["messages_per_hop"] for m in rnd)
+    torch.cuda.synchronize()
+    assert through == launch_counts()["token_gather"] > 0
+
+
+def test_moe_layer_through_a_mesh_equals_stacked(cuda):
+    # make_moe_ffn with a (data 1, model 1) mesh of NCCL processes against
+    # the stacked layer on the same weights: forward and gradients bit for bit
+    from repro_torch.launch import dist_checks
+    from repro_torch.launch.dist import local_world
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.moe import make_moe_ffn
+    from repro_torch.sharding.context import ParallelContext
+
+    # widths the card's FFN kernel takes (D % 128, F % 64)
+    cfg = dataclasses.replace(dist_checks.layer_config(), d_model=128, d_ff=128)
+    p, x, cot = dist_checks.layer_inputs(cfg, 8, 8)
+    p = {k: v.to(cuda) for k, v in p.items()}
+    x, cot = x.to(cuda), cot.to(cuda)
+
+    def run(mesh):
+        ctx = ParallelContext(mesh=mesh, ep_size=8, group_size=4, moe_chunk_tokens=4,
+                              device="cuda")
+        live = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+        xl = x.detach().requires_grad_(True)
+        y, aux, _ = make_moe_ffn(cfg, ctx)(live, xl)
+        grads = torch.autograd.grad((y * cot).sum() + aux, [xl] + list(live.values()))
+        return [y.detach()] + list(grads)
+
+    want = run(None)
+    with local_world("nccl"):
+        got = run(make_test_mesh(1, 1))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
