@@ -188,6 +188,24 @@ port's six CUDA kernels from ``src/repro_torch/csrc``, all at once, then:
      (spawned processes, NCCL).  With one card no hop crosses a process:
      ``tests/test_torch_dist.py`` holds the exchange between processes on the
      CPU (gloo).
+ 26. the roofline and the dry run: (a) ``launch/dryrun.py`` on this
+     machine's host (fake tensors in a fake world of 256 processes) for
+     smollm-135m x train_4k, granite-moe-1b-a400m x train_4k and llama3-8b x
+     decode_32k on 16 x 16: each record's line, ``status`` ok, and
+     ``n_params`` and ``model_flops_total`` equal to ``DRYRUN_PINNED`` (the
+     values the CPU tests hold against the reference's); (b) the counter
+     (``roofline/hlo_cost.py``) around one real step on the card of phase
+     7's paper-moe-8e (4 x 512, EP 8 stacked) and phase 19's smollm-135m
+     (4 x 2048): FLOPs by dtype, bytes, the roofline's compute and memory
+     terms at the card's rates, the step's op-by-op bound (the larger; it
+     counts this code's own ops, so it moves with the code) and the least
+     that does not move with the code (6 N D at the bf16 peak, a fused
+     AdamW's traffic at HBM rate), each as a share of the mean of 3 steps
+     timed here outside the counter; the counter's
+     live-bytes peak within 10% of ``torch.cuda.max_memory_allocated()`` less
+     the bytes held before the step; (c) no launch left unreported
+     (``uncounted`` 0) and each kernel's reported launches equal to its
+     ``LAUNCHES`` delta over (b).
 
 It prints one line per phase, the card's name and power limit as
 ``nvidia-smi`` reports them, a JSON line of per-kernel numbers, and as its
@@ -208,8 +226,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PEAK_BYTES_S = 3.35e12                     # H100 SXM HBM3
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}  # dense tensor-core bf16; f32 CUDA cores
 
 KERNEL_META = {
     "token_gather": ("src/repro_torch/csrc/token_gather.cu",
@@ -231,6 +247,16 @@ KERNEL_META = {
                          "src/repro/models/xlstm.py:145"),
 }
 MOE_KERNELS = ("token_gather", "grouped_ffn_blocked", "flash_attention")
+#: phase 26a's combos on 16 x 16 and the record values the CPU tests hold
+#: against the reference's dry run (``tests/test_torch_dryrun.py``)
+DRYRUN_PINNED = {
+    ("smollm-135m", "train_4k"): dict(n_params=162826560,
+                                      model_flops_total=1024416137871360.0),
+    ("granite-moe-1b-a400m", "train_4k"): dict(n_params=1384963072,
+                                               model_flops_total=3013565950722048.0),
+    ("llama3-8b", "decode_32k"): dict(n_params=8030261248,
+                                      model_flops_total=2055746879488.0),
+}
 
 
 class Checks:
@@ -335,19 +361,22 @@ def gather_report(torch, x, idx, token_gather, token_gather_ref) -> dict:
     calls include the host's launch cost; the device times do not
     (``kernel_times.device_ms``: the calls queue behind a sleeping kernel).
     """
+    from repro_torch.kernels.token_scatter.ops import gather_bytes
     from repro_torch.launch.kernel_times import device_ms, time_ms
+    from repro_torch.roofline.analysis import kernel_bound
 
     safe = idx.clamp_min(0)
     valid = int((idx >= 0).sum())
     row = x.shape[1] * x.element_size()
-    moved = (valid + idx.numel()) * row + idx.numel() * idx.element_size()
+    bound_s, bound_by = kernel_bound(
+        0.0, gather_bytes(valid, idx.numel(), row, idx.element_size()), "bf16")
     return dict(
         ms=time_ms(lambda: token_gather(x, idx), 20),
         plain_ms=time_ms(lambda: token_gather_ref(x, idx), 20),
         library_ms=time_ms(lambda: torch.index_select(x, 0, safe), 20),
         device_ms=device_ms(lambda: token_gather(x, idx), 20),
         library_device_ms=device_ms(lambda: torch.index_select(x, 0, safe), 20),
-        bound_ms=moved / PEAK_BYTES_S * 1e3, bound_by="bytes",
+        bound_ms=bound_s * 1e3, bound_by=bound_by,
         max_abs_err=_max_err(token_gather(x, idx), token_gather_ref(x, idx)),
         shape=f"x {tuple(x.shape)} {str(x.dtype)[6:]}, idx [{idx.numel()}] "
               f"({valid} read)")
@@ -393,12 +422,14 @@ def scatter_report(torch, ts_ops, g, idx, n) -> dict:
     bound counts the rows read (index >= 0) and written and the indices at
     3.35 TB/s; ``index_add_`` over the valid rows is the yardstick."""
     from repro_torch.launch.kernel_times import device_ms, time_ms
+    from repro_torch.roofline.analysis import kernel_bound
 
     valid = idx >= 0
     safe, src = idx.clamp(0, n - 1)[valid], g[valid]
     acc = torch.zeros((n, g.shape[1]), dtype=g.dtype, device=g.device)
-    moved = (int(valid.sum()) + n) * g.shape[1] * g.element_size() \
-        + idx.numel() * idx.element_size()
+    bound_s, bound_by = kernel_bound(0.0, ts_ops.scatter_add_bytes(
+        int(valid.sum()), n, g.shape[1] * g.element_size(), idx.numel(),
+        idx.element_size()), "bf16")
     return dict(
         ms=time_ms(lambda: ts_ops.token_scatter_add(g, idx, n), 20),
         device_ms=device_ms(lambda: ts_ops.token_scatter_add(g, idx, n), 20),
@@ -407,7 +438,7 @@ def scatter_report(torch, ts_ops, g, idx, n) -> dict:
         plain_ms=time_ms(lambda: ts_ops.token_scatter_add_ref(g, idx, n), 10),
         library_ms=time_ms(lambda: acc.index_add_(0, safe, src), 20),
         library_device_ms=device_ms(lambda: acc.index_add_(0, safe, src), 20),
-        bound_ms=moved / PEAK_BYTES_S * 1e3, bound_by="bytes",
+        bound_ms=bound_s * 1e3, bound_by=bound_by,
         max_abs_err=_max_err(ts_ops.token_scatter_add(g, idx, n),
                              ts_ops.token_scatter_add_ref(g, idx, n)),
         shape=f"g {tuple(g.shape)} {str(g.dtype)[6:]} -> {n} rows "
@@ -418,10 +449,12 @@ def xlstm_phases(torch, np, check, compare, seed: int, dev):
     """Phases 10-12 on xlstm-125m -> (mlstm_scan's report, its launches)."""
     from repro_torch.configs.base import InputShape, get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.mlstm_scan import ops as ms_ops
     from repro_torch.kernels.mlstm_scan.ops import mlstm_scan, mlstm_scan_chunked_ref
     from repro_torch.launch.kernel_times import time_ms
     from repro_torch.models import xlstm as xlstm_mod
     from repro_torch.models.registry import build_model
+    from repro_torch.roofline.analysis import kernel_bound
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.sharding.context import ParallelContext
 
@@ -452,20 +485,13 @@ def xlstm_phases(torch, np, check, compare, seed: int, dev):
         compare("mlstm_scan", f"final {key} f32", st[key], st_ref[key], 1e-4, why)
     B, H, S, dh = q.shape
     L = min(chunk, S)
-    n_chunks = -(-S // L)
-    # least work: q k^T and S v over the causal half of each L x L chunk, q C
-    # and the k^T v state update at L x dh x dh; bytes: q, k, v, ig, lf in,
-    # h and the final (C, n, m) out, once each
-    flops = 2.0 * B * H * n_chunks * (2 * (L * (L + 1) // 2) * dh + 2 * L * dh * dh)
-    nbytes = 4 * (4 * B * H * S * dh + 2 * B * H * S + B * H * (dh * dh + dh + 1))
-    t_ops, t_bytes = flops / PEAK_FLOPS["f32"], nbytes / PEAK_BYTES_S
+    flops, nbytes = ms_ops.mlstm_cost(B, H, S, dh, chunk)
+    bound_s, bound_by = kernel_bound(flops, nbytes, "f32")
     ms_report = dict(
         ms=time_ms(lambda: mlstm_scan(q, k, v, ig, lf, chunk=chunk), 10),
         plain_ms=time_ms(lambda: mlstm_scan_chunked_ref(q, k, v, ig, lf,
                                                                  chunk=chunk), 3),
-        library_ms=None, max_abs_err=err,
-        bound_ms=max(t_ops, t_bytes) * 1e3,
-        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        library_ms=None, max_abs_err=err, bound_ms=bound_s * 1e3, bound_by=bound_by,
     )
     # under a gradient: the kernel's forward and MLSTMScanFunction's backward
     # against autograd through the plain version on the CPU, on the first
@@ -768,10 +794,12 @@ def relay_phase(torch, check, seed: int, dev):
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.relay_copy.ops import (
         parity_slot_map,
+        relay_bytes,
         relay_copy,
         relay_copy_ref,
     )
     from repro_torch.launch.kernel_times import device_ms, time_ms
+    from repro_torch.roofline.analysis import kernel_bound
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     n, d, bc = 8192, 4096, 256
@@ -796,7 +824,8 @@ def relay_phase(torch, check, seed: int, dev):
     x = inputs["bf16"]
     smap = maps["parity"]
     out = torch.empty_like(x)
-    nbytes = 2 * x.numel() * x.element_size() + smap.numel() * 4
+    bound_s, bound_by = kernel_bound(0.0, relay_bytes(x.numel(), x.element_size(),
+                                                      smap.numel()), "bf16")
     report = dict(
         ms=time_ms(lambda: relay_copy(x, smap, block_chunk=bc), 20),
         device_ms=device_ms(lambda: relay_copy(x, smap, block_chunk=bc), 20),
@@ -804,7 +833,7 @@ def relay_phase(torch, check, seed: int, dev):
         library_ms=time_ms(lambda: out.copy_(x), 20),
         library_device_ms=device_ms(lambda: out.copy_(x), 20),
         max_abs_err=_max_err(relay_copy(x, smap, block_chunk=bc), x),
-        bound_ms=nbytes / PEAK_BYTES_S * 1e3, bound_by="bytes",
+        bound_ms=bound_s * 1e3, bound_by=bound_by,
     )
     del inputs
     grad_raises = _raises_under_grad(torch, lambda a: relay_copy(a[0], block_chunk=bc),
@@ -1488,6 +1517,7 @@ def xlstm_train_phase(torch, np, check, compare, seed: int, dev, smi: str):
     from repro_torch.models import xlstm as xlstm_mod
     from repro_torch.models.registry import build_model
     from repro_torch.optim import adamw
+    from repro_torch.roofline.analysis import kernel_bound
     from repro_torch.sharding.context import ParallelContext
     from repro_torch.train.step import _Phases, loss_and_grads, make_train_step
     from repro_torch.tree import leaves
@@ -1529,13 +1559,11 @@ def xlstm_train_phase(torch, np, check, compare, seed: int, dev, smi: str):
                   "sums of at most two products by 1, 1/2 or 0, each rounded once")
     same = torch.equal(ms_ops.cummax_bwd(g, dy), ms_ops.cummax_bwd(g, dy))
     check(same, "mlstm_cummax_bwd: a second run gave other bits")
-    t_ops = 8.0 * g.numel() / PEAK_FLOPS["f32"]      # each step's compares, products, sums
-    t_bytes = 3 * 4 * g.numel() / PEAK_BYTES_S       # g, dy read, dg written
+    cm_bound_s, cm_bound_by = kernel_bound(*ms_ops.cummax_bwd_cost(g.numel()), "f32")
     cm = dict(ms=time_ms(lambda: ms_ops.cummax_bwd(g, dy), 20),
               device_ms=device_ms(lambda: ms_ops.cummax_bwd(g, dy), 20),
               plain_ms=time_ms(lambda: ms_ops.cummax_bwd_ref(g, dy), 5), library_ms=None,
-              max_abs_err=err, bound_ms=max(t_ops, t_bytes) * 1e3,
-              bound_by="operations" if t_ops >= t_bytes else "bytes",
+              max_abs_err=err, bound_ms=cm_bound_s * 1e3, bound_by=cm_bound_by,
               shape=f"g {tuple(g.shape)} f32")
     print(f"[18 kernel] mlstm_cummax_bwd {cm['shape']}: kernel {cm['ms']:.4f} ms "
           f"({cm['device_ms']:.4f} on the device), plain "
@@ -1571,13 +1599,12 @@ def xlstm_train_phase(torch, np, check, compare, seed: int, dev, smi: str):
     H, dh = cfg.n_heads, cfg.d_model // cfg.n_heads
     L = min(cfg.mlstm_chunk, S)
     nc = -(-S // L)
-    flops = 2 * 2.0 * B * H * nc * (2 * (L * (L + 1) // 2) * dh + 2 * L * dh * dh)
+    flops = 2 * ms_ops.mlstm_cost(B, H, S, dh, cfg.mlstm_chunk)[0]
     nbytes = 4 * (2 * (3 * B * H * S * dh + 2 * B * H * S) + B * H * S * dh
                   + B * H * nc * (dh * dh + dh + 1))
-    t_ops, t_bytes = flops / PEAK_FLOPS["f32"], nbytes / PEAK_BYTES_S
+    bwd_bound_s, bwd_bound_by = kernel_bound(flops, nbytes, "f32")
     bwd = dict(ms_per_step=bwd_ms, calls_per_step=n_mlstm,
-               bound_ms_per_step=n_mlstm * max(t_ops, t_bytes) * 1e3,
-               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               bound_ms_per_step=n_mlstm * bwd_bound_s * 1e3, bound_by=bwd_bound_by,
                backward_with_prefix_functions_ms=float(np.mean(arms["with"])),
                backward_without_prefix_functions_ms=float(np.mean(arms["without"])))
     step_ms = _train_line(
@@ -1879,6 +1906,7 @@ def flash_report(torch, fa_ops, compare, q, k, v, kw, label: str) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.launch.kernel_times import time_ms
+    from repro_torch.roofline.analysis import kernel_bound
 
     B, H, Sq, Dh = q.shape
     Sk = k.shape[2]
@@ -1886,9 +1914,9 @@ def flash_report(torch, fa_ops, compare, q, k, v, kw, label: str) -> dict:
     err = compare("flash_attention", label, o, fa_ops.mha_ref(q, k, v, **kw), 1e-2,
                   "bf16 inputs and output; online vs two-pass softmax")
     mask = fa_ops._mask(Sq, Sk, kw["causal"], kw["window"], kw["q_offset"], q.device)
-    pairs = int(mask.sum()) * B * H
-    t_ops = 4.0 * Dh * pairs / PEAK_FLOPS["bf16"]
-    t_bytes = 2 * (2 * q.numel() + k.numel() + v.numel()) / PEAK_BYTES_S
+    bound_s, bound_by = kernel_bound(*fa_ops.flash_cost(
+        q.shape, k.numel(), kw["causal"], kw["window"], kw["q_offset"], Sk,
+        q.element_size()), "bf16")
     plain_causal = (kw["causal"] and kw["window"] is None and kw["q_offset"] == 0
                     and Sq == Sk)
     sdpa_kw = dict(is_causal=True) if plain_causal else (
@@ -1903,8 +1931,7 @@ def flash_report(torch, fa_ops, compare, q, k, v, kw, label: str) -> dict:
              plain_ms=time_ms(lambda: fa_ops.mha_ref(q, k, v, **kw), 3),
              library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                  q, kk, vv, **sdpa_kw), 20),
-             max_abs_err=err, bound_ms=max(t_ops, t_bytes) * 1e3,
-             bound_by="operations" if t_ops >= t_bytes else "bytes",
+             max_abs_err=err, bound_ms=bound_s * 1e3, bound_by=bound_by,
              shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 "
                    f"{'causal' if kw['causal'] else 'non-causal'}")
     print(f"  flash_attention {label}: {r['shape']}: kernel {r['ms']:.4f} ms, plain "
@@ -1922,6 +1949,7 @@ def ffn_report(torch, ffn_ops, compare, call, label: str) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.launch.kernel_times import time_ms
+    from repro_torch.roofline.analysis import kernel_bound
 
     x, blk, wg, wu, wd, kw = call
     bt, rows = kw["block_tokens"], kw["block_rows"]
@@ -1954,11 +1982,9 @@ def ffn_report(torch, ffn_ops, compare, call, label: str) -> dict:
 
     err = compare("grouped_ffn_blocked", label, run(), plain(), 1e-2,
                   "H rounds to bf16 between the passes, f32 sums, y rounds to bf16")
-    t_ops = 6.0 * valid * D * Fd / PEAK_FLOPS["bf16"]
-    t_bytes = (2 * valid * D + 3 * len(used) * D * Fd) * 2 / PEAK_BYTES_S
+    bound_s, bound_by = kernel_bound(*ffn_ops.ffn_cost(valid, len(used), D, Fd, 2), "bf16")
     r = dict(ms=time_ms(run, 5), plain_ms=time_ms(plain, 2), library_ms=time_ms(library, 5),
-             max_abs_err=err, bound_ms=max(t_ops, t_bytes) * 1e3,
-             bound_by="operations" if t_ops >= t_bytes else "bytes",
+             max_abs_err=err, bound_ms=bound_s * 1e3, bound_by=bound_by,
              shape=f"x [{x.shape[0]}, {D}] bf16 ({valid} token rows), E {wg.shape[0]} "
                    f"({len(used)} used), F {Fd}, block_tokens {bt}")
     print(f"  grouped_ffn_blocked {label}: {r['shape']}: kernel {r['ms']:.4f} ms, plain "
@@ -2391,6 +2417,7 @@ def nontpu_phase(torch, np, check, compare, seed: int, dev, smi: str):
     from repro_torch.launch.kernel_times import time_ms
     from repro_torch.models import moe as moe_mod
     from repro_torch.models.registry import build_model
+    from repro_torch.roofline.analysis import PEAK_FLOPS
     from repro_torch.optim import adamw
     from repro_torch.sharding.context import ParallelContext
     from repro_torch.train.step import make_train_step
@@ -2741,6 +2768,109 @@ def dist_phase(torch, np, check, seed: int, dev, smi: str, phase4_logits, phase7
     return out
 
 
+def roofline_phase(torch, np, check, seed: int, dev, smi: str, phase7_ms: float):
+    """Phase 26: the dry run on the host, the counter around real steps on the
+    card, and the kernels' reports against their launch counts."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.roofline.analysis import (
+        HBM_BW,
+        PEAK_FLOPS,
+        analyze,
+        count_params,
+        least_train_step,
+        model_flops,
+    )
+    from repro_torch.roofline.hlo_cost import CostCounter
+    from repro_torch.sharding.context import ParallelContext
+    from repro_torch.train.step import make_train_step
+
+    t_phase = time.perf_counter()
+    # ---- 26a. the dry run, fake tensors on this machine's host ------------------
+    for (arch, shape), want in DRYRUN_PINNED.items():
+        rec = dryrun.run_one(arch, shape, multi_pod=False)
+        print(f"[26a dryrun] {dryrun.format_line(rec)} n_params {rec.get('n_params')} "
+              f"model_flops_total {rec.get('roofline', {}).get('model_flops_total')} "
+              f"bytes_per_device {rec.get('bytes_per_device')}", flush=True)
+        ok = rec["status"] == "ok"
+        check(ok, f"dryrun {arch} x {shape}: {rec['status']} {rec.get('error', '')}")
+        if ok:
+            got = dict(n_params=rec["n_params"],
+                       model_flops_total=rec["roofline"]["model_flops_total"])
+            check(got == want, f"dryrun {arch} x {shape}: {got}, the CPU tests pin {want}")
+
+    # ---- 26b-c. the counter around one real step on the card ----------------------
+    bf16 = torch.bfloat16
+    cases = [("paper-moe-8e", ParallelContext(ep_size=8, group_size=4, moe_mode="nimble",
+                                              param_dtype=bf16, compute_dtype=bf16,
+                                              device="cuda"), 4, 512, "phase 7"),
+             ("smollm-135m", ParallelContext(param_dtype=bf16, compute_dtype=bf16,
+                                             device="cuda"), 4, 2048, "phase 19")]
+    for arch, ctx, B, S, where in cases:
+        cfg = get_config(arch)
+        model = build_model(cfg, ctx)
+        params = model.init(seed)
+        state = adamw.init(params)
+        step = make_train_step(model, adamw.AdamWConfig(lr=3e-4, warmup_steps=20,
+                                                        total_steps=100))
+        data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B, seed=seed))
+        batches = [to_device(data.batch(i), dev) for i in range(5)]
+        params, state, _ = step(params, state, batches[0])           # warm-up
+        params, state, rows = _step_rows(step, params, state, batches)
+        step_ms = float(np.mean([r["wall"] for r in rows])) * 1e3
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        launches0 = dict(_build.LAUNCHES)
+        with CostCounter() as counter:
+            params, state, _ = step(params, state, batches[4])
+            torch.cuda.synchronize()
+        alloc_peak = torch.cuda.max_memory_allocated() - held
+        cost = counter.result()
+        roof = analyze(cost, 1, 0.0)
+        bound_ms = roof.bound_s * 1e3
+        # the least a step needs however the port computes it (6 N D at the
+        # bf16 peak; a fused AdamW's traffic), beside the op-by-op bound
+        least_c, least_m = least_train_step(
+            model_flops(cfg, count_params(params), B * S, "train"), params, state)
+        least_ms = max(least_c, least_m) * 1e3
+        temp_err = abs(counter.temp_peak - alloc_peak) / max(alloc_peak, 1)
+        check(temp_err <= 0.10, f"26b {arch}: the counter's live peak {counter.temp_peak} B "
+                                f"against the allocator's {alloc_peak} B ({temp_err:.3f} off)")
+        print(f"[26b roofline] {arch} train step {B} x {S} bf16 on the card: FLOPs "
+              f"{ {k: f'{v:.4e}' for k, v in cost['flops_by_dtype'].items()} }, bytes "
+              f"{cost['bytes']:.4e}, compute {roof.compute_s * 1e3:.3f} ms (bf16 at "
+              f"{PEAK_FLOPS['bf16'] / 1e12:.0f}, f32 at {PEAK_FLOPS['f32'] / 1e12:.0f} "
+              f"TFLOP/s), memory {roof.memory_s * 1e3:.3f} ms (at {HBM_BW / 1e12:.2f} TB/s); "
+              f"op-by-op bound {bound_ms:.3f} ms ({roof.dominant}); least (6 N D at the bf16 "
+              f"peak {least_c * 1e3:.3f} ms, a fused AdamW's traffic {least_m * 1e3:.3f} ms) "
+              f"{least_ms:.3f} ms; the step {step_ms:.1f} ms (mean of 3 timed outside the "
+              f"counter, {', '.join(f'{r['wall'] * 1e3:.1f}' for r in rows)}"
+              + (f"; {where}'s {phase7_ms:.1f}" if arch == "paper-moe-8e" else "")
+              + f"): op-by-op bound / step {bound_ms / step_ms:.3f}, least / step "
+              f"{least_ms / step_ms:.3f}; live peak {counter.temp_peak / 1e9:.3f} GB "
+              f"counted, {alloc_peak / 1e9:.3f} GB by the allocator beyond the {held / 1e9:.3f} "
+              f"GB held ({temp_err:.4f} off, limit 0.10); kernels {cost['kernels']}; on {smi}",
+              flush=True)
+        # ---- 26c. every launch reported --------------------------------------------
+        delta = {k: _build.LAUNCHES[k] - launches0[k] for k in _build.LAUNCHES
+                 if _build.LAUNCHES[k] != launches0[k]}
+        reported = {k: v["launches"] for k, v in cost["kernels"].items()}
+        check(cost["uncounted"] == 0, f"26c {arch}: {cost['uncounted']} launches unreported")
+        check(reported == delta, f"26c {arch}: reported launches {reported}, LAUNCHES "
+                                 f"delta {delta}")
+        print(f"[26c launches] {arch}: uncounted {cost['uncounted']}, reported {reported}, "
+              f"LAUNCHES delta {delta}", flush=True)
+        del model, params, state, batches, counter
+        torch.cuda.empty_cache()
+    print(f"[26 roofline] ({time.perf_counter() - t_phase:.0f} s for phase 26 on {smi})",
+          flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2770,6 +2900,7 @@ def main() -> int:
     from repro_torch.kernels.token_scatter.ops import token_gather, token_gather_ref
     from repro_torch.launch.kernel_times import time_ms
     from repro_torch.models.registry import build_model
+    from repro_torch.roofline.analysis import kernel_bound
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.sharding.context import ParallelContext
 
@@ -2857,10 +2988,9 @@ def main() -> int:
     n_pairs = int((ffn_ops._tile_pairs(blk, rows, bt, x_pad.shape[0]) >= 0).sum())
 
     def ffn_bound(dt_name, itemsize):
-        flops = 6.0 * valid_rows * D * Fd
-        nbytes = (2 * valid_rows * D + 3 * len(used) * D * Fd) * itemsize
-        t_ops, t_bytes = flops / PEAK_FLOPS[dt_name], nbytes / PEAK_BYTES_S
-        return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+        bound_s, by = kernel_bound(*ffn_ops.ffn_cost(valid_rows, len(used), D, Fd, itemsize),
+                                   dt_name)
+        return bound_s * 1e3, by
 
     def segments(live_only):
         """contiguous per-expert row ranges: every row, or token rows only"""
@@ -2935,9 +3065,9 @@ def main() -> int:
                          "f32 online vs two-pass softmax sums")
     B, H, Sq, Dh = q.shape
     mask = fa_ops._mask(Sq, k.shape[2], kw["causal"], kw["window"], kw["q_offset"], dev)
-    pairs = int(mask.sum()) * B * H
-    t_ops = 4.0 * Dh * pairs / PEAK_FLOPS["bf16"]
-    t_bytes = 2 * (q.numel() * 2 + k.numel() + v.numel()) / PEAK_BYTES_S
+    fa_bound_s, fa_bound_by = kernel_bound(*fa_ops.flash_cost(
+        q.shape, k.numel(), kw["causal"], kw["window"], kw["q_offset"], k.shape[2],
+        q.element_size()), "bf16")
     # the fastest single PyTorch call for it: is_causal where the call is plain
     # causal (no window, no offset, Sq == Sk), else an explicit mask
     plain_causal = (kw["causal"] and kw["window"] is None and kw["q_offset"] == 0
@@ -2957,8 +3087,7 @@ def main() -> int:
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             q, kk, vv, **sdpa_kw), 20),
         max_abs_err=err_fa, f32_max_abs_err=fa_f32_err,
-        bound_ms=max(t_ops, t_bytes) * 1e3,
-        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        bound_ms=fa_bound_s * 1e3, bound_by=fa_bound_by,
         shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 {kw}; library: SDPA "
               + ("is_causal" if plain_causal else "with a boolean mask"),
     )
@@ -3192,6 +3321,10 @@ def main() -> int:
         launches[kname] += c
         extra.setdefault(kname, {})["launches_dist_executor"] = c
     print(f"[25 dist] ({time.perf_counter() - t_start:.0f} s in all)", flush=True)
+
+    # ---- 26. the roofline and the dry run ------------------------------------------
+    roofline_phase(torch, np, check, args.seed, dev, smi, phase7["step_ms"])
+    print(f"[26 roofline] ({time.perf_counter() - t_start:.0f} s in all)", flush=True)
 
     kernels = []
     for kname, (src, replaces) in KERNEL_META.items():

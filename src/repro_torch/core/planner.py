@@ -93,10 +93,13 @@ def device_tables(tables: PlannerTables, device) -> _DeviceTables:
 
     Keyed by the tables object's identity; the cache entry holds a
     reference to the tables so the identity cannot be reused while cached.
+    Under a ``FakeTensorMode`` (the dry run) the tensors are fake and live
+    only as long as that mode: they are built afresh and not cached.
     """
     device = torch.device(device)
     key = (id(tables), str(device))
-    hit = _DEVICE_CACHE.get(key)
+    fake = torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None
+    hit = None if fake else _DEVICE_CACHE.get(key)
     if hit is not None:
         _DEVICE_CACHE.move_to_end(key)
         return hit[1]
@@ -135,6 +138,8 @@ def device_tables(tables: PlannerTables, device) -> _DeviceTables:
         seg_order=t(order, torch.int64),
         seg_lengths=t(lengths, torch.int64),
     )
+    if fake:
+        return dt
     _DEVICE_CACHE[key] = (tables, dt)
     while len(_DEVICE_CACHE) > _DEVICE_CACHE_CAP:
         _DEVICE_CACHE.popitem(last=False)

@@ -19,7 +19,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, List, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -46,6 +46,11 @@ LAUNCHES: Dict[str, int] = {
     "grouped_ffn_blocked": 0, "grouped_ffn_blocked_f32": 0, "flash_attention": 0,
     "flash_attention_f32": 0, "mlstm_scan": 0, "mlstm_cummax_bwd": 0, "relay_copy": 0,
     "relay_copy_w4": 0, "relay_copy_w2": 0}
+
+#: the cost counters open on this thread (``roofline/hlo_cost.py``'s
+#: ``CostCounter``); a kernel runs outside PyTorch's dispatch, so each launch
+#: site reports its launch's work to them (:func:`report`)
+COUNTERS: List = []
 
 
 def _nvcc() -> str:
@@ -126,3 +131,14 @@ def check(err: int, what: str) -> None:
     """Raise if a kernel entry point returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def report(name: str, cost: Callable[[], Tuple[float, float, "torch.dtype"]]) -> None:
+    """Tell each open cost counter that kernel ``name`` launched once.
+
+    ``cost()`` -> (flops, bytes, operand dtype) of the launch, by the kernel's
+    bound formula; it is called only while a counter is open (it may read a
+    count on the host).
+    """
+    for counter in COUNTERS:
+        counter.launched(name, cost)

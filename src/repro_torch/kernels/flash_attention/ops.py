@@ -51,6 +51,27 @@ def _mask(sq: int, sk: int, causal: bool, window: Optional[int], q_offset: int,
     return mask
 
 
+def attention_pairs(sq: int, sk: int, causal: bool, window: Optional[int],
+                    q_offset: int) -> int:
+    """Query-key pairs that :func:`_mask` keeps, counted row by row."""
+    total = 0
+    for qpos in range(q_offset, q_offset + sq):
+        hi = min(sk - 1, qpos) if causal else sk - 1
+        lo = max(0, qpos - window + 1) if window is not None else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def flash_cost(q_shape, k_numel: int, causal: bool, window: Optional[int],
+               q_offset: int, sk: int, itemsize: int):
+    """(flops, bytes) of one :func:`flash_attention` launch (``chip_smoke.py``'s
+    bound): 4 dh flops a kept score pair, q, k, v read and o written once."""
+    b, h, sq, dh = q_shape
+    pairs = attention_pairs(sq, sk, causal, window, q_offset) * b * h
+    q_numel = b * h * sq * dh
+    return 4.0 * dh * pairs, itemsize * (2 * q_numel + 2 * k_numel)
+
+
 def mha_ref(q, k, v, *, causal: bool = True, window: Optional[int] = None,
             q_offset: int = 0) -> torch.Tensor:
     """Plain version: q [B,H,Sq,Dh], k/v [B,Hkv,Sk,Dh] -> [B,H,Sq,Dh]."""
@@ -143,6 +164,8 @@ def _flash(q, k, v, *, causal: bool, window: Optional[int], q_offset: int) -> to
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, entry)
     _build.LAUNCHES[count] += 1
+    _build.report(count, lambda: (*flash_cost(q.shape, k.numel(), causal, window, q_offset,
+                                              sk, q.element_size()), q.dtype))
     return o
 
 

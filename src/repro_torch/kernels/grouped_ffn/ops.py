@@ -57,6 +57,30 @@ _TILE_ROWS, _TILE_D, _TILE_F = 64, 128, 64
 _MAX_TILES = 4096
 
 
+def ffn_cost(valid: int, used: int, d: int, f: int, itemsize: int):
+    """(flops, bytes) of one :func:`grouped_ffn_blocked` launch
+    (``chip_smoke.py``'s bound): 6 D F flops a token row, the token rows
+    read and written and each used expert's three matrices read once."""
+    return 6.0 * valid * d * f, (2 * valid * d + 3 * used * d * f) * itemsize
+
+
+def _ffn_launch_cost(x, block_expert, block_rows, f: int):
+    if block_rows is None:
+        valid, used = x.shape[0], torch.unique(block_expert).numel()
+    else:
+        valid = int(block_rows.sum())
+        used = torch.unique(block_expert[block_rows > 0]).numel()
+    return (*ffn_cost(valid, used, x.shape[1], f, x.element_size()), x.dtype)
+
+
+def _bincount(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``torch.bincount(keys, minlength=n)`` for int64 keys in [0, n): the
+    same integers, by an ``index_add_`` of ones, in a shape that does not
+    depend on the data (fake tensors have no ``bincount``)."""
+    return torch.zeros(n, dtype=torch.int64, device=keys.device).index_add_(
+        0, keys, torch.ones_like(keys))
+
+
 def _arrange(expert_id: torch.Tensor, n_experts: int, block: int):
     """Padded positions and per-block experts for ragged grouping."""
     dev = expert_id.device
@@ -64,7 +88,7 @@ def _arrange(expert_id: torch.Tensor, n_experts: int, block: int):
     m_pad = (-(-n // block) + n_experts) * block  # block-aligned worst case
     key = torch.where(expert_id < 0, n_experts, expert_id).long()
     order = torch.argsort(key, stable=True)                     # sorted rows
-    counts = torch.bincount(key.clamp(0, n_experts), minlength=n_experts + 1)
+    counts = _bincount(key.clamp(0, n_experts), n_experts + 1)
     aligned = (counts[:-1] + block - 1) // block * block
     aligned_off = torch.cumsum(aligned, 0) - aligned            # [E]
     seg_off = torch.cumsum(counts[:-1], 0) - counts[:-1]
@@ -90,7 +114,7 @@ def _block_rows(expert_id: torch.Tensor, n_experts: int, block: int) -> torch.Te
     n = expert_id.shape[0]
     m_pad = (-(-n // block) + n_experts) * block
     key = torch.where(expert_id < 0, n_experts, expert_id).long()
-    counts = torch.bincount(key.clamp(0, n_experts), minlength=n_experts + 1)[:-1]
+    counts = _bincount(key.clamp(0, n_experts), n_experts + 1)[:-1]
     aligned = (counts + block - 1) // block * block
     aligned_off = torch.cumsum(aligned, 0) - aligned
     blk_start = torch.arange(m_pad // block, device=expert_id.device) * block
@@ -215,6 +239,7 @@ def grouped_ffn_blocked(x, block_expert, wg, wu, wd, *, block_tokens: int,
              block_tokens, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, entry)
     _build.LAUNCHES[count] += 1
+    _build.report(count, lambda: _ffn_launch_cost(x, block_expert, block_rows, f))
     return y
 
 
@@ -373,7 +398,7 @@ def grouped_ffn_dense(x, expert_id, wg, wu, wd, *, cap_factor: float = 2.0,
     cap = max(int(-(-n * cap_factor // (E * block_tokens))), 1) * block_tokens
     key = torch.where(expert_id < 0, E, expert_id).long()
     order = torch.argsort(key, stable=True)
-    counts = torch.bincount(key.clamp(0, E), minlength=E + 1)
+    counts = _bincount(key.clamp(0, E), E + 1)
     seg_off = torch.cumsum(counts[:-1], 0) - counts[:-1]
     rank = torch.empty_like(key)
     rank[order] = torch.arange(n, device=x.device) - seg_off[key[order].clamp(0, E - 1)]

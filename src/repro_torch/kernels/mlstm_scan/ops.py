@@ -122,6 +122,7 @@ def cummax_bwd(g: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
              torch.cuda.current_stream(g.device).cuda_stream)
     _build.check(err, "mlstm_cummax_bwd")
     _build.LAUNCHES["mlstm_cummax_bwd"] += 1
+    _build.report("mlstm_cummax_bwd", lambda: (*cummax_bwd_cost(g.numel()), g.dtype))
     return dg
 
 
@@ -185,6 +186,24 @@ def _chunk_body(st: State, q, k, v, ig, lf) -> Tuple[State, torch.Tensor]:
     return {"C": C_out, "n": n_out, "m": Lf[..., -1] + u_L}, h
 
 
+def mlstm_cost(b: int, h: int, s: int, dh: int, chunk: int):
+    """(flops, bytes) of one :func:`mlstm_scan` call's launches (``chip_smoke.py``'s
+    bound): q k^T and S v over the causal half of each L x L chunk, q C and
+    the k^T v state update at L x dh x dh; q, k, v, ig, lf read, h and the
+    final (C, n, m) written once, float32."""
+    L = min(chunk, s)
+    nc = -(-s // L)
+    flops = 2.0 * b * h * nc * (2 * (L * (L + 1) // 2) * dh + 2 * L * dh * dh)
+    return flops, 4 * (4 * b * h * s * dh + 2 * b * h * s + b * h * (dh * dh + dh + 1))
+
+
+def cummax_bwd_cost(numel: int):
+    """(flops, bytes) of one :func:`cummax_bwd` launch (``chip_smoke.py``'s
+    bound): each step's compares, products and sums, 8 a value; g and dy
+    read, dg written, float32."""
+    return 8.0 * numel, 3 * 4 * numel
+
+
 def _pad(q, k, v, ig, lf, chunk: int):
     """Pad S to a multiple of L = min(chunk, S) as xlstm.py:179-188 does."""
     s = q.shape[2]
@@ -236,6 +255,7 @@ def _launch(q, k, v, ig, lf, chunk: int, state: Optional[State]):
     if any(a.dtype != torch.float32 for a in (q, k, v, ig, lf)):
         raise TypeError("mlstm_scan: q, k, v, ig, lf must be float32")
     b, hh, s, dh = q.shape
+    cost = mlstm_cost(b, hh, s, dh, chunk)
     if (tuple(k.shape) != tuple(q.shape) or tuple(v.shape) != tuple(q.shape)
             or tuple(ig.shape) != (b, hh, s) or tuple(lf.shape) != (b, hh, s)):
         raise ValueError(f"mlstm_scan: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
@@ -271,6 +291,7 @@ def _launch(q, k, v, ig, lf, chunk: int, state: Optional[State]):
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "mlstm_scan")
     _build.LAUNCHES["mlstm_scan"] += 1
+    _build.report("mlstm_scan", lambda: (*cost, torch.float32))
     cn = work[:b * hh * nc * E].view(b, hh, nc, E)
     chunk_in = (cn[..., :dh * dh].view(b, hh, nc, dh, dh), cn[..., dh * dh:],
                 work[b * hh * nc * (E + 2):].view(b, hh, nc))

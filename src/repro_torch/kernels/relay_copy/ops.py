@@ -121,6 +121,12 @@ def _check(x: torch.Tensor, slot_map: Optional[torch.Tensor], block_chunk: int) 
     return n_chunks
 
 
+def relay_bytes(numel: int, itemsize: int, n_chunks: int) -> int:
+    """Least bytes of one :func:`relay_copy` launch: x read and written once
+    and the int32 slot map read."""
+    return 2 * numel * itemsize + n_chunks * 4
+
+
 def relay_copy_ref(x: torch.Tensor, slot_map: Optional[torch.Tensor] = None, *,
                    block_chunk: int = 256) -> torch.Tensor:
     """Plain version: a copy of ``x``, after the same shape checks."""
@@ -158,4 +164,6 @@ def relay_copy(x: torch.Tensor, slot_map: Optional[torch.Tensor] = None, *,
                    *geo, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "relay_copy")
     _build.LAUNCHES[_COUNTS[geo.word]] += 1
+    _build.report(_COUNTS[geo.word], lambda: (
+        0.0, relay_bytes(x.numel(), x.element_size(), n_chunks), x.dtype))
     return out

@@ -96,6 +96,30 @@ def _index_entry():
     return _build.function("token_scatter_add", "token_scatter_index", _INDEX_ARGTYPES)
 
 
+def gather_bytes(valid: int, m: int, row_bytes: int, index_bytes: int) -> int:
+    """Least bytes of one :func:`token_gather` launch (``chip_smoke.py``'s
+    bound): the ``valid`` rows it reads (index >= 0), the ``m`` rows it
+    writes and the indices."""
+    return (valid + m) * row_bytes + m * index_bytes
+
+
+def scatter_add_bytes(valid: int, n: int, row_bytes: int, m: int, index_bytes: int) -> int:
+    """Least bytes of one :func:`token_scatter_add` call (``chip_smoke.py``'s
+    bound): the ``valid`` rows of g it reads, the ``n`` rows it writes and
+    the ``m`` indices."""
+    return (valid + n) * row_bytes + m * index_bytes
+
+
+def inverse_index_bytes(m: int, n: int, index_bytes: int) -> int:
+    """Least bytes of one :func:`build_inverse_index` launch: the indices
+    read, ``order`` [m] and ``offsets`` [n + 1] (int64) written."""
+    return m * index_bytes + (m + n + 1) * 8
+
+
+def _valid(idx: torch.Tensor) -> int:
+    return int((idx >= 0).sum())
+
+
 def _check_cuda(name: str, t: torch.Tensor, idx: torch.Tensor) -> None:
     if t.device.type != "cuda" or idx.device != t.device:
         raise ValueError(f"{name}: tensor on {t.device}, idx on {idx.device}")
@@ -135,6 +159,8 @@ def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                    torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "token_gather")
     _build.LAUNCHES["token_gather"] += 1
+    _build.report("token_gather", lambda: (
+        0.0, gather_bytes(_valid(idx), m, row_bytes, idx.element_size()), x.dtype))
     return out
 
 
@@ -171,12 +197,13 @@ def token_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def token_scatter_add_ref(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
     """Plain version: ``gx[r] = sum of g[i] over clip(idx[i]) = r, idx[i] >= 0``.
 
-    Summed in float32 by ``index_add_`` and cast to ``g``'s dtype once.
+    Summed in float32 by ``index_add_`` and cast to ``g``'s dtype once.  Rows
+    with ``idx < 0`` are summed into a dump row ``n``, dropped after, so no
+    shape depends on the data.
     """
-    valid = idx >= 0
-    safe = idx.clamp(0, n - 1).long()[valid]
-    out = torch.zeros((n, g.shape[1]), dtype=torch.float32, device=g.device)
-    return out.index_add_(0, safe, g[valid].float()).to(g.dtype)
+    safe = torch.where(idx >= 0, idx.clamp(0, n - 1), n).long()
+    out = torch.zeros((n + 1, g.shape[1]), dtype=torch.float32, device=g.device)
+    return out.index_add_(0, safe, g.float())[:n].to(g.dtype)
 
 
 def inverse_index(idx: torch.Tensor, n: int):
@@ -221,6 +248,8 @@ def build_inverse_index(idx: torch.Tensor, n: int):
                          torch.cuda.current_stream(idx.device).cuda_stream)
     _build.check(err, "token_scatter_index")
     _build.LAUNCHES["token_scatter_index"] += 1
+    _build.report("token_scatter_index", lambda: (
+        0.0, inverse_index_bytes(idx.shape[0], n, idx.element_size()), idx.dtype))
     return order, offsets
 
 
@@ -254,4 +283,10 @@ def token_scatter_add(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tenso
     _build.check(err, "token_scatter_add")
     _build.LAUNCHES["token_scatter_index"] += 1
     _build.LAUNCHES["token_scatter_add"] += 1
+    # one bound for the call, as chip_smoke.py counts it: the index launch's
+    # order and offsets are the call's scratch
+    _build.report("token_scatter_index", lambda: (0.0, 0, idx.dtype))
+    _build.report("token_scatter_add", lambda: (
+        0.0, scatter_add_bytes(_valid(idx), n, row_bytes, idx.shape[0], idx.element_size()),
+        g.dtype))
     return out

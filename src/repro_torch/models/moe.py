@@ -136,6 +136,11 @@ def make_moe_ffn(cfg: ModelConfig, ctx: ParallelContext):
     # the processes holding distinct tokens (sharded over data x model)
     mesh_groups = ctx.data_groups + ((group,) if group is not None else ())
     if ctx.ep_size <= 1:
+        if ctx.model_procs > 1:
+            raise ValueError(f"{cfg.name}: the mesh splits the experts over "
+                             f"{ctx.model_procs} processes; ep_size must be a multiple "
+                             f"of that, got {ctx.ep_size}")
+
         def apply_local(p, x):
             b, s, d = x.shape
             xf = x.reshape(-1, d)

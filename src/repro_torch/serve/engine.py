@@ -1,6 +1,7 @@
 """Batched serving engine: prefill + greedy/temperature decode loop.
 
-Counterpart of ``repro/serve/engine.py``.  The prompt is prefilled as P
+Counterpart of ``repro/serve/engine.py``.  ``make_serve_step`` is one
+decode step, as the dry run counts it.  The prompt is prefilled as P
 decode steps (the reference's prefill scan runs exactly those steps), then
 each new token is sampled from the last logits: argmax when greedy, else a
 draw from ``softmax(logits / temperature)`` with a ``torch.Generator``
@@ -17,6 +18,15 @@ import torch
 
 from ..configs.base import InputShape
 from ..models.registry import Model
+
+
+def make_serve_step(model: Model):
+    """The single-token decode function that the dry run counts for the decode
+    shapes (the reference's ``serve/engine.py:25-29``)."""
+    def serve_step(params, cache, token, pos: int):
+        """token [B] int, pos a host int -> (logits [B, V], cache')."""
+        return model.decode_step(params, cache, token, pos)
+    return serve_step
 
 
 @dataclasses.dataclass

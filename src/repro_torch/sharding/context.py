@@ -12,7 +12,9 @@ Counterpart of ``repro/sharding/context.py``:
   * ``ep_size`` / ``group_size`` — EP **ranks**, and ranks per "node" on the
     NIMBLE axis (the paper's 2 x 4 testbed is ``ep_size=8, group_size=4``).
     The mesh's model dim counts **processes** and must divide ``ep_size``:
-    each process hosts ``ep_size / model`` consecutive ranks, stacked;
+    each process hosts ``ep_size / model`` consecutive ranks, stacked.  A
+    family without experts takes ``ep_size=1`` on any mesh (every process
+    data-parallel);
   * ``moe_mode`` / ``moe_chunk_tokens`` / ``moe_alt_frac`` — the
     dispatcher's dataplane mode, chunk size in tokens, and alternate-path
     slot share;
@@ -53,7 +55,7 @@ class ParallelContext:
     session: Optional[object] = None
 
     def __post_init__(self):
-        if self.mesh is not None and self.ep_size % self.model_procs:
+        if self.mesh is not None and self.ep_size > 1 and self.ep_size % self.model_procs:
             raise ValueError(f"the mesh's {self.model_axis} dim ({self.model_procs} "
                              f"processes) does not divide ep_size {self.ep_size}")
 
