@@ -95,7 +95,7 @@ port's six CUDA kernels from ``src/repro_torch/csrc``, all at once, then:
      the CPU's and the path's own plan, with one telemetry and estimator
      record per batch entry; (c) the ``skewed_alltoallv`` example on the
      card, bit-exact in all three modes at hotspots 0.3, 0.7 and 0.9; (d)
-     the API selfcheck's checks 1-5 on the card.
+     the API selfcheck's checks on the card.
  17. drives NIMBLE's fault harness, serve control plane and flight recorder
      on the card, each sub-phase against a CPU run of the same port code:
      (a) the four fault drills of ``launch/drills.py`` (flap, blackout,
@@ -109,7 +109,7 @@ port's six CUDA kernels from ``src/repro_torch/csrc``, all at once, then:
      and planner layers under one correlation id, the trace, provenance log
      and metrics snapshot card = CPU event for event, a complete provenance
      record for every swap, recorded reports equal to unrecorded ones (70
-     trace events, 8 plans, 7 swaps); (d) the API selfcheck's checks 1-7 on
+     trace events, 8 plans, 7 swaps); (d) the API selfcheck's checks 1-8 on
      the card.  Prints each sub-phase's card solves (count, median ms) and
      incidence-table uploads to the card, and the phase's wall time.
  18. trains xlstm-125m at full width (bf16, 4 x 2048 tokens from
@@ -193,7 +193,9 @@ port's six CUDA kernels from ``src/repro_torch/csrc``, all at once, then:
      smollm-135m x train_4k, granite-moe-1b-a400m x train_4k and llama3-8b x
      decode_32k on 16 x 16: each record's line, ``status`` ok, and
      ``n_params`` and ``model_flops_total`` equal to ``DRYRUN_PINNED`` (the
-     values the CPU tests hold against the reference's); (b) the counter
+     values the CPU tests hold against the reference's), and smollm-135m x
+     train_4k on 2 x 16 x 16 (512 processes, 256 sequences: the rows over
+     pod x data, replicated over model), ``status`` ok; (b) the counter
      (``roofline/hlo_cost.py``) around one real step on the card of phase
      7's paper-moe-8e (4 x 512, EP 8 stacked) and phase 19's smollm-135m
      (4 x 2048): FLOPs by dtype, bytes, the roofline's compute and memory
@@ -206,6 +208,19 @@ port's six CUDA kernels from ``src/repro_torch/csrc``, all at once, then:
      the bytes held before the step; (c) no launch left unreported
      (``uncounted`` 0) and each kernel's reported launches equal to its
      ``LAUNCHES`` delta over (b).
+ 27. the port's static checker and the card's own sync report: (a)
+     ``repro_torch.analysis`` over this checkout's ``src/repro_torch``: no
+     live finding with the shipped baseline, both locks fresh; prints the
+     findings baselined by rule and the ``host-sync`` inventory's sites by
+     class; (b) ``launch/sync_audit.py``: one paper-moe-8e train step at
+     phase 7's width (4 x 512, EP 8, bf16) after a warm-up step, then one
+     decode step of ``make_serve_step``, under
+     ``torch.cuda.set_sync_debug_mode("warn")`` with the GPU trace's sync
+     callbacks: each sync's innermost frame under ``src/repro_torch/``, as
+     its trace callback and its warning each see it, must be a
+     ``host-sync`` site of the inventory, (file, function), and the sync
+     warnings must match the traced syncs site for site; prints the syncs a
+     step and the distinct sites.
 
 It prints one line per phase, the card's name and power limit as
 ``nvidia-smi`` reports them, a JSON line of per-kernel numbers, and as its
@@ -1415,11 +1430,11 @@ def faults_serve_phase(torch, np, check, smi: str):
               f"overhead {wall['cpu']['overhead_ratio']:.4f}x); "
               f"{time.perf_counter() - t0:.2f} s; {card_work(solves, uploads, m)}", flush=True)
 
-        # ---- 17d. the API selfcheck, seven checks ---------------------------
+        # ---- 17d. the API selfcheck, eight checks ---------------------------
         m = mark()
         rc, out = _quiet(selfcheck.main, ["--device", "cuda"])
         lines = out.strip().splitlines()
-        check(rc == 0 and lines[-1].startswith("[selfcheck] 7/7 checks passed"),
+        check(rc == 0 and lines[-1].startswith("[selfcheck] 8/8 checks passed"),
               f"api selfcheck on the card: {lines[-1]}")
         print("[17d selfcheck] " + " | ".join(
             line.replace("[selfcheck] ", "") for line in lines) + f"; {card_work(solves, uploads, m)}",
@@ -2802,6 +2817,12 @@ def roofline_phase(torch, np, check, seed: int, dev, smi: str, phase7_ms: float)
             got = dict(n_params=rec["n_params"],
                        model_flops_total=rec["roofline"]["model_flops_total"])
             check(got == want, f"dryrun {arch} x {shape}: {got}, the CPU tests pin {want}")
+    # train_4k on 2 x 16 x 16: 256 sequences over pod x data, replicated over model
+    rec = dryrun.run_one("smollm-135m", "train_4k", multi_pod=True)
+    print(f"[26a dryrun] 2x16x16 {dryrun.format_line(rec)} bytes_per_device "
+          f"{rec.get('bytes_per_device')}", flush=True)
+    check(rec["status"] == "ok", f"dryrun smollm-135m x train_4k on 2x16x16: "
+                                 f"{rec['status']} {rec.get('error', '')}")
 
     # ---- 26b-c. the counter around one real step on the card ----------------------
     bf16 = torch.bfloat16
@@ -2869,6 +2890,62 @@ def roofline_phase(torch, np, check, seed: int, dev, smi: str, phase7_ms: float)
         torch.cuda.empty_cache()
     print(f"[26 roofline] ({time.perf_counter() - t_phase:.0f} s for phase 26 on {smi})",
           flush=True)
+
+
+def analysis_phase(torch, check, seed: int, smi: str):
+    """Phase 27: the static checker over this checkout, then the card's own
+    report of a train step's and a decode step's syncs against its
+    ``host-sync`` inventory."""
+    from repro_torch.analysis import (
+        AnalysisEngine,
+        RULES,
+        build_retrace_inventory,
+        default_lock_path,
+        default_retrace_lock_path,
+        load_baseline,
+        lock_is_fresh,
+        retrace_lock_is_fresh,
+    )
+    from repro_torch.analysis.engine import build_contexts
+    from repro_torch.analysis.rules import HostSyncRule
+    from repro_torch.launch import sync_audit
+
+    t_phase = time.perf_counter()
+    # ---- 27a. the checker -------------------------------------------------------
+    pkg = str(ROOT / "src" / "repro_torch")
+    contexts = build_contexts([pkg], rel_to=str(ROOT / "src"))
+    engine = AnalysisEngine(RULES, load_baseline())
+    report = engine.run(contexts, root=pkg)
+    rule = next(r for r in engine.rules if isinstance(r, HostSyncRule))
+    fresh = (lock_is_fresh(default_lock_path(), contexts),
+             retrace_lock_is_fresh(default_retrace_lock_path(), engine.program, rule.analysis))
+    inv = build_retrace_inventory(engine.program, rule.analysis)
+    baselined = {}
+    for f in report.baselined:
+        baselined[f.rule] = baselined.get(f.rule, 0) + 1
+    check(report.clean, f"27a: {len(report.findings)} live finding(s): "
+                        + "; ".join(str(f) for f in report.findings[:3]))
+    check(all(fresh), f"27a: locks fresh (schemas, retrace) {fresh}")
+    print(f"[27a analysis] {report.files} files, {len(report.findings)} live finding(s) "
+          f"{report.counts}, baselined by rule {baselined}, {len(report.suppressed)} "
+          f"suppressed; locks fresh (schemas, retrace) {fresh}; host-sync inventory "
+          f"{len(inv['sites'])} sites by class {inv['counts']}", flush=True)
+
+    # ---- 27b. the card's own sync report against the inventory ------------------
+    logs = sync_audit.audit(seed)
+    listed = {(s["path"], s["function"].rsplit(".", 1)[-1]) for s in inv["sites"]}
+    missing = sync_audit.unlisted(logs, listed)
+    check(not missing, f"27b: syncs outside the host-sync inventory: {missing}")
+    for name, log in logs.items():
+        check(all(p != "<outside repro_torch>" for p, _, _ in log.sites + log.warned),
+              f"27b {name}: a sync with no frame under src/repro_torch/ "
+              f"({log.sites}, {log.warned})")
+        check(log.warnings == len(log.sites) and not sync_audit.unmatched(log),
+              f"27b {name}: {log.warnings} sync warnings against {len(log.sites)} traced "
+              f"syncs; unmatched {sync_audit.unmatched(log)}")
+        print(f"[27b sync audit] {sync_audit.describe(name, log)}", flush=True)
+    print(f"[27b sync audit] unlisted sites {missing}; "
+          f"({time.perf_counter() - t_phase:.0f} s for phase 27 on {smi})", flush=True)
 
 
 def main() -> int:
@@ -3325,6 +3402,10 @@ def main() -> int:
     # ---- 26. the roofline and the dry run ------------------------------------------
     roofline_phase(torch, np, check, args.seed, dev, smi, phase7["step_ms"])
     print(f"[26 roofline] ({time.perf_counter() - t_start:.0f} s in all)", flush=True)
+
+    # ---- 27. the static checker and the card's own sync report --------------------
+    analysis_phase(torch, check, args.seed, smi)
+    print(f"[27 analysis] ({time.perf_counter() - t_start:.0f} s in all)", flush=True)
 
     kernels = []
     for kname, (src, replaces) in KERNEL_META.items():

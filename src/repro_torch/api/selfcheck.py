@@ -25,11 +25,12 @@ solve on ``--device`` (the card unless ``cpu`` is named):
      with tracing attached exports a valid ``nimble.trace/v1`` Chrome trace
      spanning all four layers under one correlation id, every swap has a
      provenance record, and the serve report embeds a
-     ``nimble.metrics/v1`` snapshot.
-
-The reference's check 8 (lint) runs its static checker over
-``src/repro``, a JAX-specific rule set; it waits for a checker of the
-port's own (ROADMAP Queue 1 item 11).
+     ``nimble.metrics/v1`` snapshot;
+  8. **lint**       — the port's static checker (``repro_torch.analysis``)
+     over ``src/repro_torch``: zero live findings with the shipped
+     baseline, a strict-parsing ``nimble.lint/v1`` report, and both locks
+     (``schemas.lock.json``, the ``host-sync`` inventory's
+     ``retrace.lock.json``) fresh.
 """
 
 from __future__ import annotations
@@ -339,6 +340,60 @@ def check_obs(device: str = "cuda") -> str:
     )
 
 
+def check_lint(device: str = "cuda") -> str:
+    """The static checker over src/repro_torch: zero live findings with the
+    shipped baseline, a strict-parsing ``nimble.lint/v1`` report, and both
+    locks fresh (host-only: ``device`` is accepted for a uniform
+    signature)."""
+    import os
+
+    from ..analysis import (
+        AnalysisEngine,
+        RULES,
+        default_baseline_path,
+        default_lock_path,
+        default_retrace_lock_path,
+        load_baseline,
+        lock_is_fresh,
+        retrace_lock_is_fresh,
+    )
+    from ..analysis.engine import build_contexts
+    from ..analysis.rules import HostSyncRule
+    from ..jsonio import parse_schema_id
+
+    src_pkg = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    contexts = build_contexts([src_pkg], rel_to=os.path.dirname(src_pkg))
+    engine = AnalysisEngine(RULES, load_baseline(default_baseline_path()))
+    report = engine.run(contexts, root=src_pkg)
+    if not report.clean:
+        head = "; ".join(str(f) for f in report.findings[:3])
+        raise AssertionError(
+            f"{len(report.findings)} live finding(s) over src/repro_torch "
+            f"(first: {head}) — run `python -m repro_torch.analysis`"
+        )
+    obj = report.to_json_obj()
+    if parse_schema_id(obj["schema"]) != ("lint", 1):
+        raise AssertionError(f"lint report schema {obj['schema']!r}")
+    if not lock_is_fresh(default_lock_path(), contexts):
+        raise AssertionError(
+            "schemas.lock.json is stale — "
+            "`python -m repro_torch.analysis --write-lock` and commit"
+        )
+    host_sync = next(r for r in engine.rules if isinstance(r, HostSyncRule))
+    if not retrace_lock_is_fresh(default_retrace_lock_path(), engine.program,
+                                 host_sync.analysis):
+        raise AssertionError(
+            "retrace.lock.json is stale: the host-sync inventory changed — "
+            "`python -m repro_torch.analysis --write-lock` and commit"
+        )
+    return (
+        f"lint: {report.files} files clean "
+        f"({len(report.suppressed)} suppressed, "
+        f"{len(report.baselined)} baselined); schema lock fresh; "
+        f"{len(host_sync.sites)} host-sync sites, lock fresh"
+    )
+
+
 CHECKS = (
     check_static,
     check_adaptive,
@@ -347,6 +402,7 @@ CHECKS = (
     check_price_decay,
     check_serve,
     check_obs,
+    check_lint,
 )
 
 

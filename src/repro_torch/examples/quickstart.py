@@ -2,7 +2,7 @@
 
     python -m repro_torch.examples.quickstart [--device cpu]
 
-Counterpart of ``examples/quickstart.py``, parts 1-3.  One
+Counterpart of ``examples/quickstart.py``.  One
 :class:`repro_torch.api.Session` over the paper's testbed fabric (2 nodes x
 4 GPUs) plans a skewed exchange with the three routing policies compared on
 the calibrated fabric simulator:
@@ -13,10 +13,10 @@ the calibrated fabric simulator:
 
 and gives the MWU plan's gap to the congestion lower bound.  Then a
 :class:`repro_torch.obs.FlightRecorder` traces an adaptive run over a
-drifting hotspot, and a reduced granite-moe-1b-a400m runs a forward pass.
-Every solve and the forward run on ``--device`` (the card by default).
-The reference's part 4 lints a fixture with ``repro.analysis``, which has
-no counterpart in this package yet: it prints one line that says so.
+drifting hotspot, a reduced granite-moe-1b-a400m runs a forward pass, and
+the port's static checker (``repro_torch.analysis``) lints a deliberately
+broken fixture.  Every solve and the forward run on ``--device`` (the card
+by default).
 """
 
 import argparse
@@ -110,9 +110,21 @@ def main(argv=None) -> torch.Tensor:
     print(f"\nmodel {cfg.name}: {n_par / 1e6:.2f}M params, "
           f"logits {tuple(logits.shape)}, finite={bool(torch.isfinite(logits).all())}")
 
-    # ---- 4. the static invariant checker ----------------------------------
-    print("\nstatic checker: not in this package (the reference's repro.analysis "
-          "lints JAX code; run examples/quickstart.py for it)")
+    # ---- 4. static invariant checker: lint a fixture ------------------------
+    from ..analysis import analyze_source
+
+    fixture = (
+        "import time\n"
+        "def schedule(tenants):\n"
+        "    return time.time()\n"        # wall-clock in a core/ path
+    )
+    report = analyze_source(fixture, path="repro_torch/core/fixture.py")
+    print(f"\nstatic checker: {len(report.findings)} finding(s) in a "
+          "deliberately broken fixture")
+    for f in report.findings:
+        print(f"  {f}")
+    # the committed tree must stay clean — the same engine gates the port:
+    #   PYTHONPATH=src python -m repro_torch.analysis
     return logits
 
 

@@ -148,7 +148,8 @@ def tag(kind: str, payload: dict, version: int = 1) -> dict:
     if registered is not None and version != registered:
         raise ValueError(
             f"schema kind {kind!r} is registered at v{registered} but was "
-            f"tagged v{version} — update KNOWN_SCHEMAS to bump it"
+            f"tagged v{version} — update repro_torch.jsonio.KNOWN_SCHEMAS (and "
+            "regenerate schemas.lock.json) to bump it"
         )
     return {"schema": f"{SCHEMA_PREFIX}.{kind}/v{version}", **payload}
 

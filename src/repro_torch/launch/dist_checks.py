@@ -22,7 +22,10 @@ here, so the caller makes the same ones (``exchange_inputs``,
   * ``masked`` — the layer on tokens replicated over the model group (the
     masked branch): forward, and whether it raises under a gradient;
   * ``train`` — the EP train step of reduced granite on a ``(data, model)``
-    mesh from a given weight tree (``params_from_jax``).
+    mesh from a given weight tree (``params_from_jax``);
+  * ``rows`` — the train step of a reduced arch on a ``(data, model)`` mesh
+    whose processes do not split the batch (``rows_inputs``): the rows over
+    data, replicated over model (``train/step.py::shard_batch``).
 
 Every case builds its mesh over the whole world: ``(data 1, model P)``
 unless it says otherwise.  The functions live in the package so that
@@ -197,8 +200,48 @@ def train(group, device, tree=None, data=2, model=4, ep_size=4) -> dict:
     return ep_train_dist(device, make_test_mesh(data * model, model), tree, ep_size)
 
 
+def rows_inputs(arch: str, B: int = 2, S: int = 32, device="cpu", capacity: float = 8.0):
+    """(reduced ``arch`` at capacity factor ``capacity`` (8: no overflow at
+    chunks of 4 tokens), EP 4 for moe, a batch of ``B`` sequences of ``S`` tokens from seed 1)."""
+    from ..configs.base import get_config
+
+    cfg = get_config(arch).reduced()
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, moe_capacity_factor=capacity)
+    rng = np.random.default_rng(1)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)), device=device)
+             for k in ("tokens", "labels")}
+    return cfg, 4 if cfg.n_experts else 1, batch
+
+
+def rows(group, device, arch="paper-moe-8e", data=2, model=2, B=2, S=32,
+         capacity=8.0, tree=None) -> dict:
+    """This process's loss, drops and gradient leaves of one train step's
+    ``loss_and_grads`` on a ``(data, model)`` mesh, from seed 0's weights or
+    the reference's ``tree`` (numpy, through ``params_from_jax``)."""
+    from ..models.registry import build_model
+    from ..sharding.context import ParallelContext
+    from ..train.step import loss_and_grads
+    from ..tree import leaves
+    from ..weights import params_from_jax
+    from .mesh import make_test_mesh
+
+    cfg, ep_size, batch = rows_inputs(arch, B, S, device, capacity)
+    mesh = make_test_mesh(data * model, model)
+    ctx = ParallelContext(mesh=mesh, ep_size=ep_size, group_size=2, moe_mode="nimble",
+                          moe_chunk_tokens=4, device=device)
+    m = build_model(cfg, ctx)
+    stats = {} if cfg.n_experts else None
+    params = m.init(0) if tree is None else params_from_jax(tree, cfg, ctx)
+    loss, grads = loss_and_grads(m, params, batch, stats=stats)
+    return dict(loss=float(loss), dropped=int(stats["dropped"]) if stats else 0,
+                grads=[g.float().cpu().numpy() for g in leaves(grads)],
+                coord=dict(zip(mesh.mesh_dim_names, mesh.get_coordinate())),
+                rows=dataclasses.asdict(ctx.row_block(B)))
+
+
 CASES = {"exchange": exchange, "baseline": baseline, "layer": layer, "masked": masked,
-         "train": train}
+         "train": train, "rows": rows}
 
 
 def run_cases(rank: int, world: int, cases: List[Tuple[str, str, dict]],

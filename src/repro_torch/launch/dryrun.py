@@ -18,7 +18,8 @@ own step abstractly, as rank 0 of a fake world of that size:
 
 The step by kind: train, one ``make_train_step`` step (forward, backward,
 AdamW) on the global batch, of which it runs this process's block
-(``train/step.py::shard_batch``, over data x model); prefill,
+(``train/step.py::shard_batch``: over data x model, or where that does
+not divide the batch over the data axes that do); prefill,
 ``forward(last_only=True)`` (``NIMBLE_PREFILL_FULL=1``: all positions);
 decode, one ``make_serve_step`` step against a cache of the shape's
 length at position length - 1.  Prefill and decode inputs are placed as
@@ -127,7 +128,8 @@ def _step(model, shape, params, mesh):
         batch = {k: torch.zeros(s.shape, dtype=s.dtype) for k, s in specs.items()}
         step = make_train_step(model, adamw.AdamWConfig())
         # the step takes the global batch and reads this process's block of it
-        held = sum(nbytes(t) // ctx.token_block[1] for t in batch.values())
+        count = ctx.row_block(shape.global_batch).count
+        held = sum(nbytes(t) // count for t in batch.values())
         return (step, (params, opt, batch), _storage_bytes(params, opt) + held,
                 shape.global_batch * shape.seq_len)
     placement = input_specs_sharding(specs, mesh, ctx.data_axes, shape.global_batch)

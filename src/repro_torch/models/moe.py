@@ -9,17 +9,25 @@ combined back.  Without a mesh every rank is stacked in this process; with
 ``ctx.mesh`` the process hosts ``L = ep_size / model`` ranks, holds the
 expert leaves of its block (``[Lr, E L / n, D, F]``, the expert dim over
 "model" as ``sharding/specs.py`` places it) and exchanges with the model
-group's other processes.  The token layout follows the reference's two
-``shard_map`` branches:
+group's other processes.  The branch is the reference's
+(``repro/models/moe.py:168-178``), chosen from the global token count:
 
-  * ``inner_full`` (this process's token count divisible by ``L``): its
-    tokens are its own (sharded over data x model), and its rank r holds
-    the contiguous rows ``[r T/L, (r+1) T/L)``;
+  * ``inner_full`` (the count divides data x ``ep_size``): each process
+    takes tokens of its own, and its rank r the contiguous rows ``[r T/L,
+    (r+1) T/L)``.  Where the train step replicates a block of rows over the
+    model group (``train/step.py::shard_batch``), each process takes its
+    contiguous ``1/m`` share of them, and the outputs are gathered back over
+    the model group (:class:`_GatherRows`, whose backward sums the
+    cotangent's shares: reduce-scatter);
   * ``inner_masked`` (small decode batches): the tokens are replicated over
     the model group, rank r owns token t when ``t % n == r`` and routes only
     what it owns, and the ranks' outputs are summed (the reference's
     ``psum``: over the block, then ``all_reduce`` over the model group, in
     the forward only; under a gradient across processes it raises).
+
+Without a placement (``rows=None``: serving, the layer alone) the rows are
+each process's own and the count is the local one times the world, so
+``inner_full`` is taken where the local count divides ``L``.
 
 The router's load-balance loss is the reference's over the global batch:
 with a mesh its two means are summed over the processes holding distinct
@@ -121,6 +129,29 @@ def _router(p, xf: torch.Tensor, cfg: ModelConfig, groups=()):
     return top_idx, top_w, aux
 
 
+class _GatherRows(torch.autograd.Function):
+    """``x`` [T, ...] of each process of ``group`` -> their concatenation
+    [m T, ...] (``all_gather``); the backward sums the cotangent's rows
+    ``[j T, (j+1) T)`` over the group into process j's (``reduce_scatter``):
+    every process's loss reads all the rows, so each share's gradient is the
+    group's sum, not a slice."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.contiguous()
+        out = x.new_empty((dist.get_world_size(group) * x.shape[0], *x.shape[1:]))
+        dist.all_gather_into_tensor(out, x, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        m = dist.get_world_size(ctx.group)
+        out = g.new_empty((g.shape[0] // m, *g.shape[1:]))
+        dist.reduce_scatter_tensor(out, g.contiguous(), group=ctx.group)
+        return out, None
+
+
 def _moe_local(p, xf, top_idx, top_w, cfg: ModelConfig):
     """Single-device expert compute through the grouped FFN."""
     n, d = xf.shape
@@ -141,7 +172,7 @@ def make_moe_ffn(cfg: ModelConfig, ctx: ParallelContext):
                              f"{ctx.model_procs} processes; ep_size must be a multiple "
                              f"of that, got {ctx.ep_size}")
 
-        def apply_local(p, x):
+        def apply_local(p, x, rows=None):
             b, s, d = x.shape
             xf = x.reshape(-1, d)
             ti, tw, aux = _router(p, xf, cfg, mesh_groups)
@@ -216,13 +247,25 @@ def make_moe_ffn(cfg: ModelConfig, ctx: ParallelContext):
             dist.all_reduce(out, group=group)
         return out, st["dropped"]
 
-    def apply(p, x):
+    def apply(p, x, rows=None):
+        """``rows``: the batch's ``RowBlock`` (``train/step.py``), or ``None``."""
         b, s, d = x.shape
         xf = x.reshape(-1, d)
-        full = xf.shape[0] % L == 0
-        ti, tw, aux = _router(p, xf, cfg, mesh_groups if full else ctx.data_groups)
-        inner = inner_full if full else inner_masked
-        y, dropped = inner(p, xf, ti, tw)
+        N = xf.shape[0]
+        # the model group holds these rows: the global count is N x count,
+        # else N x world (and N x world divides data x n iff N divides L)
+        shared = rows is not None and not rows.split_over_model and group is not None
+        full = N * rows.count % (ctx.data_procs * n) == 0 if shared else N % L == 0
+        if full and shared:
+            m = ctx.model_procs
+            j = dist.get_rank(group)
+            share = xf[j * (N // m):(j + 1) * (N // m)]
+            ti, tw, aux = _router(p, share, cfg, mesh_groups)
+            y, dropped = inner_full(p, share, ti, tw)
+            y = _GatherRows.apply(y, group)
+        else:
+            ti, tw, aux = _router(p, xf, cfg, mesh_groups if full else ctx.data_groups)
+            y, dropped = (inner_full if full else inner_masked)(p, xf, ti, tw)
         return y.reshape(b, s, d).to(x.dtype), aux, dropped
 
     return apply

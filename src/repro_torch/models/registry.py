@@ -49,10 +49,13 @@ class Model:
         """The expert layer, built once (its dispatcher caches dataplanes)."""
         return self.mod.make_moe_ffn(self.cfg, self.ctx)
 
-    def _extra(self, stats: Optional[dict]) -> Dict[str, Any]:
-        """The family's own keyword arguments to ``forward``/``decode_step``."""
+    def _extra(self, stats: Optional[dict], rows=None) -> Dict[str, Any]:
+        """The family's own keyword arguments to ``forward``/``decode_step``;
+        ``rows`` (a ``RowBlock``) tells the expert layer how the batch lies."""
         if self.cfg.arch_type == "moe":
-            return {"moe_apply": self.moe_apply, "stats": stats}
+            apply = self.moe_apply if rows is None else functools.partial(
+                self.moe_apply, rows=rows)
+            return {"moe_apply": apply, "stats": stats}
         if stats is not None:
             raise ValueError(f"{self.cfg.name}: stats counts MoE capacity drops; "
                              f"the {self.cfg.arch_type} family has none")
@@ -64,9 +67,11 @@ class Model:
         return shard_params(self.mod.init(seed, self.cfg, self.ctx), self.ctx)
 
     def forward(self, params, batch: Dict[str, torch.Tensor], *, window=None,
-                last_only: bool = False, stats: Optional[dict] = None):
-        """-> (logits, aux); ``stats`` (moe only) accumulates capacity drops."""
-        extra = self._extra(stats)
+                last_only: bool = False, stats: Optional[dict] = None, rows=None):
+        """-> (logits, aux); ``stats`` (moe only) accumulates capacity drops;
+        ``rows``: the batch's placement over a mesh (``train/step.py``;
+        ``None``: each process's rows its own)."""
+        extra = self._extra(stats, rows)
         if self.mod is not xlstm:        # attention-free: no window to apply
             extra["window"] = window
         if self.cfg.arch_type == "audio":
@@ -80,14 +85,15 @@ class Model:
         return out, torch.zeros((), dtype=torch.float32, device=out.device)
 
     def loss(self, params, batch: Dict[str, torch.Tensor], *, window=None,
-             aux_weight: float = 0.01, stats: Optional[dict] = None) -> torch.Tensor:
+             aux_weight: float = 0.01, stats: Optional[dict] = None,
+             rows=None) -> torch.Tensor:
         """Mean next-token NLL (``log_softmax`` in float32) + ``aux_weight`` x aux.
 
         The reference's ``Model.loss`` (``registry.py:59-68``); ``stats`` as
-        in :meth:`forward`.  The vlm family's logits cover the patch prefix
-        too: only the text positions are scored.
+        in :meth:`forward`, ``rows`` too.  The vlm family's logits cover the
+        patch prefix too: only the text positions are scored.
         """
-        logits, aux = self.forward(params, batch, window=window, stats=stats)
+        logits, aux = self.forward(params, batch, window=window, stats=stats, rows=rows)
         labels = batch["labels"].long()
         if logits.shape[1] != labels.shape[1]:
             logits = logits[:, -labels.shape[1]:]

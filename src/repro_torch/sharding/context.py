@@ -27,6 +27,9 @@ Counterpart of ``repro/sharding/context.py``:
     telemetry); ``None`` builds the dispatcher from this context alone.
 
 ``ep_size == 1`` (``SINGLE``) computes the experts locally.
+
+:meth:`ParallelContext.row_block` places a global batch's rows over the
+mesh for the train step (:class:`RowBlock`).
 """
 
 from __future__ import annotations
@@ -36,6 +39,26 @@ import math
 from typing import Optional, Tuple
 
 import torch
+
+from .specs import batch_spec, mesh_coord, mesh_sizes
+
+
+@dataclasses.dataclass(frozen=True)
+class RowBlock:
+    """Where this process's rows of a global batch lie: block ``index`` of
+    ``count`` distinct blocks, each held by ``replicas`` processes.
+    ``split_over_model``: the blocks are split over the model axis too (each
+    process's rows its own); otherwise the model group holds the same rows."""
+
+    index: int
+    count: int
+    replicas: int
+    split_over_model: bool
+
+    @property
+    def share(self) -> float:
+        """A process's share of the global loss: one over the world."""
+        return 1.0 / (self.count * self.replicas)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,6 +126,24 @@ class ParallelContext:
         for a in self.token_axes:
             idx = idx * self._size((a,)) + coord.get(a, 0)
         return idx, self._size(self.token_axes)
+
+    def row_block(self, global_batch: int) -> RowBlock:
+        """The train step's placement of ``global_batch`` rows: over data x
+        model (:attr:`token_block`) where that divides them, else the
+        reference's ``batch_spec`` (``sharding/specs.py``): over the data axes
+        that divide them, replicated over the rest, the model axis included."""
+        if self.mesh is None:
+            return RowBlock(0, 1, 1, True)
+        idx, count = self.token_block
+        if global_batch % count == 0:
+            return RowBlock(idx, count, 1, True)
+        (entry,) = batch_spec(self.mesh, self.data_axes, global_batch)
+        axes = () if entry is None else entry if isinstance(entry, tuple) else (entry,)
+        sizes, coord = mesh_sizes(self.mesh), mesh_coord(self.mesh)
+        idx, count = 0, 1
+        for a in axes:
+            idx, count = idx * sizes[a] + coord[a], count * sizes[a]
+        return RowBlock(idx, count, self.mesh.size() // count, False)
 
 
 def constrain_tokens(x, ctx: "ParallelContext"):

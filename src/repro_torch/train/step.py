@@ -9,14 +9,16 @@ parameters in place.  Its metrics are the reference's: ``loss``,
 
 Across processes (``model.ctx.mesh``) the step takes the global batch, as
 the reference's jitted step does, and each process runs its rows of it
-(:func:`shard_batch`, over data x model): the run is data-parallel over
-the whole mesh, plus expert parallelism for the experts.  Each process
-scales its loss by its share of the global tokens; the gradients of
+(:func:`shard_batch`): over data x model where that divides the batch,
+else over the data axes that divide it and replicated over the rest (the
+model axis included), as the reference's ``batch_spec`` places it.  The
+run is data-parallel over the row blocks, plus expert parallelism for the
+experts.  Each process scales its loss by ``1 / world``; the gradients of
 replicated leaves are summed over the world, those of the expert leaves
 (this process's block) over the data axes, one ``all_reduce`` a bucket of
 one dtype and at most ``BUCKET_BYTES``; AdamW's global norm sums the
-expert blocks' squared norms over the model group.  The reported loss and the capacity
-drops are summed over the world.
+expert blocks' squared norms over the model group.  The reported loss is
+summed over the world, the capacity drops too, counting each token once.
 """
 
 from __future__ import annotations
@@ -52,17 +54,38 @@ class _Phases:
 
 
 def shard_batch(batch: Dict[str, torch.Tensor], ctx):
-    """The global batch -> (this process's rows of it over data x model, its
-    share of the tokens).  Raises if the processes do not split the batch."""
-    idx, count = ctx.token_block
+    """The global batch -> (this process's rows of it, their
+    :class:`~repro_torch.sharding.context.RowBlock`).
+
+    Placed by ``ctx.row_block``: ``count`` distinct blocks, each held by
+    ``replicas`` processes.  Each process's loss share stays ``1 / world``
+    (``RowBlock.share``), which keeps the sums of the module docstring
+    right: the ``replicas`` copies of block b give ``replicas / world x
+    mean_b = mean_b / count``, so the world's sum of the losses, and of a
+    replicated leaf's gradients, is the global batch's mean over the
+    ``count`` equal blocks.  An expert block takes its gradient from the
+    tokens of its data block only, routed once in the model group (the
+    MoE layer splits replicated rows over it, ``models/moe.py``): summed
+    over the data axes it is the global mean's too.  Where data x model
+    divides the batch, ``replicas`` is 1 and the placement is data x model.
+    """
+    first = next(iter(batch.values()))
+    rows = ctx.row_block(first.shape[0])
     out = {}
     for k, v in batch.items():
-        if v.shape[0] % count:
-            raise ValueError(f"a global batch of {v.shape[0]} ({k}) does not split over "
-                             f"{count} processes")
-        b = v.shape[0] // count
-        out[k] = v[idx * b:(idx + 1) * b]
-    return out, 1.0 / count
+        if v.shape[0] != first.shape[0]:
+            raise ValueError(f"the batch's {k} holds {v.shape[0]} rows, not "
+                             f"{first.shape[0]}")
+        b = v.shape[0] // rows.count
+        out[k] = v[rows.index * b:(rows.index + 1) * b]
+    return out, rows
+
+
+def routed_copies(rows, ctx) -> int:
+    """How many processes route each token of ``rows`` through the experts:
+    the model group routes its replicated rows once (``models/moe.py``), so
+    only the replicas over the data axes repeat them."""
+    return 1 if rows.split_over_model else rows.replicas // ctx.model_procs
 
 
 #: the most bytes of gradients one all_reduce's flat buffer gathers
@@ -109,17 +132,17 @@ def loss_and_grads(model: Model, params, batch, *, window=None,
     gradients summed as the module docstring says; the loss is the global
     batch's."""
     ctx = model.ctx
-    share, own = 1.0, stats
+    rows, own = None, stats
     if ctx.mesh is not None:
         if ctx.mesh.size() != dist.get_world_size():
             raise ValueError(f"the mesh spans {ctx.mesh.size()} of "
                              f"{dist.get_world_size()} processes")
-        batch, share = shard_batch(batch, ctx)
+        batch, rows = shard_batch(batch, ctx)
         own = None if stats is None else {}
     live = map_tree(lambda p: p.detach().requires_grad_(True), params)
-    loss = model.loss(live, batch, window=window, stats=own)
+    loss = model.loss(live, batch, window=window, stats=own, rows=rows)
     if ctx.mesh is not None:
-        loss = loss * share
+        loss = loss * rows.share
     if phases is not None:
         phases.mark("forward")
     flat = leaves(live)
@@ -134,7 +157,7 @@ def loss_and_grads(model: Model, params, batch, *, window=None,
         if stats is not None:
             dropped = torch.as_tensor(own.get("dropped", 0), device=loss.device)
             dist.all_reduce(dropped)
-            stats["dropped"] = stats.get("dropped", 0) + dropped
+            stats["dropped"] = stats.get("dropped", 0) + dropped // routed_copies(rows, ctx)
     if phases is not None:
         phases.mark("backward")
     return loss, unflatten(params, grads)

@@ -23,6 +23,12 @@ over ``P`` processes, each hosting ``n / P`` of them:
   1e-6 relative and every gradient leaf within 1e-5 of its largest value
   against the stacked EP 4 path, the loss within 5e-2 of the JAX package's
   single-device step;
+* the train step on (data 2, model 2) across 4 processes with a batch of 2
+  sequences (the rows over data, replicated over model) for reduced
+  paper-moe-8e (EP 4, the MoE's full split over the model group) and
+  smollm-135m, from the JAX package's weights, against the single-process
+  step: the loss within 1e-6, the gradients within 1e-5, the drops equal;
+  and the loss within 5e-2 of the JAX package's single-device step;
 * ``selftest --procs 8 --device cpu`` ends ``ALL OK``.
 """
 
@@ -40,7 +46,7 @@ from repro.models.registry import build_model as j_build_model
 from repro.sharding.context import SINGLE as J_SINGLE
 from repro_torch.core.dataplane import NimbleAllToAll, ref_all_to_allv
 from repro_torch.launch import dist_checks, selftest
-from repro_torch.launch.dist import spawn
+from repro_torch.launch.dist import local_world, spawn
 from repro_torch.models.moe import make_moe_ffn
 from repro_torch.models.registry import build_model
 from repro_torch.sharding.context import ParallelContext
@@ -53,6 +59,8 @@ pytestmark = pytest.mark.torch_port
 WORLDS = (1, 2, 4, 8)
 GEOMETRIES = {8: (8, 4), 4: (4, 2)}           # n -> (n, G)
 LAYER = dict(B=8, S=8)
+ROWS_ARCHS = ("paper-moe-8e", "smollm-135m")
+ROWS_OVERFLOW = 0.5           # a capacity factor at which paper-moe-8e drops
 
 
 def _jax_train_ref():
@@ -76,6 +84,22 @@ def jax_train_ref():
     return _jax_train_ref()
 
 
+@functools.lru_cache(maxsize=None)
+def jax_rows_ref(arch, B=2, capacity=8.0):
+    """The reference's seed-0 weights for ``dist_checks.rows_inputs``' config,
+    and its single-device loss on that batch."""
+    cfg, _, batch = dist_checks.rows_inputs(arch, B, capacity=capacity)
+    jcfg = j_get_config(arch).reduced()
+    if jcfg.n_experts:
+        jcfg = dataclasses.replace(jcfg, moe_capacity_factor=capacity)
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(cfg)
+    jmodel = j_build_model(jcfg, J_SINGLE)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    jbatch = {k: jnp.asarray(v.numpy().astype(np.int32)) for k, v in batch.items()}
+    loss = float(jmodel.loss(jparams, jbatch))
+    return jax.tree.map(lambda a: np.asarray(a, dtype=np.float32), jparams), loss
+
+
 def _cases(P):
     cases = []
     for n, (_, G) in GEOMETRIES.items():
@@ -89,6 +113,12 @@ def _cases(P):
         cases.append(("masked-n4", "masked", dict(n=4, G=2)))
         cases.append(("train-ep1", "train", dict(tree=jax_train_ref()[0], data=2, model=1,
                                                  ep_size=1)))
+    if P == 4:
+        for arch in ROWS_ARCHS:
+            cases.append((f"rows-{arch}", "rows", dict(arch=arch, tree=jax_rows_ref(arch)[0])))
+        cases.append(("rows-overflow", "rows", dict(
+            B=1, capacity=ROWS_OVERFLOW,
+            tree=jax_rows_ref("paper-moe-8e", 1, ROWS_OVERFLOW)[0])))
     if P == 8:
         cases.append(("train", "train", dict(tree=jax_train_ref()[0], data=2, model=4)))
     return cases
@@ -227,6 +257,23 @@ def _hold_train(got, ep_size):
         _close(a, b)
 
 
+@pytest.mark.parametrize("world", [4], indirect=True, ids=["P4"])
+def test_replicated_rows_count_each_dropped_token_once(world):
+    """1 sequence on (data 2, model 2), held by all 4 processes, at a capacity
+    that drops: the model group splits its 32 tokens as the stacked EP 4
+    step does (8 a rank) and the two data replicas repeat them, so the
+    world's sum of drops over the two copies is the single step's."""
+    loss, dropped, grads, params = single_rows("paper-moe-8e", 1, ROWS_OVERFLOW)
+    got = world["rows-overflow"]
+    assert dropped > 0
+    for g in got:
+        assert g["rows"] == dict(index=0, count=1, replicas=4, split_over_model=False)
+        assert g["dropped"] == dropped
+        assert abs(g["loss"] - loss) <= 1e-6 * abs(loss)
+    for a, b in zip(selftest.assemble_grads(got, params), grads):
+        _close(a, b)
+
+
 @pytest.mark.parametrize("world", [8], indirect=True, ids=["P8"])
 def test_train_step_across_8_processes_equals_stacked_ep4(world):
     _hold_train(world["train"], 4)
@@ -263,16 +310,90 @@ def test_spawn_reports_a_failing_process():
 
 
 def test_shard_batch_raises_when_the_processes_do_not_split_it():
-    import types
-
-    from repro_torch.train.step import shard_batch
+    """Over data x model where that divides the batch; else over the data
+    axes that divide it, replicated over the rest (the model axis with them),
+    each process's loss share still one over the world."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.sharding.context import RowBlock
+    from repro_torch.train.step import routed_copies, shard_batch
 
     batch = {"tokens": torch.arange(24).view(8, 3), "labels": torch.arange(24).view(8, 3)}
-    ctx = types.SimpleNamespace(token_block=(1, 4))
-    got, share = shard_batch(batch, ctx)
-    assert share == 0.25 and torch.equal(got["tokens"], batch["tokens"][2:4])
-    with pytest.raises(ValueError, match="does not split over 3 processes"):
-        shard_batch(batch, types.SimpleNamespace(token_block=(0, 3)))
+    with local_world("gloo"):
+        ctx = ParallelContext(mesh=make_test_mesh(1, 1), ep_size=1, device="cpu")
+        got, rows = shard_batch(batch, ctx)
+        assert rows == RowBlock(0, 1, 1, True) and rows.share == 1.0
+        assert torch.equal(got["tokens"], batch["tokens"])
+    sizes = {"data": 2, "model": 4}
+    ctx = ParallelContext(mesh=_FakeMesh(sizes, {"data": 1, "model": 3}), ep_size=4,
+                          device="cpu")
+    got, rows = shard_batch(batch, ctx)                 # 8 rows over 8 processes
+    assert rows == RowBlock(7, 8, 1, True) and rows.share == 1 / 8
+    assert torch.equal(got["tokens"], batch["tokens"][7:8])
+    assert routed_copies(rows, ctx) == 1
+    two = {k: v[:2] for k, v in batch.items()}          # 2 rows: over data only
+    got, rows = shard_batch(two, ctx)
+    assert rows == RowBlock(1, 2, 4, False) and rows.share == 1 / 8
+    assert torch.equal(got["labels"], batch["labels"][1:2])
+    assert routed_copies(rows, ctx) == 1               # the model group routes once
+    pods = ParallelContext(mesh=_FakeMesh({"pod": 2, "data": 3, "model": 2},
+                                          {"pod": 1, "data": 2, "model": 0}),
+                           data_axes=("pod", "data"), ep_size=2, device="cpu")
+    got, rows = shard_batch(two, pods)                  # pod divides, data does not
+    assert rows == RowBlock(1, 2, 6, False) and rows.share == 1 / 12
+    assert routed_copies(rows, pods) == 3              # the data replicas repeat it
+    with pytest.raises(ValueError, match="holds 3 rows, not 8"):
+        shard_batch({"tokens": batch["tokens"], "labels": batch["labels"][:3]}, ctx)
+
+
+class _FakeMesh:
+    """A mesh's names, shape and this process's coordinate, without a group."""
+
+    def __init__(self, sizes, coord):
+        self.mesh_dim_names, self.shape = tuple(sizes), tuple(sizes.values())
+        self._coord = [coord[a] for a in sizes]
+
+    def get_coordinate(self):
+        return self._coord
+
+    def size(self):
+        return int(np.prod(self.shape))
+
+
+@functools.lru_cache(maxsize=None)
+def single_rows(arch, B=2, capacity=8.0):
+    """The single-process step on the whole batch (EP 4 stacked for moe),
+    from the reference's weights."""
+    cfg, ep_size, batch = dist_checks.rows_inputs(arch, B, capacity=capacity)
+    ctx = ParallelContext(ep_size=ep_size, group_size=2, moe_mode="nimble",
+                          moe_chunk_tokens=4, device="cpu")
+    model = build_model(cfg, ctx)
+    params = params_from_jax(jax_rows_ref(arch, B, capacity)[0], cfg, ctx)
+    stats = {} if cfg.n_experts else None
+    loss, grads = loss_and_grads(model, params, batch, stats=stats)
+    return (float(loss), int(stats["dropped"]) if stats else 0,
+            [g.numpy() for g in leaves(grads)], params)
+
+
+@pytest.mark.parametrize("world,arch", [pytest.param(4, a, id=f"P4-{a}")
+                                        for a in ROWS_ARCHS], indirect=["world"])
+def test_train_step_with_rows_replicated_over_model_equals_single(world, arch):
+    """2 sequences on (data 2, model 2): each data block's row replicated over
+    the model group; the MoE splits its tokens over the group and gathers
+    them back (the backward a reduce-scatter sum).  The loss is also held
+    against the JAX package's single-device step on the same weights."""
+    loss, dropped, grads, params = single_rows(arch)
+    _, jloss = jax_rows_ref(arch)
+    got = world[f"rows-{arch}"]
+    for g in got:
+        assert g["rows"] == dict(index=g["coord"]["data"], count=2, replicas=2,
+                                 split_over_model=False)
+        assert abs(g["loss"] - loss) <= 1e-6 * abs(loss)
+        assert np.isfinite(g["loss"]) and abs(g["loss"] - jloss) < 5e-2
+        assert g["dropped"] == dropped == 0
+    full = selftest.assemble_grads(got, params)
+    assert len(full) == len(grads)
+    for a, b in zip(full, grads):
+        _close(a, b)
 
 
 def test_gradient_all_reduce_packs_buckets_and_copies_back(monkeypatch):

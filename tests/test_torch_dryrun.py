@@ -7,7 +7,9 @@ and 2 layers (the full depths trace in ``chip_smoke.py`` phase 26a, and
 smollm-135m x the four shapes and granite-moe-1b-a400m x train_4k on 16 x
 16, then granite x decode_32k (a second MoE model traced in the same
 process: the planner's device tables must not outlive a fake mode),
-smollm-135m x prefill_32k on 2 x 16 x 16, internvl2-2b x prefill_32k (its
+smollm-135m x prefill_32k and x train_4k on 2 x 16 x 16 (train_4k's 256
+sequences over pod x data, replicated over model), internvl2-2b x
+prefill_32k (its
 patches placed by the batch dim only) and whisper-small x long_500k (a
 skip).  Each record must have the reference's keys, its ``status`` rule, its
 ``n_params`` and ``model_flops_total`` (the reference's ``count_params`` of
@@ -17,8 +19,8 @@ the same step on one process without a mesh at the per-device batch [1,
 4096]: the mesh adds collectives only; and the ``all-reduce`` bytes of both
 train steps are the gradients that ``train/step.py`` reduces, plus the
 scalars it sums.  The CLI writes the records and a ``FAIL`` record (exit 1)
-where a combo fails: train_4k on 2 x 16 x 16, whose 256 sequences do not
-split over 512 processes.  ``chip_smoke.py``'s ``DRYRUN_PINNED`` (phase 26a)
+where a combo fails (a ``run_one`` made to raise).  ``chip_smoke.py``'s
+``DRYRUN_PINNED`` (phase 26a)
 must be the reference's values.
 """
 
@@ -56,6 +58,7 @@ COMBOS = ([("smollm-135m", s, False) for s in SHAPES]
           + [("granite-moe-1b-a400m", "train_4k", False),
              ("granite-moe-1b-a400m", "decode_32k", False),
              ("smollm-135m", "prefill_32k", True),
+             ("smollm-135m", "train_4k", True),
              ("internvl2-2b", "prefill_32k", False),
              ("whisper-small", "long_500k", False)])
 IDS = [f"{a}-{s}-{'2x16x16' if mp else '16x16'}" for a, s, mp in COMBOS]
@@ -173,20 +176,28 @@ def test_all_reduce_bytes_are_the_reduced_gradients(records):
     assert rec["roofline"]["coll_breakdown"]["collective-permute"] > 0
 
 
-def test_cli_writes_records_and_fails_a_combo_it_cannot_place(tmp_path, capsys):
+def test_cli_writes_records_and_fails_a_combo_it_cannot_place(tmp_path, capsys, monkeypatch):
     """The reference's CLI: a record a combo, its one-line summary, and a
-    ``FAIL`` record with the error and exit 1 where a combo fails (256
-    sequences over 512 processes)."""
+    ``FAIL`` record with the error and exit 1 where a combo fails (here a
+    ``run_one`` made to raise: 2 x 16 x 16 places train_4k since the
+    batch's rows go over the data axes that divide them)."""
     assert dryrun.main(["--arch", "smollm-135m", "--shape", "long_500k",
                         "--out", str(tmp_path)]) == 0
     rec = json.loads((tmp_path / "smollm-135m_long_500k_16x16_nimble.json").read_text())
     assert set(rec) == OK_KEYS and rec["status"] == "ok"
     assert "[dryrun] smollm-135m" in capsys.readouterr().out
+
+    def cannot_place(arch, shape, **kw):
+        raise ValueError(f"{arch} {shape} does not place on this mesh")
+
+    monkeypatch.setattr(dryrun, "run_one", cannot_place)
     assert dryrun.main(["--arch", "smollm-135m", "--shape", "train_4k", "--multi-pod",
                         "--out", str(tmp_path)]) == 1
     rec = json.loads((tmp_path / "smollm-135m_train_4k_2x16x16_nimble.json").read_text())
     assert set(rec) == {"arch", "shape", "status", "error", "trace"}
-    assert rec["status"] == "FAIL" and "does not split over 512 processes" in rec["error"]
+    assert rec["status"] == "FAIL"
+    assert rec["error"] == "ValueError: smollm-135m train_4k does not place on this mesh"
+    assert "[dryrun] smollm-135m" in capsys.readouterr().out
     assert not dist.is_initialized()
 
 

@@ -4,7 +4,8 @@ Both run on the CPU as subprocesses (the flight recorder's correlation id
 counts recorders per process): parts 1-3, the Session's plans on the
 calibrated fabric simulator, the MWU gap to the congestion lower bound, the
 flight-recorded adaptive run and the reduced granite forward, must print the
-same lines.  Part 4 (``repro.analysis``) has no counterpart in the port yet.
+same lines; part 4, each package's static checker over the same fixture, the
+same count of findings with the same rule ids.
 """
 
 import os
@@ -44,10 +45,18 @@ def test_quickstart_parts_1_to_3_print_the_references_figures(outputs):
 
 
 def test_quickstart_says_the_static_checker_is_not_ported(outputs):
+    """Part 4: the port's checker lints the reference's fixture at
+    ``repro_torch/core/fixture.py`` and reports what the reference's reports
+    at ``repro/core/fixture.py``."""
     got, want = outputs
     assert want[5].startswith("static checker: 1 finding(s)")
-    assert got[5].startswith("static checker: not in this package")
-    assert len(got[5].splitlines()) == 1
+    assert got[5].splitlines()[0] == want[5].splitlines()[0]
+
+    def rules(part):
+        return [line.split("[", 1)[1].split("]", 1)[0] for line in part.splitlines()[1:]]
+
+    assert rules(got[5]) == rules(want[5]) == ["determinism"]
+    assert got[5].replace("repro_torch/", "repro/") == want[5]
 
 
 def test_quickstart_defaults_to_the_card():

@@ -7,7 +7,8 @@ and their JSON bytes, validation errors, traffic matrices, churn schedules,
 ``ServeReport``\\ s and SLO verdicts must be equal.  Then all six built-in
 scenarios through both arms, ``launch/drills.py``'s serve sections against
 the reference's ``benchmarks/bench_serve.py`` (every figure equal), the
-scenario mode of ``launch/serve.py`` and the selfcheck's seven checks.
+scenario mode of ``launch/serve.py`` and the selfcheck's checks (the
+reference's seven, and check 8: the port's static checker).
 """
 
 import dataclasses
@@ -527,8 +528,9 @@ def test_selfcheck_runs_seven_checks_on_cpu(capsys):
 
     assert selfcheck.main(["--device", "cpu"]) == 0
     out = capsys.readouterr().out
-    assert "[selfcheck] 7/7 checks passed on cpu" in out
+    assert "[selfcheck] 8/8 checks passed on cpu" in out
     assert "OK   serve: minimal scenario round-trips" in out
+    assert "OK   lint: " in out and "lock fresh" in out
     assert "OK   obs: trace 52 events across 4 layers" in out
     from repro.api.selfcheck import check_obs, check_serve
 

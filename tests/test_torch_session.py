@@ -526,7 +526,7 @@ def test_selfcheck_on_cpu(capsys):
 
     assert selfcheck.main(["--device", "cpu"]) == 0
     out = capsys.readouterr().out
-    assert "[selfcheck] 7/7 checks passed on cpu" in out
+    assert "[selfcheck] 8/8 checks passed on cpu" in out
     rec = selfcheck.check_arbitrated(device="cpu")
     from repro.api.selfcheck import check_arbitrated
 
