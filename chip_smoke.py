@@ -2647,6 +2647,7 @@ def dist_phase(torch, np, check, seed: int, dev, smi: str, phase4_logits, phase7
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.models.registry import build_model
     from repro_torch.optim import adamw
+    from repro_torch.sharding import gather
     from repro_torch.sharding.context import ParallelContext
     from repro_torch.train.step import make_train_step
 
@@ -2718,6 +2719,9 @@ def dist_phase(torch, np, check, seed: int, dev, smi: str, phase4_logits, phase7
         params = model.init(seed)
         prompts = torch.as_tensor(np.random.default_rng(seed).integers(0, cfg.vocab, (4, 512)),
                                   device=dev)
+        # the placed path (every leaf and moment held by the full specs) on a
+        # world of one: each leaf is its own block, and nothing is gathered
+        gather.COUNTS.clear()
         reset_launch_counts()
         with torch.no_grad():
             logits, _ = model.forward(params, {"tokens": prompts}, last_only=True)
@@ -2751,6 +2755,10 @@ def dist_phase(torch, np, check, seed: int, dev, smi: str, phase4_logits, phase7
         for kname in MOE_KERNELS:
             check(counts[kname] > 0, f"25b: {kname} never launched through the mesh")
             out[kname] = counts[kname]
+        gathers = dict(all_gather=gather.COUNTS["all_gather"],
+                       reduce_scatter=gather.COUNTS["reduce_scatter"])
+        check(not model.placement.placed and not any(gathers.values()),
+              f"25b: the placed path on a world of one launched {gathers}")
         same_train = losses == phase7["losses"] and norms == phase7["norms"]
         check(same_train, f"25b losses {losses} / norms {norms} through the mesh != phase "
                           f"7's {phase7['losses']} / {phase7['norms']}")
@@ -2762,12 +2770,13 @@ def dist_phase(torch, np, check, seed: int, dev, smi: str, phase4_logits, phase7
               f"{[round(x, 4) for x in norms]} {'= phase 7 bit for bit' if same_train else '!= phase 7'}; "
               f"step {', '.join(f'{w:.1f}' for w in walls)} ms (mean {step_ms:.1f}) against "
               f"phase 7's {phase7['step_ms']:.1f} ms in this call; forward, backward "
-              f"(the gradients' all_reduce in it), optimizer "
+              f"(the gradients' reductions in it: none on a world of one), optimizer "
               f"{split['forward']:.3f}, {split['backward']:.3f}, {split['optimizer']:.3f} of "
               f"the step (phase 7: " + ", ".join(f"{phase7['share'][k]:.3f}" for k in split)
               + f"); peak memory {peak_gb:.2f} GB, {base_gb:.2f} held before the steps "
               f"(phase 7: {phase7['peak_gb']:.2f}, {phase7['base_gb']:.2f}); launches in "
-              f"prefill + 4 steps {counts}; on {smi}", flush=True)
+              f"prefill + 4 steps {counts}; the placed path's gathers and "
+              f"reduce-scatters {gathers}; on {smi}", flush=True)
         del model, params, state, logits, batches, m, m0
         torch.cuda.empty_cache()
 
@@ -2817,6 +2826,17 @@ def roofline_phase(torch, np, check, seed: int, dev, smi: str, phase7_ms: float)
             got = dict(n_params=rec["n_params"],
                        model_flops_total=rec["roofline"]["model_flops_total"])
             check(got == want, f"dryrun {arch} x {shape}: {got}, the CPU tests pin {want}")
+    # llama3-8b x train_4k on 16 x 16: every leaf and AdamW moment held as its
+    # block; with only the experts split, 80.30 GB of arguments and a peak of 118.9 GB
+    rec = dryrun.run_one("llama3-8b", "train_4k", multi_pod=False)
+    mem = rec.get("bytes_per_device", {})
+    print(f"[26a dryrun] placed {dryrun.format_line(rec)} argument "
+          f"{mem.get('argument', 0) / 1e9:.2f} GB, peak {mem.get('peak', 0) / 1e9:.2f} GB a "
+          f"device (with only the experts split: 80.30 GB, 118.9 GB); collectives "
+          f"{rec.get('roofline', {}).get('coll_breakdown')}", flush=True)
+    check(rec["status"] == "ok" and mem["argument"] < 1.5e9,
+          f"dryrun llama3-8b x train_4k placed: {rec['status']} {rec.get('error', '')} "
+          f"argument {mem.get('argument')}")
     # train_4k on 2 x 16 x 16: 256 sequences over pod x data, replicated over model
     rec = dryrun.run_one("smollm-135m", "train_4k", multi_pod=True)
     print(f"[26a dryrun] 2x16x16 {dryrun.format_line(rec)} bytes_per_device "

@@ -22,16 +22,27 @@ Two leaves need care:
     restored to an ``int``.
 
 Leaves restore onto ``device``: the card unless the caller asks for the CPU.
+
+Across processes a tree holds this process's blocks of the parameters and of
+AdamW's moments (``sharding/gather.py``).  ``save(place=)`` gathers each
+leaf whose key path ends in a parameter's path whole (every process takes
+part), one leaf at a time, each copied to the host before the next is
+gathered, and lets the first process write the reference's files;
+``restore(place=)`` cuts each such leaf to the block of the world that
+reads it on the host, so only the block reaches the device.  So a checkpoint is the same files whatever the world that wrote
+it, and restores in any other.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import typing
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..jsonio import json_dumps, json_loads
 
@@ -99,35 +110,77 @@ def _to_numpy(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
-def _to_torch(arr: np.ndarray, meta: dict, device) -> torch.Tensor:
-    """A stored array -> a tensor on ``device``, bfloat16 by the index's dtype."""
+def _to_torch(arr: np.ndarray, meta: dict, device, cut=None) -> torch.Tensor:
+    """A stored array -> a tensor on ``device``, bfloat16 by the index's dtype;
+    ``cut`` (the whole host tensor -> the part to keep) runs before the upload."""
     if meta["dtype"] == _BF16:
         raw = np.ascontiguousarray(arr).view(np.int16)
         t = torch.from_numpy(raw).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.ascontiguousarray(arr))
-    return t.reshape(meta["shape"]).to(device)
+    t = t.reshape(meta["shape"])
+    return (t if cut is None else cut(t)).to(device)
 
 
-def save(path: str, step: int, tree, shard: int = 0) -> str:
-    """Write ``tree`` as ``<path>/step_<step>``; -> that directory."""
+def _param_path(key: str, place) -> Optional[tuple]:
+    """The parameter path that ``key`` (``a/b/0/c``) ends in, if any: a
+    parameter, its gradient and its moments share one placement."""
+    parts = tuple(int(p) if p.isdigit() else p for p in key.split("/"))
+    for i in range(len(parts)):
+        path = parts[i:]
+        if place.spec(path) is not None:
+            return path
+    return None
+
+
+def save(path: str, step: int, tree, shard: int = 0, *, place=None) -> str:
+    """Write ``tree`` as ``<path>/step_<step>``; -> that directory.
+
+    ``place`` (a ``sharding.gather.Placement`` over a mesh): ``tree`` holds
+    this process's blocks; every process gathers them whole, one leaf at a
+    time, and the first copies each to the host before the next is gathered
+    and writes (all return once it has)."""
     d = os.path.join(path, f"step_{step:08d}")
+    placed = place is not None and place.placed
+    write = not placed or dist.get_rank() == 0
+    arrays, dtypes = {}, {}
+    for k, v in _flatten(tree):
+        if placed:
+            v = _whole(v, k, place)
+        if write:
+            arrays[k] = _to_numpy(v)
+            dtypes[k] = (_BF16 if isinstance(v, torch.Tensor) and v.dtype == torch.bfloat16
+                         else str(arrays[k].dtype))
+    if write:
+        _write(d, step, tree, arrays, dtypes, shard)
+    if placed:
+        dist.barrier()
+    return d
+
+
+def _whole(leaf, key: str, place):
+    at = _param_path(key, place) if isinstance(leaf, torch.Tensor) else None
+    return leaf if at is None else place.whole_leaf(leaf, at)
+
+
+def _write(d: str, step: int, tree, arrays: Dict[str, np.ndarray],
+           dtypes: Dict[str, str], shard: int) -> None:
     os.makedirs(d, exist_ok=True)
-    flat = _flatten(tree)
-    arrays = {k: _to_numpy(v) for k, v in flat}
-    dtypes = {k: (_BF16 if isinstance(v, torch.Tensor) and v.dtype == torch.bfloat16
-                  else str(arrays[k].dtype)) for k, v in flat}
     np.savez(os.path.join(d, f"shard_{shard}.npz"), **arrays)
     index = {
         "step": step,
         "structure": _structure(tree),
-        "keys": [k for k, _ in flat],
+        "keys": list(arrays),
         "meta": {k: {"shape": list(a.shape), "dtype": dtypes[k], "shard": shard}
                  for k, a in arrays.items()},
     }
     with open(os.path.join(d, "index.json"), "wb") as f:
         f.write(json_dumps(index))
-    return d
+
+
+def _block(t: torch.Tensor, key: str, place) -> torch.Tensor:
+    at = _param_path(key, place)
+    return t if at is None else place.block(t, at)
 
 
 def latest_step(path: str) -> Optional[int]:
@@ -138,9 +191,12 @@ def latest_step(path: str) -> Optional[int]:
 
 
 def restore(path: str, step: Optional[int] = None,
-            namedtuple_types: Optional[Dict[str, Any]] = None, *, device="cuda"):
+            namedtuple_types: Optional[Dict[str, Any]] = None, *, device="cuda",
+            place=None):
     """-> (tree, step): the checkpoint at ``step`` (the latest by default),
-    its leaves as tensors on ``device`` (the card unless ``"cpu"`` is asked)."""
+    its leaves as tensors on ``device`` (the card unless ``"cpu"`` is asked);
+    with ``place`` over a mesh, each parameter-shaped leaf as this process's
+    block of it, cut on the host before the upload."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("ckpt.restore: device='cuda' and no CUDA device is present; "
@@ -157,6 +213,8 @@ def restore(path: str, step: Optional[int] = None,
         s = m["shard"]
         if s not in shards:
             shards[s] = np.load(os.path.join(d, f"shard_{s}.npz"))
-    leaves = [_to_torch(shards[index["meta"][k]["shard"]][k], index["meta"][k], device)
+    placed = place is not None and place.placed
+    leaves = [_to_torch(shards[index["meta"][k]["shard"]][k], index["meta"][k], device,
+                        functools.partial(_block, key=k, place=place) if placed else None)
               for k in index["keys"]]
     return _rebuild(index["structure"], leaves, namedtuple_types or {}), step

@@ -20,12 +20,24 @@ here, so the caller makes the same ones (``exchange_inputs``,
     ``sum(y * cot) + aux / P`` with respect to its tokens, the router and
     its expert leaves;
   * ``masked`` — the layer on tokens replicated over the model group (the
-    masked branch): forward, and whether it raises under a gradient;
+    masked branch): forward, and the gradients of each process's ``1 / P``
+    share of ``sum(y * cot) + aux``;
+  * ``gather`` — ``sharding/gather.py::GatherLeaf`` on a ``(data 2, model
+    P / 2)`` mesh over one axis, two axes of one dim, two dims and no dim:
+    the whole leaf, and the block's gradient of ``sum(whole * cot)`` with a
+    cotangent of each process's own;
   * ``train`` — the EP train step of reduced granite on a ``(data, model)``
     mesh from a given weight tree (``params_from_jax``);
   * ``rows`` — the train step of a reduced arch on a ``(data, model)`` mesh
-    whose processes do not split the batch (``rows_inputs``): the rows over
-    data, replicated over model (``train/step.py::shard_batch``).
+    (``rows_inputs``), the parameters placed by the full specs: over data x
+    model where that divides the batch, else the rows over data, replicated
+    over model (``train/step.py::shard_batch``); its gradient blocks, and
+    after ``steps`` AdamW steps the parameter blocks, the norms and the
+    bytes held;
+  * ``ckpt`` — a checkpoint written by the world (gathered, one writer) and
+    one written by a single process, restored into this process's blocks;
+    with the most gathered leaves the save held whole at once, and the
+    shapes the restore uploaded.
 
 Every case builds its mesh over the whole world: ``(data 1, model P)``
 unless it says otherwise.  The functions live in the package so that
@@ -171,23 +183,55 @@ def layer(group, device, mesh=None, n=8, G=4, B=4, S=16, mode="nimble", seed=0) 
 
 
 def masked(group, device, mesh=None, n=4, G=2, N=3, mode="nimble", seed=0) -> dict:
-    """The masked branch: every process holds the same N tokens."""
+    """The masked branch: every process holds the same N tokens, and its
+    objective is its ``1 / P`` share of the stacked one's."""
+    import torch.distributed as dist
+
     from ..models.moe import make_moe_ffn
 
     cfg = layer_config()
-    p, x, _ = _on(device, *layer_inputs(cfg, 1, N, seed))
+    p, x, cot = _on(device, *layer_inputs(cfg, 1, N, seed))
     ctx = _layer_ctx(mesh, n, G, mode, device)
     mine = _expert_block(p, group, cfg.n_experts)
-    apply = make_moe_ffn(cfg, ctx)
-    with torch.no_grad():
-        y, aux, dropped = apply(mine, x)
-    try:
-        live = {k: v.detach().requires_grad_(True) for k, v in mine.items()}
-        apply(live, x)
-        raised = ""
-    except RuntimeError as e:
-        raised = str(e)
-    return {"y": y.cpu().numpy(), "aux": float(aux), "dropped": int(dropped), "raised": raised}
+    share = 1.0 / dist.get_world_size(group)
+    return layer_grads(make_moe_ffn(cfg, ctx), mine, x, cot * share, share)
+
+
+def gather_inputs(P: int, seed: int = 0):
+    """{case: (whole leaf [8, 12, 6], its spec)} and each process's cotangent."""
+    g = torch.Generator().manual_seed(seed)
+    t = torch.randn(8, 12, 6, generator=g)
+    cases = {"one axis": (None, "model", None), "two axes": (("data", "model"), None, None),
+             "two dims": ("data", "model", None), "no dim": (None, None, None)}
+    cots = [torch.randn(8, 12, 6, generator=g) for _ in range(P)]
+    return t, cases, cots
+
+
+def gather(group, device, data=2, seed=0) -> dict:
+    """Each case's whole leaf from this process's block and the block's
+    gradient of ``sum(whole * cot)`` (``cot`` this process's own)."""
+    import torch.distributed as dist
+
+    from ..sharding.gather import COUNTS, Placement, gather_leaf
+    from ..sharding.specs import local_shard, mesh_coord, mesh_sizes
+    from .mesh import make_test_mesh
+
+    P = dist.get_world_size()
+    mesh = make_test_mesh(P, P // data)
+    t, cases, cots = gather_inputs(P, seed)
+    sizes, coord = mesh_sizes(mesh), mesh_coord(mesh)
+    place = Placement(mesh=mesh)
+    out = {"coord": coord}
+    for name, spec in cases.items():
+        before = dict(COUNTS)
+        blk = local_shard(t, spec, sizes, coord).contiguous().to(device).requires_grad_(True)
+        whole = gather_leaf(blk, place.steps(spec))
+        (g,) = torch.autograd.grad((whole * cots[dist.get_rank()].to(device)).sum(), blk,
+                                   allow_unused=True)
+        out[name] = dict(whole=whole.detach().cpu().numpy(), grad=None if g is None
+                         else g.cpu().numpy(), launches={k: v - before.get(k, 0)
+                                                         for k, v in COUNTS.items()})
+    return out
 
 
 def train(group, device, tree=None, data=2, model=4, ep_size=4) -> dict:
@@ -214,34 +258,130 @@ def rows_inputs(arch: str, B: int = 2, S: int = 32, device="cpu", capacity: floa
     return cfg, 4 if cfg.n_experts else 1, batch
 
 
-def rows(group, device, arch="paper-moe-8e", data=2, model=2, B=2, S=32,
-         capacity=8.0, tree=None) -> dict:
-    """This process's loss, drops and gradient leaves of one train step's
-    ``loss_and_grads`` on a ``(data, model)`` mesh, from seed 0's weights or
-    the reference's ``tree`` (numpy, through ``params_from_jax``)."""
-    from ..models.registry import build_model
+#: the AdamW settings of the cases' steps: no warm-up, so two steps move
+#: every parameter; and an ``eps`` that keeps the update smooth in the
+#: gradient: with 1e-8, a gradient at the level of the processes' different
+#: summation order (1e-7 of the largest) takes a step of the full learning
+#: rate of either sign
+OPT = dict(lr=1e-2, warmup_steps=1, eps=1e-3)
+
+
+def _ctx(mesh, ep_size, device):
     from ..sharding.context import ParallelContext
-    from ..train.step import loss_and_grads
+
+    return ParallelContext(mesh=mesh, ep_size=ep_size, group_size=2, moe_mode="nimble",
+                           moe_chunk_tokens=4, device=device)
+
+
+def _arrays(ts) -> list:
+    return [t.float().cpu().numpy() if isinstance(t, torch.Tensor) else t for t in ts]
+
+
+def held_bytes(*trees) -> int:
+    """Bytes of the tensors under ``trees`` (each its own storage)."""
+    from ..tree import leaves
+
+    return sum(t.numel() * t.element_size() for t in leaves(list(trees))
+               if isinstance(t, torch.Tensor))
+
+
+def rows(group, device, arch="paper-moe-8e", data=2, model=2, B=2, S=32,
+         capacity=8.0, tree=None, steps=0) -> dict:
+    """This process's loss, drops and gradient blocks of one train step's
+    ``loss_and_grads`` on a ``(data, model)`` mesh, from seed 0's weights or
+    the reference's ``tree`` (numpy, through ``params_from_jax``); with
+    ``steps``, its parameter blocks after that many steps (:data:`OPT`), each
+    step's loss and norm, and the bytes of parameters and moments held."""
+    from ..models.registry import build_model
+    from ..optim import adamw
+    from ..train.step import loss_and_grads, make_train_step
     from ..tree import leaves
     from ..weights import params_from_jax
     from .mesh import make_test_mesh
 
     cfg, ep_size, batch = rows_inputs(arch, B, S, device, capacity)
     mesh = make_test_mesh(data * model, model)
-    ctx = ParallelContext(mesh=mesh, ep_size=ep_size, group_size=2, moe_mode="nimble",
-                          moe_chunk_tokens=4, device=device)
+    ctx = _ctx(mesh, ep_size, device)
     m = build_model(cfg, ctx)
     stats = {} if cfg.n_experts else None
     params = m.init(0) if tree is None else params_from_jax(tree, cfg, ctx)
     loss, grads = loss_and_grads(m, params, batch, stats=stats)
-    return dict(loss=float(loss), dropped=int(stats["dropped"]) if stats else 0,
-                grads=[g.float().cpu().numpy() for g in leaves(grads)],
-                coord=dict(zip(mesh.mesh_dim_names, mesh.get_coordinate())),
-                rows=dataclasses.asdict(ctx.row_block(B)))
+    out = dict(loss=float(loss), dropped=int(stats["dropped"]) if stats else 0,
+               grads=_arrays(leaves(grads)),
+               coord=dict(zip(mesh.mesh_dim_names, mesh.get_coordinate())),
+               rows=dataclasses.asdict(ctx.row_block(B)))
+    if steps:
+        step = make_train_step(m, adamw.AdamWConfig(**OPT))
+        state = adamw.init(params)
+        out["held"] = held_bytes(params, state.m, state.v)
+        metrics = []
+        for _ in range(steps):
+            params, state, met = step(params, state, batch)
+            metrics.append((float(met["loss"]), float(met["grad_norm"])))
+        out.update(params=_arrays(leaves(params)), metrics=metrics)
+    return out
+
+
+def ckpt_tree(cfg, ctx, batch):
+    """(the model, {"params", "opt"} after one step (:data:`OPT`) from seed
+    0's weights)."""
+    from ..models.registry import build_model
+    from ..optim import adamw
+    from ..train.step import make_train_step
+
+    model = build_model(cfg, ctx)
+    params = model.init(0)
+    params, state, _ = make_train_step(model, adamw.AdamWConfig(**OPT))(
+        params, adamw.init(params), batch)
+    return model, {"params": params, "opt": state}
+
+
+def ckpt(group, device, arch="smollm-135m", data=2, model=2, write=None, read=None) -> dict:
+    """The world's tree after one step, saved whole into ``write``
+    (``ckpt.save(place=)``), and the single process's checkpoint in ``read``
+    restored as this process's blocks; both as arrays in leaf order.
+    ``held_whole``: the most leaves the save had gathered whole and still
+    held at once; ``uploaded``: the shape of each leaf the restore moved to
+    ``device``, in leaf order."""
+    import weakref
+
+    from ..checkpoint import ckpt as ck
+    from ..optim import adamw
+    from ..tree import leaves
+    from .mesh import make_test_mesh
+
+    cfg, ep_size, batch = rows_inputs(arch, device=device)
+    mesh = make_test_mesh(data * model, model)
+    m, tree = ckpt_tree(cfg, _ctx(mesh, ep_size, device), batch)
+    whole, to_torch = ck._whole, ck._to_torch
+    alive, held, uploaded = [], [0], []
+
+    def count_whole(leaf, key, place):
+        out = whole(leaf, key, place)
+        if out is not leaf:
+            alive.append(weakref.ref(out))
+            held[0] = max(held[0], sum(r() is not None for r in alive))
+        return out
+
+    def record_upload(*a, **kw):
+        out = to_torch(*a, **kw)
+        uploaded.append(tuple(out.shape))
+        return out
+
+    ck._whole, ck._to_torch = count_whole, record_upload
+    try:
+        ck.save(write, 1, tree, place=m.placement)
+        got, _ = ck.restore(read, namedtuple_types={"OptState": adamw.OptState},
+                            device=device, place=m.placement)
+    finally:
+        ck._whole, ck._to_torch = whole, to_torch
+    return dict(coord=dict(zip(mesh.mesh_dim_names, mesh.get_coordinate())),
+                written=_arrays(leaves(tree)), restored=_arrays(leaves(got)),
+                held_whole=held[0], uploaded=uploaded)
 
 
 CASES = {"exchange": exchange, "baseline": baseline, "layer": layer, "masked": masked,
-         "train": train, "rows": rows}
+         "gather": gather, "train": train, "rows": rows, "ckpt": ckpt}
 
 
 def run_cases(rank: int, world: int, cases: List[Tuple[str, str, dict]],

@@ -27,8 +27,9 @@ length at position length - 1.  Prefill and decode inputs are placed as
 where they divide, else replicated.
 
 ``bytes_per_device`` is the counterpart of ``memory_analysis()``:
-``argument`` the step's inputs in this process (its shards of the
-parameters, AdamW's moments, the batch, the cache), ``output`` what the step
+``argument`` the step's inputs in this process (its blocks of the
+parameters and of AdamW's moments under ``build_param_specs``, the batch,
+the cache), ``output`` what the step
 returns, ``temp`` the peak of live bytes the step allocates beyond its
 arguments, ``peak = argument + temp``.  ``compile_s`` holds the run's
 seconds.  Records go to ``experiments/dryrun_torch/``.
@@ -109,8 +110,9 @@ def _fake_world(n_chips: int) -> None:
 
 def _local_inputs(specs: Dict[str, torch.Tensor], placement, mesh) -> Dict:
     """This process's block of each input (zeros of the global shape), placed
-    by its batch dim's spec: the port holds the dense leaves replicated (no
-    tensor parallelism), so a modality stub's width stays whole."""
+    by its batch dim's spec: the port gathers every leaf whole before it
+    computes (no tensor-parallel products), so a modality stub's width stays
+    whole."""
     sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
     coord = mesh_coord(mesh)
     return {k: local_shard(torch.zeros(s.shape, dtype=s.dtype),

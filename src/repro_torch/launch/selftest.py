@@ -26,7 +26,9 @@ runs the arms in ``P`` spawned processes (``launch/dist.py``; NCCL with a
 card a process on the card, gloo on the CPU): arms 1-2 with the 8 ranks
 over a ``(data 1, model P)`` mesh; arm 3 on a ``(data P / m, model m)``
 mesh, ``m = gcd(P, 4)`` (the reference's ``(data 2, model 4)`` at ``P =
-8``), the global batch over data x model, held against EP 1 within 5e-2
+8``), every parameter and AdamW moment held as this process's block under
+``sharding/specs.py::build_param_specs`` (gathered on use), the global
+batch over data x model, held against EP 1 within 5e-2
 and against the stacked EP 4 path within 1e-5 of each gradient leaf's
 largest value.  Every process must agree (and build the same plans).
 
@@ -174,17 +176,25 @@ def ep_train_dist(device, mesh, tree=None, ep_size: int = 4):
                 step_loss=float(m["loss"]), grad_norm=float(m["grad_norm"]))
 
 
-def assemble_grads(results, params_like) -> list:
-    """Full gradient leaves from the processes' :func:`ep_train_dist` results:
-    the expert leaves' blocks in model order (data coordinate 0), every
-    other leaf from the first process."""
-    from ..sharding.specs import expert_leaf_mask
+def assemble_grads(results, params_like, key: str = "grads") -> list:
+    """Whole leaves from the processes' blocks (:func:`ep_train_dist` or
+    ``dist_checks.rows`` results: ``results[i][key]`` in leaf order, and
+    ``coord``): each leaf put together from the blocks its spec
+    (``build_param_specs`` over the processes' mesh) splits it into, as
+    ``sharding.specs.local_shard`` cuts them."""
+    from ..sharding.specs import at_path, build_param_specs, leaf_paths, unshard
 
-    mask = expert_leaf_mask(params_like)
-    row = sorted((r for r in results if r["coord"].get("data", 0) == 0),
-                 key=lambda r: r["coord"]["model"])
-    return [np.concatenate([r["grads"][i] for r in row], axis=1) if m
-            else results[0]["grads"][i] for i, m in enumerate(mask)]
+    sizes = {a: 1 + max(r["coord"][a] for r in results) for a in results[0]["coord"]}
+    specs = build_param_specs(params_like, sizes)
+    at = {tuple(sorted(r["coord"].items())): r[key] for r in results}
+
+    def leaf(i, spec):
+        def block(coord):
+            return at[tuple(sorted({a: coord.get(a, 0) for a in sizes}.items()))][i]
+        return unshard(block, spec, sizes)
+
+    return [leaf(i, at_path(specs, path))
+            for i, (path, _) in enumerate(leaf_paths(params_like))]
 
 
 def _procs_worker(rank: int, world: int, device: str):

@@ -153,7 +153,8 @@ def main(argv=None):
                   f"gnorm {float(metrics['grad_norm']):.3f} "
                   f"lr {float(metrics['lr']):.2e} ({dt_s:.1f}s)", flush=True)
         if args.ckpt_every and args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
-            ckpt.save(args.ckpt_dir, step + 1, {"params": params, "opt": opt_state})
+            ckpt.save(args.ckpt_dir, step + 1, {"params": params, "opt": opt_state},
+                      place=model.placement)
     first = np.mean(losses[: max(3, len(losses) // 10)])
     last = np.mean(losses[-max(3, len(losses) // 10):])
     print(f"[train] loss {first:.4f} -> {last:.4f} "

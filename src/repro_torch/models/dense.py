@@ -8,6 +8,9 @@ and checkpoints line up with the reference's one for one.  The forward
 loops over the layers where the reference scans them; full-sequence
 attention goes through the ``attention`` dispatch (the flash kernel for
 ``Sq >= 128``), the decode step through the plain ring-buffer attention.
+Over a mesh each leaf is held as its block and read whole
+(``sharding/gather.py``): a layer's leaves as the layer runs, ``embed`` and
+``lm_head`` where they are read.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..sharding.context import SINGLE, ParallelContext
+from ..sharding.gather import placement
 from . import layers as L
 
 
@@ -72,10 +76,23 @@ def _block_fwd(p, x: torch.Tensor, cfg: ModelConfig, window: Optional[int]) -> t
     return x + L.swiglu(p["mlp"], h)
 
 
-def _logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    head = params.get("lm_head")
-    return x @ (params["embed"].T if head is None else head)
+def _layer_fwd(blocks, i: int, place, x: torch.Tensor, cfg: ModelConfig,
+               window: Optional[int]) -> torch.Tensor:
+    """Layer i of the stacked ``blocks``, its leaves gathered here (so that
+    under remat the backward gathers them again)."""
+    return _block_fwd(L.layer(blocks, i, place), x, cfg, window)
+
+
+def _logits(params, x: torch.Tensor, cfg: ModelConfig, place) -> torch.Tensor:
+    x = L.rms_norm(x, place.at("final_norm").whole(params["final_norm"]), cfg.norm_eps)
+    if "lm_head" not in params:
+        return x @ place.at("embed").whole(params["embed"]).T
+    return x @ place.at("lm_head").whole(params["lm_head"])
+
+
+def embed(params, tokens: torch.Tensor, place) -> torch.Tensor:
+    """The tokens' rows of the (gathered) embedding."""
+    return place.at("embed").whole(params["embed"])[tokens]
 
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig, ctx: ParallelContext = SINGLE,
@@ -87,17 +104,18 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, ctx: ParallelContext
     tokens' embeddings (the vlm family's patches + text).  With ``ctx.remat`` each block's activations are recomputed
     in the backward (``torch.utils.checkpoint``), as the reference's
     ``jax.checkpoint`` does."""
-    x = params["embed"][tokens] if inputs_embeds is None else inputs_embeds
+    place = placement(param_shapes, cfg, ctx)
+    x = embed(params, tokens, place) if inputs_embeds is None else inputs_embeds
     x = x.to(ctx.compute_dtype)
     for i in range(cfg.n_layers):
-        p = L.layer(params["blocks"], i)
+        args = (params["blocks"], i, place.at("blocks"), x, cfg, window)
         if ctx.remat and torch.is_grad_enabled():
-            x = checkpoint(_block_fwd, p, x, cfg, window, use_reentrant=False)
+            x = checkpoint(_layer_fwd, *args, use_reentrant=False)
         else:
-            x = _block_fwd(p, x, cfg, window)
+            x = _layer_fwd(*args)
     if last_only:
         x = x[:, -1:]
-    return _logits(params, x, cfg)
+    return _logits(params, x, cfg, place)
 
 
 # -- serving ---------------------------------------------------------------------
@@ -111,9 +129,10 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, ctx: ParallelContex
 def decode_step(params, cache, token: torch.Tensor, pos: int, cfg: ModelConfig,
                 ctx: ParallelContext = SINGLE):
     """token [B] at position ``pos`` -> (logits [B, V], cache updated in place)."""
-    x = params["embed"][token][:, None, :].to(ctx.compute_dtype)
+    place = placement(param_shapes, cfg, ctx)
+    x = embed(params, token, place)[:, None, :].to(ctx.compute_dtype)
     for i in range(cfg.n_layers):
-        p = L.layer(params["blocks"], i)
+        p = L.layer(params["blocks"], i, place.at("blocks"))
         c = {k: v[i] for k, v in cache.items()}
         h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
         x = x + L.attention_decode(
@@ -121,4 +140,4 @@ def decode_step(params, cache, token: torch.Tensor, pos: int, cfg: ModelConfig,
             head_dim=cfg.head_dim, rope_theta=cfg.rope_theta)
         h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
         x = x + L.swiglu(p["mlp"], h)
-    return _logits(params, x, cfg)[:, 0], cache
+    return _logits(params, x, cfg, place)[:, 0], cache

@@ -17,6 +17,10 @@ Serving: the cache holds a ring-buffer self-attention cache per decoder
 layer and the encoder output, from which each decode step projects the
 cross-attention K/V, as the reference does; ``init_cache`` without
 ``enc_out`` holds zeros.
+
+Over a mesh each leaf is held as its block and read whole
+(``sharding/gather.py``): a layer's leaves as the layer runs, the tied
+``embed`` at each of its two reads.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention.ops import attention
 from ..sharding.context import SINGLE, ParallelContext
+from ..sharding.gather import placement
 from . import layers as L
 
 #: the decoder's learned positions
@@ -113,25 +118,44 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig,
     """frames [B, F, d] (stub conv output) -> encoder states [B, F, d]."""
     b, f, d = frames.shape
     cdt = ctx.compute_dtype
+    place = placement(param_shapes, cfg, ctx)
     x = frames.to(cdt) + L.sinusoidal_positions(f, d, frames.device).to(cdt)
     for i in range(params["enc"]["ln1"].shape[0]):
-        p = L.layer(params["enc"], i)
+        p = L.layer(params["enc"], i, place.at("enc"))
         h = L.layer_norm(x, p["ln1"], p["b_ln1"], cfg.norm_eps)
         a = p["attn"]
         x = x + _attn_out_proj(a, h @ a["wq"], h @ a["wk"], h @ a["wv"], cfg)
         h = L.layer_norm(x, p["ln2"], p["b_ln2"], cfg.norm_eps)
         x = x + L.mlp(p["mlp"], h)
-    return L.layer_norm(x, params["enc_norm"], params["b_enc_norm"], cfg.norm_eps)
+    top = _top(params, place, "enc_norm", "b_enc_norm")
+    return L.layer_norm(x, top["enc_norm"], top["b_enc_norm"], cfg.norm_eps)
+
+
+def _top(params, place, *keys):
+    """The top-level leaves ``keys``, whole."""
+    return {k: place.at(k).whole(params[k]) for k in keys}
+
+
+def _embed(params, tokens, place, pos: slice, dtype) -> torch.Tensor:
+    """The tokens' embeddings plus the decoder's learned positions ``pos``."""
+    top = _top(params, place, "embed", "dec_pos")
+    return top["embed"][tokens].to(dtype) + top["dec_pos"][pos].to(dtype)
+
+
+def _logits(params, x, cfg: ModelConfig, place) -> torch.Tensor:
+    """The decoder's final norm, then its logits, tied to ``embed.T``."""
+    top = _top(params, place, "dec_norm", "b_dec_norm", "embed")
+    x = L.layer_norm(x, top["dec_norm"], top["b_dec_norm"], cfg.norm_eps)
+    return x @ top["embed"].T            # whisper ties its output to the embedding
 
 
 def decode(params, tokens: torch.Tensor, enc_out: torch.Tensor, cfg: ModelConfig,
            ctx: ParallelContext = SINGLE, last_only: bool = False) -> torch.Tensor:
     """tokens [B, S], enc_out [B, F, d] -> logits [B, S, V]."""
-    s = tokens.shape[1]
-    cdt = ctx.compute_dtype
-    x = params["embed"][tokens].to(cdt) + params["dec_pos"][:s].to(cdt)
+    place = placement(param_shapes, cfg, ctx)
+    x = _embed(params, tokens, place, slice(0, tokens.shape[1]), ctx.compute_dtype)
     for i in range(params["dec"]["ln1"].shape[0]):
-        p = L.layer(params["dec"], i)
+        p = L.layer(params["dec"], i, place.at("dec"))
         h = L.layer_norm(x, p["ln1"], p["b_ln1"], cfg.norm_eps)
         a = p["self_attn"]
         x = x + _attn_out_proj(a, h @ a["wq"], h @ a["wk"], h @ a["wv"], cfg, causal=True)
@@ -141,8 +165,7 @@ def decode(params, tokens: torch.Tensor, enc_out: torch.Tensor, cfg: ModelConfig
         x = x + L.mlp(p["mlp"], h)
     if last_only:
         x = x[:, -1:]                    # slice before the head
-    x = L.layer_norm(x, params["dec_norm"], params["b_dec_norm"], cfg.norm_eps)
-    return x @ params["embed"].T         # whisper ties its output to the embedding
+    return _logits(params, x, cfg, place)
 
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig, ctx: ParallelContext = SINGLE,
@@ -170,12 +193,11 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, ctx: ParallelContex
 def decode_step(params, cache, token: torch.Tensor, pos: int, cfg: ModelConfig,
                 ctx: ParallelContext = SINGLE):
     """token [B] at position ``pos`` -> (logits [B, V], cache updated in place)."""
-    cdt = ctx.compute_dtype
-    x = params["embed"][token][:, None, :].to(cdt)
-    x = x + params["dec_pos"][pos:pos + 1].to(cdt)
+    place = placement(param_shapes, cfg, ctx)
+    x = _embed(params, token[:, None], place, slice(pos, pos + 1), ctx.compute_dtype)
     enc_out = cache["enc_out"]
     for i in range(params["dec"]["ln1"].shape[0]):
-        p = L.layer(params["dec"], i)
+        p = L.layer(params["dec"], i, place.at("dec"))
         c = {k: v[i] for k, v in cache["self"].items()}
         h = L.layer_norm(x, p["ln1"], p["b_ln1"], cfg.norm_eps)
         x = x + L.attention_decode(p["self_attn"], h, c, pos, n_heads=cfg.n_heads,
@@ -185,5 +207,4 @@ def decode_step(params, cache, token: torch.Tensor, pos: int, cfg: ModelConfig,
         x = x + _cross(p["cross_attn"], h, enc_out, cfg)
         h = L.layer_norm(x, p["ln2"], p["b_ln2"], cfg.norm_eps)
         x = x + L.mlp(p["mlp"], h)
-    x = L.layer_norm(x, params["dec_norm"], params["b_dec_norm"], cfg.norm_eps)
-    return (x @ params["embed"].T)[:, 0], cache
+    return _logits(params, x, cfg, place)[:, 0], cache

@@ -11,7 +11,9 @@ mamba x5, [shared attn], ... (6 invocations), then the trailing mamba
 layers.  The mamba leaves are stacked over the 32 mamba layers (the
 reference's vmapped init); the forward loops over them where the reference
 scans, and the attention block runs ``flash_attention`` through the
-``attention`` dispatch (``Sq >= 128``).
+``attention`` dispatch (``Sq >= 128``).  Over a mesh each leaf is held as
+its block and read whole (``sharding/gather.py``): a mamba layer's leaves
+as the layer runs, the shared block's at each of its calls.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..sharding.context import SINGLE, ParallelContext
+from ..sharding.gather import placement
 from . import layers as L
 from . import ssm
 
@@ -99,6 +102,11 @@ def _attn_block(p, x: torch.Tensor, cfg: ModelConfig, window=None, pos_offset: i
     return x + L.swiglu(p["mlp"], h)
 
 
+def _mamba_at(blocks, i: int, place, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Mamba layer i of the stacked ``blocks``, its leaves gathered here."""
+    return ssm.mamba_forward(L.layer(blocks, i, place), x, cfg)
+
+
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig, ctx: ParallelContext = SINGLE,
             *, window: Optional[int] = None, last_only: bool = False) -> torch.Tensor:
     """tokens [B, S] -> logits [B, S, V], or [B, 1, V] with ``last_only``.
@@ -108,22 +116,24 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, ctx: ParallelContext
     mamba block's activations are recomputed in the backward
     (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` does.
     """
-    x = params["embed"][tokens].to(ctx.compute_dtype)
+    place = placement(param_shapes, cfg, ctx)
+    x = place.at("embed").whole(params["embed"])[tokens].to(ctx.compute_dtype)
+    shared = place.at("shared_attn")
     off = 0
     for kind, count in layer_schedule(cfg):
         if kind == "attn":
-            x = _attn_block(params["shared_attn"], x, cfg, window)
+            x = _attn_block(shared.whole(params["shared_attn"]), x, cfg, window)
             continue
         for i in range(off, off + count):
-            p = L.layer(params["mamba"], i)
+            args = (params["mamba"], i, place.at("mamba"), x, cfg)
             if ctx.remat and torch.is_grad_enabled():
-                x = x + checkpoint(ssm.mamba_forward, p, x, cfg, use_reentrant=False)
+                x = x + checkpoint(_mamba_at, *args, use_reentrant=False)
             else:
-                x = x + ssm.mamba_forward(p, x, cfg)
+                x = x + _mamba_at(*args)
         off += count
     if last_only:
         x = x[:, -1:]                    # slice before lm_head
-    return L.rms_norm(x, params["final_norm"], cfg.norm_eps) @ params["lm_head"]
+    return L.lm_head(params, x, cfg.norm_eps, place)
 
 
 # -- serving ---------------------------------------------------------------------
@@ -143,19 +153,21 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, ctx: ParallelContex
 def decode_step(params, cache, token: torch.Tensor, pos: int, cfg: ModelConfig,
                 ctx: ParallelContext = SINGLE):
     """token [B] at position ``pos`` -> (logits [B, V], cache updated in place)."""
-    x = params["embed"][token][:, None, :].to(ctx.compute_dtype)
+    place = placement(param_shapes, cfg, ctx)
+    x = place.at("embed").whole(params["embed"])[token][:, None, :].to(ctx.compute_dtype)
     m_off = a_off = 0
     for kind, count in layer_schedule(cfg):
         if kind == "mamba":
             for i in range(m_off, m_off + count):
                 c = {k: v[i] for k, v in cache["mamba"].items()}
-                y, new = ssm.mamba_decode(L.layer(params["mamba"], i), x, c, cfg)
+                p = L.layer(params["mamba"], i, place.at("mamba"))
+                y, new = ssm.mamba_decode(p, x, c, cfg)
                 for k, v in new.items():
                     c[k].copy_(v)
                 x = x + y
             m_off += count
             continue
-        p = params["shared_attn"]
+        p = place.at("shared_attn").whole(params["shared_attn"])
         c = {k: v[a_off] for k, v in cache["attn"].items()}
         h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
         x = x + L.attention_decode(
@@ -164,5 +176,4 @@ def decode_step(params, cache, token: torch.Tensor, pos: int, cfg: ModelConfig,
         h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
         x = x + L.swiglu(p["mlp"], h)
         a_off += 1
-    lg = L.rms_norm(x, params["final_norm"], cfg.norm_eps) @ params["lm_head"]
-    return lg[:, 0], cache
+    return L.lm_head(params, x, cfg.norm_eps, place)[:, 0], cache

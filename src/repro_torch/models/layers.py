@@ -72,9 +72,19 @@ def swiglu(p: Params, x: torch.Tensor) -> torch.Tensor:
     return (torch.nn.functional.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
 
 
-def layer(blocks: Params, i: int) -> Params:
-    """Layer i's parameters out of a stacked ``blocks`` tree (views)."""
-    return {k: (layer(v, i) if isinstance(v, dict) else v[i]) for k, v in blocks.items()}
+def layer(blocks: Params, i: int, place=None) -> Params:
+    """Layer i's parameters out of a stacked ``blocks`` tree: views, or with
+    ``place`` (the blocks' ``sharding.gather.Placement``) the layer's whole
+    leaves, gathered from the blocks this process holds."""
+    views = {k: (layer(v, i) if isinstance(v, dict) else v[i]) for k, v in blocks.items()}
+    return views if place is None else place.whole(views, lead=1)
+
+
+def lm_head(params: Params, x: torch.Tensor, eps: float, place) -> torch.Tensor:
+    """``final_norm`` then ``lm_head``, each read whole through ``place`` (the
+    parameters' ``sharding.gather.Placement``)."""
+    x = rms_norm(x, place.at("final_norm").whole(params["final_norm"]), eps)
+    return x @ place.at("lm_head").whole(params["lm_head"])
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

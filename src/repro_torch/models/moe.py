@@ -17,13 +17,14 @@ group's other processes.  The branch is the reference's
     (r+1) T/L)``.  Where the train step replicates a block of rows over the
     model group (``train/step.py::shard_batch``), each process takes its
     contiguous ``1/m`` share of them, and the outputs are gathered back over
-    the model group (:class:`_GatherRows`, whose backward sums the
-    cotangent's shares: reduce-scatter);
-  * ``inner_masked`` (small decode batches): the tokens are replicated over
-    the model group, rank r owns token t when ``t % n == r`` and routes only
-    what it owns, and the ranks' outputs are summed (the reference's
-    ``psum``: over the block, then ``all_reduce`` over the model group, in
-    the forward only; under a gradient across processes it raises).
+    the model group (``sharding/gather.py::GatherLeaf`` along the rows,
+    whose backward sums the cotangent's shares: reduce-scatter);
+  * ``inner_masked`` (small decode batches, or a model group's replicated
+    rows that data x ``ep_size`` does not divide): the tokens are replicated
+    over the model group, rank r owns token t when ``t % n == r`` and routes
+    only what it owns, and the ranks' outputs are summed (the reference's
+    ``psum``: over the block, then over the model group, :class:`_SumOverGroup`,
+    whose backward sums the cotangent over the group too).
 
 Without a placement (``rows=None``: serving, the layer alone) the rows are
 each process's own and the count is the local one times the world, so
@@ -34,7 +35,9 @@ with a mesh its two means are summed over the processes holding distinct
 tokens (every process holds as many).
 
 Parameters keep the reference's tree: ``blocks`` has a leading layer axis,
-``wg``/``wu`` are [L, E, D, F] and ``wd`` is [L, E, F, D].
+``wg``/``wu`` are [L, E, D, F] and ``wd`` is [L, E, F, D].  Over a mesh each
+leaf is held as its block under ``sharding/specs.py`` and read whole
+(``sharding/gather.py``), the expert leaves as this process's experts.
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ from ..configs.base import ModelConfig
 from ..core.moe_comm import MoECommConfig, MoEDispatcher
 from ..kernels.grouped_ffn.ops import grouped_ffn
 from ..sharding.context import SINGLE, ParallelContext
+from ..sharding.gather import gather_leaf, placement
 from . import layers as L
 
 #: the reference's block_tokens for the expert FFN (moe.py:85)
@@ -129,27 +133,28 @@ def _router(p, xf: torch.Tensor, cfg: ModelConfig, groups=()):
     return top_idx, top_w, aux
 
 
-class _GatherRows(torch.autograd.Function):
-    """``x`` [T, ...] of each process of ``group`` -> their concatenation
-    [m T, ...] (``all_gather``); the backward sums the cotangent's rows
-    ``[j T, (j+1) T)`` over the group into process j's (``reduce_scatter``):
-    every process's loss reads all the rows, so each share's gradient is the
-    group's sum, not a slice."""
+class _SumOverGroup(torch.autograd.Function):
+    """``x`` of each process of ``group`` -> their sum, in every process
+    (``all_reduce``, the reference's ``psum``).  The backward sums the
+    cotangent over the group as well: each process's loss reads the sum, so
+    a process's share reaches all the group's losses.  Over one process's
+    share of the world's loss (``train/step.py``: ``1 / world`` each, summed
+    over the world) that is the gradient of the global loss; the identity
+    would leave it short by the group's size, as a slice would the row
+    gather's (``GatherLeaf``)."""
 
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        x = x.contiguous()
-        out = x.new_empty((dist.get_world_size(group) * x.shape[0], *x.shape[1:]))
-        dist.all_gather_into_tensor(out, x, group=group)
+        out = x.clone()
+        dist.all_reduce(out, group=group)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        m = dist.get_world_size(ctx.group)
-        out = g.new_empty((g.shape[0] // m, *g.shape[1:]))
-        dist.reduce_scatter_tensor(out, g.contiguous(), group=ctx.group)
-        return out, None
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
 
 
 def _moe_local(p, xf, top_idx, top_w, cfg: ModelConfig):
@@ -238,13 +243,7 @@ def make_moe_ffn(cfg: ModelConfig, ctx: ParallelContext):
         out = dispatcher.combine(experts(p, recv, e_local), st,
                                  tw.expand(L, *tw.shape)).sum(0)
         if L < n:                            # the reference's psum, across processes
-            if torch.is_grad_enabled() and out.requires_grad:
-                raise RuntimeError(
-                    "the masked MoE branch (tokens replicated over the model group, "
-                    f"{N} tokens for {L} ranks a process) has no gradient across "
-                    "processes; give each process a multiple of its ranks' count of "
-                    "tokens")
-            dist.all_reduce(out, group=group)
+            out = _SumOverGroup.apply(out, group)
         return out, st["dropped"]
 
     def apply(p, x, rows=None):
@@ -262,7 +261,7 @@ def make_moe_ffn(cfg: ModelConfig, ctx: ParallelContext):
             share = xf[j * (N // m):(j + 1) * (N // m)]
             ti, tw, aux = _router(p, share, cfg, mesh_groups)
             y, dropped = inner_full(p, share, ti, tw)
-            y = _GatherRows.apply(y, group)
+            y = gather_leaf(y, ((0, group, m),) if m > 1 else ())
         else:
             ti, tw, aux = _router(p, xf, cfg, mesh_groups if full else ctx.data_groups)
             y, dropped = (inner_full if full else inner_masked)(p, xf, ti, tw)
@@ -276,8 +275,10 @@ def _add_dropped(stats: Optional[dict], dropped) -> None:
         stats["dropped"] = stats.get("dropped", 0) + dropped
 
 
-def _block_fwd(p, x, cfg: ModelConfig, moe_apply, window):
-    """One block -> (x, aux, dropped)."""
+def _block_fwd(blocks, i: int, place, x, cfg: ModelConfig, moe_apply, window):
+    """Layer i of the stacked ``blocks`` -> (x, aux, dropped); its leaves are
+    gathered here (so that under remat the backward gathers them again)."""
+    p = L.layer(blocks, i, place)
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     x = x + L.attention_forward(
         p["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
@@ -300,11 +301,12 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
     reference's ``jax.checkpoint`` does.
     """
     moe_apply = moe_apply or make_moe_ffn(cfg, ctx)
-    x = params["embed"][tokens].to(ctx.compute_dtype)
+    place = placement(param_shapes, cfg, ctx)
+    x = place.at("embed").whole(params["embed"])[tokens].to(ctx.compute_dtype)
     blocks = params["blocks"]
     auxs = []
     for i in range(blocks["ln1"].shape[0]):
-        args = (L.layer(blocks, i), x, cfg, moe_apply, window)
+        args = (blocks, i, place.at("blocks"), x, cfg, moe_apply, window)
         if ctx.remat and torch.is_grad_enabled():
             x, aux, dropped = checkpoint(_block_fwd, *args, use_reentrant=False)
         else:
@@ -313,8 +315,7 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
         _add_dropped(stats, dropped)
     if last_only:
         x = x[:, -1:]                    # slice before lm_head
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x @ params["lm_head"], torch.stack(auxs).mean()
+    return L.lm_head(params, x, cfg.norm_eps, place), torch.stack(auxs).mean()
 
 
 # -- serving ---------------------------------------------------------------------
@@ -331,10 +332,11 @@ def decode_step(params, cache, token: torch.Tensor, pos: int, cfg: ModelConfig,
                 stats: Optional[dict] = None):
     """token [B] at position ``pos`` -> (logits [B, V], cache updated in place)."""
     moe_apply = moe_apply or make_moe_ffn(cfg, ctx)
-    x = params["embed"][token][:, None, :].to(ctx.compute_dtype)
+    place = placement(param_shapes, cfg, ctx)
+    x = place.at("embed").whole(params["embed"])[token][:, None, :].to(ctx.compute_dtype)
     blocks = params["blocks"]
     for i in range(blocks["ln1"].shape[0]):
-        p = L.layer(blocks, i)
+        p = L.layer(blocks, i, place.at("blocks"))
         c = {k: v[i] for k, v in cache.items()}
         h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
         x = x + L.attention_decode(
@@ -344,5 +346,4 @@ def decode_step(params, cache, token: torch.Tensor, pos: int, cfg: ModelConfig,
         y, _, dropped = moe_apply(p, h)
         x = x + y
         _add_dropped(stats, dropped)
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return (x @ params["lm_head"])[:, 0], cache
+    return L.lm_head(params, x, cfg.norm_eps, place)[:, 0], cache

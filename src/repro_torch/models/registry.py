@@ -21,6 +21,7 @@ import torch
 
 from ..configs.base import InputShape, ModelConfig
 from ..sharding.context import SINGLE, ParallelContext
+from ..sharding.gather import Placement, placement
 from ..sharding.specs import shard_params
 from . import dense, encdec, hybrid, moe, vlm, xlstm
 
@@ -48,6 +49,11 @@ class Model:
     def moe_apply(self):
         """The expert layer, built once (its dispatcher caches dataplanes)."""
         return self.mod.make_moe_ffn(self.cfg, self.ctx)
+
+    @property
+    def placement(self) -> Placement:
+        """Where the parameters lie over ``ctx.mesh`` (``sharding/gather.py``)."""
+        return placement(self.mod.param_shapes, self.cfg, self.ctx)
 
     def _extra(self, stats: Optional[dict], rows=None) -> Dict[str, Any]:
         """The family's own keyword arguments to ``forward``/``decode_step``;

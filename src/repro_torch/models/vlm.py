@@ -17,6 +17,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..sharding.context import SINGLE, ParallelContext
+from ..sharding.gather import placement
 from . import dense
 
 param_shapes = dense.param_shapes
@@ -32,7 +33,7 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, ctx: ParallelContext
     """tokens [B, S_text], patches [B, P, d] -> logits [B, P + S_text, V]."""
     if patches is None:
         raise ValueError("the vlm family needs stub patch embeddings (patches)")
-    tok_emb = params["embed"][tokens]
+    tok_emb = dense.embed(params, tokens, placement(param_shapes, cfg, ctx))
     x = torch.cat([patches.to(tok_emb.dtype), tok_emb], dim=1)
     return dense.forward(params, tokens, cfg, ctx, window=window, inputs_embeds=x,
                          last_only=last_only)

@@ -16,6 +16,8 @@ Counterpart of ``repro/models/xlstm.py``.
 Attention-free: NIMBLE's dispatch has nothing to balance, and the model is
 built without it.  Parameters keep the reference's tree: ``blocks`` is a
 list of per-layer dicts whose keys differ between sLSTM and mLSTM layers.
+Over a mesh each leaf is held as its block and read whole
+(``sharding/gather.py``): a layer's leaves as the layer runs.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from ..configs.base import ModelConfig
 from ..kernels.mlstm_scan.ops import init_state as init_mlstm_scan_state
 from ..kernels.mlstm_scan.ops import mlstm_scan
 from ..sharding.context import SINGLE, ParallelContext
+from ..sharding.gather import placement
 from . import layers as L
 
 State = Dict[str, torch.Tensor]
@@ -367,8 +370,10 @@ def slstm_forward_assoc(p, x: torch.Tensor, cfg: ModelConfig,
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
             ctx: ParallelContext = SINGLE, *, last_only: bool = False) -> torch.Tensor:
     """tokens [B, S] -> logits [B, S, V], or [B, 1, V] with ``last_only``."""
-    x = params["embed"][tokens].to(ctx.compute_dtype)
+    place = placement(param_shapes, cfg, ctx)
+    x = place.at("embed").whole(params["embed"])[tokens].to(ctx.compute_dtype)
     for i, p in enumerate(params["blocks"]):
+        p = place.at("blocks", i).whole(p)
         if is_slstm_layer(cfg, i):
             fwd = slstm_forward_assoc if cfg.slstm_assoc else slstm_forward
             y, _ = fwd(p, x, cfg)
@@ -379,7 +384,7 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
         x = x + y
     if last_only:
         x = x[:, -1:]                    # slice before lm_head
-    return L.rms_norm(x, params["final_norm"], cfg.norm_eps) @ params["lm_head"]
+    return L.lm_head(params, x, cfg.norm_eps, place)
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
@@ -392,12 +397,12 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
 def decode_step(params, cache: List[State], token: torch.Tensor, pos: int,
                 cfg: ModelConfig, ctx: ParallelContext = SINGLE):
     """token [B] -> (logits [B, V], the new per-layer states)."""
-    x = params["embed"][token][:, None, :].to(ctx.compute_dtype)
+    place = placement(param_shapes, cfg, ctx)
+    x = place.at("embed").whole(params["embed"])[token][:, None, :].to(ctx.compute_dtype)
     new_cache = []
     for i, (p, st) in enumerate(zip(params["blocks"], cache)):
         fwd = slstm_forward if is_slstm_layer(cfg, i) else mlstm_forward
-        y, st = fwd(p, x, cfg, state=st)
+        y, st = fwd(place.at("blocks", i).whole(p), x, cfg, state=st)
         x = x + y
         new_cache.append(st)
-    lg = L.rms_norm(x, params["final_norm"], cfg.norm_eps) @ params["lm_head"]
-    return lg[:, 0], new_cache
+    return L.lm_head(params, x, cfg.norm_eps, place)[:, 0], new_cache

@@ -65,12 +65,15 @@ def schedule(cfg: AdamWConfig, step: int) -> float:
     return float(_F32(cfg.lr) * warm * frac)
 
 
-def global_norm(tree, sharded: Optional[Sequence[bool]] = None, group=None) -> torch.Tensor:
+def global_norm(tree, split: Optional[Sequence[tuple]] = None) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, as a float32 device scalar.
 
-    ``sharded`` marks the leaves (in leaf order) of which this process holds
-    one block of ``group``'s: their squared norms are summed over the group
-    (one ``all_reduce``) before the sum over leaves, which keeps its order.
+    ``split``: per leaf (in leaf order), the process groups over which this
+    process holds one block of it (the axes that split it,
+    ``train/step.py::norm_groups``); its squared norm is summed over each of
+    them (one ``all_reduce`` a group, over the leaves it splits) before the
+    sum over leaves, which keeps its order.  A leaf that no group splits is
+    whole, or a copy, in every process, and is counted once.
 
     Each leaf's norm is the norm of its rows' norms, in float32: one pass
     that reads the leaf once on either device.  The CPU's float32 norm of a
@@ -81,20 +84,23 @@ def global_norm(tree, sharded: Optional[Sequence[bool]] = None, group=None) -> t
     norms = [torch.linalg.vector_norm(
         torch.linalg.vector_norm(x, 2, dim=-1, dtype=torch.float32), 2) for x in leaves(tree)]
     sq = torch.stack(norms).double() ** 2
-    if group is not None and sharded is not None and any(sharded):
-        mask = torch.as_tensor(list(sharded), device=sq.device)
-        part = torch.where(mask, sq, 0.0)
-        dist.all_reduce(part, group=group)
-        sq = torch.where(mask, part, sq)
+    if split is not None and any(split):
+        sq = list(sq.unbind())
+        for group in dict.fromkeys(g for gs in split for g in gs):
+            idx = [i for i, gs in enumerate(split) if group in gs]
+            part = torch.stack([sq[i] for i in idx])
+            dist.all_reduce(part, group=group)
+            for j, i in enumerate(idx):
+                sq[i] = part[j]
+        sq = torch.stack(sq)
     return torch.sqrt(torch.sum(sq)).float()
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float, sharded: Optional[Sequence[bool]] = None,
-                        group=None):
+def clip_by_global_norm(grads, max_norm: float, split: Optional[Sequence[tuple]] = None):
     """Scales the leaves in place by min(1, max_norm / norm); -> (grads, norm).
-    ``sharded`` and ``group`` as in :func:`global_norm`."""
-    norm = global_norm(grads, sharded, group)
+    ``split`` as in :func:`global_norm`."""
+    norm = global_norm(grads, split)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     for g in leaves(grads):
         g.mul_(scale.to(g.dtype))
@@ -103,14 +109,13 @@ def clip_by_global_norm(grads, max_norm: float, sharded: Optional[Sequence[bool]
 
 @torch.no_grad()
 def update(cfg: AdamWConfig, params, grads, state: OptState, *,
-           sharded: Optional[Sequence[bool]] = None, group=None
-           ) -> Tuple[Any, OptState, dict]:
+           split: Optional[Sequence[tuple]] = None) -> Tuple[Any, OptState, dict]:
     """One AdamW step over every leaf, in place; -> (params, state, metrics).
 
-    ``sharded`` / ``group``: the leaves of which this process holds one
-    block of the group's (the experts over the model group), for the
-    global norm."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, sharded, group)
+    Over a mesh ``params``, ``grads`` and the moments are this process's
+    blocks (``init`` of the blocks gives moments of their shape), and the
+    update is elementwise on them; ``split`` as in :func:`global_norm`."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, split)
     step = state.step + 1
     lr = schedule(cfg, step)
     b1, b2 = cfg.beta1, cfg.beta2

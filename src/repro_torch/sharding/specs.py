@@ -15,16 +15,19 @@ port's ``param_shapes`` trees as the reference's work on ``eval_shape``.
 The "pod" axis never appears in param specs: pods are pure data-parallel
 replicas, so parameters are replicated across pods.
 
-The port's train step holds only the expert leaves' "model" placement
-(:func:`held_specs`): dense leaves stay replicated, with no FSDP and no TP.
-The full specs are what the reference places and what a dry-run reads.
+The port places every leaf by these specs (:func:`shard_params`): each
+process holds its block, and the models read a leaf whole through
+``sharding/gather.py`` (gathered on use, its gradient reduce-scattered
+back to the block).  :func:`unshard` is :func:`local_shard`'s inverse.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Dict, Mapping, Sequence, Tuple
 
+import numpy as np
 import torch
 
 # leaf-name -> spec template (rightmost dims; missing leading dims -> None)
@@ -132,12 +135,6 @@ def leaf_paths(tree, path=()) -> list:
     return [(path, tree)]
 
 
-def expert_leaf_mask(params) -> list:
-    """Per leaf, in leaf order: an MoE expert leaf (held one block a process
-    of the model group under a mesh)."""
-    return [is_expert_leaf(p, _shape(t)) for p, t in leaf_paths(params)]
-
-
 def spec_for_path(path: Sequence, leaf, sizes: Mapping[str, int]) -> Spec:
     """The spec of the leaf at ``path`` (its keys and list indices)."""
     shape = _shape(leaf)
@@ -157,79 +154,109 @@ def spec_for_path(path: Sequence, leaf, sizes: Mapping[str, int]) -> Spec:
                  for dim, axis in zip(shape, spec))
 
 
-def _at(tree, path):
+def at_path(tree, path):
+    """The node of ``tree`` at ``path`` (its keys and list indices)."""
     for k in path:
         tree = tree[k]
     return tree
 
 
-def _map_with_path(fn, tree, path=()):
+def map_with_path(fn, tree, path=()):
     if isinstance(tree, dict):
-        return {k: _map_with_path(fn, tree[k], path + (k,)) for k in tree}
+        return {k: map_with_path(fn, tree[k], path + (k,)) for k in tree}
     if isinstance(tree, list) or (isinstance(tree, tuple) and not _is_leaf(tree)):
-        return type(tree)(_map_with_path(fn, t, path + (i,)) for i, t in enumerate(tree))
+        return type(tree)(map_with_path(fn, t, path + (i,)) for i, t in enumerate(tree))
     return fn(path, tree)
 
 
 def build_param_specs(params, mesh) -> dict:
     """Tree of specs matching ``params`` (tensors or ``param_shapes`` tuples)."""
     sizes = mesh_sizes(mesh)
-    return _map_with_path(lambda path, leaf: spec_for_path(path, leaf, sizes), params)
+    return map_with_path(lambda path, leaf: spec_for_path(path, leaf, sizes), params)
 
 
-def held_specs(params, mesh) -> dict:
-    """The placement the port's train step holds: the expert dim of each MoE
-    expert leaf over "model", every other dim and leaf replicated."""
-    sizes = mesh_sizes(mesh)
-
-    def one(path, leaf):
-        spec = spec_for_path(path, leaf, sizes)
-        if not is_expert_leaf(path, _shape(leaf)):
-            return (None,) * len(spec)
-        return tuple(a if a == "model" else None for a in spec)
-
-    return _map_with_path(one, params)
+def entry_axes(entry) -> Tuple[str, ...]:
+    """A spec entry's axis names, in order."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
 
 
-def local_shard(t: torch.Tensor, spec: Spec, sizes: Mapping[str, int],
-                coord: Mapping[str, int]) -> torch.Tensor:
-    """One process's block of ``t`` under ``spec`` (a view).
+def split_axes(spec: Spec) -> Tuple[str, ...]:
+    """The axes a leaf of ``spec`` is split on, in the spec's order; it is
+    replicated over every other axis of the mesh."""
+    return tuple(a for entry in spec for a in entry_axes(entry))
 
-    ``coord`` is the process's index along each mesh axis.  A dim placed
-    over several axes is split into their product of blocks, the first axis
-    major, as a ``NamedSharding`` splits it.
-    """
-    out = t
-    for dim, axis in enumerate(spec):
-        if axis is None:
-            continue
-        axes = axis if isinstance(axis, tuple) else (axis,)
+
+def block_slices(shape: Sequence[int], spec: Spec, sizes: Mapping[str, int],
+                 coord: Mapping[str, int]) -> Tuple[slice, ...]:
+    """Where the block at ``coord`` lies in a ``shape`` leaf under ``spec``: a
+    slice a dim.  A dim placed over several axes is split into their product
+    of blocks, the first axis major, as a ``NamedSharding`` splits it."""
+    out = []
+    for dim, (n, entry) in enumerate(zip(shape, spec)):
+        axes = entry_axes(entry)
         idx = 0
         for a in axes:
             idx = idx * sizes.get(a, 1) + coord.get(a, 0)
         parts = _axis_size(sizes, axes)
-        if t.shape[dim] % parts:
-            raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split into {parts}")
-        step = t.shape[dim] // parts
-        out = out.narrow(dim, idx * step, step)
+        if n % parts:
+            raise ValueError(f"dim {dim} of {tuple(shape)} does not split into {parts}")
+        step = n // parts
+        out.append(slice(idx * step, (idx + 1) * step))
+    return tuple(out) + (slice(None),) * (len(shape) - len(spec))
+
+
+def block_shape(shape: Sequence[int], spec: Spec, sizes: Mapping[str, int]) -> Tuple[int, ...]:
+    """The shape of one block of a ``shape`` leaf under ``spec``."""
+    out = list(shape)
+    for dim, entry in enumerate(spec):
+        out[dim] //= _axis_size(sizes, entry_axes(entry))
+    return tuple(out)
+
+
+def local_shard(t: torch.Tensor, spec: Spec, sizes: Mapping[str, int],
+                coord: Mapping[str, int]) -> torch.Tensor:
+    """One process's block of ``t`` under ``spec`` (a view); ``coord`` is the
+    process's index along each mesh axis (:func:`block_slices`)."""
+    return t[block_slices(t.shape, spec, sizes, coord)]
+
+
+def unshard(block_at, spec: Spec, sizes: Mapping[str, int]):
+    """The whole leaf from its blocks, :func:`local_shard`'s inverse:
+    ``block_at(coord)`` gives the block at a coordinate of the axes ``spec``
+    splits on (a tensor or a numpy array; every block of one shape)."""
+    axes = split_axes(spec)
+    out = None
+    for idx in itertools.product(*(range(sizes.get(a, 1)) for a in axes)):
+        coord = dict(zip(axes, idx))
+        blk = block_at(coord)
+        if out is None:
+            shape = [n * _axis_size(sizes, entry_axes(e)) for n, e in zip(blk.shape, spec)]
+            shape += list(blk.shape[len(spec):])
+            out = (blk.new_empty(shape) if isinstance(blk, torch.Tensor)
+                   else np.empty(shape, dtype=blk.dtype))
+        out[block_slices(out.shape, spec, sizes, coord)] = blk
     return out
 
 
 def shard_params(params, ctx):
     """Full parameters -> the blocks this process holds under ``ctx.mesh``
-    (:func:`held_specs`; contiguous copies where a leaf is split, the leaf
-    itself where it is replicated); ``params`` itself without a mesh."""
+    (:func:`build_param_specs`; contiguous copies where an axis of more than
+    one process splits a leaf, the leaf itself where none does); ``params``
+    itself without a mesh."""
     if ctx.mesh is None:
         return params
     sizes, coord = mesh_sizes(ctx.mesh), mesh_coord(ctx.mesh)
+    specs = build_param_specs(params, sizes)
 
-    def one(path, leaf, spec):
-        if all(a is None for a in spec):
+    def one(path, leaf):
+        spec = at_path(specs, path)
+        if all(sizes.get(a, 1) == 1 for a in split_axes(spec)):
             return leaf
         return local_shard(leaf, spec, sizes, coord).contiguous()
 
-    specs = held_specs(params, ctx.mesh)
-    return _map_with_path(lambda path, leaf: one(path, leaf, _at(specs, path)), params)
+    return map_with_path(one, params)
 
 
 # --------------------------------------------------------------------------- #
@@ -311,7 +338,7 @@ def cache_spec_rules(mesh):
 
 
 def build_cache_specs(cache, mesh) -> dict:
-    return _map_with_path(cache_spec_rules(mesh), cache)
+    return map_with_path(cache_spec_rules(mesh), cache)
 
 
 def mesh_coord(mesh) -> Dict[str, int]:

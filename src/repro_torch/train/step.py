@@ -11,14 +11,35 @@ Across processes (``model.ctx.mesh``) the step takes the global batch, as
 the reference's jitted step does, and each process runs its rows of it
 (:func:`shard_batch`): over data x model where that divides the batch,
 else over the data axes that divide it and replicated over the rest (the
-model axis included), as the reference's ``batch_spec`` places it.  The
-run is data-parallel over the row blocks, plus expert parallelism for the
-experts.  Each process scales its loss by ``1 / world``; the gradients of
-replicated leaves are summed over the world, those of the expert leaves
-(this process's block) over the data axes, one ``all_reduce`` a bucket of
-one dtype and at most ``BUCKET_BYTES``; AdamW's global norm sums the
-expert blocks' squared norms over the model group.  The reported loss is
-summed over the world, the capacity drops too, counting each token once.
+model axis included), as the reference's ``batch_spec`` places it.  Each
+parameter leaf, and AdamW's two moments, is this process's block under
+``sharding/specs.py::build_param_specs``; the model reads it whole
+(``sharding/gather.py``), and the gather's backward reduce-scatters the
+whole leaf's gradient back to the block, summed over the axes that split
+the leaf.
+
+The gradients.  Each process scales its loss by ``1 / world``
+(``RowBlock.share``), and every collective on the loss's path has as its
+backward the adjoint with respect to the sum of all the processes' losses:
+the gather's reduce-scatter (``sharding/gather.py::GatherLeaf``, for the
+leaves and for the MoE layer's row gather) and the MoE masked branch's sum
+over the model group (``models/moe.py::_SumOverGroup``).  Block b of the
+rows, held by ``replicas`` processes, enters that sum ``replicas / world
+x mean_b = mean_b / count`` times: the world's sum is the global batch's
+mean over its ``count`` equal blocks, whether the model group splits the rows or holds them replicated.
+So a block's gradient is the global loss's once it is summed over the
+axes the leaf is *not* split on, one ``all_reduce`` a bucket of one dtype
+and at most ``BUCKET_BYTES`` for each such set of axes (a leaf split on
+none is summed over the world at once).  Where the rows are replicated
+over "model", that sum runs over "model" too: the MoE layer routes a
+different share of the group's tokens in each process (split or masked),
+so the copies' gradients differ there; in a family without experts they
+are equal, and the sum over "model" of a leaf it does not split (the
+norms, the router, the few dims "model" does not divide) repeats them
+(TP compute, which would share the model group's work, is not ported).
+AdamW's global norm sums each leaf's squared norm over the axes that
+split it.  The reported loss is summed over the world, the capacity drops
+too, counting each token once.
 """
 
 from __future__ import annotations
@@ -31,7 +52,7 @@ import torch.distributed as dist
 
 from ..models.registry import Model
 from ..optim import adamw
-from ..sharding.specs import expert_leaf_mask
+from ..sharding.gather import leaf_specs, norm_axes, reduce_axes
 from ..tree import leaves, map_tree, unflatten
 
 
@@ -59,15 +80,11 @@ def shard_batch(batch: Dict[str, torch.Tensor], ctx):
 
     Placed by ``ctx.row_block``: ``count`` distinct blocks, each held by
     ``replicas`` processes.  Each process's loss share stays ``1 / world``
-    (``RowBlock.share``), which keeps the sums of the module docstring
-    right: the ``replicas`` copies of block b give ``replicas / world x
-    mean_b = mean_b / count``, so the world's sum of the losses, and of a
-    replicated leaf's gradients, is the global batch's mean over the
-    ``count`` equal blocks.  An expert block takes its gradient from the
-    tokens of its data block only, routed once in the model group (the
-    MoE layer splits replicated rows over it, ``models/moe.py``): summed
-    over the data axes it is the global mean's too.  Where data x model
-    divides the batch, ``replicas`` is 1 and the placement is data x model.
+    (``RowBlock.share``): the module docstring derives why the world's sum
+    of the losses and of the gradients is then the global batch's mean,
+    whether the model group splits the rows or holds them replicated.
+    Where data x model divides the batch, ``replicas`` is 1 and the
+    placement is data x model.
     """
     first = next(iter(batch.values()))
     rows = ctx.row_block(first.shape[0])
@@ -123,6 +140,33 @@ def _all_reduce_flat(tensors, groups) -> None:
             off += t.numel()
 
 
+def _reduce_sets(model: Model, grads):
+    """(gradient blocks, the process groups to sum them over): the leaves
+    grouped by the mesh axes of more than one process that do not split
+    them, in leaf order; all of the mesh's axes: the world, at once."""
+    place, mesh = model.placement, model.ctx.mesh
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    specs = leaf_specs(place) or [()] * len(grads)
+    sets: Dict[tuple, list] = {}
+    for g, spec in zip(grads, specs):
+        sets.setdefault(reduce_axes(spec, sizes), []).append(g)
+    every = tuple(a for a, s in sizes.items() if s > 1)
+    return [(ts, (None,) if axes == every else tuple(mesh.get_group(a) for a in axes))
+            for axes, ts in sets.items() if axes]
+
+
+def norm_groups(model: Model) -> Optional[list]:
+    """Per leaf in leaf order, the process groups over which AdamW's global
+    norm sums its block's squared norm (the axes that split it); ``None``
+    without a placement."""
+    specs = leaf_specs(model.placement)
+    if specs is None:
+        return None
+    mesh = model.ctx.mesh
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return [tuple(mesh.get_group(a) for a in norm_axes(s, sizes)) for s in specs]
+
+
 def loss_and_grads(model: Model, params, batch, *, window=None,
                    stats: Optional[dict] = None, phases: Optional[_Phases] = None):
     """-> (loss, gradient tree shaped like ``params``), by autograd through
@@ -150,9 +194,8 @@ def loss_and_grads(model: Model, params, batch, *, window=None,
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
     loss = loss.detach()
     if ctx.mesh is not None:
-        sharded = expert_leaf_mask(params)
-        _all_reduce_flat([g for g, s in zip(grads, sharded) if not s], (None,))
-        _all_reduce_flat([g for g, s in zip(grads, sharded) if s], ctx.data_groups)
+        for ts, groups in _reduce_sets(model, grads):
+            _all_reduce_flat(ts, groups)
         dist.all_reduce(loss)
         if stats is not None:
             dropped = torch.as_tensor(own.get("dropped", 0), device=loss.device)
@@ -172,22 +215,18 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig, *, window=None):
     ``torch.cuda.synchronize`` on the card (off by default: no sync).
     With a mesh it takes the global batch (see the module docstring).
     """
-    sharded = None
+    split = norm_groups(model)
 
     def train_step(params, opt_state, batch, *, stats: Optional[dict] = None,
                    times: Optional[Dict[str, float]] = None):
         phases = _Phases(times, model.ctx.device)
         loss, grads = loss_and_grads(model, params, batch, window=window, stats=stats,
                                      phases=phases)
-        nonlocal sharded
-        if model.ctx.mesh is None:
+        if split is None:
             params, opt_state, metrics = adamw.update(opt_cfg, params, grads, opt_state)
         else:
-            if sharded is None:
-                sharded = expert_leaf_mask(params)
-            params, opt_state, metrics = adamw.update(
-                opt_cfg, params, grads, opt_state, sharded=sharded,
-                group=model.ctx.model_group)
+            params, opt_state, metrics = adamw.update(opt_cfg, params, grads, opt_state,
+                                                      split=split)
         phases.mark("optimizer")
         return params, opt_state, dict(metrics, loss=loss)
 

@@ -14,8 +14,15 @@ over ``P`` processes, each hosting ``n / P`` of them:
 * the MoE layer (router, dispatch, grouped FFN, combine) forward and its
   gradients against the stacked path's, within 1e-5 of each one's largest
   value (f32 sums over fewer rows, then an all_reduce);
-* the masked branch (tokens replicated over the model group): its forward
-  against the stacked masked path, and that it raises under a gradient;
+* the masked branch (tokens replicated over the model group) at P = 2 and
+  4: its forward against the stacked masked path, and the gradients of
+  each process's ``1 / P`` share of the objective (the tokens' and the
+  router's summed over the processes, the experts' blocks joined) against
+  the stacked path's;
+* ``sharding/gather.py::GatherLeaf`` on (data 2, model 2): a leaf split
+  over one axis, two axes of one dim, two dims and none comes back whole
+  bit for bit, and its block's gradient is the block of the cotangents
+  summed over the processes that split it (nothing launched for none);
 * the train step on (data 2, model 1) across 2 processes without EP
   (ep_size 1) against the stacked one, as below;
 * the reference's EP train step on (data 2, model 4) across 8 processes
@@ -29,6 +36,20 @@ over ``P`` processes, each hosting ``n / P`` of them:
   smollm-135m, from the JAX package's weights, against the single-process
   step: the loss within 1e-6, the gradients within 1e-5, the drops equal;
   and the loss within 5e-2 of the JAX package's single-device step;
+* every parameter and AdamW moment placed by the full specs: the train
+  step of reduced paper-moe-8e, granite-moe, smollm-135m, xlstm-125m and
+  zamba2-1.2b on
+  (data 2, model 2) (31 tokens a sequence: the MoE's masked branch) and
+  (data 2, model 4) (32: its split), 2 sequences (the rows replicated over
+  model), against one process: the loss within 1e-6 relative, each
+  gradient leaf assembled from the blocks within 1e-5 of its largest value,
+  two AdamW steps' losses and global norms within 1e-5 relative and the
+  parameters after them within 1e-5; the loss within 5e-2 of the JAX package's
+  single-device step; the bytes held (parameters, m, v) exactly the blocks'
+  bytes by the specs;
+* a checkpoint written by a (data 2, model 2) world is the world's blocks
+  put together, bit for bit, and one written by a single process restores
+  in the world as each process's block of it, bit for bit;
 * ``selftest --procs 8 --device cpu`` ends ``ALL OK``.
 """
 
@@ -50,7 +71,8 @@ from repro_torch.launch.dist import local_world, spawn
 from repro_torch.models.moe import make_moe_ffn
 from repro_torch.models.registry import build_model
 from repro_torch.sharding.context import ParallelContext
-from repro_torch.train.step import loss_and_grads
+from repro_torch.optim import adamw
+from repro_torch.train.step import loss_and_grads, make_train_step
 from repro_torch.tree import leaves
 from repro_torch.weights import params_from_jax
 
@@ -61,6 +83,20 @@ GEOMETRIES = {8: (8, 4), 4: (4, 2)}           # n -> (n, G)
 LAYER = dict(B=8, S=8)
 ROWS_ARCHS = ("paper-moe-8e", "smollm-135m")
 ROWS_OVERFLOW = 0.5           # a capacity factor at which paper-moe-8e drops
+#: zamba2's shared attention block is read at each of its calls: its
+#: gradient is the uses' sum, reduced once
+PLACED_ARCHS = ("paper-moe-8e", "granite-moe-1b-a400m", "smollm-135m", "xlstm-125m",
+                "zamba2-1.2b")
+#: world -> (data, model, tokens a sequence of an MoE arch): 31 tokens on
+#: (data 2, model 2) take the MoE's masked branch (62 global tokens, data x
+#: EP 4 = 8), 32 on (data 2, model 4) its split of the model group's rows;
+#: the archs without experts take 32 on both (the same references)
+PLACED = {4: (2, 2, 31), 8: (2, 4, 32)}
+PLACED_STEPS = 2
+
+
+def placed_tokens(P, arch) -> int:
+    return PLACED[P][2] if j_get_config(arch).n_experts else 32
 
 
 def _jax_train_ref():
@@ -85,16 +121,29 @@ def jax_train_ref():
 
 
 @functools.lru_cache(maxsize=None)
-def jax_rows_ref(arch, B=2, capacity=8.0):
-    """The reference's seed-0 weights for ``dist_checks.rows_inputs``' config,
-    and its single-device loss on that batch."""
-    cfg, _, batch = dist_checks.rows_inputs(arch, B, capacity=capacity)
+def _jax_rows_model(arch, capacity=8.0):
+    """The reference's model of ``dist_checks.rows_inputs``' config and its
+    seed-0 weights (the same for every batch)."""
+    cfg, _, _ = dist_checks.rows_inputs(arch, capacity=capacity)
     jcfg = j_get_config(arch).reduced()
     if jcfg.n_experts:
         jcfg = dataclasses.replace(jcfg, moe_capacity_factor=capacity)
     assert dataclasses.asdict(jcfg) == dataclasses.asdict(cfg)
     jmodel = j_build_model(jcfg, J_SINGLE)
-    jparams = jmodel.init(jax.random.PRNGKey(0))
+    return jmodel, jmodel.init(jax.random.PRNGKey(0))
+
+
+def jax_rows_ref(arch, B=2, capacity=8.0, S=32):
+    """The reference's seed-0 weights for ``dist_checks.rows_inputs``' config,
+    and its single-device loss on that batch (once for each batch, however
+    the arguments are passed)."""
+    return _jax_rows_ref(arch, B, capacity, S)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_rows_ref(arch, B, capacity, S):
+    _, _, batch = dist_checks.rows_inputs(arch, B, S, capacity=capacity)
+    jmodel, jparams = _jax_rows_model(arch, capacity)
     jbatch = {k: jnp.asarray(v.numpy().astype(np.int32)) for k, v in batch.items()}
     loss = float(jmodel.loss(jparams, jbatch))
     return jax.tree.map(lambda a: np.asarray(a, dtype=np.float32), jparams), loss
@@ -109,11 +158,22 @@ def _cases(P):
             cases.append((f"exchange-n{n}-{dt}", "exchange", dict(n=n, G=G, dtype=dt)))
         cases.append((f"baseline-n{n}", "baseline", dict(n=n)))
         cases.append((f"layer-n{n}", "layer", dict(n=n, G=G, **LAYER)))
-    if P == 2:
+    if P in (2, 4):
         cases.append(("masked-n4", "masked", dict(n=4, G=2)))
+    if P == 2:
         cases.append(("train-ep1", "train", dict(tree=jax_train_ref()[0], data=2, model=1,
                                                  ep_size=1)))
+    if P in PLACED:
+        data, model, _ = PLACED[P]
+        for arch in PLACED_ARCHS:
+            S = placed_tokens(P, arch)
+            cases.append((f"placed-{arch}", "rows", dict(
+                arch=arch, data=data, model=model, S=S, steps=PLACED_STEPS,
+                tree=jax_rows_ref(arch, S=S)[0])))
     if P == 4:
+        cases.append(("gather", "gather", {}))
+        read, _ = single_ckpt()
+        cases.append(("ckpt", "ckpt", dict(write=_ckpt_dir("world"), read=read)))
         for arch in ROWS_ARCHS:
             cases.append((f"rows-{arch}", "rows", dict(arch=arch, tree=jax_rows_ref(arch)[0])))
         cases.append(("rows-overflow", "rows", dict(
@@ -221,18 +281,49 @@ def test_moe_layer_forward_and_gradients_equal_stacked(world, n):
         _close(np.concatenate([g[k] for g in got]), want[k])
 
 
-@pytest.mark.parametrize("world", [2], indirect=True, ids=["P2"])
-def test_masked_branch_forward_equals_stacked_and_raises_under_grad(world):
+@pytest.mark.parametrize("world", [2, 4], indirect=True, ids=["P2", "P4"])
+def test_masked_branch_forward_equals_stacked_and_its_gradients_equal_stacked(world):
+    """3 tokens on every process (4 EP ranks, 2 or 1 a process): the sum over
+    the model group forward, and its backward a sum too, so that the world's
+    ``1 / P`` shares give the stacked path's gradients (f32, 1e-6)."""
     cfg = dist_checks.layer_config()
-    p, x, _ = dist_checks.layer_inputs(cfg, 1, 3)
+    p, x, cot = dist_checks.layer_inputs(cfg, 1, 3)
     ctx = ParallelContext(ep_size=4, group_size=2, moe_chunk_tokens=4, device="cpu")
-    with torch.no_grad():
-        y, aux, _ = make_moe_ffn(cfg, ctx)(p, x)
+    want = dist_checks.layer_grads(make_moe_ffn(cfg, ctx), p, x, cot)
     got = world["masked-n4"]
     for g in got:
-        _close(g["y"], y.numpy())                      # the all-reduced sum, everywhere
-        assert abs(g["aux"] - float(aux)) <= 1e-6 * abs(float(aux))
-        assert "no gradient across processes" in g["raised"]
+        _close(g["y"], want["y"], 1e-6)                 # the all-reduced sum, everywhere
+        assert abs(g["aux"] - want["aux"]) <= 1e-6 * abs(want["aux"])
+    # the replicated tokens and router: each process's share, summed
+    for k in ("x", "router"):
+        _close(np.sum([g[k] for g in got], axis=0), want[k], 1e-6)
+    # the expert leaves: each process's block of experts
+    for k in ("wg", "wu", "wd"):
+        _close(np.concatenate([g[k] for g in got]), want[k], 1e-6)
+
+
+@pytest.mark.parametrize("world", [4], indirect=True, ids=["P4"])
+@pytest.mark.parametrize("case", ["one axis", "two axes", "two dims", "no dim"])
+def test_gather_leaf_round_trip_and_gradient(world, case):
+    """(data 2, model 2): the whole leaf, bit for bit, in every process; the
+    block's gradient the block of the cotangents summed over the processes
+    that hold the leaf's other blocks (the processes of its split axes)."""
+    from repro_torch.sharding.specs import local_shard, split_axes
+
+    got = world["gather"]
+    t, cases, cots = dist_checks.gather_inputs(len(got))
+    spec = cases[case]
+    axes = split_axes(spec)
+    sizes = {"data": 2, "model": 2}
+    for rank, g in enumerate(got):
+        assert np.array_equal(g[case]["whole"], t.numpy())
+        me = g["coord"]
+        peers = [r for r, h in enumerate(got)
+                 if all(h["coord"][a] == me[a] for a in sizes if a not in axes)]
+        want = local_shard(sum(cots[r] for r in peers), spec, sizes, me)
+        _close(g[case]["grad"], want.numpy(), 1e-6)
+        steps = len(axes)
+        assert g[case]["launches"] == {"all_gather": steps, "reduce_scatter": steps}
 
 
 @functools.lru_cache(maxsize=None)
@@ -360,18 +451,29 @@ class _FakeMesh:
 
 
 @functools.lru_cache(maxsize=None)
-def single_rows(arch, B=2, capacity=8.0):
+def single_rows(arch, B=2, capacity=8.0, S=32, steps=0):
     """The single-process step on the whole batch (EP 4 stacked for moe),
-    from the reference's weights."""
-    cfg, ep_size, batch = dist_checks.rows_inputs(arch, B, capacity=capacity)
+    from the reference's weights: (loss, drops, gradient leaves, the
+    parameters it started from); with ``steps``, also (each step's loss and
+    norm, the parameter leaves after them) at ``dist_checks.OPT``."""
+    cfg, ep_size, batch = dist_checks.rows_inputs(arch, B, S, capacity=capacity)
     ctx = ParallelContext(ep_size=ep_size, group_size=2, moe_mode="nimble",
                           moe_chunk_tokens=4, device="cpu")
     model = build_model(cfg, ctx)
-    params = params_from_jax(jax_rows_ref(arch, B, capacity)[0], cfg, ctx)
+    params = params_from_jax(jax_rows_ref(arch, B, capacity, S)[0], cfg, ctx)
     stats = {} if cfg.n_experts else None
     loss, grads = loss_and_grads(model, params, batch, stats=stats)
-    return (float(loss), int(stats["dropped"]) if stats else 0,
-            [g.numpy() for g in leaves(grads)], params)
+    out = (float(loss), int(stats["dropped"]) if stats else 0,
+           [g.numpy() for g in leaves(grads)], params)
+    if not steps:
+        return out
+    step = make_train_step(model, adamw.AdamWConfig(**dist_checks.OPT))
+    p = params_from_jax(jax_rows_ref(arch, B, capacity, S)[0], cfg, ctx)
+    state, metrics = adamw.init(p), []
+    for _ in range(steps):
+        p, state, m = step(p, state, batch)
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    return out + (metrics, [t.numpy() for t in leaves(p)])
 
 
 @pytest.mark.parametrize("world,arch", [pytest.param(4, a, id=f"P4-{a}")
@@ -394,6 +496,112 @@ def test_train_step_with_rows_replicated_over_model_equals_single(world, arch):
     assert len(full) == len(grads)
     for a, b in zip(full, grads):
         _close(a, b)
+
+
+@pytest.mark.parametrize("world,arch", [pytest.param(P, a, id=f"P{P}-{a}") for P in PLACED
+                                        for a in PLACED_ARCHS], indirect=["world"])
+def test_placed_train_step_equals_one_process(world, arch):
+    """Every leaf and both AdamW moments held as blocks by the full specs, 2
+    sequences on (data 2, model 2) or (data 2, model 4): the loss, the
+    gradients put together from the blocks, two steps' losses and norms and
+    the parameters after them against one process; the loss against the JAX
+    package's single-device step; the bytes held."""
+    from repro_torch.sharding.specs import at_path, block_shape, build_param_specs, leaf_paths
+
+    P = len(world[f"placed-{arch}"])
+    data, model, _ = PLACED[P]
+    S = placed_tokens(P, arch)
+    loss, dropped, grads, params, metrics, after = single_rows(arch, S=S,
+                                                               steps=PLACED_STEPS)
+    _, jloss = jax_rows_ref(arch, S=S)
+    got = world[f"placed-{arch}"]
+    sizes = {"data": data, "model": model}
+    specs = build_param_specs(params, sizes)
+    held = 0
+    for path, t in leaf_paths(params):
+        spec = at_path(specs, path)
+        held += int(np.prod(block_shape(t.shape, spec, sizes))) * (t.element_size() + 8)
+    for g in got:
+        assert g["rows"]["replicas"] == model and not g["rows"]["split_over_model"]
+        assert abs(g["loss"] - loss) <= 1e-6 * abs(loss)
+        assert np.isfinite(g["loss"]) and abs(g["loss"] - jloss) < 5e-2
+        assert g["dropped"] == dropped == 0
+        assert g["held"] == held
+        # the first step's loss is the one held above; each step's loss and
+        # norm as the gradients (the second starts from parameters that
+        # differ by the summation order)
+        for (lw, nw), (lg, ng) in zip(metrics, g["metrics"]):
+            assert abs(lg - lw) <= 1e-5 * abs(lw) and abs(ng - nw) <= 1e-5 * abs(nw)
+    for key, want in (("grads", grads), ("params", after)):
+        full = selftest.assemble_grads(got, params, key)
+        assert len(full) == len(want)
+        for a, b in zip(full, want):
+            _close(a, b)
+
+
+_TMP = {}
+
+
+def _ckpt_dir(name: str) -> str:
+    """A directory of this module's run for checkpoint ``name``."""
+    import atexit
+    import shutil
+    import tempfile
+
+    if not _TMP:
+        _TMP["root"] = tempfile.mkdtemp(prefix="torch-dist-ckpt-")
+        atexit.register(shutil.rmtree, _TMP["root"], True)
+    return f"{_TMP['root']}/{name}"
+
+
+@functools.lru_cache(maxsize=None)
+def single_ckpt(arch="smollm-135m"):
+    """(the directory, the tree) of a one-process checkpoint after one step."""
+    from repro_torch.checkpoint import ckpt
+
+    cfg, ep_size, batch = dist_checks.rows_inputs(arch)
+    ctx = ParallelContext(ep_size=ep_size, group_size=2, moe_mode="nimble",
+                          moe_chunk_tokens=4, device="cpu")
+    _, tree = dist_checks.ckpt_tree(cfg, ctx, batch)
+    d = _ckpt_dir("single")
+    ckpt.save(d, 1, tree)
+    return d, tree
+
+
+@pytest.mark.parametrize("world", [4], indirect=True, ids=["P4"])
+def test_checkpoint_round_trip_across_world_shapes(world):
+    """(data 2, model 2) -> one process: the files hold the world's blocks put
+    together, bit for bit; one process -> (data 2, model 2): each process
+    restores its block of the single tree, bit for bit.  The save holds one
+    gathered leaf whole at a time, and the restore uploads only blocks."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.sharding.specs import at_path, build_param_specs, leaf_paths, local_shard
+
+    got = world["ckpt"]
+    _, tree = single_ckpt()
+    params = tree["params"]
+    n = len(leaves(params))
+    whole, _ = ckpt.restore(_ckpt_dir("world"), 1,
+                            namedtuple_types={"OptState": adamw.OptState}, device="cpu")
+    want = leaves(whole)                  # m, v, step, params: the "opt" key sorts first
+    parts = {"m": (0, n), "v": (n, 2 * n), "params": (2 * n + 1, 3 * n + 1)}
+    for lo, hi in parts.values():
+        res = [dict(coord=g["coord"], blocks=g["written"][lo:hi]) for g in got]
+        for a, b in zip(selftest.assemble_grads(res, params, "blocks"), want[lo:hi]):
+            assert np.array_equal(a, b.numpy())
+    assert want[2 * n] == 1 and all(g["written"][2 * n] == 1 for g in got)
+    sizes = {"data": 2, "model": 2}
+    specs = build_param_specs(params, sizes)
+    single = leaves(tree)
+    for g in got:
+        for lo, hi in parts.values():
+            for i, (path, _) in zip(range(lo, hi), leaf_paths(params)):
+                spec = at_path(specs, path)
+                blk = local_shard(single[i], spec, sizes, g["coord"])
+                assert np.array_equal(g["restored"][i], blk.numpy())
+                assert g["uploaded"][i] == tuple(blk.shape)
+        assert g["restored"][2 * n] == 1
+        assert len(g["uploaded"]) == len(single) and g["held_whole"] == 1
 
 
 def test_gradient_all_reduce_packs_buckets_and_copies_back(monkeypatch):

@@ -28,6 +28,7 @@ import dataclasses
 import json
 
 import jax
+import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
@@ -43,11 +44,9 @@ from repro_torch.configs.base import InputShape, get_config
 from repro_torch.launch import dryrun
 from repro_torch.models.registry import build_model
 from repro_torch.optim import adamw
-from repro_torch.roofline.hlo_cost import CostCounter, nbytes
+from repro_torch.roofline.hlo_cost import CostCounter
 from repro_torch.sharding.context import ParallelContext
-from repro_torch.sharding.specs import expert_leaf_mask
 from repro_torch.train.step import make_train_step
-from repro_torch.tree import leaves
 
 pytestmark = pytest.mark.torch_port
 
@@ -120,60 +119,134 @@ def test_no_process_group_is_left(records):
     assert not any(left for _, left in records.values())
 
 
-def test_mesh_adds_collectives_only(records):
-    """smollm's train step on 16 x 16 counts, per device, the FLOPs of the same
-    step on one process without a mesh at the per-device batch [1, 4096]."""
-    rec, _ = records[("smollm-135m", "train_4k", False)]
+def _one_process(arch: str, rows: int):
+    """The counter's result of the same train step on one process without a
+    mesh at the batch [rows, 4096]."""
     ctx = ParallelContext(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
                           remat=True, device="cpu")
-    model = build_model(dataclasses.replace(get_config("smollm-135m"), **DEPTH), ctx)
+    model = build_model(dataclasses.replace(get_config(arch), **DEPTH), ctx)
     with FakeTensorMode():
         params = model.init(0)
-        specs = model.input_specs(InputShape("one", 4096, 1, "train"))
+        specs = model.input_specs(InputShape("one", 4096, rows, "train"))
         batch = {k: torch.zeros(s.shape, dtype=s.dtype) for k, s in specs.items()}
         step = make_train_step(model, adamw.AdamWConfig())
         state = adamw.init(params)
         with CostCounter() as c:
             step(params, state, batch)
-    one = c.result()
-    roof = rec["roofline"]
-    assert roof["flops_per_device"] == one["flops"]
-    assert roof["flops_by_dtype"] == one["flops_by_dtype"]
-    assert one["collective_bytes"] == 0
-    assert roof["coll_breakdown"]["all-reduce"] > 0
+    return c.result()
+
+
+def test_mesh_adds_collectives_only(records):
+    """smollm's train step counts, per device, the FLOPs of the same step on
+    one process without a mesh at the rows the device runs: [1, 4096] on 16
+    x 16 (256 sequences over data x model), [8, 4096] on 2 x 16 x 16 (over pod
+    x data, each block repeated by the 16 processes of its model group: the
+    model group computes its rows whole, every leaf gathered, no tensor-
+    parallel products).  The placement adds collectives only: the products
+    read whole leaves, and AdamW's elementwise pass over blocks counts no
+    FLOPs."""
+    for mp, rows in ((False, 1), (True, 8)):
+        rec, _ = records[("smollm-135m", "train_4k", mp)]
+        one = _one_process("smollm-135m", rows)
+        roof = rec["roofline"]
+        assert roof["flops_per_device"] == one["flops"], mp
+        assert roof["flops_by_dtype"] == one["flops_by_dtype"], mp
+        assert one["collective_bytes"] == 0
+        assert roof["coll_breakdown"]["all-gather"] > 0
+        assert roof["coll_breakdown"]["reduce-scatter"] > 0
 
 
 def _param_tree(arch: str):
-    """(config, the full parameter tree's leaves, their expert-leaf mask), fake,
-    bf16, at the records' depth."""
+    """(config, the full parameter tree), fake, bf16, at the records' depth."""
     cfg = dataclasses.replace(get_config(arch), **DEPTH)
     with FakeTensorMode():
         params = build_model(cfg, ParallelContext(param_dtype=torch.bfloat16,
                                                   device="cpu")).init(0)
-    mask = expert_leaf_mask(params)
-    return cfg, leaves(params), mask
+    return cfg, params
+
+
+def _collective_bytes(cfg, params, sizes, uses):
+    """The gathers' and the gradient reductions' bytes of one train step, from
+    the specs (``sharding/gather.py``, ``train/step.py``): a leaf's gather
+    counts each step's input (its block, then the block of the axes still to
+    join; an expert leaf keeps its "model" block), its reduce-scatter each
+    step's input, the other way round;
+    ``uses(path)`` is how often the step reads a leaf: each layer once in
+    the forward and once in remat's backward, a top-level leaf at each read.
+    Then the all_reduce of each block over the axes that do not split it (the
+    world at once, else one an axis) and AdamW's norm (f64, a leaf) over each
+    axis that splits it."""
+    from repro_torch.sharding.gather import gather_plan, norm_axes, reduce_axes, use_spec
+    from repro_torch.sharding.specs import at_path, block_shape, build_param_specs, leaf_paths
+
+    specs = build_param_specs(params, sizes)
+    every = tuple(a for a, n in sizes.items() if n > 1)
+    out = {"all-gather": 0, "reduce-scatter": 0, "all-reduce": 0}
+    for path, t in leaf_paths(params):
+        spec = at_path(specs, path)
+        lead = 1 if path[0] in ("blocks", "mamba", "enc", "dec") else 0
+        use = use_spec(path, t.shape, spec)[lead:]
+        cur = list(block_shape(tuple(t.shape)[lead:], spec[lead:], sizes))
+        gathered = scattered = 0
+        for dim, axis in gather_plan(use, sizes):
+            gathered += int(np.prod(cur)) * t.element_size()
+            cur[dim] *= sizes[axis]
+        for dim, axis in reversed(gather_plan(use, sizes)):
+            scattered += int(np.prod(cur)) * t.element_size()
+            cur[dim] //= sizes[axis]
+        n_gather, n_scatter = uses(path)
+        out["all-gather"] += n_gather * gathered * (t.shape[0] if lead else 1)
+        out["reduce-scatter"] += n_scatter * scattered * (t.shape[0] if lead else 1)
+        axes = reduce_axes(spec, sizes)
+        held = int(np.prod(block_shape(t.shape, spec, sizes))) * t.element_size()
+        out["all-reduce"] += held * (1 if axes == every else len(axes))
+        out["all-reduce"] += 8 * len(norm_axes(spec, sizes))
+    return out
 
 
 def test_all_reduce_bytes_are_the_reduced_gradients(records):
-    """train/step.py sums every replicated leaf's gradient over the world and
-    each expert block's over the data axes (one all_reduce a bucket), then
-    the loss (f32); AdamW's norm sums the expert blocks' squared norms (f64,
-    one a leaf) over the model group; granite's router sums its two means
-    (E f32 each) over the data and model groups in each forward (twice with
-    remat) and the gradient of the second in the backward."""
+    """Every leaf and both AdamW moments held as the full specs' blocks:
+    the step's all-gathers and reduce-scatters are the leaves' gathers on use
+    and their backward (each layer twice forward under remat, once back; a
+    tied embedding at each of its two reads), its all-reduces the blocks
+    over the axes that do not split them, AdamW's norm over those that do,
+    and the loss (f32); granite's router adds its two means (E f32 each)
+    over the data and model groups in each forward (twice with remat) and
+    the gradient of the second in the backward, and its dataplane gathers
+    the EP ranks' counts at each dispatch.  No all_reduce sums a whole leaf's
+    gradient any more."""
+    sizes = {"data": 16, "model": 16}
+
+    def uses(cfg):
+        def n(path):
+            if path[0] == "blocks":
+                return 2, 1
+            if path[0] == "embed" and cfg.tie_embeddings:
+                return 2, 2
+            return 1, 1
+        return n
+
     rec, _ = records[("smollm-135m", "train_4k", False)]
-    _, ls, _ = _param_tree("smollm-135m")
-    assert rec["roofline"]["coll_breakdown"]["all-reduce"] == sum(map(nbytes, ls)) + 4
-    assert rec["roofline"]["coll_breakdown"]["collective-permute"] == 0
+    cfg, params = _param_tree("smollm-135m")
+    want = _collective_bytes(cfg, params, sizes, uses(cfg))
+    coll = rec["roofline"]["coll_breakdown"]
+    assert coll["all-gather"] == want["all-gather"]
+    assert coll["reduce-scatter"] == want["reduce-scatter"]
+    assert coll["all-reduce"] == want["all-reduce"] + 4
+    assert coll["collective-permute"] == 0
 
     rec, _ = records[("granite-moe-1b-a400m", "train_4k", False)]
-    cfg, ls, mask = _param_tree("granite-moe-1b-a400m")
-    model_procs = 16
-    grads = sum(nbytes(t) // (model_procs if m else 1) for t, m in zip(ls, mask))
-    norm = 8 * len(ls)
+    cfg, params = _param_tree("granite-moe-1b-a400m")
+    want = _collective_bytes(cfg, params, sizes, uses(cfg))
     router = cfg.n_layers * (2 * 2 * 2 + 2) * cfg.n_experts * 4
-    assert rec["roofline"]["coll_breakdown"]["all-reduce"] == grads + 4 + norm + router
-    assert rec["roofline"]["coll_breakdown"]["collective-permute"] > 0
+    # the dataplane's count exchange: this process's [1, 16] int32 counts (EP
+    # 16 over model 16), gathered at each dispatch (forward and remat's)
+    counts = cfg.n_layers * 2 * 16 * 4
+    coll = rec["roofline"]["coll_breakdown"]
+    assert coll["all-gather"] == want["all-gather"] + counts
+    assert coll["reduce-scatter"] == want["reduce-scatter"]
+    assert coll["all-reduce"] == want["all-reduce"] + 4 + router
+    assert coll["collective-permute"] > 0
 
 
 def test_cli_writes_records_and_fails_a_combo_it_cannot_place(tmp_path, capsys, monkeypatch):

@@ -108,10 +108,24 @@ def test_moe_experts_sharded_over_model():
     port = specs.build_param_specs(family(cfg).param_shapes(cfg),
                                    MESHES["pod2-data16-model16"][0])
     assert port["blocks"]["wg"][1] == "model"          # [L, E, D, F]
-    held = specs.held_specs(family(cfg).param_shapes(cfg), {"data": 2, "model": 4})
-    assert held["blocks"]["wg"] == (None, "model", None, None)
+    # the port holds these specs: each process its block, an expert leaf
+    # split over both axes and gathered for use over "data" only
+    from repro_torch.sharding.gather import gather_plan, norm_axes, reduce_axes, use_spec
+
+    sizes = {"data": 2, "model": 4}
+    shapes = family(cfg).param_shapes(cfg)
+    held = specs.build_param_specs(shapes, sizes)
+    wg = held["blocks"]["wg"]
+    assert wg == (None, "model", "data", None)
+    assert specs.split_axes(wg) == ("model", "data") and reduce_axes(wg, sizes) == ()
+    assert norm_axes(wg, sizes) == ("model", "data")
+    assert use_spec(("blocks", "wg"), shapes["blocks"]["wg"], wg) == (None, None, "data", None)
     assert held["blocks"]["router"] == (None, None, None)
-    assert held["embed"] == (None, None)
+    assert reduce_axes(held["blocks"]["router"], sizes) == ("data", "model")
+    assert held["embed"] == (None, "model")
+    assert reduce_axes(held["embed"], sizes) == ("data",)
+    assert gather_plan(held["embed"], sizes) == ((1, "model"),)
+    assert gather_plan(held["embed"], {"data": 2, "model": 1}) == ()
 
 
 @pytest.mark.parametrize("mesh", MESHES)
@@ -160,6 +174,60 @@ def test_cache_specs_equal_the_reference(arch, mesh):
             keys = tuple(_key(k) for k in path)
             assert tuple(_at(cache, keys).shape) == tuple(leaf.shape), keys
             assert _at(got, keys) == tuple(w), (arch, name, keys)
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+@pytest.mark.parametrize("arch", ["smollm-135m", "granite-moe-1b-a400m"])
+def test_shard_params_holds_the_blocks_of_the_full_specs(arch, mesh):
+    """Every process's blocks (a mesh's coordinate, no process group): each
+    leaf ``local_shard`` of the whole by ``build_param_specs``, its bytes the
+    block's; the processes' blocks put back together (``unshard``) are the
+    whole leaf, bit for bit, and AdamW's moments take the blocks' shape."""
+    import itertools
+
+    from repro_torch.optim import adamw
+    from repro_torch.tree import leaves
+
+    sizes, _ = MESHES[mesh]
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg, ParallelContext(device="cpu"))
+    whole = model.mod.init(0, cfg, model.ctx)
+    specs_ = specs.build_param_specs(whole, sizes)
+    coords = [dict(zip(sizes, c)) for c in itertools.product(*map(range, sizes.values()))]
+    held = {}
+    for c in coords[:: max(1, len(coords) // 8)] if len(coords) > 8 else coords:
+        held[tuple(c.values())] = specs.shard_params(
+            whole, ParallelContext(mesh=_FakeMesh(sizes, c), device="cpu"))
+    for (path, t), spec in zip(specs.leaf_paths(whole), _leaf_specs(specs_, whole)):
+        blocks = {k: _at(h, path) for k, h in held.items()}
+        for k, b in blocks.items():
+            coord = dict(zip(sizes, k))
+            assert torch.equal(b, specs.local_shard(t, spec, sizes, coord)), path
+            assert b.shape == specs.block_shape(t.shape, spec, sizes)
+        if len(blocks) == len(coords):
+            back = specs.unshard(lambda c: blocks[tuple(c.get(a, 0) for a in sizes)],
+                                 spec, sizes)
+            assert torch.equal(back, t), path
+    one = next(iter(held.values()))
+    state = adamw.init(one)
+    want = sum(int(np.prod(specs.block_shape(t.shape, s, sizes))) * (t.element_size() + 8)
+               for (_, t), s in zip(specs.leaf_paths(whole), _leaf_specs(specs_, whole)))
+    assert sum(t.numel() * t.element_size() for t in leaves([one, state.m, state.v])) == want
+
+
+def _leaf_specs(spec_tree, like):
+    return [specs.at_path(spec_tree, path) for path, _ in specs.leaf_paths(like)]
+
+
+class _FakeMesh:
+    """A mesh's names, shape and one process's coordinate, without a group."""
+
+    def __init__(self, sizes, coord):
+        self.mesh_dim_names, self.shape = tuple(sizes), tuple(sizes.values())
+        self._coord = [coord[a] for a in sizes]
+
+    def get_coordinate(self):
+        return self._coord
 
 
 def test_local_shard_splits_like_a_named_sharding():
