@@ -184,7 +184,9 @@ port's six CUDA kernels from ``src/repro_torch/csrc``, all at once, then:
      prefill logits must equal phase 4's and the warm-up and 3 timed train
      steps' losses and gradient norms phase 7's, bit for bit (at one process
      every collective is an identity), and the step ms beside phase 7's;
-     the path's kernels must launch; (c) ``selftest --procs <device_count>``
+     the path's kernels must launch; no axis has two processes, so the
+     placed path gathers nothing and the tensor-parallel path
+     (``sharding/tp.py``) sums nothing over a model group; (c) ``selftest --procs <device_count>``
      (spawned processes, NCCL).  With one card no hop crosses a process:
      ``tests/test_torch_dist.py`` holds the exchange between processes on the
      CPU (gloo).
@@ -195,7 +197,9 @@ port's six CUDA kernels from ``src/repro_torch/csrc``, all at once, then:
      ``n_params`` and ``model_flops_total`` equal to ``DRYRUN_PINNED`` (the
      values the CPU tests hold against the reference's), and smollm-135m x
      train_4k on 2 x 16 x 16 (512 processes, 256 sequences: the rows over
-     pod x data, replicated over model), ``status`` ok; (b) the counter
+     pod x data, replicated over model), ``status`` ok; llama3-8b x train_4k
+     on 2 x 16 x 16, its model group sharing the blocks' products: FLOPs
+     within 1.10 x the reference's count and a peak under 80 GB a device; (b) the counter
      (``roofline/hlo_cost.py``) around one real step on the card of phase
      7's paper-moe-8e (4 x 512, EP 8 stacked) and phase 19's smollm-135m
      (4 x 2048): FLOPs by dtype, bytes, the roofline's compute and memory
@@ -2647,7 +2651,7 @@ def dist_phase(torch, np, check, seed: int, dev, smi: str, phase4_logits, phase7
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.models.registry import build_model
     from repro_torch.optim import adamw
-    from repro_torch.sharding import gather
+    from repro_torch.sharding import gather, tp
     from repro_torch.sharding.context import ParallelContext
     from repro_torch.train.step import make_train_step
 
@@ -2722,6 +2726,8 @@ def dist_phase(torch, np, check, seed: int, dev, smi: str, phase4_logits, phase7
         # the placed path (every leaf and moment held by the full specs) on a
         # world of one: each leaf is its own block, and nothing is gathered
         gather.COUNTS.clear()
+        gather.LEAF_GATHERS.clear()
+        tp.COUNTS.clear()
         reset_launch_counts()
         with torch.no_grad():
             logits, _ = model.forward(params, {"tokens": prompts}, last_only=True)
@@ -2759,6 +2765,12 @@ def dist_phase(torch, np, check, seed: int, dev, smi: str, phase4_logits, phase7
                        reduce_scatter=gather.COUNTS["reduce_scatter"])
         check(not model.placement.placed and not any(gathers.values()),
               f"25b: the placed path on a world of one launched {gathers}")
+        # the tensor-parallel path: sums over a model group, gathers over "model"
+        tp_path = dict(sums=tp.COUNTS["sum"] + tp.COUNTS["max"],
+                       model_gathers=sum(n for (_, axis), n in gather.LEAF_GATHERS.items()
+                                         if axis == "model"))
+        check(not any(tp_path.values()),
+              f"25b: the tensor-parallel path on a world of one launched {tp_path}")
         same_train = losses == phase7["losses"] and norms == phase7["norms"]
         check(same_train, f"25b losses {losses} / norms {norms} through the mesh != phase "
                           f"7's {phase7['losses']} / {phase7['norms']}")
@@ -2776,7 +2788,8 @@ def dist_phase(torch, np, check, seed: int, dev, smi: str, phase4_logits, phase7
               + f"); peak memory {peak_gb:.2f} GB, {base_gb:.2f} held before the steps "
               f"(phase 7: {phase7['peak_gb']:.2f}, {phase7['base_gb']:.2f}); launches in "
               f"prefill + 4 steps {counts}; the placed path's gathers and "
-              f"reduce-scatters {gathers}; on {smi}", flush=True)
+              f"reduce-scatters {gathers}; the tensor-parallel path's group sums "
+              f"and \"model\" gathers {tp_path}; on {smi}", flush=True)
         del model, params, state, logits, batches, m, m0
         torch.cuda.empty_cache()
 
@@ -2843,6 +2856,20 @@ def roofline_phase(torch, np, check, seed: int, dev, smi: str, phase7_ms: float)
           f"{rec.get('bytes_per_device')}", flush=True)
     check(rec["status"] == "ok", f"dryrun smollm-135m x train_4k on 2x16x16: "
                                  f"{rec['status']} {rec.get('error', '')}")
+    # llama3-8b x train_4k on 2 x 16 x 16: 8 sequences a process, replicated
+    # over its model group of 16, which shares the blocks' products; the
+    # reference counts 130.70 TFLOP a device (tests/test_torch_dryrun.py)
+    rec = dryrun.run_one("llama3-8b", "train_4k", multi_pod=True)
+    roof, mem = rec.get("roofline", {}), rec.get("bytes_per_device", {})
+    tflop, peak = roof.get("flops_per_device", 0) / 1e12, mem.get("peak", 0) / 1e9
+    print(f"[26a dryrun] 2x16x16 tensor-parallel {dryrun.format_line(rec)}: a CPU-side "
+          f"count over fake tensors, not the card's: {tflop:.2f} TFLOP and a peak of "
+          f"{peak:.2f} GB a device (the step on whole leaves: 2091.20 TFLOP, 133.27 GB; the "
+          f"reference 130.70 TFLOP); all-reduce "
+          f"{roof.get('coll_breakdown', {}).get('all-reduce', 0) / 1e9:.2f} GB", flush=True)
+    check(rec["status"] == "ok" and tflop <= 1.10 * 130.70 and peak < 80,
+          f"dryrun llama3-8b x train_4k on 2x16x16: {rec['status']} "
+          f"{rec.get('error', '')} {tflop:.2f} TFLOP, peak {peak:.2f} GB")
 
     # ---- 26b-c. the counter around one real step on the card ----------------------
     bf16 = torch.bfloat16

@@ -244,17 +244,23 @@ def train(group, device, tree=None, data=2, model=4, ep_size=4) -> dict:
     return ep_train_dist(device, make_test_mesh(data * model, model), tree, ep_size)
 
 
-def rows_inputs(arch: str, B: int = 2, S: int = 32, device="cpu", capacity: float = 8.0):
+def rows_inputs(arch: str, B: int = 2, S: int = 32, device="cpu", capacity: float = 8.0,
+                over=()):
     """(reduced ``arch`` at capacity factor ``capacity`` (8: no overflow at
-    chunks of 4 tokens), EP 4 for moe, a batch of ``B`` sequences of ``S`` tokens from seed 1)."""
+    chunks of 4 tokens) with the config overrides ``over`` ((field, value)
+    pairs), EP 4 for moe, a batch of ``B`` sequences of ``S`` tokens from
+    seed 1; the audio and vlm families' stub frames or patches from seed 2)."""
     from ..configs.base import get_config
 
-    cfg = get_config(arch).reduced()
+    cfg = dataclasses.replace(get_config(arch).reduced(), **dict(over))
     if cfg.n_experts:
         cfg = dataclasses.replace(cfg, moe_capacity_factor=capacity)
+    from ..data.pipeline import add_modality_stubs
+
     rng = np.random.default_rng(1)
-    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)), device=device)
-             for k in ("tokens", "labels")}
+    arrays = {k: rng.integers(0, cfg.vocab, (B, S)) for k in ("tokens", "labels")}
+    batch = {k: torch.as_tensor(v, device=device)
+             for k, v in add_modality_stubs(arrays, cfg, 2).items()}
     return cfg, 4 if cfg.n_experts else 1, batch
 
 
@@ -286,12 +292,16 @@ def held_bytes(*trees) -> int:
 
 
 def rows(group, device, arch="paper-moe-8e", data=2, model=2, B=2, S=32,
-         capacity=8.0, tree=None, steps=0) -> dict:
+         capacity=8.0, tree=None, steps=0, over=(), remat=False) -> dict:
     """This process's loss, drops and gradient blocks of one train step's
     ``loss_and_grads`` on a ``(data, model)`` mesh, from seed 0's weights or
     the reference's ``tree`` (numpy, through ``params_from_jax``); with
     ``steps``, its parameter blocks after that many steps (:data:`OPT`), each
-    step's loss and norm, and the bytes of parameters and moments held."""
+    step's loss and norm, and the bytes of parameters and moments held.
+    ``over``: config overrides (``rows_inputs``); ``remat``: recompute each
+    block in the backward.  ``launches``: the first step's sums over the
+    model group and loss maxes (``sharding/tp.py::COUNTS``), and the gathers
+    over "model" of each leaf (``sharding/gather.py::LEAF_GATHERS``)."""
     from ..models.registry import build_model
     from ..optim import adamw
     from ..train.step import loss_and_grads, make_train_step
@@ -299,15 +309,22 @@ def rows(group, device, arch="paper-moe-8e", data=2, model=2, B=2, S=32,
     from ..weights import params_from_jax
     from .mesh import make_test_mesh
 
-    cfg, ep_size, batch = rows_inputs(arch, B, S, device, capacity)
+    from ..sharding import gather, tp
+
+    cfg, ep_size, batch = rows_inputs(arch, B, S, device, capacity, over)
     mesh = make_test_mesh(data * model, model)
-    ctx = _ctx(mesh, ep_size, device)
+    ctx = dataclasses.replace(_ctx(mesh, ep_size, device), remat=remat)
     m = build_model(cfg, ctx)
     stats = {} if cfg.n_experts else None
     params = m.init(0) if tree is None else params_from_jax(tree, cfg, ctx)
+    sums, gathers = dict(tp.COUNTS), dict(gather.LEAF_GATHERS)
     loss, grads = loss_and_grads(m, params, batch, stats=stats)
+    launches = {k: tp.COUNTS[k] - sums.get(k, 0) for k in ("sum", "max")}
+    launches["model_gathers"] = {p: n - gathers.get((p, a), 0)
+                                 for (p, a), n in gather.LEAF_GATHERS.items()
+                                 if a == "model" and n > gathers.get((p, a), 0)}
     out = dict(loss=float(loss), dropped=int(stats["dropped"]) if stats else 0,
-               grads=_arrays(leaves(grads)),
+               grads=_arrays(leaves(grads)), launches=launches,
                coord=dict(zip(mesh.mesh_dim_names, mesh.get_coordinate())),
                rows=dataclasses.asdict(ctx.row_block(B)))
     if steps:

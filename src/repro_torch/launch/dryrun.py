@@ -19,7 +19,8 @@ own step abstractly, as rank 0 of a fake world of that size:
 The step by kind: train, one ``make_train_step`` step (forward, backward,
 AdamW) on the global batch, of which it runs this process's block
 (``train/step.py::shard_batch``: over data x model, or where that does
-not divide the batch over the data axes that do); prefill,
+not divide the batch over the data axes that do, the model group then
+sharing each block's products: ``sharding/tp.py``); prefill,
 ``forward(last_only=True)`` (``NIMBLE_PREFILL_FULL=1``: all positions);
 decode, one ``make_serve_step`` step against a cache of the shape's
 length at position length - 1.  Prefill and decode inputs are placed as
@@ -110,9 +111,9 @@ def _fake_world(n_chips: int) -> None:
 
 def _local_inputs(specs: Dict[str, torch.Tensor], placement, mesh) -> Dict:
     """This process's block of each input (zeros of the global shape), placed
-    by its batch dim's spec: the port gathers every leaf whole before it
-    computes (no tensor-parallel products), so a modality stub's width stays
-    whole."""
+    by its batch dim's spec: a serving step gathers every leaf whole before
+    it computes (tensor-parallel products are the train step's, on rows the
+    model group holds replicated), so a modality stub's width stays whole."""
     sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
     coord = mesh_coord(mesh)
     return {k: local_shard(torch.zeros(s.shape, dtype=s.dtype),

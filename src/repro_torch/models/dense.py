@@ -67,26 +67,31 @@ def init(seed: int, cfg: ModelConfig, ctx: ParallelContext = SINGLE):
     return params
 
 
-def _block_fwd(p, x: torch.Tensor, cfg: ModelConfig, window: Optional[int]) -> torch.Tensor:
+def _block_fwd(p, x: torch.Tensor, cfg: ModelConfig, window: Optional[int],
+               place) -> torch.Tensor:
+    """One block on ``p``'s leaves as ``place`` (the blocks' placement) gave
+    them: tensor-parallel where it keeps their "model" blocks."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     x = x + L.attention_forward(
         p["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
-        rope_theta=cfg.rope_theta, causal=True, window=window)
+        rope_theta=cfg.rope_theta, causal=True, window=window, tp=place.tp_at("attn"))
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + L.swiglu(p["mlp"], h)
+    return x + L.swiglu(p["mlp"], h, place.tp_at("mlp"))
 
 
 def _layer_fwd(blocks, i: int, place, x: torch.Tensor, cfg: ModelConfig,
                window: Optional[int]) -> torch.Tensor:
     """Layer i of the stacked ``blocks``, its leaves gathered here (so that
     under remat the backward gathers them again)."""
-    return _block_fwd(L.layer(blocks, i, place), x, cfg, window)
+    return _block_fwd(L.layer(blocks, i, place), x, cfg, window, place)
 
 
 def _logits(params, x: torch.Tensor, cfg: ModelConfig, place) -> torch.Tensor:
+    """The logits, or under TP use with ``place.vocab`` this process's vocab
+    block of them."""
     x = L.rms_norm(x, place.at("final_norm").whole(params["final_norm"]), cfg.norm_eps)
     if "lm_head" not in params:
-        return x @ place.at("embed").whole(params["embed"]).T
+        return x @ place.vocab_rows(place.at("embed").whole(params["embed"])).T
     return x @ place.at("lm_head").whole(params["lm_head"])
 
 
@@ -97,14 +102,15 @@ def embed(params, tokens: torch.Tensor, place) -> torch.Tensor:
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig, ctx: ParallelContext = SINGLE,
             *, window: Optional[int] = None, inputs_embeds: Optional[torch.Tensor] = None,
-            last_only: bool = False) -> torch.Tensor:
+            last_only: bool = False, place=None) -> torch.Tensor:
     """tokens [B, S] -> logits [B, S, V], or [B, 1, V] with ``last_only``
     (the hidden state is sliced before the head).  Full attention unless
     ``window``.  ``inputs_embeds`` [B, S', D], when given, replaces the
     tokens' embeddings (the vlm family's patches + text).  With ``ctx.remat`` each block's activations are recomputed
     in the backward (``torch.utils.checkpoint``), as the reference's
-    ``jax.checkpoint`` does."""
-    place = placement(param_shapes, cfg, ctx)
+    ``jax.checkpoint`` does.  ``place``: the parameters' placement
+    (``sharding/gather.py::placement``; TP use from ``Model.loss``)."""
+    place = placement(param_shapes, cfg, ctx) if place is None else place
     x = embed(params, tokens, place) if inputs_embeds is None else inputs_embeds
     x = x.to(ctx.compute_dtype)
     for i in range(cfg.n_layers):

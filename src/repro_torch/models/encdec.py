@@ -102,31 +102,40 @@ def _attn_out(q, k, v, n_heads: int, head_dim: int, causal: bool, pos_offset: in
     return o.transpose(1, 2).reshape(b, s, n_heads * head_dim)
 
 
-def _attn_out_proj(p, q, k, v, cfg: ModelConfig, causal: bool = False, pos_offset: int = 0):
-    return _attn_out(q, k, v, cfg.n_heads, cfg.head_dim, causal, pos_offset) @ p["wo"]
+def _attn_out_proj(p, q, k, v, cfg: ModelConfig, causal: bool = False, pos_offset: int = 0,
+                   tp=None):
+    """``tp``: q, k, v hold this process's heads (``wq``/``wk``/``wv``'s
+    column blocks), ``wo`` its rows of them; the output is summed over the
+    model group."""
+    heads = cfg.n_heads if tp is None else cfg.n_heads // tp.size
+    y = _attn_out(q, k, v, heads, cfg.head_dim, causal, pos_offset) @ p["wo"]
+    return y if tp is None else tp.sum(y)
 
 
-def _cross(p, h, enc_out, cfg: ModelConfig):
+def _cross(p, h, enc_out, cfg: ModelConfig, tp=None):
     """Cross-attention of h [B, S, d] to the encoder states [B, F, d]."""
     q = h @ p["wq"]
     k, v = enc_out @ p["wk"], enc_out @ p["wv"]
-    return _attn_out_proj(p, q, k, v, cfg, causal=False)
+    return _attn_out_proj(p, q, k, v, cfg, causal=False, tp=tp)
 
 
 def encode(params, frames: torch.Tensor, cfg: ModelConfig,
-           ctx: ParallelContext = SINGLE) -> torch.Tensor:
-    """frames [B, F, d] (stub conv output) -> encoder states [B, F, d]."""
+           ctx: ParallelContext = SINGLE, place=None) -> torch.Tensor:
+    """frames [B, F, d] (stub conv output) -> encoder states [B, F, d];
+    ``place`` as :func:`forward` takes it."""
     b, f, d = frames.shape
     cdt = ctx.compute_dtype
-    place = placement(param_shapes, cfg, ctx)
+    place = placement(param_shapes, cfg, ctx) if place is None else place
+    enc = place.at("enc")
     x = frames.to(cdt) + L.sinusoidal_positions(f, d, frames.device).to(cdt)
     for i in range(params["enc"]["ln1"].shape[0]):
-        p = L.layer(params["enc"], i, place.at("enc"))
+        p = L.layer(params["enc"], i, enc)
         h = L.layer_norm(x, p["ln1"], p["b_ln1"], cfg.norm_eps)
         a = p["attn"]
-        x = x + _attn_out_proj(a, h @ a["wq"], h @ a["wk"], h @ a["wv"], cfg)
+        x = x + _attn_out_proj(a, h @ a["wq"], h @ a["wk"], h @ a["wv"], cfg,
+                               tp=enc.tp_at("attn"))
         h = L.layer_norm(x, p["ln2"], p["b_ln2"], cfg.norm_eps)
-        x = x + L.mlp(p["mlp"], h)
+        x = x + L.mlp(p["mlp"], h, enc.tp_at("mlp"))
     top = _top(params, place, "enc_norm", "b_enc_norm")
     return L.layer_norm(x, top["enc_norm"], top["b_enc_norm"], cfg.norm_eps)
 
@@ -143,37 +152,45 @@ def _embed(params, tokens, place, pos: slice, dtype) -> torch.Tensor:
 
 
 def _logits(params, x, cfg: ModelConfig, place) -> torch.Tensor:
-    """The decoder's final norm, then its logits, tied to ``embed.T``."""
+    """The decoder's final norm, then its logits, tied to ``embed.T`` (under
+    TP use with ``place.vocab``, this process's vocab block of them)."""
     top = _top(params, place, "dec_norm", "b_dec_norm", "embed")
     x = L.layer_norm(x, top["dec_norm"], top["b_dec_norm"], cfg.norm_eps)
-    return x @ top["embed"].T            # whisper ties its output to the embedding
+    return x @ place.vocab_rows(top["embed"]).T   # whisper ties its output to the embedding
 
 
 def decode(params, tokens: torch.Tensor, enc_out: torch.Tensor, cfg: ModelConfig,
-           ctx: ParallelContext = SINGLE, last_only: bool = False) -> torch.Tensor:
-    """tokens [B, S], enc_out [B, F, d] -> logits [B, S, V]."""
-    place = placement(param_shapes, cfg, ctx)
+           ctx: ParallelContext = SINGLE, last_only: bool = False,
+           place=None) -> torch.Tensor:
+    """tokens [B, S], enc_out [B, F, d] -> logits [B, S, V]; ``place`` as
+    :func:`forward` takes it."""
+    place = placement(param_shapes, cfg, ctx) if place is None else place
+    dec = place.at("dec")
     x = _embed(params, tokens, place, slice(0, tokens.shape[1]), ctx.compute_dtype)
     for i in range(params["dec"]["ln1"].shape[0]):
-        p = L.layer(params["dec"], i, place.at("dec"))
+        p = L.layer(params["dec"], i, dec)
         h = L.layer_norm(x, p["ln1"], p["b_ln1"], cfg.norm_eps)
         a = p["self_attn"]
-        x = x + _attn_out_proj(a, h @ a["wq"], h @ a["wk"], h @ a["wv"], cfg, causal=True)
+        x = x + _attn_out_proj(a, h @ a["wq"], h @ a["wk"], h @ a["wv"], cfg, causal=True,
+                               tp=dec.tp_at("self_attn"))
         h = L.layer_norm(x, p["ln_x"], p["b_ln_x"], cfg.norm_eps)
-        x = x + _cross(p["cross_attn"], h, enc_out, cfg)
+        x = x + _cross(p["cross_attn"], h, enc_out, cfg, dec.tp_at("cross_attn"))
         h = L.layer_norm(x, p["ln2"], p["b_ln2"], cfg.norm_eps)
-        x = x + L.mlp(p["mlp"], h)
+        x = x + L.mlp(p["mlp"], h, dec.tp_at("mlp"))
     if last_only:
         x = x[:, -1:]                    # slice before the head
     return _logits(params, x, cfg, place)
 
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig, ctx: ParallelContext = SINGLE,
-            *, frames: Optional[torch.Tensor] = None, last_only: bool = False, **_):
+            *, frames: Optional[torch.Tensor] = None, last_only: bool = False,
+            place=None, **_):
+    """``place``: the parameters' placement (``sharding/gather.py::placement``;
+    TP use from ``Model.loss``: attention by whole heads, the MLP on d_ff)."""
     if frames is None:
         raise ValueError("the audio family needs stub frame embeddings (frames)")
-    enc_out = encode(params, frames, cfg, ctx)
-    return decode(params, tokens, enc_out, cfg, ctx, last_only=last_only)
+    enc_out = encode(params, frames, cfg, ctx, place)
+    return decode(params, tokens, enc_out, cfg, ctx, last_only=last_only, place=place)
 
 
 # -- serving ---------------------------------------------------------------------

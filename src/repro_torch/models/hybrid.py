@@ -108,15 +108,19 @@ def _mamba_at(blocks, i: int, place, x: torch.Tensor, cfg: ModelConfig) -> torch
 
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig, ctx: ParallelContext = SINGLE,
-            *, window: Optional[int] = None, last_only: bool = False) -> torch.Tensor:
+            *, window: Optional[int] = None, last_only: bool = False,
+            place=None) -> torch.Tensor:
     """tokens [B, S] -> logits [B, S, V], or [B, 1, V] with ``last_only``.
 
     The shared attention block is full attention; ``window`` applies only in
     the long-context mode, as in the reference.  With ``ctx.remat`` each
     mamba block's activations are recomputed in the backward
     (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` does.
+    ``place``: the parameters' placement (``sharding/gather.py::placement``;
+    never TP use: ``Model`` keeps this family on whole leaves, see
+    ``registry._WHOLE_LEAF_FAMILIES``).
     """
-    place = placement(param_shapes, cfg, ctx)
+    place = placement(param_shapes, cfg, ctx) if place is None else place
     x = place.at("embed").whole(params["embed"])[tokens].to(ctx.compute_dtype)
     shared = place.at("shared_attn")
     off = 0

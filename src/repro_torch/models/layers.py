@@ -6,6 +6,13 @@ reference's keys and layouts; ``lead`` gives stacked leaves a leading
 layer axis, as the reference's ``vmap``-ed block inits do.  Full-sequence attention goes through the ``attention`` dispatch
 (the flash kernel for ``Sq >= 128``); the decode step is plain tensor code,
 as in the reference.
+
+Tensor-parallel compute (``sharding/tp.py``): given a ``tp``
+(:class:`~repro_torch.sharding.tp.TensorParallel`), the blocks' products run
+on this process's "model" blocks of the leaves: :func:`attention_forward`
+on its ``H / m`` query heads and the KV heads they read, :func:`swiglu` and
+:func:`mlp` on its d_ff block; the row-parallel output is summed over the
+model group (``tp.sum``), and a bias after it added once, after the sum.
 """
 
 from __future__ import annotations
@@ -68,8 +75,10 @@ def init_swiglu(gen: torch.Generator, d_model: int, d_ff: int, dtype, device,
             "wd": dense_init(gen, d_ff, d_model, dtype, device, lead)}
 
 
-def swiglu(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return (torch.nn.functional.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+def swiglu(p: Params, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """``tp``: ``wg``/``wu``/``wd`` are this process's d_ff blocks."""
+    y = (torch.nn.functional.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+    return y if tp is None else tp.sum(y)
 
 
 def layer(blocks: Params, i: int, place=None) -> Params:
@@ -125,20 +134,43 @@ def _project_qkv(p: Params, x, n_heads, n_kv, head_dim):
     return q, k, v
 
 
+def _local_qkv(p: Params, x, n_heads, n_kv, head_dim, tp):
+    """This process's query heads (``wq``'s column block r: heads ``r H/m``
+    to ``(r+1) H/m - 1``, whole heads in the reshape's order) and the KV
+    heads they read: the KV block as held where ``Hkv % m == 0``, else the
+    columns of the heads read out of the whole ``wk``/``wv``, each local
+    query head given its own copy where they do not share them evenly."""
+    hq = n_heads // tp.size
+    if n_kv % tp.size == 0:
+        return _project_qkv(p, x, hq, n_kv // tp.size, head_dim)
+    first, count, index = tp.kv_heads(n_heads, n_kv)
+    cols = slice(first * head_dim, (first + count) * head_dim)
+    local = dict(p, **{k: p[k][..., cols] for k in ("wk", "wv", "bk", "bv") if k in p})
+    q, k, v = _project_qkv(local, x, hq, count, head_dim)
+    if index is not None:
+        k, v = k[:, index], v[:, index]
+    return q, k, v
+
+
 def attention_forward(p: Params, x: torch.Tensor, *, n_heads: int, n_kv: int,
                       head_dim: int, rope_theta: Optional[float],
                       causal: bool = True, window: Optional[int] = None,
-                      pos_offset: int = 0) -> torch.Tensor:
-    """Full-sequence attention (prefill path): x [B, S, D] -> [B, S, D]."""
+                      pos_offset: int = 0, tp=None) -> torch.Tensor:
+    """Full-sequence attention (prefill path): x [B, S, D] -> [B, S, D].
+    ``tp``: on this process's heads (:func:`_local_qkv`), ``wo`` its rows of
+    them, the output summed over the model group."""
     b, s, _ = x.shape
-    q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim)
+    if tp is None:
+        q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim)
+    else:
+        q, k, v = _local_qkv(p, x, n_heads, n_kv, head_dim, tp)
     if rope_theta is not None:
         pos = torch.arange(s, device=x.device) + pos_offset
         q = apply_rope(q, pos, rope_theta)
         k = apply_rope(k, pos, rope_theta)
     o = attention(q, k, v, causal, window, pos_offset)
-    o = o.transpose(1, 2).reshape(b, s, n_heads * head_dim)
-    return o @ p["wo"]
+    y = o.transpose(1, 2).reshape(b, s, q.shape[1] * head_dim) @ p["wo"]
+    return y if tp is None else tp.sum(y)
 
 
 # -- KV caches ------------------------------------------------------------------
@@ -208,10 +240,13 @@ def mlp_shapes(d_model: int, d_ff: int, lead: Tuple[int, ...] = ()) -> Dict[str,
             "w2": (*lead, d_ff, d_model), "b2": (*lead, d_model)}
 
 
-def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.gelu``'s default is the tanh approximation."""
+def mlp(p: Params, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """``jax.nn.gelu``'s default is the tanh approximation.  ``tp``:
+    ``w1``/``b1``/``w2`` are this process's d_ff blocks; ``b2`` is added
+    after the sum."""
     h = torch.nn.functional.gelu(x @ p["w1"] + p["b1"], approximate="tanh")
-    return h @ p["w2"] + p["b2"]
+    y = h @ p["w2"]
+    return (y if tp is None else tp.sum(y)) + p["b2"]
 
 
 def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:

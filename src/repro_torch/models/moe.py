@@ -23,8 +23,9 @@ group's other processes.  The branch is the reference's
     rows that data x ``ep_size`` does not divide): the tokens are replicated
     over the model group, rank r owns token t when ``t % n == r`` and routes
     only what it owns, and the ranks' outputs are summed (the reference's
-    ``psum``: over the block, then over the model group, :class:`_SumOverGroup`,
-    whose backward sums the cotangent over the group too).
+    ``psum``: over the block, then over the model group by
+    ``sharding/tp.py::SumOverGroup``, whose backward sums the cotangent over
+    the group too).
 
 Without a placement (``rows=None``: serving, the layer alone) the rows are
 each process's own and the count is the local one times the world, so
@@ -55,6 +56,7 @@ from ..core.moe_comm import MoECommConfig, MoEDispatcher
 from ..kernels.grouped_ffn.ops import grouped_ffn
 from ..sharding.context import SINGLE, ParallelContext
 from ..sharding.gather import gather_leaf, placement
+from ..sharding.tp import SumOverGroup
 from . import layers as L
 
 #: the reference's block_tokens for the expert FFN (moe.py:85)
@@ -131,30 +133,6 @@ def _router(p, xf: torch.Tensor, cfg: ModelConfig, groups=()):
     frac = _global_mean(frac / top_idx.numel(), groups)
     aux = cfg.n_experts * torch.sum(frac * _global_mean(probs.mean(0), groups))
     return top_idx, top_w, aux
-
-
-class _SumOverGroup(torch.autograd.Function):
-    """``x`` of each process of ``group`` -> their sum, in every process
-    (``all_reduce``, the reference's ``psum``).  The backward sums the
-    cotangent over the group as well: each process's loss reads the sum, so
-    a process's share reaches all the group's losses.  Over one process's
-    share of the world's loss (``train/step.py``: ``1 / world`` each, summed
-    over the world) that is the gradient of the global loss; the identity
-    would leave it short by the group's size, as a slice would the row
-    gather's (``GatherLeaf``)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        out = x.clone()
-        dist.all_reduce(out, group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
 
 
 def _moe_local(p, xf, top_idx, top_w, cfg: ModelConfig):
@@ -243,7 +221,7 @@ def make_moe_ffn(cfg: ModelConfig, ctx: ParallelContext):
         out = dispatcher.combine(experts(p, recv, e_local), st,
                                  tw.expand(L, *tw.shape)).sum(0)
         if L < n:                            # the reference's psum, across processes
-            out = _SumOverGroup.apply(out, group)
+            out = SumOverGroup.apply(out, group)
         return out, st["dropped"]
 
     def apply(p, x, rows=None):
@@ -283,7 +261,7 @@ def _block_fwd(blocks, i: int, place, x, cfg: ModelConfig, moe_apply, window):
     x = x + L.attention_forward(
         p["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
         head_dim=cfg.head_dim, rope_theta=cfg.rope_theta, causal=True,
-        window=window)
+        window=window, tp=place.tp_at("attn"))
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     y, aux, dropped = moe_apply(p, h)
     return x + y, aux, dropped
@@ -291,17 +269,20 @@ def _block_fwd(blocks, i: int, place, x, cfg: ModelConfig, moe_apply, window):
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
             ctx: ParallelContext = SINGLE, *, window=None, last_only: bool = False,
-            moe_apply=None, stats: Optional[dict] = None
+            moe_apply=None, stats: Optional[dict] = None, place=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, S] -> (logits [B, S, V] or [B, 1, V], aux_loss scalar).
 
     ``stats``, when given, accumulates the dispatcher's capacity drops
     under ``"dropped"``.  With ``ctx.remat`` each block's activations are
     recomputed in the backward (``torch.utils.checkpoint``), as the
-    reference's ``jax.checkpoint`` does.
+    reference's ``jax.checkpoint`` does.  ``place``: the parameters'
+    placement (``sharding/gather.py::placement``; TP use from
+    ``Model.loss``: the attention tensor-parallel, the expert layer as it
+    is).
     """
     moe_apply = moe_apply or make_moe_ffn(cfg, ctx)
-    place = placement(param_shapes, cfg, ctx)
+    place = placement(param_shapes, cfg, ctx) if place is None else place
     x = place.at("embed").whole(params["embed"])[tokens].to(ctx.compute_dtype)
     blocks = params["blocks"]
     auxs = []

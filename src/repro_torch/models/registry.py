@@ -23,6 +23,7 @@ from ..configs.base import InputShape, ModelConfig
 from ..sharding.context import SINGLE, ParallelContext
 from ..sharding.gather import Placement, placement
 from ..sharding.specs import shard_params
+from ..sharding.tp import vocab_parallel_nll
 from . import dense, encdec, hybrid, moe, vlm, xlstm
 
 _FAMILIES = {"dense": dense, "moe": moe, "hybrid": hybrid, "ssm": xlstm,
@@ -30,6 +31,14 @@ _FAMILIES = {"dense": dense, "moe": moe, "hybrid": hybrid, "ssm": xlstm,
 
 # decode cache length policy: sub-quadratic archs keep O(1)/windowed state
 _LONG = "long_500k"
+
+#: families whose step stays on whole leaves where the model group holds
+#: the rows (``sharding/tp.py``): zamba2's Mamba gradients (``A_log``,
+#: ``dt_bias``, ``D``) are near-cancelling sums, so a reordered float32 sum
+#: anywhere above them (a tensor-parallel product's, or the loss's by vocab)
+#: moves them by more than the 1e-5 of their largest value to which the
+#: gloo worlds hold the step against one process
+_WHOLE_LEAF_FAMILIES = (hybrid,)
 
 
 def family(cfg: ModelConfig):
@@ -73,10 +82,12 @@ class Model:
         return shard_params(self.mod.init(seed, self.cfg, self.ctx), self.ctx)
 
     def forward(self, params, batch: Dict[str, torch.Tensor], *, window=None,
-                last_only: bool = False, stats: Optional[dict] = None, rows=None):
+                last_only: bool = False, stats: Optional[dict] = None, rows=None,
+                place: Optional[Placement] = None):
         """-> (logits, aux); ``stats`` (moe only) accumulates capacity drops;
         ``rows``: the batch's placement over a mesh (``train/step.py``;
-        ``None``: each process's rows its own)."""
+        ``None``: each process's rows its own); ``place``: the parameters'
+        placement (``None``: :attr:`placement`, every leaf read whole)."""
         extra = self._extra(stats, rows)
         if self.mod is not xlstm:        # attention-free: no window to apply
             extra["window"] = window
@@ -85,7 +96,7 @@ class Model:
         if self.cfg.arch_type == "vlm":
             extra["patches"] = batch["patches"]
         out = self.mod.forward(params, batch["tokens"], self.cfg, self.ctx,
-                               last_only=last_only, **extra)
+                               last_only=last_only, place=place or self.placement, **extra)
         if isinstance(out, tuple):
             return out                   # (logits, aux)
         return out, torch.zeros((), dtype=torch.float32, device=out.device)
@@ -97,14 +108,23 @@ class Model:
 
         The reference's ``Model.loss`` (``registry.py:59-68``); ``stats`` as
         in :meth:`forward`, ``rows`` too.  The vlm family's logits cover the
-        patch prefix too: only the text positions are scored.
+        patch prefix too: only the text positions are scored.  Where the
+        model group holds the rows replicated and divides the vocab, each
+        process computes its vocab block of the logits and the NLL comes
+        from the blocks (``sharding/tp.py::vocab_parallel_nll``).
         """
-        logits, aux = self.forward(params, batch, window=window, stats=stats, rows=rows)
+        tp_rows = None if self.mod in _WHOLE_LEAF_FAMILIES else rows
+        place = placement(self.mod.param_shapes, self.cfg, self.ctx, tp_rows)
+        logits, aux = self.forward(params, batch, window=window, stats=stats, rows=rows,
+                                   place=place)
         labels = batch["labels"].long()
         if logits.shape[1] != labels.shape[1]:
             logits = logits[:, -labels.shape[1]:]
-        lp = torch.log_softmax(logits.float(), dim=-1)
-        nll = -torch.gather(lp, -1, labels[..., None])[..., 0]
+        if place.vocab is not None:
+            nll = vocab_parallel_nll(logits.float(), labels, place.vocab.start, place.tp)
+        else:
+            lp = torch.log_softmax(logits.float(), dim=-1)
+            nll = -torch.gather(lp, -1, labels[..., None])[..., 0]
         return nll.mean() + aux_weight * aux
 
     def cache_len(self, shape: InputShape) -> int:

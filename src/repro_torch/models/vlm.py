@@ -29,14 +29,16 @@ def init(seed: int, cfg: ModelConfig, ctx: ParallelContext = SINGLE):
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig, ctx: ParallelContext = SINGLE,
             *, patches: Optional[torch.Tensor] = None, window: Optional[int] = None,
-            last_only: bool = False, **_) -> torch.Tensor:
-    """tokens [B, S_text], patches [B, P, d] -> logits [B, P + S_text, V]."""
+            last_only: bool = False, place=None, **_) -> torch.Tensor:
+    """tokens [B, S_text], patches [B, P, d] -> logits [B, P + S_text, V];
+    ``place`` as ``dense.forward`` takes it."""
     if patches is None:
         raise ValueError("the vlm family needs stub patch embeddings (patches)")
-    tok_emb = dense.embed(params, tokens, placement(param_shapes, cfg, ctx))
+    place = placement(param_shapes, cfg, ctx) if place is None else place
+    tok_emb = dense.embed(params, tokens, place)
     x = torch.cat([patches.to(tok_emb.dtype), tok_emb], dim=1)
     return dense.forward(params, tokens, cfg, ctx, window=window, inputs_embeds=x,
-                         last_only=last_only)
+                         last_only=last_only, place=place)
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, ctx: ParallelContext = SINGLE):

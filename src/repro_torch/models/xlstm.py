@@ -368,9 +368,13 @@ def slstm_forward_assoc(p, x: torch.Tensor, cfg: ModelConfig,
 
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
-            ctx: ParallelContext = SINGLE, *, last_only: bool = False) -> torch.Tensor:
-    """tokens [B, S] -> logits [B, S, V], or [B, 1, V] with ``last_only``."""
-    place = placement(param_shapes, cfg, ctx)
+            ctx: ParallelContext = SINGLE, *, last_only: bool = False,
+            place=None) -> torch.Tensor:
+    """tokens [B, S] -> logits [B, S, V], or [B, 1, V] with ``last_only``.
+    ``place``: the parameters' placement (``sharding/gather.py::placement``;
+    under TP use from ``Model.loss`` only the logits are by vocab: the
+    gates' leaves are read whole)."""
+    place = placement(param_shapes, cfg, ctx) if place is None else place
     x = place.at("embed").whole(params["embed"])[tokens].to(ctx.compute_dtype)
     for i, p in enumerate(params["blocks"]):
         p = place.at("blocks", i).whole(p)

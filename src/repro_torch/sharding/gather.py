@@ -27,7 +27,19 @@ axes: the adjoint of ``all_gather`` with respect to the sum of every
 process's loss (``train/step.py``).  On a world of one, or for a leaf that
 no axis of more than one process splits, a leaf is read as it is and
 nothing is launched.  :data:`COUNTS` counts the collectives the Function
-launches.
+launches; :data:`LEAF_GATHERS` the gathers of each leaf by axis.
+
+Where the model group holds the same rows (the train step's
+``RowBlock.split_over_model`` false), :func:`placement` with the ``rows``
+gives the "TP use" (``sharding/tp.py``): the leaves of the blocks' tensor-parallel
+products keep their "model" block and are gathered over their other axes
+only: ``wq``/``bq``/``wo`` of an attention whose query heads the model
+group divides, and ``wk``/``wv``/``bk``/``bv`` where its KV heads divide
+too (else they are read whole, and each process projects the KV heads
+its query heads read); ``wg``/``wu``/``wd``/``w1``/``b1``/``w2`` of a dense
+MLP (d_ff divides where the spec splits it); ``lm_head`` on vocab (a tied
+embedding is read whole and its vocab rows taken).  A block
+under TP use is the block the process holds: nothing is placed anew.
 """
 
 from __future__ import annotations
@@ -42,9 +54,19 @@ import torch.distributed as dist
 from .specs import (Spec, at_path, block_shape, build_param_specs, entry_axes,
                     is_expert_leaf, leaf_paths, local_shard, map_with_path, mesh_coord,
                     mesh_sizes, split_axes)
+from .tp import TensorParallel
 
 #: launches of the gather's collectives: "all_gather" and "reduce_scatter"
 COUNTS: collections.Counter = collections.Counter()
+
+#: (leaf path "a/b/c", axis) -> gathers of that leaf over that axis on use
+LEAF_GATHERS: collections.Counter = collections.Counter()
+
+#: the subtrees whose products are tensor-parallel under TP use
+_ATTENTION = ("attn", "self_attn", "cross_attn")
+_Q_LEAVES = ("wq", "bq", "wo")
+_KV_LEAVES = ("wk", "wv", "bk", "bv")
+_MLP_LEAVES = ("wg", "wu", "wd", "w1", "b1", "w2")
 
 #: one step of a gather: (dim, process group, its size)
 Step = Tuple[int, object, int]
@@ -105,9 +127,29 @@ def gather_leaf(t: torch.Tensor, steps: Sequence[Step]) -> torch.Tensor:
 def use_spec(path: Sequence, shape: Sequence[int], spec: Spec) -> Spec:
     """The axes over which a leaf is gathered before use: its spec, less the
     expert dim's "model" (EP computes on the process's own experts)."""
-    if not is_expert_leaf(path, shape):
-        return spec
+    return _without_model(spec) if is_expert_leaf(path, shape) else spec
+
+
+def _without_model(spec: Spec) -> Spec:
     return tuple(None if a == "model" else a for a in spec)
+
+
+def _keeps_model_block(path: Sequence, shapes, spec: Spec, m: int, head_dim: int) -> bool:
+    """Whether the leaf at ``path`` keeps its "model" block under TP use
+    (module docstring): a leaf of a tensor-parallel product that "model"
+    splits as a dim of its own; attention by whole heads (``H % m``, and
+    ``Hkv % m`` for the KV leaves, H and Hkv from ``wq``'s and ``wk``'s
+    columns); ``lm_head`` by vocab."""
+    if "model" not in spec:
+        return False
+    name, parent = str(path[-1]), (path[-2] if len(path) > 1 else None)
+    if parent in _ATTENTION and name in _Q_LEAVES + _KV_LEAVES:
+        sub = at_path(shapes, path[:-1])
+        heads, kv = sub["wq"][-1] // head_dim, sub["wk"][-1] // head_dim
+        return heads % m == 0 and (name in _Q_LEAVES or kv % m == 0)
+    if parent == "mlp":
+        return name in _MLP_LEAVES
+    return tuple(path) == ("lm_head",)
 
 
 @functools.lru_cache(maxsize=32)
@@ -120,17 +162,37 @@ def _trees(shapes_of, cfg, sizes: Tuple[Tuple[str, int], ...]):
     return shapes, full, use
 
 
+@functools.lru_cache(maxsize=32)
+def _tp_use(shapes_of, cfg, sizes: Tuple[Tuple[str, int], ...]):
+    """The use specs under TP use (module docstring) of ``_trees``' tree."""
+    shapes, full, use = _trees(shapes_of, cfg, sizes)
+    m = dict(sizes)["model"]
+
+    def one(path, _):
+        u = at_path(use, path)
+        keep = _keeps_model_block(path, shapes, at_path(full, path), m, cfg.head_dim)
+        return _without_model(u) if keep else u
+
+    return map_with_path(one, shapes)
+
+
 class Placement:
     """Where a parameter tree's leaves lie over a mesh: each leaf's spec
     (``specs``), the spec it is gathered by before use (``use``) and its
     whole shape (``shapes``), for a subtree of the parameters (:meth:`at`).
     ``specs is None``: nothing is split (no mesh, or a world of one), and
-    every leaf is read as it is."""
+    every leaf is read as it is.  Under TP use (:func:`placement` with
+    ``rows``), ``tp`` is this process's :class:`~repro_torch.sharding.tp.TensorParallel`
+    and ``vocab`` the vocab rows of its logits' block (``None`` where they
+    stay whole)."""
 
-    def __init__(self, shapes=None, specs=None, use=None, mesh=None, groups=None):
+    def __init__(self, shapes=None, specs=None, use=None, mesh=None, groups=None,
+                 tp: Optional[TensorParallel] = None, vocab: Optional[slice] = None,
+                 prefix: Tuple = ()):
         self.shapes, self.specs, self.use, self.mesh = shapes, specs, use, mesh
         self.sizes = mesh_sizes(mesh)
         self._groups: Dict[str, object] = {} if groups is None else groups
+        self.tp, self.vocab, self.prefix = tp, vocab, prefix
 
     @property
     def placed(self) -> bool:
@@ -141,7 +203,24 @@ class Placement:
         if not self.placed:
             return self
         return Placement(*(at_path(t, keys) for t in (self.shapes, self.specs, self.use)),
-                         mesh=self.mesh, groups=self._groups)
+                         mesh=self.mesh, groups=self._groups, tp=self.tp,
+                         vocab=self.vocab, prefix=self.prefix + keys)
+
+    def tp_at(self, *keys) -> Optional[TensorParallel]:
+        """:attr:`tp` where a leaf of the subtree at ``keys`` keeps its "model"
+        block (its products are tensor-parallel), else ``None``."""
+        if self.tp is None:
+            return None
+        specs, use = at_path(self.specs, keys), at_path(self.use, keys)
+        for path, _ in leaf_paths(at_path(self.shapes, keys)):
+            if "model" in at_path(specs, path) and "model" not in at_path(use, path):
+                return self.tp
+        return None
+
+    def vocab_rows(self, w: torch.Tensor) -> torch.Tensor:
+        """A tied embedding ``w`` [V, D], read whole -> the rows of this
+        process's logits block (all of them where the logits stay whole)."""
+        return w if self.vocab is None else w[self.vocab]
 
     def group(self, axis: str):
         if axis not in self._groups:
@@ -170,7 +249,11 @@ class Placement:
         if tuple(t.shape) != want:
             raise ValueError(f"parameter {'/'.join(map(str, path)) or 'leaf'}: held "
                              f"{tuple(t.shape)}, its block under {spec} is {want}")
-        return gather_leaf(t, self.steps(at_path(self.use, path)[lead:]))
+        use = at_path(self.use, path)[lead:]
+        name = "/".join(map(str, self.prefix + path))
+        for _, axis in gather_plan(use, self.sizes):
+            LEAF_GATHERS[(name, axis)] += 1
+        return gather_leaf(t, self.steps(use))
 
     def spec(self, path) -> Optional[Spec]:
         """The spec of the parameter leaf at ``path``; ``None`` where the
@@ -206,14 +289,32 @@ def _is_shape(node) -> bool:
 UNPLACED = Placement()
 
 
-def placement(shapes_of, cfg, ctx) -> Placement:
+def tp_rows(rows, sizes: Mapping[str, int]) -> bool:
+    """Whether ``rows`` (the train step's ``RowBlock``, or ``None``) lie
+    replicated over a model axis of more than one process: TP use."""
+    return rows is not None and not rows.split_over_model and sizes.get("model", 1) > 1
+
+
+def placement(shapes_of, cfg, ctx, rows=None) -> Placement:
     """The placement of ``shapes_of(cfg)``'s parameters (a family's
     ``param_shapes``) over ``ctx.mesh``; :data:`UNPLACED` without a mesh or on
-    a world of one."""
+    a world of one.  With ``rows`` replicated over the model group
+    (:func:`tp_rows`), TP use (module docstring): the train step's loss
+    (``Model.loss``), its logits by vocab where the vocab divides."""
     sizes = mesh_sizes(ctx.mesh)
     if all(s == 1 for s in sizes.values()):
         return UNPLACED
-    return Placement(*_trees(shapes_of, cfg, tuple(sizes.items())), mesh=ctx.mesh)
+    key = tuple(sizes.items())
+    shapes, full, use = _trees(shapes_of, cfg, key)
+    if not tp_rows(rows, sizes):
+        return Placement(shapes, full, use, mesh=ctx.mesh)
+    group, m = ctx.mesh.get_group("model"), sizes["model"]
+    tp = TensorParallel(group, m, dist.get_rank(group))
+    v = shapes["embed"][0] // m
+    split = ("model" in full["lm_head"] if "lm_head" in shapes   # tied: embed's rows
+             else shapes["embed"][0] % m == 0)
+    return Placement(shapes, full, _tp_use(shapes_of, cfg, key), mesh=ctx.mesh, tp=tp,
+                     vocab=slice(tp.rank * v, (tp.rank + 1) * v) if split else None)
 
 
 def reduce_axes(spec: Spec, sizes: Mapping[str, int]) -> Tuple[str, ...]:

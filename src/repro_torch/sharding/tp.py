@@ -1,0 +1,147 @@
+"""Tensor-parallel compute: a model group shares a block's dense products.
+
+Where the train step's rows are replicated over the model group
+(``RowBlock.split_over_model`` false: data x model does not divide the
+batch), the reference's partitioned step computes each product on the
+group's "model" block of its weight, as XLA's partitioner places it from
+``sharding/specs.py``'s rules: attention by whole query heads, the dense
+MLP and SwiGLU on d_ff (column-parallel in, row-parallel out), the loss's
+logits by vocab.  The port does the same:
+
+  * ``sharding/gather.py::Placement.for_rows`` keeps those leaves' "model"
+    blocks (gathered over their other axes only) and hands each block a
+    :class:`TensorParallel`, this process's place in the model group;
+  * ``models/layers.py`` computes on the blocks: ``attention_forward`` on
+    the process's ``H / m`` query heads and the KV heads they read,
+    ``swiglu`` and ``mlp`` on the d_ff block; a row-parallel output is a
+    partial sum, summed over the group by :meth:`TensorParallel.sum`
+    (:class:`SumOverGroup`), and a bias after it is added once, after the
+    sum;
+  * ``models/registry.py::Model.loss`` takes the logits' vocab block and
+    computes the NLL from the blocks (:func:`vocab_parallel_nll`).
+
+The adjoints.  Each process scales its loss by ``1 / world`` and every
+collective's backward is its adjoint with respect to the sum ``J`` of the
+world's losses (``train/step.py``).  Inside a tensor-parallel region:
+
+  * the exit, ``y = sum_r y_r`` over the group, reaches every process's
+    loss: ``dJ/dy_r`` is the sum over the group of the cotangents each
+    process's copy of ``y`` received.  So the sum's backward is a sum too
+    (:class:`SumOverGroup`, the MoE masked branch's Function);
+  * the entry needs no collective: process r's copy of the replicated
+    input ``x`` feeds only its own block ``y_r``, whose cotangent the exit
+    has already made whole.  The identity is the adjoint, and ``x``'s
+    gradient in process r is its share: the heads or columns that r
+    computes, and its own copy's path through the residual.  The shares
+    sum over the group to the gradient of the one replicated ``x``.
+
+So a leaf that keeps its "model" block has a gradient that is its block's
+whole: it is summed over the axes that do not split it, "model" not among
+them, as before.  A leaf read whole over "model" (a norm, the router,
+``wk``/``wv`` whose KV heads do not divide, attention whose heads do not
+divide) collects the processes' shares: the step's all_reduce over
+"model" or the gather's reduce-scatter sums them, as before.  Nothing in
+the step's reduction changes; only what the shares hold.
+
+:data:`COUNTS` counts the sums over a group (``"sum"``: the blocks' and the
+loss's, forward only; a remat recompute counts again) and the loss's max
+(``"max"``).
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+from typing import List, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+#: forward launches: "sum" (a sum over the model group), "max" (the loss's)
+COUNTS: collections.Counter = collections.Counter()
+
+
+class SumOverGroup(torch.autograd.Function):
+    """``x`` of each process of ``group`` -> their sum, in every process
+    (``all_reduce``, the reference's ``psum``).  The backward sums the
+    cotangent over the group as well: each process's loss reads the sum, so
+    a process's share reaches all the group's losses.  Over one process's
+    share of the world's loss (``train/step.py``: ``1 / world`` each, summed
+    over the world) that is the gradient of the global loss; the identity
+    would leave it short by the group's size, as a slice would the row
+    gather's (``sharding/gather.py::GatherLeaf``)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """This process's place in the model group that shares a block's
+    products: the group, its ``size`` m and this process's ``rank`` r."""
+
+    group: object
+    size: int
+    rank: int
+
+    def sum(self, y: torch.Tensor) -> torch.Tensor:
+        """A row-parallel product's partial sums -> their sum over the group."""
+        COUNTS["sum"] += 1
+        return SumOverGroup.apply(y, self.group)
+
+    def kv_heads(self, n_heads: int, n_kv: int) -> Tuple[int, int, Optional[List[int]]]:
+        """(first, count, index) of the KV heads that this process's query
+        heads ``r H/m ... (r+1) H/m - 1`` read (query head h reads KV head
+        ``h // (H / Hkv)``); ``index``: for each local query head, its KV
+        head among them, where the local heads do not share them evenly
+        (then each gets its own copy), else ``None``."""
+        hq, g = n_heads // self.size, n_heads // n_kv
+        reads = [(self.rank * hq + j) // g for j in range(hq)]
+        first, count = reads[0], reads[-1] - reads[0] + 1
+        even = hq % count == 0 and all(h - first == j // (hq // count)
+                                       for j, h in enumerate(reads))
+        return first, count, None if even else [h - first for h in reads]
+
+
+def block_max(z: torch.Tensor) -> torch.Tensor:
+    """The largest logit of each position over a vocab block, no gradient."""
+    return z.detach().amax(-1)
+
+
+def block_parts(z: torch.Tensor, labels: torch.Tensor, v0: int,
+                mx: torch.Tensor) -> torch.Tensor:
+    """[2, ...]: a vocab block's ``sum(exp(z - mx))`` and the target's logit
+    (0 where the target lies in another block); ``z`` holds vocab
+    ``v0 ... v0 + z.shape[-1] - 1``, ``mx`` is the max over every block."""
+    se = torch.exp(z - mx[..., None]).sum(-1)
+    local = labels - v0
+    mine = (local >= 0) & (local < z.shape[-1])
+    t = torch.gather(z, -1, local.clamp(0, z.shape[-1] - 1)[..., None])[..., 0]
+    return torch.stack([se, torch.where(mine, t, torch.zeros_like(t))])
+
+
+def nll_from_parts(parts: torch.Tensor, mx: torch.Tensor) -> torch.Tensor:
+    """The NLL of each position from the parts summed over the blocks."""
+    return torch.log(parts[0]) + mx - parts[1]
+
+
+def vocab_parallel_nll(z: torch.Tensor, labels: torch.Tensor, v0: int,
+                       tp: TensorParallel) -> torch.Tensor:
+    """Each position's NLL from this process's vocab block ``z`` (float32):
+    the max over the group (``all_reduce(MAX)``, no gradient), then the
+    blocks' sums of exps and the target's logit summed over the group in
+    one :meth:`TensorParallel.sum`."""
+    mx = block_max(z)
+    dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=tp.group)
+    COUNTS["max"] += 1
+    return nll_from_parts(tp.sum(block_parts(z, labels, v0, mx)), mx)

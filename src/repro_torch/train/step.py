@@ -18,28 +18,53 @@ parameter leaf, and AdamW's two moments, is this process's block under
 whole leaf's gradient back to the block, summed over the axes that split
 the leaf.
 
+Where the model group holds the rows replicated, it shares each block's
+dense products (``sharding/tp.py``): attention by whole heads, the MLP on
+d_ff and the loss's logits by vocab, each on the leaves' "model" blocks,
+summed over the group; the hybrid family stays on whole leaves
+(``models/registry.py::_WHOLE_LEAF_FAMILIES``).
+
 The gradients.  Each process scales its loss by ``1 / world``
 (``RowBlock.share``), and every collective on the loss's path has as its
 backward the adjoint with respect to the sum of all the processes' losses:
 the gather's reduce-scatter (``sharding/gather.py::GatherLeaf``, for the
-leaves and for the MoE layer's row gather) and the MoE masked branch's sum
-over the model group (``models/moe.py::_SumOverGroup``).  Block b of the
-rows, held by ``replicas`` processes, enters that sum ``replicas / world
-x mean_b = mean_b / count`` times: the world's sum is the global batch's
-mean over its ``count`` equal blocks, whether the model group splits the rows or holds them replicated.
-So a block's gradient is the global loss's once it is summed over the
-axes the leaf is *not* split on, one ``all_reduce`` a bucket of one dtype
-and at most ``BUCKET_BYTES`` for each such set of axes (a leaf split on
-none is summed over the world at once).  Where the rows are replicated
-over "model", that sum runs over "model" too: the MoE layer routes a
-different share of the group's tokens in each process (split or masked),
-so the copies' gradients differ there; in a family without experts they
-are equal, and the sum over "model" of a leaf it does not split (the
-norms, the router, the few dims "model" does not divide) repeats them
-(TP compute, which would share the model group's work, is not ported).
-AdamW's global norm sums each leaf's squared norm over the axes that
-split it.  The reported loss is summed over the world, the capacity drops
-too, counting each token once.
+leaves and for the MoE layer's row gather), and the sum over the model
+group (``sharding/tp.py::SumOverGroup``: the tensor-parallel products',
+the loss's and the MoE masked branch's), whose backward is a sum too.
+Block b of the rows, held by ``replicas`` processes, enters that sum
+``replicas / world x mean_b = mean_b / count`` times: the world's sum is
+the global batch's mean over its ``count`` equal blocks, whether the model
+group splits the rows or holds them replicated.  So a block's gradient is
+the global loss's once it is summed over the axes the leaf is *not* split
+on, one ``all_reduce`` a bucket of one dtype and at most ``BUCKET_BYTES``
+for each such set of axes (a leaf split on none is summed over the world
+at once).  Where the rows are replicated over "model":
+
+  * a leaf that keeps its "model" block for a tensor-parallel product
+    (``wq``/``wo`` of heads that divide, the MLP's, ``lm_head``) has a
+    gradient of its block alone, already whole: the sum over the group at
+    the product's output gave each process the cotangent of every
+    process's loss.  "model" splits it, so it is not summed over "model"
+    (before tensor-parallel compute the gather's reduce-scatter summed its
+    whole gradient there);
+  * a leaf that "model" does not split (the norms, the router, a bias
+    after a sum) holds in each process that process's share: the entry of
+    a tensor-parallel product passes each process's own heads' or
+    columns' cotangent, and the MoE layer routes a different share of the
+    group's tokens in each process.  It is summed over "model" as before;
+    so is, by the gather's reduce-scatter, a leaf "model" splits but the
+    product reads whole (``wk``/``wv`` whose KV heads do not divide, the
+    attention of heads that do not, ``embed``).
+
+The sets of axes and the buckets are the same with or without
+tensor-parallel compute.  AdamW's global norm sums each leaf's squared
+norm over the axes that split it, the same axes.  The reported loss is
+summed over the world, the capacity drops too, counting each token once.
+
+On the CPU the tensor-parallel cases run in gloo worlds:
+``python -m pytest -q tests/test_torch_dist.py -k "placed or tp_train"``
+(the step on (data 2, model 2) and (data 2, model 4) against one process)
+and ``tests/test_torch_tp.py`` (the blocks' algebra on one process).
 """
 
 from __future__ import annotations

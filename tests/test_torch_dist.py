@@ -47,6 +47,14 @@ over ``P`` processes, each hosting ``n / P`` of them:
   parameters after them within 1e-5; the loss within 5e-2 of the JAX package's
   single-device step; the bytes held (parameters, m, v) exactly the blocks'
   bytes by the specs;
+* with the rows replicated over model, the model group runs each block's
+  products tensor-parallel (``sharding/tp.py``): the placed cases' first
+  step gathers no kept block over "model" and sums over the group as many
+  times as the blocks' row-parallel products (and the loss once where the
+  vocab splits); five more cases on both worlds (query and KV heads that
+  divide, with remat; 2 KV heads over model 4; smollm's 9 over 3 heads; a
+  vocab of 509; whisper's tied logits) hold the same limits against one
+  process and the JAX package, and their launches exactly;
 * a checkpoint written by a (data 2, model 2) world is the world's blocks
   put together, bit for bit, and one written by a single process restores
   in the world as each process's block of it, bit for bit;
@@ -93,6 +101,25 @@ PLACED_ARCHS = ("paper-moe-8e", "granite-moe-1b-a400m", "smollm-135m", "xlstm-12
 #: the archs without experts take 32 on both (the same references)
 PLACED = {4: (2, 2, 31), 8: (2, 4, 32)}
 PLACED_STEPS = 2
+#: the tensor-parallel cases on both PLACED worlds (2 sequences of 32
+#: tokens, the rows replicated over model): (arch reduced, its config
+#: overrides, remat); d_model 128 or 144, d_ff 256, 2 layers
+_NARROW = (("d_model", 128), ("d_ff", 256))
+TP_CASES = {
+    # query and KV heads divide by 2 and 4; remat recomputes the sums
+    "heads-divide": ("llama3-8b", (("n_heads", 8), ("n_kv_heads", 4)) + _NARROW, True),
+    # 2 KV heads over model 4: each read whole, two processes sharing one
+    "kv-shared": ("llama3-8b", (("n_heads", 8), ("n_kv_heads", 2)) + _NARROW, False),
+    # smollm's 9 over 3 heads divide by neither: the attention stays whole,
+    # the MLP and the vocab split
+    "heads-whole": ("smollm-135m", (("n_heads", 9), ("n_kv_heads", 3), ("d_model", 144),
+                                    ("d_ff", 256)), False),
+    # 509 divides by neither: the logits stay whole
+    "vocab-whole": ("llama3-8b", (("vocab", 509),) + _NARROW, False),
+    # whisper: the encoder's, the decoder's and the cross attention by heads,
+    # the GELU MLP (its bias after the sum), the logits tied to the embedding
+    "tied-vocab": ("whisper-small", _NARROW, False),
+}
 
 
 def placed_tokens(P, arch) -> int:
@@ -121,11 +148,11 @@ def jax_train_ref():
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_rows_model(arch, capacity=8.0):
+def _jax_rows_model(arch, capacity=8.0, over=()):
     """The reference's model of ``dist_checks.rows_inputs``' config and its
     seed-0 weights (the same for every batch)."""
-    cfg, _, _ = dist_checks.rows_inputs(arch, capacity=capacity)
-    jcfg = j_get_config(arch).reduced()
+    cfg, _, _ = dist_checks.rows_inputs(arch, capacity=capacity, over=over)
+    jcfg = dataclasses.replace(j_get_config(arch).reduced(), **dict(over))
     if jcfg.n_experts:
         jcfg = dataclasses.replace(jcfg, moe_capacity_factor=capacity)
     assert dataclasses.asdict(jcfg) == dataclasses.asdict(cfg)
@@ -133,18 +160,19 @@ def _jax_rows_model(arch, capacity=8.0):
     return jmodel, jmodel.init(jax.random.PRNGKey(0))
 
 
-def jax_rows_ref(arch, B=2, capacity=8.0, S=32):
-    """The reference's seed-0 weights for ``dist_checks.rows_inputs``' config,
-    and its single-device loss on that batch (once for each batch, however
-    the arguments are passed)."""
-    return _jax_rows_ref(arch, B, capacity, S)
+def jax_rows_ref(arch, B=2, capacity=8.0, S=32, over=()):
+    """The reference's seed-0 weights for ``dist_checks.rows_inputs``' config
+    (with the overrides ``over``), and its single-device loss on that batch
+    (once for each batch, however the arguments are passed)."""
+    return _jax_rows_ref(arch, B, capacity, S, over)
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_rows_ref(arch, B, capacity, S):
-    _, _, batch = dist_checks.rows_inputs(arch, B, S, capacity=capacity)
-    jmodel, jparams = _jax_rows_model(arch, capacity)
-    jbatch = {k: jnp.asarray(v.numpy().astype(np.int32)) for k, v in batch.items()}
+def _jax_rows_ref(arch, B, capacity, S, over):
+    _, _, batch = dist_checks.rows_inputs(arch, B, S, capacity=capacity, over=over)
+    jmodel, jparams = _jax_rows_model(arch, capacity, over)
+    jbatch = {k: jnp.asarray(v.numpy() if v.is_floating_point() else
+                             v.numpy().astype(np.int32)) for k, v in batch.items()}
     loss = float(jmodel.loss(jparams, jbatch))
     return jax.tree.map(lambda a: np.asarray(a, dtype=np.float32), jparams), loss
 
@@ -170,6 +198,10 @@ def _cases(P):
             cases.append((f"placed-{arch}", "rows", dict(
                 arch=arch, data=data, model=model, S=S, steps=PLACED_STEPS,
                 tree=jax_rows_ref(arch, S=S)[0])))
+        for name, (arch, over, remat) in TP_CASES.items():
+            cases.append((f"tp-{name}", "rows", dict(
+                arch=arch, data=data, model=model, steps=PLACED_STEPS, over=over,
+                remat=remat, tree=jax_rows_ref(arch, over=over)[0])))
     if P == 4:
         cases.append(("gather", "gather", {}))
         read, _ = single_ckpt()
@@ -451,16 +483,17 @@ class _FakeMesh:
 
 
 @functools.lru_cache(maxsize=None)
-def single_rows(arch, B=2, capacity=8.0, S=32, steps=0):
+def single_rows(arch, B=2, capacity=8.0, S=32, steps=0, over=(), remat=False):
     """The single-process step on the whole batch (EP 4 stacked for moe),
     from the reference's weights: (loss, drops, gradient leaves, the
     parameters it started from); with ``steps``, also (each step's loss and
-    norm, the parameter leaves after them) at ``dist_checks.OPT``."""
-    cfg, ep_size, batch = dist_checks.rows_inputs(arch, B, S, capacity=capacity)
+    norm, the parameter leaves after them) at ``dist_checks.OPT``; ``over``
+    and ``remat`` as ``dist_checks.rows`` takes them."""
+    cfg, ep_size, batch = dist_checks.rows_inputs(arch, B, S, capacity=capacity, over=over)
     ctx = ParallelContext(ep_size=ep_size, group_size=2, moe_mode="nimble",
-                          moe_chunk_tokens=4, device="cpu")
+                          moe_chunk_tokens=4, device="cpu", remat=remat)
     model = build_model(cfg, ctx)
-    params = params_from_jax(jax_rows_ref(arch, B, capacity, S)[0], cfg, ctx)
+    params = params_from_jax(jax_rows_ref(arch, B, capacity, S, over)[0], cfg, ctx)
     stats = {} if cfg.n_experts else None
     loss, grads = loss_and_grads(model, params, batch, stats=stats)
     out = (float(loss), int(stats["dropped"]) if stats else 0,
@@ -468,7 +501,7 @@ def single_rows(arch, B=2, capacity=8.0, S=32, steps=0):
     if not steps:
         return out
     step = make_train_step(model, adamw.AdamWConfig(**dist_checks.OPT))
-    p = params_from_jax(jax_rows_ref(arch, B, capacity, S)[0], cfg, ctx)
+    p = params_from_jax(jax_rows_ref(arch, B, capacity, S, over)[0], cfg, ctx)
     state, metrics = adamw.init(p), []
     for _ in range(steps):
         p, state, m = step(p, state, batch)
@@ -532,6 +565,121 @@ def test_placed_train_step_equals_one_process(world, arch):
         # differ by the summation order)
         for (lw, nw), (lg, ng) in zip(metrics, g["metrics"]):
             assert abs(lg - lw) <= 1e-5 * abs(lw) and abs(ng - nw) <= 1e-5 * abs(nw)
+    for key, want in (("grads", grads), ("params", after)):
+        full = selftest.assemble_grads(got, params, key)
+        assert len(full) == len(want)
+        for a, b in zip(full, want):
+            _close(a, b)
+
+
+def _tp_launches(arch, over, model, remat=False):
+    """What the first step launches under TP use on a model axis of
+    ``model`` (``sharding/tp.py``), by the rules stated here: (the leaves
+    that keep their "model" block, as "a/b/c" paths, a stacked leaf's
+    layer dim folded; the sums over the model group; the loss's maxes).
+    Attention keeps ``wq``/``bq``/``wo`` where the query heads divide and
+    ``wk``/``wv``/``bk``/``bv`` where the KV heads divide too; a dense MLP
+    and ``lm_head`` keep theirs where "model" splits them (d_ff, vocab).  A
+    block sums each tensor-parallel product once (the moe family's
+    attention only, xLSTM none; zamba2 at each call of its shared block),
+    the loss once where the vocab splits; remat's recompute reruns the
+    attention's sum, not the MLP's: the block's last op, whose output no
+    recomputed activation needs.  The hybrid family (zamba2) stays on whole
+    leaves (``models/registry.py::_WHOLE_LEAF_FAMILIES``): nothing kept,
+    nothing summed."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.registry import family
+    from repro_torch.sharding.specs import at_path, build_param_specs, leaf_paths
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), **dict(over))
+    if cfg.arch_type == "hybrid":
+        return set(), 0, 0
+    attention = ("attn", "self_attn", "cross_attn")
+    shapes = family(cfg).param_shapes(cfg)
+    specs = build_param_specs(shapes, {"data": 2, "model": model})
+    heads = cfg.n_heads % model == 0
+    kv = heads and cfg.n_kv_heads % model == 0
+    kept = set()
+    for path, _ in leaf_paths(shapes):
+        name, parent = path[-1], path[-2] if len(path) > 1 else None
+        if "model" not in at_path(specs, path):
+            continue
+        if parent in attention and heads and (name in ("wq", "bq", "wo") or kv):
+            kept.add("/".join(map(str, path)))
+        if parent == "mlp" or path == ("lm_head",):
+            kept.add("/".join(map(str, path)))
+    mlp = cfg.d_ff % model == 0 if cfg.d_ff else False
+    vocab = int("lm_head" in kept or "lm_head" not in shapes and cfg.vocab % model == 0)
+    if cfg.arch_type == "audio":          # encoder: attention, MLP; decoder: two, MLP
+        return kept, (cfg.n_enc_layers * (int(heads) + int(mlp))
+                      + cfg.n_layers * (2 * int(heads) + int(mlp)) + vocab), vocab
+    if cfg.arch_type == "ssm":
+        per, calls = 0, 0
+    elif cfg.arch_type == "moe":
+        per, calls = int(heads), cfg.n_layers
+    else:
+        per, calls = int(heads) + int(mlp) + int(remat and heads), cfg.n_layers
+    return kept, calls * per + vocab, vocab
+
+
+@pytest.mark.parametrize("world,arch", [pytest.param(P, a, id=f"P{P}-{a}") for P in PLACED
+                                        for a in PLACED_ARCHS], indirect=["world"])
+def test_placed_train_step_runs_the_blocks_tensor_parallel(world, arch):
+    """The placed cases' first step (2 sequences, the rows replicated over
+    model) on (data 2, model 2) and (data 2, model 4): no leaf that keeps
+    its "model" block is gathered over "model" (``embed``, split on d, is),
+    and the sums over the group and the loss's maxes are as
+    :func:`_tp_launches` counts them; zamba2 reads its shared block whole
+    over "model" at each of its calls."""
+    got = world[f"placed-{arch}"]
+    _, model, _ = PLACED[len(got)]
+    kept, sums, maxes = _tp_launches(arch, (), model)
+    hybrid = arch == "zamba2-1.2b"
+    assert ("lm_head" in kept) != hybrid
+    for g in got:
+        launches = g["launches"]
+        assert launches["sum"] == sums and launches["max"] == maxes
+        assert not kept & set(launches["model_gathers"])
+        assert launches["model_gathers"]["embed"] == 1
+        if hybrid:
+            assert launches["model_gathers"]["shared_attn/attn/wq"] == 1
+            assert launches["model_gathers"]["lm_head"] == 1
+
+
+@pytest.mark.parametrize("world,case", [pytest.param(P, c, id=f"P{P}-{c}") for P in PLACED
+                                        for c in TP_CASES], indirect=["world"])
+def test_tp_train_step_equals_one_process(world, case):
+    """The tensor-parallel cases, 2 sequences on (data 2, model 2) and (data
+    2, model 4), from the JAX package's weights: the loss within 1e-6
+    relative and each gradient leaf within 1e-5 of its largest value
+    against one process, two AdamW steps' losses, norms and parameters
+    within 1e-5; the loss within 5e-2 of the JAX package's single-device
+    step.  The launches: the sums and maxes of :func:`_tp_launches`, and
+    over "model" only the leaves that do not keep their block, each layer
+    once (``embed`` once; ``wk``/``wv`` where the KV heads do not divide;
+    every attention leaf where the query heads do not; whisper's tied
+    ``embed`` at both its reads, ``dec_pos`` once)."""
+    arch, over, remat = TP_CASES[case]
+    got = world[f"tp-{case}"]
+    data, model, _ = PLACED[len(got)]
+    loss, dropped, grads, params, metrics, after = single_rows(
+        arch, steps=PLACED_STEPS, over=over, remat=remat)
+    _, jloss = jax_rows_ref(arch, over=over)
+    kept, sums, maxes = _tp_launches(arch, over, model, remat)
+    cfg = dict(over)
+    heads, kv = cfg.get("n_heads", 4), cfg.get("n_kv_heads", 4)
+    whole = (("wq", "wk", "wv", "wo") if heads % model else
+             ("wk", "wv") if kv % model else ())
+    top = {"embed": 2, "dec_pos": 1} if arch == "whisper-small" else {"embed": 1}
+    gathered = dict({f"blocks/attn/{k}": 2 for k in whole}, **top)
+    assert maxes == (case != "vocab-whole")
+    for g in got:
+        assert g["rows"]["replicas"] == model and not g["rows"]["split_over_model"]
+        assert abs(g["loss"] - loss) <= 1e-6 * abs(loss)
+        assert np.isfinite(g["loss"]) and abs(g["loss"] - jloss) < 5e-2
+        for (lw, nw), (lg, ng) in zip(metrics, g["metrics"]):
+            assert abs(lg - lw) <= 1e-5 * abs(lw) and abs(ng - nw) <= 1e-5 * abs(nw)
+        assert g["launches"] == {"sum": sums, "max": maxes, "model_gathers": gathered}
     for key, want in (("grads", grads), ("params", after)):
         full = selftest.assemble_grads(got, params, key)
         assert len(full) == len(want)

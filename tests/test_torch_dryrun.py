@@ -8,15 +8,17 @@ smollm-135m x the four shapes and granite-moe-1b-a400m x train_4k on 16 x
 16, then granite x decode_32k (a second MoE model traced in the same
 process: the planner's device tables must not outlive a fake mode),
 smollm-135m x prefill_32k and x train_4k on 2 x 16 x 16 (train_4k's 256
-sequences over pod x data, replicated over model), internvl2-2b x
-prefill_32k (its
+sequences over pod x data, replicated over model: its MLP and logits
+tensor-parallel), internvl2-2b x prefill_32k (its
 patches placed by the batch dim only) and whisper-small x long_500k (a
-skip).  Each record must have the reference's keys, its ``status`` rule, its
+skip); llama3-8b x train_4k at full depth on both meshes (the model
+group's shared products against the reference's count).  Each record must have the reference's keys, its ``status`` rule, its
 ``n_params`` and ``model_flops_total`` (the reference's ``count_params`` of
 ``jax.eval_shape(model.init)`` and ``model_flops``), and leave no process
 group behind.  smollm's train step must count, per device, the FLOPs of
 the same step on one process without a mesh at the per-device batch [1,
-4096]: the mesh adds collectives only; and the ``all-reduce`` bytes of both
+4096]: the mesh adds collectives only (on 2 x 16 x 16, [8, 4096] with the
+split products at 1/16); and the ``all-reduce`` bytes of both
 train steps are the gradients that ``train/step.py`` reduces, plus the
 scalars it sums.  The CLI writes the records and a ``FAIL`` record (exit 1)
 where a combo fails (a ``run_one`` made to raise).  ``chip_smoke.py``'s
@@ -119,12 +121,12 @@ def test_no_process_group_is_left(records):
     assert not any(left for _, left in records.values())
 
 
-def _one_process(arch: str, rows: int):
+def _one_process(arch: str, rows: int, **over):
     """The counter's result of the same train step on one process without a
-    mesh at the batch [rows, 4096]."""
+    mesh at the batch [rows, 4096] (``over``: more config overrides)."""
     ctx = ParallelContext(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
                           remat=True, device="cpu")
-    model = build_model(dataclasses.replace(get_config(arch), **DEPTH), ctx)
+    model = build_model(dataclasses.replace(get_config(arch), **DEPTH, **over), ctx)
     with FakeTensorMode():
         params = model.init(0)
         specs = model.input_specs(InputShape("one", 4096, rows, "train"))
@@ -138,22 +140,69 @@ def _one_process(arch: str, rows: int):
 
 def test_mesh_adds_collectives_only(records):
     """smollm's train step counts, per device, the FLOPs of the same step on
-    one process without a mesh at the rows the device runs: [1, 4096] on 16
-    x 16 (256 sequences over data x model), [8, 4096] on 2 x 16 x 16 (over pod
-    x data, each block repeated by the 16 processes of its model group: the
-    model group computes its rows whole, every leaf gathered, no tensor-
-    parallel products).  The placement adds collectives only: the products
-    read whole leaves, and AdamW's elementwise pass over blocks counts no
-    FLOPs."""
-    for mp, rows in ((False, 1), (True, 8)):
-        rec, _ = records[("smollm-135m", "train_4k", mp)]
-        one = _one_process("smollm-135m", rows)
-        roof = rec["roofline"]
-        assert roof["flops_per_device"] == one["flops"], mp
-        assert roof["flops_by_dtype"] == one["flops_by_dtype"], mp
-        assert one["collective_bytes"] == 0
-        assert roof["coll_breakdown"]["all-gather"] > 0
-        assert roof["coll_breakdown"]["reduce-scatter"] > 0
+    one process without a mesh at the rows the device runs.  On 16 x 16,
+    [1, 4096] (256 sequences over data x model): every product reads whole
+    leaves, and the placement adds collectives only (AdamW's elementwise
+    pass over blocks counts no FLOPs).  On 2 x 16 x 16, [8, 4096] (over pod
+    x data, replicated over the 16 processes of a model group): the group
+    shares the products it splits (``sharding/tp.py``), the MLP on d_ff
+    1536 and the logits on vocab 49152, which count 1/16 of their
+    one-process FLOPs; the rest (the attention: 9 query heads do not divide
+    by 16) are equal.  The one-process step with d_ff and vocab cut by 16
+    counts the rest and 1/16 of the split products: the same FLOPs, by
+    dtype too; the split products' own FLOPs are the difference's 16/15."""
+    rec, _ = records[("smollm-135m", "train_4k", False)]
+    one = _one_process("smollm-135m", 1)
+    roof = rec["roofline"]
+    assert roof["flops_per_device"] == one["flops"]
+    assert roof["flops_by_dtype"] == one["flops_by_dtype"]
+    assert one["collective_bytes"] == 0
+    assert roof["coll_breakdown"]["all-gather"] > 0
+    assert roof["coll_breakdown"]["reduce-scatter"] > 0
+
+    rec, _ = records[("smollm-135m", "train_4k", True)]
+    cfg = get_config("smollm-135m")
+    one = _one_process("smollm-135m", 8)
+    cut = _one_process("smollm-135m", 8, d_ff=cfg.d_ff // 16, vocab=cfg.vocab // 16)
+    split = (one["flops"] - cut["flops"]) * 16 / 15
+    rest = one["flops"] - split
+    roof = rec["roofline"]
+    assert split > 0 and rest > 0
+    assert roof["flops_per_device"] == cut["flops"] == rest + split / 16
+    assert roof["flops_by_dtype"] == cut["flops_by_dtype"]
+    assert roof["coll_breakdown"]["all-reduce"] > 0
+
+
+#: the reference's count of llama3-8b x train_4k on 2 x 16 x 16, a device:
+#: ``PYTHONPATH=src JAX_PLATFORMS=cpu python -m repro.launch.dryrun --arch
+#: llama3-8b --shape train_4k --multi-pod`` (its ``cost_analysis``)
+REFERENCE_LLAMA_2X16X16_FLOPS = 130.70e12
+
+
+def test_llama3_8b_train_4k_model_group_shares_the_work():
+    """llama3-8b x train_4k at full depth.  On 2 x 16 x 16 each process runs
+    8 sequences that its model group of 16 holds replicated: the blocks'
+    products split 16 ways (32 query heads; the 8 KV heads read whole, each
+    process projecting the one its 2 heads read; d_ff 14336; vocab
+    128256), so a device counts within 10% of the reference's FLOPs and
+    peaks under one H100's 80 GB (the whole-leaf step: 2091.20 TFLOP,
+    133.27 GB).  Its all-reduces carry the group sums: in each of the 32
+    layers two in the forward, the attention's again in remat's recompute,
+    and two in the backward, each of [8, 4096, 4096] bf16.  On 16 x 16 (one
+    sequence a process) nothing is tensor-parallel: the record is the
+    tree's before."""
+    rec = dryrun.run_one("llama3-8b", "train_4k", multi_pod=True)
+    assert rec["status"] == "ok", rec.get("error")
+    roof, mem = rec["roofline"], rec["bytes_per_device"]
+    assert roof["flops_per_device"] <= 1.10 * REFERENCE_LLAMA_2X16X16_FLOPS
+    assert mem["peak"] < 80e9
+    assert roof["coll_breakdown"]["all-reduce"] >= 5 * 32 * 8 * 4096 * 4096 * 2
+    assert not dist.is_initialized()
+    rec = dryrun.run_one("llama3-8b", "train_4k", multi_pod=False)
+    assert rec["roofline"]["flops_per_device"] == 261400299569152.0
+    assert rec["bytes_per_device"]["argument"] == 931995648
+    assert rec["bytes_per_device"]["peak"] == 17952645128
+    assert rec["roofline"]["coll_breakdown"]["all-reduce"] == 131866756
 
 
 def _param_tree(arch: str):
