@@ -225,6 +225,25 @@ port's six CUDA kernels from ``src/repro_torch/csrc``, all at once, then:
      ``host-sync`` site of the inventory, (file, function), and the sync
      warnings must match the traced syncs site for site; prints the syncs a
      step and the distinct sites.
+ 28. serving on a mesh as the reference places it (``Model.serve_rows``:
+     the rows over data, replicated over model, whose group shares each
+     block's products; the KV cache by heads or by slots over it): (a)
+     llama3-8b at full width through an NCCL world of one (a (data 1, model
+     1) mesh): the 4 x 512 prefill's logits and the 4 x (8 + 8) greedy
+     decode's tokens (``dist_checks.decode_run``, the placed cache) must
+     equal phase 19's bit for bit; (b) two spawned processes on this card,
+     a (data 1, model 2) mesh over gloo (NCCL refuses two ranks on one
+     device), at full width and 8 layers (``SERVE_MESH_LAYERS``): llama3-8b's
+     prefill (flash on 16 of 32 heads) and 16 decode steps (its cache by KV
+     heads), smollm-135m's 16 decode steps (its cache by slots, its 9 heads
+     whole), each fed the greedy tokens of a float32 run in this process on
+     the same bf16 weights: every step's logits within 2e-2 x the largest
+     of a bf16 world of one's, and off float32's by at most
+     ``SERVE_MESH_NOISE`` x the world of one's own error, which a control
+     (the world of one with layer 0's ``wo`` row halves swapped) must
+     exceed; prints each kernel's launches.  gloo sends no point-to-point
+     message from CUDA tensors, which the MoE dataplane needs: paper-moe-8e
+     is held across processes by the CPU tests (``tests/test_torch_dist.py``).
 
 It prints one line per phase, the card's name and power limit as
 ``nvidia-smi`` reports them, a JSON line of per-kernel numbers, and as its
@@ -266,6 +285,11 @@ KERNEL_META = {
                          "src/repro/models/xlstm.py:145"),
 }
 MOE_KERNELS = ("token_gather", "grouped_ffn_blocked", "flash_attention")
+#: phase 28b's depth (full width): tp's reordered bf16 sums at 8 layers
+SERVE_MESH_LAYERS = 8
+#: phase 28b: the two processes' logits may be off float32's by at most this
+#: many times the world of one's bf16 error
+SERVE_MESH_NOISE = 2.0
 #: phase 26a's combos on 16 x 16 and the record values the CPU tests hold
 #: against the reference's dry run (``tests/test_torch_dryrun.py``)
 DRYRUN_PINNED = {
@@ -1656,7 +1680,8 @@ def xlstm_train_phase(torch, np, check, compare, seed: int, dev, smi: str):
 
 def dense_phase(torch, np, check, compare, seed: int, dev, smi: str):
     """Phase 19 -> (flash's report at smollm's head dim 64, its launches at
-    head dims 64 and 128)."""
+    head dims 64 and 128, llama3-8b's prompts, prefill logits, generation
+    prompts and ids for phase 28)."""
     from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -1756,7 +1781,8 @@ def dense_phase(torch, np, check, compare, seed: int, dev, smi: str):
           f"prompt 8, 8 new tokens, greedy: {gen_s:.2f} s, {ids.size / gen_s:.1f} new "
           f"tokens/s (warm-up run excluded); step prefill vs forward max|diff| "
           f"{step_err:.4g}; ids {ids[:, :4].tolist()}; on {smi}", flush=True)
-    del params, model, engine, logits, l_step, l_fwd
+    served = dict(prompts=prompts, logits=logits, gprompts=gprompts, ids=ids)
+    del params, model, engine, l_step, l_fwd
     torch.cuda.empty_cache()
 
     # ---- 19c. gate: reduced configs, card against CPU (f32) -----------------------
@@ -1777,7 +1803,7 @@ def dense_phase(torch, np, check, compare, seed: int, dev, smi: str):
           + f" (limits 1e-4, loss 1e-5: f32 sums in other orders); flash f32 launched "
           f"{launched} times ({time.perf_counter() - t_phase:.0f} s for phase 19 on {smi})",
           flush=True)
-    return fa64, counts_train["flash_attention"], counts_prefill["flash_attention"]
+    return fa64, counts_train["flash_attention"], counts_prefill["flash_attention"], served
 
 
 def _ref_flatten(tree, prefix=""):
@@ -2995,6 +3021,179 @@ def analysis_phase(torch, check, seed: int, smi: str):
           f"({time.perf_counter() - t_phase:.0f} s for phase 27 on {smi})", flush=True)
 
 
+def serve_mesh_phase(torch, np, check, seed: int, dev, smi: str, served19) -> dict:
+    """Phase 28: serving on a mesh; -> the kernels' launches of 28a and 28b."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import dist_checks
+    from repro_torch.launch.dist import local_world, spawn
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.sharding.context import ParallelContext
+
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+    cfg = get_config("llama3-8b")
+    prompts, gprompts = served19["prompts"], served19["gprompts"]
+    B, P, new = gprompts.shape[0], gprompts.shape[1], served19["ids"].shape[1]
+    width = P + new
+
+    # ---- 28a. llama3-8b through an NCCL world of one: phase 19's, bit for bit --------
+    with local_world("nccl"):
+        ctx = ParallelContext(mesh=make_test_mesh(1, 1), param_dtype=bf16, compute_dtype=bf16,
+                              device="cuda")
+        model = build_model(cfg, ctx)
+        params = model.init(seed)
+        reset_launch_counts()
+        with torch.no_grad():
+            logits, _ = model.forward(params, {"tokens": prompts}, last_only=True)
+        one = dist_checks.decode_run(model, params, torch.as_tensor(gprompts, device=dev),
+                                     width, new, B)
+        torch.cuda.synchronize()
+        counts_a = launch_counts()
+        cache = one["cache"]
+        del model, params
+    torch.cuda.empty_cache()
+    same_logits = torch.equal(logits, served19["logits"])
+    same_ids = np.array_equal(one["tokens"].T, served19["ids"])
+    check(same_logits, "28a: llama3-8b prefill through a world of one differs from phase 19's")
+    check(same_ids, "28a: llama3-8b greedy ids through a world of one differ from phase 19's")
+    check(counts_a["flash_attention"] == cfg.n_layers,
+          f"28a: flash launched {counts_a['flash_attention']} times, want {cfg.n_layers}")
+    print(f"[28a serve mesh] {cfg.name} bf16 through an NCCL world of one ((data 1, model 1) "
+          f"mesh): prefill {tuple(prompts.shape)} logits {'=' if same_logits else '!='} phase "
+          f"19's bit for bit; {B} x ({P} + {new}) decode with the placed cache {cache} "
+          f"(whole: one process), ids {'=' if same_ids else '!='} phase 19's; launches "
+          f"{ {k: v for k, v in counts_a.items() if v} }", flush=True)
+
+    # ---- 28b. two processes on this card, a (data 1, model 2) mesh, gloo --------------
+    # NCCL refuses two ranks on one device; gloo takes the serving path's
+    # collectives on CUDA tensors (all_reduce, all_gather, reduce_scatter) but
+    # not point-to-point sends, which the MoE dataplane's hops use (PERF.md):
+    # paper-moe-8e is not run here.  Full width, SERVE_MESH_LAYERS layers: the
+    # model group's reordered bf16 sums move the logits by a random walk over
+    # the layers (PERF.md: about 2% of the largest at 32).  Each arch runs
+    # first in this process: in float32 on the bf16 weights (the reference:
+    # its greedy tokens are fed to every other run), in bf16 (the world of
+    # one), and in bf16 with layer 0's wo row halves swapped (the control: an
+    # error of the size of a misplaced row block).  The two processes' error
+    # against float32 must stay within SERVE_MESH_NOISE x the world of one's,
+    # and the control's must not
+    f32 = torch.float32
+    refs, cases = {}, []
+    for key, arch, seed_p, pre in (("llama3", cfg.name, seed + 3, True),
+                                   ("smollm", "smollm-135m", seed + 5, False)):
+        c = dataclasses.replace(get_config(arch), n_layers=SERVE_MESH_LAYERS)
+        rng = np.random.default_rng(seed_p)
+        p_np = rng.integers(0, c.vocab, (B, 512)) if pre else None
+        g_np = rng.integers(0, c.vocab, (B, P))
+        m16 = build_model(c, ParallelContext(param_dtype=bf16, compute_dtype=bf16,
+                                             device="cuda"))
+        m32 = build_model(c, ParallelContext(param_dtype=f32, compute_dtype=f32, device="cuda"))
+        w16 = m16.init(seed)
+        wo = w16["blocks"]["attn"]["wo"]              # [layers, H dh, D]: rows by heads
+        half = wo.shape[1] // 2
+        ctl_wo = wo.clone()
+        ctl_wo[0, :half], ctl_wo[0, half:2 * half] = wo[0, half:2 * half], wo[0, :half]
+        ctl = dict(w16, blocks=dict(w16["blocks"], attn=dict(w16["blocks"]["attn"], wo=ctl_wo)))
+
+        def one(m, w, fed=None):
+            prefill = None
+            if pre:
+                with torch.no_grad():
+                    prefill = m.forward(w, {"tokens": torch.as_tensor(p_np, device=dev)},
+                                        last_only=True)[0][:, 0].float().cpu().numpy()
+            run = dist_checks.decode_run(m, w, torch.as_tensor(g_np, device=dev), width, new,
+                                         B, fed=None if fed is None else torch.as_tensor(
+                                             fed.T, device=dev))
+            return run, prefill
+
+        ref32 = one(m32, _to(w16, dev, f32))
+        fed = ref32[0]["tokens"]
+        refs[key] = dict(f32=ref32, bf16=one(m16, w16, fed), control=one(m16, ctl, fed))
+        cases.append((key, "serve_fed", dict(arch=arch, seed=seed, prompts=p_np, gprompts=g_np,
+                                             fed=fed.T, width=width,
+                                             n_layers=SERVE_MESH_LAYERS)))
+        del m16, m32, w16, ctl, ctl_wo, wo
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = spawn(dist_checks.run_cases, 2, cases, "cuda", backend="gloo", timeout_s=400)
+    spawn_s = time.perf_counter() - t0
+    tol = 2e-2
+    launched = {}
+    parts = []
+    want_kind = {"llama3": "heads", "smollm": "seq"}
+
+    def rel(got, want):
+        """max over the steps of max|got - want| / max|want| at that step."""
+        got, want = np.asarray(got), np.asarray(want)
+        axes = tuple(range(1, want.ndim))
+        return float((np.abs(got - want).max(axis=axes) /
+                      np.abs(want).max(axis=axes)).max()) if axes else float(
+            np.abs(got - want).max() / np.abs(want).max())
+
+    for key, r3 in refs.items():
+        (l32, p32), (l16, p16), (lc, pc) = r3["f32"], r3["bf16"], r3["control"]
+        noise = rel(l16["logits"], l32["logits"])
+        ctl_err = rel(lc["logits"], l32["logits"])
+        ctl_vs_one = rel(lc["logits"], l16["logits"])
+        check(ctl_err > SERVE_MESH_NOISE * noise and ctl_vs_one > tol,
+              f"28b {key}: the control (layer 0's wo row halves swapped) is off by "
+              f"{ctl_err:.4g} of float32's largest logit and {ctl_vs_one:.4g} of the world "
+              f"of one's, within {SERVE_MESH_NOISE:g} x {noise:.4g} or {tol:g}: the limits "
+              f"would not see a misplaced block")
+        line = (f"{key}: world of one vs float32 {noise:.4g}, control {ctl_err:.4g} "
+                f"({ctl_vs_one:.4g} vs the world of one)")
+        if p32 is not None:
+            pnoise = rel(p16, p32)
+            line += f", prefill {pnoise:.4g} (control {rel(pc, p32):.4g})"
+        for rank, r in enumerate(res):
+            got = r[key]
+            check(got["kind"] == want_kind[key],
+                  f"28b {key}: the cache lies by {got['kind']}, want {want_kind[key]}")
+            # each step's logits against the world of one's at that step
+            errs = np.abs(got["logits"] - l16["logits"]).max(axis=(1, 2))
+            scales = np.abs(l16["logits"]).max(axis=(1, 2))
+            worst = int(np.argmax(errs / scales))
+            check(bool((errs <= tol * scales).all()),
+                  f"28b {key} rank {rank}: step {worst}'s decode logits off by "
+                  f"{errs[worst]:.4g} > {tol:g} x {scales[worst]:.4g}")
+            tp_err = rel(got["logits"], l32["logits"])
+            check(tp_err <= SERVE_MESH_NOISE * noise,
+                  f"28b {key} rank {rank}: decode logits off float32's by {tp_err:.4g} of "
+                  f"the largest, over {SERVE_MESH_NOISE:g} x the world of one's {noise:.4g}")
+            line += (f"; rank {rank}: cache {got['kind']} {got['cache']}, {len(errs)} decode "
+                     f"steps' logits vs the world of one at most "
+                     f"{errs[worst] / scales[worst]:.4g} (step {worst}; limit {tol:g}), vs "
+                     f"float32 {tp_err:.4g} ({tp_err / noise:.3g} x the world of one's; limit "
+                     f"{SERVE_MESH_NOISE:g})")
+            if p16 is not None:
+                perr = float(np.abs(got["prefill"] - p16).max())
+                pscale = float(np.abs(p16).max())
+                check(perr <= tol * pscale, f"28b {key} rank {rank}: prefill logits off by "
+                                            f"{perr:.4g} > {tol:g} x {pscale:.4g}")
+                ptp = rel(got["prefill"], p32)
+                check(ptp <= SERVE_MESH_NOISE * pnoise,
+                      f"28b {key} rank {rank}: prefill logits off float32's by {ptp:.4g}, over "
+                      f"{SERVE_MESH_NOISE:g} x the world of one's {pnoise:.4g}")
+                line += f", prefill {perr / pscale:.4g} (vs float32 {ptp:.4g})"
+            for kname, n_launch in got["launches"].items():
+                launched[kname] = launched.get(kname, 0) + n_launch
+            line += f"; launches { {k: v for k, v in got['launches'].items() if v} }"
+        parts.append(line)
+        check(all(np.array_equal(r[key]["tokens"], l32["tokens"]) for r in res),
+              f"28b {key}: the fed tokens came back changed")
+    want_fa = 2 * SERVE_MESH_LAYERS
+    check(launched.get("flash_attention", 0) == want_fa,
+          f"28b: flash launched {launched.get('flash_attention', 0)} times in the two "
+          f"processes, want {want_fa} (llama3-8b's prefill on 16 of 32 heads each)")
+    print(f"[28b serve mesh] two processes on this card, (data 1, model 2), gloo on CUDA "
+          f"tensors, bf16, full width, {SERVE_MESH_LAYERS} layers, tokens fed from float32 "
+          f"({spawn_s:.1f} s with the spawn): " + "; ".join(parts)
+          + f" ({time.perf_counter() - t_phase:.0f} s for phase 28 on {smi})", flush=True)
+    return {k: counts_a.get(k, 0) + launched.get(k, 0) for k in KERNEL_META}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3395,7 +3594,8 @@ def main() -> int:
     print(f"[18 xlstm train] ({time.perf_counter() - t_start:.0f} s in all)", flush=True)
 
     # ---- 19. the dense family: smollm-135m training, llama3-8b serving ----------------
-    fa64, fa_dh64, fa_dh128 = dense_phase(torch, np, check, compare, args.seed, dev, smi)
+    fa64, fa_dh64, fa_dh128, served19 = dense_phase(torch, np, check, compare, args.seed,
+                                                   dev, smi)
     launches["flash_attention"] += fa_dh64 + fa_dh128
     extra["flash_attention"] = {
         "launches_head_dim_64": fa_dh64, "launches_head_dim_128_llama3": fa_dh128,
@@ -3453,6 +3653,14 @@ def main() -> int:
     # ---- 27. the static checker and the card's own sync report --------------------
     analysis_phase(torch, check, args.seed, smi)
     print(f"[27 analysis] ({time.perf_counter() - t_start:.0f} s in all)", flush=True)
+
+    # ---- 28. serving across processes as the reference places it ------------------
+    serve_launches = serve_mesh_phase(torch, np, check, args.seed, dev, smi, served19)
+    del served19
+    for kname, c in serve_launches.items():
+        launches[kname] += c
+    extra["flash_attention"]["launches_serve_mesh"] = serve_launches["flash_attention"]
+    print(f"[28 serve mesh] ({time.perf_counter() - t_start:.0f} s in all)", flush=True)
 
     kernels = []
     for kname, (src, replaces) in KERNEL_META.items():

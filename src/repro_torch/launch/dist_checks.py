@@ -34,6 +34,11 @@ here, so the caller makes the same ones (``exchange_inputs``,
     over model (``train/step.py::shard_batch``); its gradient blocks, and
     after ``steps`` AdamW steps the parameter blocks, the norms and the
     bytes held;
+  * ``serve`` — serving on a ``(data, model)`` mesh: a prefill's logits and
+    a run of decode steps (the prompt, then greedy tokens) on this
+    process's rows, its blocks of the parameters and of the KV cache;
+    ``serve_fed`` the same at full width in bf16, fed given tokens (the
+    card's phase 28b);
   * ``ckpt`` — a checkpoint written by the world (gathered, one writer) and
     one written by a single process, restored into this process's blocks;
     with the most gathered leaves the save held whole at once, and the
@@ -47,6 +52,7 @@ spawned children can import them.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 from typing import Dict, List, Tuple
 
@@ -272,11 +278,11 @@ def rows_inputs(arch: str, B: int = 2, S: int = 32, device="cpu", capacity: floa
 OPT = dict(lr=1e-2, warmup_steps=1, eps=1e-3)
 
 
-def _ctx(mesh, ep_size, device):
+def _ctx(mesh, ep_size, device, chunk=4):
     from ..sharding.context import ParallelContext
 
     return ParallelContext(mesh=mesh, ep_size=ep_size, group_size=2, moe_mode="nimble",
-                           moe_chunk_tokens=4, device=device)
+                           moe_chunk_tokens=chunk, device=device)
 
 
 def _arrays(ts) -> list:
@@ -397,8 +403,142 @@ def ckpt(group, device, arch="smollm-135m", data=2, model=2, write=None, read=No
                 held_whole=held[0], uploaded=uploaded)
 
 
+def serve_config(arch: str, over=(), capacity: float = 8.0):
+    """(reduced ``arch`` in f32 with the overrides ``over``, at capacity
+    factor ``capacity`` (8: no drops), its EP size: 4 for moe, 1 else)."""
+    cfg, ep_size, _ = rows_inputs(arch, capacity=capacity, over=over)
+    return cfg, ep_size
+
+
+def serve_prompts(cfg, B: int, P: int) -> np.ndarray:
+    """[B, P] prompt tokens from seed 3."""
+    return np.random.default_rng(3).integers(0, cfg.vocab, (B, P))
+
+
+def decode_run(model, params, prompts: torch.Tensor, width: int, steps: int, batch: int,
+               stats=None, fed=None) -> dict:
+    """The prompt [b, P] (this process's rows of a global ``batch``) through
+    ``decode_step`` at positions 0 ... P-1 into a cache of ``width`` slots,
+    then ``steps`` steps on the greedy tokens, or on ``fed`` [b, steps]
+    where given: the logits of every step ([P + steps, b, V], float32 on
+    the host) and the tokens it took after the prompt ([steps, b])."""
+    from ..configs.base import InputShape
+
+    out, toks = [], []
+    with torch.no_grad():
+        cache = model.init_cache(batch, InputShape("serve", width, batch, "decode"))
+        for j in range(prompts.shape[1]):
+            logits, cache = model.decode_step(params, cache, prompts[:, j], j, stats=stats)
+            out.append(logits.float().cpu())
+        for j in range(steps):
+            toks.append(torch.argmax(logits, dim=-1) if fed is None else fed[:, j])
+            logits, cache = model.decode_step(params, cache, toks[-1],
+                                              prompts.shape[1] + j, stats=stats)
+            out.append(logits.float().cpu())
+    return dict(logits=torch.stack(out).numpy(), tokens=torch.stack(toks).cpu().numpy(),
+                cache={k: tuple(v.shape) for k, v in cache.items()})
+
+
+def serve_run(model, params, prompts: torch.Tensor, width: int, steps: int,
+              batch: int) -> dict:
+    """Serving on ``prompts`` [b, P] (this process's rows of a global
+    ``batch``): the prefill's last logits (``forward(last_only=True)`` on
+    ``Model.serve_rows(batch)``), then
+    :func:`decode_run`'s greedy steps, and this process's drops (moe) in the
+    prefill (``prefill_dropped``) and the decode (``dropped``).
+    ``launches``: the decode steps' collectives over the model group
+    (``sharding/tp.py::COUNTS``)."""
+    from ..sharding import tp
+
+    stats = {} if model.cfg.n_experts else None
+    pstats = {} if model.cfg.n_experts else None
+    with torch.no_grad():
+        prefill, _ = model.forward(params, {"tokens": prompts}, last_only=True,
+                                   rows=model.serve_rows(batch), stats=pstats)
+    before = dict(tp.COUNTS)
+    out = decode_run(model, params, prompts, width, steps, batch, stats)
+    out.update(prefill=prefill[:, 0].float().cpu().numpy(),
+               launches={k: tp.COUNTS[k] - before.get(k, 0) for k in ("sum", "max", "gather")},
+               dropped=int(stats.get("dropped", 0)) if stats is not None else 0,
+               prefill_dropped=int(pstats.get("dropped", 0)) if pstats is not None else 0)
+    return out
+
+
+def serve_fed(group, device, arch="llama3-8b", seed=0, prompts=None, gprompts=None,
+              fed=None, width=16, n_layers=None) -> dict:
+    """Serving at full width in bf16 on a ``(data 1, model P)`` mesh, with
+    ``n_layers`` layers where given: the prefill's last logits on
+    ``prompts`` (numpy [B, S], where given), then :func:`decode_run` on
+    ``gprompts`` (numpy [B, P]) fed the tokens ``fed`` ([B, steps]).
+    ``launches``: the kernels' launch counts of the run."""
+    from ..configs.base import get_config
+    from ..kernels import launch_counts, reset_launch_counts
+    from ..models.registry import build_model
+    from ..sharding.context import ParallelContext
+    from ..sharding.specs import kv_layout
+    from .mesh import make_test_mesh
+
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    mesh = make_test_mesh()
+    bf16 = torch.bfloat16
+    ctx = ParallelContext(mesh=mesh, param_dtype=bf16, compute_dtype=bf16, device=device)
+    model = build_model(cfg, ctx)
+    params = model.init(seed)
+    out = dict(kind=kv_layout(cfg.n_kv_heads, width, mesh.size()).kind)
+    reset_launch_counts()
+    if prompts is not None:
+        with torch.no_grad():
+            logits, _ = model.forward(params, {"tokens": torch.as_tensor(prompts, device=device)},
+                                      last_only=True, rows=model.serve_rows(len(prompts)))
+        out["prefill"] = logits[:, 0].float().cpu().numpy()
+    as_t = functools.partial(torch.as_tensor, device=device)
+    out.update(decode_run(model, params, as_t(gprompts), width, fed.shape[1], fed.shape[0],
+                          fed=as_t(fed)))
+    out["launches"] = launch_counts()
+    return out
+
+
+def serve(group, device, arch="llama3-8b", over=(), data=2, model=2, B=4, P=5, steps=6,
+          width=16, tree=None, capacity=8.0, chunk=4) -> dict:
+    """Serving on a ``(data, model)`` mesh (:func:`serve_run`) from seed 0's
+    weights or the reference's ``tree``, the expert layer at ``capacity``
+    and chunks of ``chunk`` tokens: this process's rows of the ``B``
+    prompts (``Model.serve_rows``: over data where it divides them,
+    replicated over model), its
+    blocks of the parameters and the cache.  ``kind``: the cache's
+    ``KVLayout``; ``whole``: the shapes of ``shard_cache``'s blocks of the
+    whole cache, which the placed one must have."""
+    from ..configs.base import InputShape
+    from ..models.registry import build_model
+    from ..sharding.specs import kv_layout, shard_cache
+    from ..weights import params_from_jax
+    from .mesh import make_test_mesh
+
+    cfg, ep_size = serve_config(arch, over, capacity)
+    mesh = make_test_mesh(data * model, model)
+    ctx = _ctx(mesh, ep_size, device, chunk)
+    m = build_model(cfg, ctx)
+    params = m.init(0) if tree is None else params_from_jax(tree, cfg, ctx)
+    rows = m.serve_rows(B)
+    b = B // rows.count
+    prompts = torch.as_tensor(serve_prompts(cfg, B, P)[rows.index * b:(rows.index + 1) * b],
+                              device=device)
+    out = serve_run(m, params, prompts, width, steps, B)
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    whole = build_model(cfg, dataclasses.replace(ctx, mesh=None, device="meta")).init_cache(
+        B, InputShape("serve", width, B, "decode"))
+    out.update(coord=coord, rows=dataclasses.asdict(rows),
+               kind=kv_layout(cfg.n_kv_heads, width, model).kind,
+               whole={k: tuple(v.shape) for k, v in shard_cache(
+                   whole, {"data": data, "model": model}, coord=coord).items()})
+    return out
+
+
 CASES = {"exchange": exchange, "baseline": baseline, "layer": layer, "masked": masked,
-         "gather": gather, "train": train, "rows": rows, "ckpt": ckpt}
+         "gather": gather, "train": train, "rows": rows, "ckpt": ckpt, "serve": serve,
+         "serve_fed": serve_fed}
 
 
 def run_cases(rank: int, world: int, cases: List[Tuple[str, str, dict]],

@@ -25,13 +25,18 @@ sharing each block's products: ``sharding/tp.py``); prefill,
 decode, one ``make_serve_step`` step against a cache of the shape's
 length at position length - 1.  Prefill and decode inputs are placed as
 ``sharding/specs.py::input_specs_sharding`` places them: over the data axes
-where they divide, else replicated.
+where they divide, else replicated; the model group shares the products of
+its replicated rows, and the cache is this process's blocks
+(``Model.init_cache`` of the global batch: its rows, and the dense, vlm and
+moe families' KV heads or slots over the model group, as the reference's
+``build_cache_specs`` places them).
 
 ``bytes_per_device`` is the counterpart of ``memory_analysis()``:
 ``argument`` the step's inputs in this process (its blocks of the
 parameters and of AdamW's moments under ``build_param_specs``, the batch,
 the cache), ``output`` what the step
-returns, ``temp`` the peak of live bytes the step allocates beyond its
+returns (a decode step updates its cache in place and returns it, where the
+reference returns a new one: ``output`` counts the cache it was given), ``temp`` the peak of live bytes the step allocates beyond its
 arguments, ``peak = argument + temp``.  ``compile_s`` holds the run's
 seconds.  Records go to ``experiments/dryrun_torch/``.
 
@@ -111,9 +116,9 @@ def _fake_world(n_chips: int) -> None:
 
 def _local_inputs(specs: Dict[str, torch.Tensor], placement, mesh) -> Dict:
     """This process's block of each input (zeros of the global shape), placed
-    by its batch dim's spec: a serving step gathers every leaf whole before
-    it computes (tensor-parallel products are the train step's, on rows the
-    model group holds replicated), so a modality stub's width stays whole."""
+    by its batch dim's spec: a serving step's model group shares the products
+    of its replicated rows (``sharding/tp.py``), each product reading its
+    input whole, so a modality stub's width stays whole."""
     sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
     coord = mesh_coord(mesh)
     return {k: local_shard(torch.zeros(s.shape, dtype=s.dtype),
@@ -139,14 +144,15 @@ def _step(model, shape, params, mesh):
     inputs = _local_inputs(specs, placement, mesh)
     if shape.kind == "prefill":
         last_only = int(os.environ.get("NIMBLE_PREFILL_FULL", "0")) == 0
+        rows = model.serve_rows(shape.global_batch)
 
         @torch.no_grad()
         def prefill(params, batch):
-            logits, _ = model.forward(params, batch, last_only=last_only)
+            logits, _ = model.forward(params, batch, last_only=last_only, rows=rows)
             return logits[:, -1]
         args = (params, inputs)
         return prefill, args, _storage_bytes(args), shape.global_batch * shape.seq_len
-    cache = model.init_cache(inputs["token"].shape[0], shape)
+    cache = model.init_cache(shape.global_batch, shape)
     serve = torch.no_grad()(make_serve_step(model))
     pos = max(model.cache_len(shape), 1) - 1
     args = (params, cache, inputs["token"], pos)

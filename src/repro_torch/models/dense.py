@@ -127,23 +127,30 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, ctx: ParallelContext
 # -- serving ---------------------------------------------------------------------
 
 
-def init_cache(cfg: ModelConfig, batch: int, cache_len: int, ctx: ParallelContext = SINGLE):
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, ctx: ParallelContext = SINGLE,
+               kv=None):
+    """``batch`` rows' ring of ``cache_len`` slots; ``kv``: this process's
+    block of it over the model group (``sharding/specs.py::KVLayout``)."""
     return L.init_kv_cache(cfg.n_layers, batch, cfg.n_kv_heads, cache_len, cfg.head_dim,
-                           ctx.compute_dtype, ctx.device)
+                           ctx.compute_dtype, ctx.device, kv)
 
 
 def decode_step(params, cache, token: torch.Tensor, pos: int, cfg: ModelConfig,
-                ctx: ParallelContext = SINGLE):
-    """token [B] at position ``pos`` -> (logits [B, V], cache updated in place)."""
-    place = placement(param_shapes, cfg, ctx)
+                ctx: ParallelContext = SINGLE, *, place=None):
+    """token [B] at position ``pos`` -> (logits [B, V], cache updated in place).
+    ``place``: the parameters' placement (serving's TP use from
+    ``Model.decode_step``: the logits are then this process's vocab block)."""
+    place = placement(param_shapes, cfg, ctx) if place is None else place
+    blocks = place.at("blocks")
+    kv = place.kv_layout(cfg.n_kv_heads, cache["slot_pos"].shape[-1])
     x = embed(params, token, place)[:, None, :].to(ctx.compute_dtype)
     for i in range(cfg.n_layers):
-        p = L.layer(params["blocks"], i, place.at("blocks"))
+        p = L.layer(params["blocks"], i, blocks)
         c = {k: v[i] for k, v in cache.items()}
         h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
         x = x + L.attention_decode(
             p["attn"], h, c, pos, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-            head_dim=cfg.head_dim, rope_theta=cfg.rope_theta)
+            head_dim=cfg.head_dim, rope_theta=cfg.rope_theta, tp=blocks.tp_at("attn"), kv=kv)
         h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + L.swiglu(p["mlp"], h)
+        x = x + L.swiglu(p["mlp"], h, blocks.tp_at("mlp"))
     return _logits(params, x, cfg, place)[:, 0], cache

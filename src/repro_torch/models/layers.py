@@ -13,6 +13,8 @@ on this process's "model" blocks of the leaves: :func:`attention_forward`
 on its ``H / m`` query heads and the KV heads they read, :func:`swiglu` and
 :func:`mlp` on its d_ff block; the row-parallel output is summed over the
 model group (``tp.sum``), and a bias after it added once, after the sum.
+:func:`attention_decode` does the same at one position, over a cache split
+by KV heads or by slots (``sharding/specs.py::KVLayout``).
 """
 
 from __future__ import annotations
@@ -177,50 +179,109 @@ def attention_forward(p: Params, x: torch.Tensor, *, n_heads: int, n_kv: int,
 
 
 def init_kv_cache(n_layers: int, batch: int, n_kv: int, cache_len: int,
-                  head_dim: int, dtype, device) -> Params:
-    """Ring-buffer KV cache, stacked over layers; ``cache_len`` = window or seq."""
+                  head_dim: int, dtype, device, kv=None) -> Params:
+    """Ring-buffer KV cache, stacked over layers; ``cache_len`` = window or seq.
+    ``kv``: this process's block of it over the model group
+    (``sharding/specs.py::KVLayout``: its KV heads, its slots); ``slot_pos``
+    always covers the whole ring."""
+    shape = (n_layers, batch, n_kv, cache_len, head_dim) if kv is None else (
+        n_layers, batch, kv.heads(n_kv), kv.slots, head_dim)
     return {
-        "k": torch.zeros((n_layers, batch, n_kv, cache_len, head_dim),
-                         dtype=dtype, device=device),
-        "v": torch.zeros((n_layers, batch, n_kv, cache_len, head_dim),
-                         dtype=dtype, device=device),
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
         "slot_pos": torch.full((n_layers, cache_len), -1, dtype=torch.int64,
                                device=device),
     }
 
 
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid: torch.Tensor,
+            head_dim: int, group=None) -> torch.Tensor:
+    """q [B, H, 1, dh] over the slots of k, v [B, H, W, dh] where ``valid`` [W],
+    in float32.  ``group``: the slots are this process's block of the ring
+    (``"seq"``), and the blocks are combined over the group's processes as a
+    flash-decoding step: the scores' max by one MAX all_reduce, then
+    ``[sum exp(s - max) v, sum exp(s - max)]`` by one sum."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(head_dim)
+    s = torch.where(valid[None, None, None, :], s, float("-inf"))
+    if group is None:
+        return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1), v.float())
+    mx = group.max(s.amax(-1, keepdim=True))         # a slot of pos is always valid
+    e = torch.exp(s - mx)
+    parts = group.sum(torch.cat([torch.einsum("bhqk,bhkd->bhqd", e, v.float()),
+                                 e.sum(-1, keepdim=True)], dim=-1))
+    return parts[..., :-1] / parts[..., -1:]
+
+
 def attention_decode(p: Params, x: torch.Tensor, cache: Params, pos: int, *,
                      n_heads: int, n_kv: int, head_dim: int,
-                     rope_theta: Optional[float]) -> torch.Tensor:
+                     rope_theta: Optional[float], tp=None, kv=None) -> torch.Tensor:
     """One decode step against one layer's ring-buffer cache.
 
     x [B, 1, D] is the token at absolute position ``pos``.  RoPE is applied
     at write time.  The cache tensors (``k``, ``v`` [B, Hkv, W, dh],
     ``slot_pos`` [W]) are updated in place, where the reference returns new
     ones.
+
+    Over a model group that holds the rows replicated (serving's TP use):
+    ``tp`` where ``wq``/``bq``/``wo`` are this process's blocks of ``H / m``
+    query heads, and ``kv`` the cache's ``sharding/specs.py::KVLayout``
+    (``None``: each process holds it whole).
+
+      * ``"heads"``: the process's query heads and its ``Hkv / m`` KV heads
+        (:func:`_local_qkv`), its KV heads' slot written, its rows of ``wo``,
+        then ``tp.sum``: ``attention_forward``'s rule at one position;
+      * ``"seq"``: the process holds every KV head at its block of slots.
+        With ``tp`` its heads' q and the KV heads they read are projected
+        (:func:`_local_qkv`, one copy a query head) and gathered over the
+        group, in head order; without (``H % m != 0``) each process projects
+        them all.  The slot's owner writes k and v, every process
+        ``slot_pos``; every head runs over the process's slots, combined
+        over the group (:func:`_attend`); then its heads' rows of ``wo`` and
+        ``tp.sum`` (with ``tp``) or all of ``wo``;
+      * whole: every process writes every KV head; with ``tp`` it runs its
+        query heads over the KV heads they read (``wk``/``wv`` are read
+        whole where ``Hkv % m != 0``), its rows of ``wo``, then ``tp.sum``.
     """
     b = x.shape[0]
     W = cache["k"].shape[2]
-    q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim)   # [B,H,1,dh]
+    width = cache["slot_pos"].shape[0]
+    seq = kv is not None and kv.kind == "seq"
+    if tp is not None and kv is not None:   # "heads" (Hkv % m == 0 implies H % m == 0), "seq"
+        q, k, v = _local_qkv(p, x, n_heads, n_kv, head_dim, tp)
+    else:                                   # whole: under tp, wk/wv are read whole
+        q, k, v = _project_qkv(p, x, n_heads // (tp.size if tp else 1), n_kv, head_dim)
     if rope_theta is not None:
         ppos = torch.full((1,), pos, dtype=torch.int64, device=x.device)
         q = apply_rope(q, ppos, rope_theta)
         k = apply_rope(k, ppos, rope_theta)
-    slot = pos % W                                           # ring write
-    cache["k"][:, :, slot] = k[:, :, 0]
-    cache["v"][:, :, slot] = v[:, :, 0]
+    hq, g = q.shape[1], n_heads // n_kv
+    if seq and tp is not None:
+        # every head's q and every KV head's k, v, put back in head order
+        # (query head h reads KV head h // g)
+        k, v = (t.repeat_interleave(hq // t.shape[1], dim=1) for t in (k, v))
+        qkv = tp.gather(torch.stack([q, k, v])).movedim(0, 2).flatten(2, 3)
+        q, k, v = qkv[0], qkv[1][:, ::g], qkv[2][:, ::g]
+    slot = pos % width                                       # ring write
+    if not seq or kv.owner(pos) == kv.rank:
+        cache["k"][:, :, slot % W] = k[:, :, 0]
+        cache["v"][:, :, slot % W] = v[:, :, 0]
     cache["slot_pos"][slot] = pos
-    g = n_heads // n_kv
-    kk = cache["k"].repeat_interleave(g, dim=1).float()      # [B,H,W,dh]
-    vv = cache["v"].repeat_interleave(g, dim=1).float()
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) / math.sqrt(head_dim)
     spos = cache["slot_pos"]
+    if seq:
+        spos = spos[kv.rank * W:(kv.rank + 1) * W]
     valid = (spos >= 0) & (spos <= pos)                      # [W]
-    s = torch.where(valid[None, None, None, :], s, float("-inf"))
-    w = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhqk,bhkd->bhqd", w, vv).to(x.dtype)
-    o = o.transpose(1, 2).reshape(b, 1, n_heads * head_dim)
-    return o @ p["wo"]
+    kk, vv = cache["k"], cache["v"]
+    if tp is not None and kv is None:                        # whole: this process's heads
+        reads = [(tp.rank * hq + j) // g for j in range(hq)]
+        kk, vv = kk[:, reads], vv[:, reads]
+    else:
+        kk = kk.repeat_interleave(q.shape[1] // kk.shape[1], dim=1)   # [B,H,W,dh]
+        vv = vv.repeat_interleave(q.shape[1] // vv.shape[1], dim=1)
+    o = _attend(q, kk, vv, valid, head_dim, kv.group if seq else None).to(x.dtype)
+    if seq and tp is not None:
+        o = o[:, tp.rank * hq:(tp.rank + 1) * hq]
+    y = o.transpose(1, 2).reshape(b, 1, o.shape[1] * head_dim) @ p["wo"]
+    return y if tp is None else tp.sum(y)
 
 
 # -- GELU MLP (whisper-style) --------------------------------------------------

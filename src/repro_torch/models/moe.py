@@ -303,26 +303,31 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
-               ctx: ParallelContext = SINGLE):
+               ctx: ParallelContext = SINGLE, kv=None):
+    """As ``dense.init_cache``: ``kv`` this process's block over the model group."""
     return L.init_kv_cache(cfg.n_layers, batch, cfg.n_kv_heads, cache_len,
-                           cfg.head_dim, ctx.compute_dtype, ctx.device)
+                           cfg.head_dim, ctx.compute_dtype, ctx.device, kv)
 
 
 def decode_step(params, cache, token: torch.Tensor, pos: int, cfg: ModelConfig,
                 ctx: ParallelContext = SINGLE, *, moe_apply=None,
-                stats: Optional[dict] = None):
-    """token [B] at position ``pos`` -> (logits [B, V], cache updated in place)."""
+                stats: Optional[dict] = None, place=None):
+    """token [B] at position ``pos`` -> (logits [B, V], cache updated in place).
+    ``place`` as ``dense.decode_step`` takes it; the expert layer as
+    ``moe_apply`` places it (``Model.decode_step``: with the serving rows)."""
     moe_apply = moe_apply or make_moe_ffn(cfg, ctx)
-    place = placement(param_shapes, cfg, ctx)
+    place = placement(param_shapes, cfg, ctx) if place is None else place
+    at = place.at("blocks")
+    kv = place.kv_layout(cfg.n_kv_heads, cache["slot_pos"].shape[-1])
     x = place.at("embed").whole(params["embed"])[token][:, None, :].to(ctx.compute_dtype)
     blocks = params["blocks"]
     for i in range(blocks["ln1"].shape[0]):
-        p = L.layer(blocks, i, place.at("blocks"))
+        p = L.layer(blocks, i, at)
         c = {k: v[i] for k, v in cache.items()}
         h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
         x = x + L.attention_decode(
             p["attn"], h, c, pos, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-            head_dim=cfg.head_dim, rope_theta=cfg.rope_theta)
+            head_dim=cfg.head_dim, rope_theta=cfg.rope_theta, tp=at.tp_at("attn"), kv=kv)
         h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
         y, _, dropped = moe_apply(p, h)
         x = x + y

@@ -40,6 +40,24 @@ _LONG = "long_500k"
 #: gloo worlds hold the step against one process
 _WHOLE_LEAF_FAMILIES = (hybrid,)
 
+#: families that serve over a mesh as the reference places them: the model
+#: group shares the prefill's and the decode step's products, and the KV
+#: cache lies over it by heads or by slots (``sharding/specs.py::KVLayout``);
+#: the others serve each process's rows on whole leaves, with a cache of
+#: those rows
+_SERVE_TP_FAMILIES = (dense, vlm, moe)
+
+
+class ServeCache(dict):
+    """A decode cache's leaves (this process's blocks of them) and ``rows``,
+    the serving ``RowBlock`` they were cut for (``None``: whole leaves, each
+    process's rows its own), which :meth:`Model.decode_step` reads, so that
+    the cache and the step cannot disagree on where the rows lie."""
+
+    def __init__(self, leaves, rows=None):
+        super().__init__(leaves)
+        self.rows = rows
+
 
 def family(cfg: ModelConfig):
     """The model module of ``cfg``'s family."""
@@ -81,13 +99,37 @@ class Model:
         the same weights (``sharding.specs.shard_params``)."""
         return shard_params(self.mod.init(seed, self.cfg, self.ctx), self.ctx)
 
+    def serve_placement(self, rows) -> Placement:
+        """Serving's placement of the parameters for ``rows`` (a ``RowBlock``
+        or ``None``): TP use where the model group holds them replicated, for
+        the families of :data:`_SERVE_TP_FAMILIES`; :attr:`placement` else."""
+        tp_rows = rows if self.mod in _SERVE_TP_FAMILIES else None
+        return placement(self.mod.param_shapes, self.cfg, self.ctx, tp_rows)
+
+    def serve_rows(self, global_batch: int):
+        """Serving's placement of this process's rows of ``global_batch``
+        (``ctx.serve_rows``), the one place it is decided: the ``rows`` of a
+        prefill's :meth:`forward` and the rows :meth:`init_cache` records with
+        the cache for :meth:`decode_step`.  ``None`` without a mesh or on a
+        world of one (every leaf read as it is, the rows its own)."""
+        if self.ctx.mesh is None or self.ctx.mesh.size() == 1:
+            return None
+        return self.ctx.serve_rows(global_batch)
+
     def forward(self, params, batch: Dict[str, torch.Tensor], *, window=None,
                 last_only: bool = False, stats: Optional[dict] = None, rows=None,
                 place: Optional[Placement] = None):
         """-> (logits, aux); ``stats`` (moe only) accumulates capacity drops;
-        ``rows``: the batch's placement over a mesh (``train/step.py``;
-        ``None``: each process's rows its own); ``place``: the parameters'
-        placement (``None``: :attr:`placement`, every leaf read whole)."""
+        ``rows``: the batch's placement over a mesh (``train/step.py``, or
+        :meth:`serve_rows`); ``place``: the parameters' placement.  Without
+        ``place`` this is serving's prefill: the parameters are placed by
+        :meth:`serve_placement` for ``rows`` (on a mesh the model group shares
+        the products of its replicated rows; with no ``rows`` every leaf is
+        read whole and each process's rows are its own), and the logits come
+        back whole, their vocab blocks gathered over the group."""
+        serving = place is None
+        if serving:
+            place = self.serve_placement(rows)
         extra = self._extra(stats, rows)
         if self.mod is not xlstm:        # attention-free: no window to apply
             extra["window"] = window
@@ -96,10 +138,10 @@ class Model:
         if self.cfg.arch_type == "vlm":
             extra["patches"] = batch["patches"]
         out = self.mod.forward(params, batch["tokens"], self.cfg, self.ctx,
-                               last_only=last_only, place=place or self.placement, **extra)
-        if isinstance(out, tuple):
-            return out                   # (logits, aux)
-        return out, torch.zeros((), dtype=torch.float32, device=out.device)
+                               last_only=last_only, place=place, **extra)
+        logits, aux = out if isinstance(out, tuple) else (
+            out, torch.zeros((), dtype=torch.float32, device=out.device))
+        return (place.whole_vocab(logits) if serving else logits), aux
 
     def loss(self, params, batch: Dict[str, torch.Tensor], *, window=None,
              aux_weight: float = 0.01, stats: Optional[dict] = None,
@@ -137,13 +179,42 @@ class Model:
         return shape.seq_len
 
     def init_cache(self, batch: int, shape: InputShape):
-        return self.mod.init_cache(self.cfg, batch, max(self.cache_len(shape), 1),
-                                   self.ctx)
+        """A cache of ``batch`` rows for ``shape``.  On a mesh ``batch`` is the
+        global batch and the cache holds this process's rows (those that
+        :meth:`serve_rows` gives it).  The families of
+        :data:`_SERVE_TP_FAMILIES` return a :class:`ServeCache` that records
+        those rows and holds this process's KV heads or slots over the model
+        group (``sharding/specs.py::KVLayout``, the blocks ``shard_cache`` cuts
+        from the whole), ``slot_pos`` whole; the others their own cache."""
+        width = max(self.cache_len(shape), 1)
+        rows = self.serve_rows(batch)
+        local = batch if rows is None else batch // rows.count
+        if self.mod not in _SERVE_TP_FAMILIES:
+            return self.mod.init_cache(self.cfg, local, width, self.ctx)
+        kv = None if rows is None else self.serve_placement(rows).kv_layout(
+            self.cfg.n_kv_heads, width)
+        return ServeCache(self.mod.init_cache(self.cfg, local, width, self.ctx, kv), rows)
 
     def decode_step(self, params, cache, token, pos: int,
                     stats: Optional[dict] = None):
-        return self.mod.decode_step(params, cache, token, pos, self.cfg, self.ctx,
-                                    **self._extra(stats))
+        """token [B] at position ``pos`` (a host int) -> (logits [B, V], the
+        cache updated in place).  On a mesh ``token`` holds this process's
+        rows and ``cache`` its blocks (:meth:`init_cache`), placed by the rows
+        the cache records: the families of :data:`_SERVE_TP_FAMILIES` take
+        :meth:`serve_placement` for them and return the logits whole; a cache
+        that records none (or a plain dict) is read whole, the rows each
+        process's own.  ``stats`` (moe) gains this process's drops: the
+        model group routes its rows once, so the world's sum over the
+        replicas on the data axes (``train/step.py::routed_copies``) is the
+        step's."""
+        if self.mod not in _SERVE_TP_FAMILIES:
+            return self.mod.decode_step(params, cache, token, pos, self.cfg, self.ctx,
+                                        **self._extra(stats))
+        rows = getattr(cache, "rows", None)
+        place = self.serve_placement(rows)
+        logits, cache = self.mod.decode_step(params, cache, token, pos, self.cfg, self.ctx,
+                                             place=place, **self._extra(stats, rows))
+        return place.whole_vocab(logits), cache
 
     # -- input specs -------------------------------------------------------------
     def supports(self, shape: InputShape) -> bool:

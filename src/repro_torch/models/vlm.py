@@ -41,11 +41,12 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, ctx: ParallelContext
                          last_only=last_only, place=place)
 
 
-def init_cache(cfg: ModelConfig, batch: int, cache_len: int, ctx: ParallelContext = SINGLE):
-    return dense.init_cache(cfg, batch, cache_len, ctx)
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, ctx: ParallelContext = SINGLE,
+               kv=None):
+    return dense.init_cache(cfg, batch, cache_len, ctx, kv)
 
 
 def decode_step(params, cache, token: torch.Tensor, pos: int, cfg: ModelConfig,
-                ctx: ParallelContext = SINGLE):
+                ctx: ParallelContext = SINGLE, *, place=None):
     """``pos`` is the absolute position INCLUDING the patch prefix."""
-    return dense.decode_step(params, cache, token, pos, cfg, ctx)
+    return dense.decode_step(params, cache, token, pos, cfg, ctx, place=place)

@@ -29,7 +29,8 @@ Counterpart of ``repro/sharding/context.py``:
 ``ep_size == 1`` (``SINGLE``) computes the experts locally.
 
 :meth:`ParallelContext.row_block` places a global batch's rows over the
-mesh for the train step (:class:`RowBlock`).
+mesh for the train step (:class:`RowBlock`), :meth:`ParallelContext.serve_rows`
+for serving.
 """
 
 from __future__ import annotations
@@ -137,6 +138,16 @@ class ParallelContext:
         idx, count = self.token_block
         if global_batch % count == 0:
             return RowBlock(idx, count, 1, True)
+        return self.serve_rows(global_batch)
+
+    def serve_rows(self, global_batch: int) -> RowBlock:
+        """Serving's placement of ``global_batch`` rows, as the reference's
+        ``input_specs_sharding`` places a prefill's or a decode step's tokens:
+        over the data axes that divide them (``batch_spec``), replicated over
+        the rest, the model axis always, so that the model group shares each
+        block's products (``sharding/tp.py``)."""
+        if self.mesh is None:
+            return RowBlock(0, 1, 1, True)
         (entry,) = batch_spec(self.mesh, self.data_axes, global_batch)
         axes = () if entry is None else entry if isinstance(entry, tuple) else (entry,)
         sizes, coord = mesh_sizes(self.mesh), mesh_coord(self.mesh)

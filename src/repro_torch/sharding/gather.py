@@ -51,9 +51,9 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from .specs import (Spec, at_path, block_shape, build_param_specs, entry_axes,
-                    is_expert_leaf, leaf_paths, local_shard, map_with_path, mesh_coord,
-                    mesh_sizes, split_axes)
+from .specs import (KVLayout, Spec, at_path, block_shape, build_param_specs, entry_axes,
+                    is_expert_leaf, kv_layout, leaf_paths, local_shard, map_with_path,
+                    mesh_coord, mesh_sizes, split_axes)
 from .tp import TensorParallel
 
 #: launches of the gather's collectives: "all_gather" and "reduce_scatter"
@@ -217,6 +217,23 @@ class Placement:
                 return self.tp
         return None
 
+    def kv_layout(self, n_kv: int, width: int) -> Optional[KVLayout]:
+        """Under TP use, how a KV cache of ``n_kv`` heads and ``width`` slots
+        lies over the model group (``specs.KVLayout``, its ``group`` :attr:`tp`);
+        ``None`` where each process holds it whole."""
+        if self.tp is None:
+            return None
+        kv = kv_layout(n_kv, width, self.tp.size, self.tp.rank, self.tp)
+        return None if kv.kind == "whole" else kv
+
+    def whole_vocab(self, z: torch.Tensor) -> torch.Tensor:
+        """Logits of this process's vocab block (:attr:`vocab`) -> the whole
+        vocab, gathered over the model group (:class:`GatherLeaf`); ``z``
+        itself where the logits stay whole."""
+        if self.vocab is None:
+            return z
+        return gather_leaf(z, ((z.dim() - 1, self.tp.group, self.tp.size),))
+
     def vocab_rows(self, w: torch.Tensor) -> torch.Tensor:
         """A tied embedding ``w`` [V, D], read whole -> the rows of this
         process's logits block (all of them where the logits stay whole)."""
@@ -290,8 +307,9 @@ UNPLACED = Placement()
 
 
 def tp_rows(rows, sizes: Mapping[str, int]) -> bool:
-    """Whether ``rows`` (the train step's ``RowBlock``, or ``None``) lie
-    replicated over a model axis of more than one process: TP use."""
+    """Whether ``rows`` (the train step's or serving's ``RowBlock``, or
+    ``None``) lie replicated over a model axis of more than one process: TP
+    use."""
     return rows is not None and not rows.split_over_model and sizes.get("model", 1) > 1
 
 
@@ -300,7 +318,8 @@ def placement(shapes_of, cfg, ctx, rows=None) -> Placement:
     ``param_shapes``) over ``ctx.mesh``; :data:`UNPLACED` without a mesh or on
     a world of one.  With ``rows`` replicated over the model group
     (:func:`tp_rows`), TP use (module docstring): the train step's loss
-    (``Model.loss``), its logits by vocab where the vocab divides."""
+    (``Model.loss``) or serving's (``Model.forward``/``decode_step``), its
+    logits by vocab where the vocab divides."""
     sizes = mesh_sizes(ctx.mesh)
     if all(s == 1 for s in sizes.values()):
         return UNPLACED

@@ -19,13 +19,16 @@ The port places every leaf by these specs (:func:`shard_params`): each
 process holds its block, and the models read a leaf whole through
 ``sharding/gather.py`` (gathered on use, its gradient reduce-scattered
 back to the block).  :func:`unshard` is :func:`local_shard`'s inverse.
+A serving cache is placed by :func:`shard_cache` (:func:`serve_cache_specs`),
+one layer's KV cache over the model group described by :class:`KVLayout`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import math
-from typing import Dict, Mapping, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -339,6 +342,92 @@ def cache_spec_rules(mesh):
 
 def build_cache_specs(cache, mesh) -> dict:
     return map_with_path(cache_spec_rules(mesh), cache)
+
+
+def serve_cache_specs(cache, mesh, data_axes: Sequence[str] = ("data",)) -> dict:
+    """:func:`build_cache_specs` with a KV leaf's rows placed as
+    :func:`input_specs_sharding` places the tokens (:func:`batch_spec`: the
+    data axes that divide them, "pod" among them; never "model"), so that
+    each process holds the cache of the rows it decodes; ``slot_pos`` stays
+    replicated (spec ``()``)."""
+    specs = build_cache_specs(cache, mesh)
+
+    def one(path, leaf):
+        spec = at_path(specs, path)
+        if str(path[-1]) not in ("k", "v") or len(spec) < 4:
+            return spec
+        rows = len(spec) - 4
+        return (*spec[:rows], batch_spec(mesh, data_axes, _shape(leaf)[rows])[0],
+                *spec[rows + 1:])
+
+    return map_with_path(one, cache)
+
+
+def shard_cache(cache, mesh, data_axes: Sequence[str] = ("data",), coord=None):
+    """A whole cache -> the blocks this process holds under
+    :func:`serve_cache_specs` (contiguous copies where an axis splits a leaf),
+    :func:`shard_params`' counterpart; ``cache`` itself without a mesh.
+    ``coord``: this process's index along each axis (default: the mesh's
+    coordinate, which needs its process group)."""
+    if mesh is None:
+        return cache
+    sizes = mesh_sizes(mesh)
+    coord = mesh_coord(mesh) if coord is None else coord
+    specs = serve_cache_specs(cache, sizes, data_axes)
+
+    def one(path, leaf):
+        spec = at_path(specs, path)
+        if all(sizes.get(a, 1) == 1 for a in split_axes(spec)):
+            return leaf
+        return local_shard(leaf, spec, sizes, coord).contiguous()
+
+    return map_with_path(one, cache)
+
+
+@dataclasses.dataclass(frozen=True)
+class KVLayout:
+    """How one layer's KV cache ``[B, Hkv, W, dh]`` lies over a model group of
+    ``size`` processes, by :func:`cache_spec_rules`' rule, and where process
+    ``rank`` sits in it:
+
+      * ``"heads"`` (``Hkv % m == 0``): each process holds ``Hkv / m`` KV
+        heads, every slot;
+      * ``"seq"`` (else ``W % m == 0``): each process holds every KV head at
+        the slots ``[r W/m, (r+1) W/m)``; the slot of position ``pos`` is
+        written by its owner, ``(pos % W) // (W/m)``;
+      * ``"whole"`` (neither, or a group of one): each process holds it all.
+
+    ``slot_pos`` [W] is replicated under every kind.  ``group``: the model
+    group's ``sharding/tp.py::TensorParallel``, over which a ``"seq"``
+    cache's attention combines its blocks (``None`` where nothing splits)."""
+
+    kind: str
+    size: int
+    rank: int
+    width: int
+    group: Optional[object] = None
+
+    @property
+    def slots(self) -> int:
+        """The slots this process holds."""
+        return self.width // self.size if self.kind == "seq" else self.width
+
+    def heads(self, n_kv: int) -> int:
+        """The KV heads this process holds."""
+        return n_kv // self.size if self.kind == "heads" else n_kv
+
+    def owner(self, pos: int) -> int:
+        """The process that holds the slot of position ``pos`` (``"seq"``)."""
+        return (pos % self.width) // self.slots
+
+
+def kv_layout(n_kv: int, width: int, m: int, rank: int = 0, group=None) -> KVLayout:
+    """The :class:`KVLayout` of a cache of ``n_kv`` heads and ``width`` slots
+    over a model group of ``m`` processes (the rule of
+    :func:`cache_spec_rules`)."""
+    kind = ("whole" if m == 1 else "heads" if n_kv % m == 0
+            else "seq" if width % m == 0 else "whole")
+    return KVLayout(kind, m, rank, width, group if kind != "whole" else None)
 
 
 def mesh_coord(mesh) -> Dict[str, int]:

@@ -44,8 +44,15 @@ divide) collects the processes' shares: the step's all_reduce over
 the step's reduction changes; only what the shares hold.
 
 :data:`COUNTS` counts the sums over a group (``"sum"``: the blocks' and the
-loss's, forward only; a remat recompute counts again) and the loss's max
-(``"max"``).
+loss's, forward only; a remat recompute counts again), the maxes (``"max"``:
+the loss's, a sequence-split decode's) and the decode's gathers
+(``"gather"``).
+
+Serving (``models/registry.py``: a prefill's ``forward`` and ``decode_step``
+on a mesh) places its rows over the data axes only, so the model group
+always holds them replicated and takes the same TP use; the logits' vocab
+blocks are gathered whole.  The decode's attention follows its cache's
+placement (``sharding/specs.py::KVLayout``; ``models/layers.py::attention_decode``).
 """
 
 from __future__ import annotations
@@ -57,7 +64,7 @@ from typing import List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-#: forward launches: "sum" (a sum over the model group), "max" (the loss's)
+#: forward launches over the model group: "sum", "max", "gather"
 COUNTS: collections.Counter = collections.Counter()
 
 
@@ -98,6 +105,21 @@ class TensorParallel:
         """A row-parallel product's partial sums -> their sum over the group."""
         COUNTS["sum"] += 1
         return SumOverGroup.apply(y, self.group)
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` of each process of the group -> ``[m, *t.shape]``, in group-rank
+        order; no gradient (the serving decode's gather of the new token's q,
+        k and v)."""
+        COUNTS["gather"] += 1
+        out = t.new_empty((self.size * t.shape[0], *t.shape[1:]))
+        dist.all_gather_into_tensor(out, t.contiguous(), group=self.group)
+        return out.unflatten(0, (self.size, t.shape[0]))
+
+    def max(self, t: torch.Tensor) -> torch.Tensor:
+        """``t``'s elementwise max over the group, in place; no gradient."""
+        COUNTS["max"] += 1
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+        return t
 
     def kv_heads(self, n_heads: int, n_kv: int) -> Tuple[int, int, Optional[List[int]]]:
         """(first, count, index) of the KV heads that this process's query
@@ -141,7 +163,5 @@ def vocab_parallel_nll(z: torch.Tensor, labels: torch.Tensor, v0: int,
     the max over the group (``all_reduce(MAX)``, no gradient), then the
     blocks' sums of exps and the target's logit summed over the group in
     one :meth:`TensorParallel.sum`."""
-    mx = block_max(z)
-    dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=tp.group)
-    COUNTS["max"] += 1
+    mx = tp.max(block_max(z))
     return nll_from_parts(tp.sum(block_parts(z, labels, v0, mx)), mx)

@@ -122,6 +122,47 @@ TP_CASES = {
 }
 
 
+#: serving on both PLACED worlds, 4 prompts (2 a data block, replicated
+#: over model) unless SERVE_OPTS says otherwise: (arch reduced, its config
+#: overrides, the cache's width, the prompt's length); then 6 greedy steps.  The cache's ``KVLayout`` on model
+#: 2 and model 4 in :data:`SERVE_KINDS`
+_WIDE = (("n_heads", 12), ("n_kv_heads", 3), ("d_model", 192), ("d_ff", 256))
+SERVE_CASES = {
+    # query and KV heads divide by 2 and 4
+    "heads": ("llama3-8b", (("n_heads", 8), ("n_kv_heads", 4)) + _NARROW, 16, 5),
+    # smollm's 9 over 3 heads: the cache by slots, the attention whole
+    "seq-smollm": ("smollm-135m", (("n_heads", 9), ("n_kv_heads", 3), ("d_model", 144),
+                                   ("d_ff", 256)), 16, 5),
+    # 12 over 3 heads: the cache by slots, the query heads split (each process
+    # reading its KV heads unevenly), the new token's q, k, v gathered
+    "seq": ("llama3-8b", _WIDE, 16, 5),
+    # 9 slots divide by neither 2 nor 4: the cache whole, the query heads split
+    "whole": ("llama3-8b", _WIDE, 9, 5),
+    # a ring of 4 slots (2 or 1 a process), written past its wrap twice
+    "ring": ("llama3-8b", _WIDE, 4, 5),
+    # paper-moe-8e: 4 KV heads, EP 4; a prompt of 8 (64 tokens: the expert
+    # layer splits the model group's rows), decode steps of 4 (masked)
+    "moe": ("paper-moe-8e", (), 16, 8),
+    # paper-moe-8e where its capacity drops (SERVE_OPTS): 5 prompts, which
+    # data 2 does not divide, so every process holds all 5 (the prefill's 40
+    # tokens split over the model group, each decode step's 5 on the masked
+    # branch), and the data replicas repeat each drop
+    "moe-drop": ("paper-moe-8e", (), 16, 8),
+}
+SERVE_KINDS = {"heads": ("heads", "heads"), "seq-smollm": ("seq", "seq"), "seq": ("seq", "seq"),
+               "whole": ("whole", "whole"), "ring": ("seq", "seq"), "moe": ("heads", "heads"),
+               "moe-drop": ("heads", "heads")}
+#: a case's batch, the expert layer's capacity factor and chunk (a chunk of
+#: one token, at 0.25, gives a rank's 2 assignments of a decode step one
+#: slot a destination)
+SERVE_OPTS = {"moe-drop": dict(B=5, capacity=0.25, chunk=1)}
+SERVE_STEPS, SERVE_BATCH = 6, 4
+
+
+def serve_opts(case) -> dict:
+    return dict(dict(B=SERVE_BATCH, capacity=8.0, chunk=4), **SERVE_OPTS.get(case, {}))
+
+
 def placed_tokens(P, arch) -> int:
     return PLACED[P][2] if j_get_config(arch).n_experts else 32
 
@@ -158,6 +199,14 @@ def _jax_rows_model(arch, capacity=8.0, over=()):
     assert dataclasses.asdict(jcfg) == dataclasses.asdict(cfg)
     jmodel = j_build_model(jcfg, J_SINGLE)
     return jmodel, jmodel.init(jax.random.PRNGKey(0))
+
+
+@functools.lru_cache(maxsize=None)
+def jax_serve_tree(arch, over=()):
+    """The reference's seed-0 weights of ``dist_checks.serve_config``'s
+    config, as numpy arrays."""
+    _, jparams = _jax_rows_model(arch, 8.0, over)
+    return jax.tree.map(lambda a: np.asarray(a, dtype=np.float32), jparams)
 
 
 def jax_rows_ref(arch, B=2, capacity=8.0, S=32, over=()):
@@ -202,6 +251,10 @@ def _cases(P):
             cases.append((f"tp-{name}", "rows", dict(
                 arch=arch, data=data, model=model, steps=PLACED_STEPS, over=over,
                 remat=remat, tree=jax_rows_ref(arch, over=over)[0])))
+        for name, (arch, over, width, prompt) in SERVE_CASES.items():
+            cases.append((f"serve-{name}", "serve", dict(
+                arch=arch, over=over, data=data, model=model, P=prompt, steps=SERVE_STEPS,
+                width=width, tree=jax_serve_tree(arch, over), **serve_opts(name))))
     if P == 4:
         cases.append(("gather", "gather", {}))
         read, _ = single_ckpt()
@@ -685,6 +738,118 @@ def test_tp_train_step_equals_one_process(world, case):
         assert len(full) == len(want)
         for a, b in zip(full, want):
             _close(a, b)
+
+
+@functools.lru_cache(maxsize=None)
+def single_serve(case):
+    """``dist_checks.serve_run`` of ``case`` in one process, without a mesh,
+    from the JAX package's weights, which the world takes too."""
+    arch, over, width, prompt = SERVE_CASES[case]
+    opts = serve_opts(case)
+    cfg, ep_size = dist_checks.serve_config(arch, over, opts["capacity"])
+    ctx = dist_checks._ctx(None, ep_size, "cpu", opts["chunk"])
+    model = build_model(cfg, ctx)
+    params = params_from_jax(jax_serve_tree(arch, over), cfg, ctx)
+    prompts = torch.as_tensor(dist_checks.serve_prompts(cfg, opts["B"], prompt))
+    return dist_checks.serve_run(model, params, prompts, width, SERVE_STEPS, opts["B"])
+
+
+def _serve_launches(case, model) -> dict:
+    """A decode step's collectives over the model group (``sharding/tp.py``),
+    by the rules of ``models/layers.py::attention_decode``, summed over the
+    run's steps and layers: each layer sums its attention's row-parallel
+    output where the query heads divide, and its dense MLP's where d_ff
+    does (the expert layer's sum is its own); a cache split by slots takes
+    one max and one sum to combine its blocks, and a gather of the new
+    token's q, k, v where the query heads divide."""
+    arch, over, _, prompt = SERVE_CASES[case]
+    cfg, _ = dist_checks.serve_config(arch, over)
+    heads = cfg.n_heads % model == 0
+    seq = SERVE_KINDS[case][model // 4] == "seq"
+    mlp = cfg.arch_type != "moe" and cfg.d_ff % model == 0
+    n = cfg.n_layers * (prompt + SERVE_STEPS)
+    return {"sum": n * (int(heads) + int(mlp) + int(seq)), "max": n * int(seq),
+            "gather": n * int(seq and heads)}
+
+
+@pytest.mark.parametrize("world,case", [pytest.param(P, c, id=f"P{P}-{c}") for P in PLACED
+                                        for c in SERVE_CASES], indirect=["world"])
+def test_serving_across_processes_equals_one_process(world, case):
+    """Serving on (data 2, model 2) and (data 2, model 4), the prompts over
+    data where it divides them, replicated over model (``Model.serve_rows``):
+    each process holds its blocks of the parameters and of the KV cache (by
+    heads, by slots or whole: ``SERVE_KINDS``; the shapes of
+    ``shard_cache``'s blocks), and its prefill's last logits, the decode
+    steps' logits (f32) and greedy tokens are one process's, the logits
+    within 1e-5 of their largest value, whole over the vocab on every
+    process of a model group; the decode's collectives as
+    :func:`_serve_launches` counts them; the world's drops (moe), over the
+    replicas on the data axes, are one process's, in the prefill and the
+    decode, and "moe-drop" drops in both.  Every case but "moe-drop" (whose
+    drops are EP 4's, which one JAX device does not have) is also held
+    against the JAX package's prefill and ``decode_step`` on one device at
+    ``test_torch_dense.py``'s 1e-4."""
+    got = world[f"serve-{case}"]
+    data, model, _ = PLACED[len(got)]
+    want = single_serve(case)
+    B = serve_opts(case)["B"]
+    count = data if B % data == 0 else 1
+    b = B // count
+    for g in got:
+        assert g["rows"] == dict(index=g["coord"]["data"] if count > 1 else 0, count=count,
+                                 replicas=len(got) // count, split_over_model=False)
+        assert g["kind"] == SERVE_KINDS[case][model // 4]
+        assert g["cache"] == g["whole"]
+        rows = slice(g["rows"]["index"] * b, (g["rows"]["index"] + 1) * b)
+        _close(g["prefill"], want["prefill"][rows])
+        _close(g["logits"], want["logits"][:, rows])
+        assert np.array_equal(g["tokens"], want["tokens"][:, rows])
+        assert g["launches"] == _serve_launches(case, model)
+    copies = len(got) // count // model          # the data axes' replicas
+    for key in ("prefill_dropped", "dropped"):
+        assert sum(g[key] for g in got) == copies * want[key], key
+        assert (want[key] > 0) == (case == "moe-drop"), key
+    if case != "moe-drop":
+        jprefill, jlogits = jax_serve(case)
+        for g in got:
+            rows = slice(g["rows"]["index"] * b, (g["rows"]["index"] + 1) * b)
+            _close(g["prefill"], jprefill[rows], 1e-4)
+            _close(g["logits"], jlogits[:, rows], 1e-4)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_prefill(arch, over, prompt):
+    """The JAX package's last prefill logits on one device on the serving
+    prompts of ``arch`` (with ``over``), ``prompt`` tokens long."""
+    cfg, _ = dist_checks.serve_config(arch, over)
+    jmodel, jparams = _jax_rows_model(arch, 8.0, over)
+    prompts = dist_checks.serve_prompts(cfg, SERVE_BATCH, prompt)
+    forward = jax.jit(functools.partial(jmodel.forward, last_only=True))
+    jlogits, _ = forward(jparams, {"tokens": jnp.asarray(prompts.astype(np.int32))})
+    return np.asarray(jlogits)[:, -1]
+
+
+@functools.lru_cache(maxsize=None)
+def jax_serve(case):
+    """The JAX package's prefill logits and ``decode_step`` logits on one
+    device for ``case``, fed the prompts and then one process's greedy
+    tokens (which the worlds' equal)."""
+    arch, over, width, prompt = SERVE_CASES[case]
+    cfg, _ = dist_checks.serve_config(arch, over)
+    jmodel, jparams = _jax_rows_model(arch, 8.0, over)
+    from repro.configs.base import InputShape as JInputShape
+
+    prompts = dist_checks.serve_prompts(cfg, SERVE_BATCH, prompt)
+    toks = np.concatenate([prompts, single_serve(case)["tokens"].T], axis=1)
+    cache = jmodel.init_cache(SERVE_BATCH, JInputShape("serve", width, SERVE_BATCH, "decode"))
+    step = jax.jit(jmodel.decode_step)
+    out = []
+    for j in range(toks.shape[1]):
+        logits, cache = step(jparams, cache, jnp.asarray(toks[:, j].astype(np.int32)),
+                             jnp.int32(j))
+        out.append(np.asarray(logits))
+    assert len(out) == prompt + SERVE_STEPS
+    return _jax_prefill(arch, over, prompt), np.stack(out)
 
 
 _TMP = {}

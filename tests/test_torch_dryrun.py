@@ -15,7 +15,9 @@ skip); llama3-8b x train_4k at full depth on both meshes (the model
 group's shared products against the reference's count).  Each record must have the reference's keys, its ``status`` rule, its
 ``n_params`` and ``model_flops_total`` (the reference's ``count_params`` of
 ``jax.eval_shape(model.init)`` and ``model_flops``), and leave no process
-group behind.  smollm's train step must count, per device, the FLOPs of
+group behind.  Serving at full depth (llama3-8b x decode_32k and x
+prefill_32k, smollm-135m x decode_32k) must count within the stated
+factors of the reference's FLOPs and bytes a device.  smollm's train step must count, per device, the FLOPs of
 the same step on one process without a mesh at the per-device batch [1,
 4096]: the mesh adds collectives only (on 2 x 16 x 16, [8, 4096] with the
 split products at 1/16); and the ``all-reduce`` bytes of both
@@ -203,6 +205,46 @@ def test_llama3_8b_train_4k_model_group_shares_the_work():
     assert rec["bytes_per_device"]["argument"] == 931995648
     assert rec["bytes_per_device"]["peak"] == 17952645128
     assert rec["roofline"]["coll_breakdown"]["all-reduce"] == 131866756
+
+
+#: the reference's counts of serving on 16 x 16, a device: ``PYTHONPATH=src
+#: JAX_PLATFORMS=cpu python -m repro.launch.dryrun --arch A --shape S`` (its
+#: ``cost_analysis`` FLOPs, ``memory_analysis`` argument and peak bytes)
+REFERENCE_SERVE_16X16 = {
+    ("llama3-8b", "decode_32k"): dict(flops=16.09e9, argument=2.34e9, peak=9.32e9),
+    ("llama3-8b", "prefill_32k"): dict(flops=127.54e12, argument=0.19e9, peak=3.94e9),
+    ("smollm-135m", "decode_32k"): dict(flops=1.27e9, argument=0.389e9, peak=1.39e9),
+}
+#: how far the port's count may lie above the reference's, by figure
+SERVE_LIMITS = {
+    ("llama3-8b", "decode_32k"): dict(flops=1.15, argument=1.10, peak=1.25),
+    ("llama3-8b", "prefill_32k"): dict(flops=1.10, peak=2.0),
+    ("smollm-135m", "decode_32k"): dict(argument=1.10),
+}
+
+
+@pytest.mark.parametrize("arch,shape", list(SERVE_LIMITS), ids=[
+    f"{a}-{s}" for a, s in SERVE_LIMITS])
+def test_serving_model_group_shares_the_work(arch, shape):
+    """Serving at full depth on 16 x 16: a decode step's 128 rows, or a
+    prefill's 32, over the 16 data processes (8 or 2 a process), replicated
+    over each model group of 16, which shares the blocks' products
+    (``sharding/tp.py``) and holds the KV cache split over it as the
+    reference's ``build_cache_specs`` places it: llama3-8b's 8 KV heads and
+    smollm's 3 do not divide by 16, so each process holds every head at
+    2048 of the 32768 slots (``KVLayout`` "seq").  The FLOPs, the
+    arguments (the parameters' and the cache's blocks) and the peak a
+    device within :data:`SERVE_LIMITS` of the reference's counts (the step
+    on whole leaves and a cache whole over model: llama3-8b decode 257.51
+    GFLOP, 34.55 GB of arguments, a peak of 45.73 GB; its prefill 2040.70
+    TFLOP, 73.61 GB; smollm's decode 6.06 GB of arguments)."""
+    rec = dryrun.run_one(arch, shape, multi_pod=False)
+    assert rec["status"] == "ok", rec.get("error")
+    got = dict(flops=rec["roofline"]["flops_per_device"], **rec["bytes_per_device"])
+    ref = REFERENCE_SERVE_16X16[(arch, shape)]
+    for key, limit in SERVE_LIMITS[(arch, shape)].items():
+        assert got[key] <= limit * ref[key], (key, got[key], ref[key])
+    assert not dist.is_initialized()
 
 
 def _param_tree(arch: str):

@@ -11,12 +11,17 @@
   layer: attention where the KV heads divide, where two ranks share one
   (llama3-8b's 8 over 16), and where a rank's query heads read them
   unevenly; SwiGLU and the GELU MLP (its bias added once).
+* The decode step on the ranks' blocks (m threads of this process as the
+  model group), the cache split by KV heads, by slots (past the ring's
+  wrap) or whole, against the whole step; and the cache's blocks
+  (``KVLayout``, ``shard_cache``) against ``build_cache_specs``.
 * Which leaves keep their "model" block under TP use
   (``sharding/gather.py``), at the published widths on model 16, and when
   rows take TP use.
 """
 
 import dataclasses
+import threading
 
 import numpy as np
 import pytest
@@ -123,6 +128,131 @@ def test_attention_on_the_ranks_heads_sums_to_the_whole(heads, kv, m, bias):
     got = sum(L.attention_forward(_attention_block(p, r, m, heads, kv, dh), x,
                                   tp=_Local(None, m, r), **kw) for r in range(m))
     assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+class _Threads:
+    """m threads of this process as a model group: each collective hands its
+    tensor in and every thread reads all m of them, in rank order."""
+
+    def __init__(self, m):
+        self.barrier, self.slots = threading.Barrier(m), [None] * m
+
+    def exchange(self, rank, t):
+        self.slots[rank] = t
+        self.barrier.wait()
+        out = list(self.slots)
+        self.barrier.wait()
+        return out
+
+
+class _Thread(TensorParallel):
+    """Rank ``rank`` of ``size`` threads sharing ``group`` (a :class:`_Threads`)."""
+
+    def sum(self, y):
+        return torch.stack(self.group.exchange(self.rank, y)).sum(0)
+
+    def max(self, t):
+        return torch.stack(self.group.exchange(self.rank, t)).amax(0)
+
+    def gather(self, t):
+        return torch.stack(self.group.exchange(self.rank, t))
+
+
+def _cache_block(cache, kv, r):
+    """Rank r's block of one layer's whole cache under ``kv`` (``None``: whole)."""
+    k, v = cache["k"], cache["v"]
+    if kv is not None and kv.kind == "heads":
+        h = k.shape[1] // kv.size
+        k, v = k[:, r * h:(r + 1) * h], v[:, r * h:(r + 1) * h]
+    elif kv is not None:
+        k, v = k[:, :, r * kv.slots:(r + 1) * kv.slots], v[:, :, r * kv.slots:(r + 1) * kv.slots]
+    return {"k": k.clone(), "v": v.clone(), "slot_pos": cache["slot_pos"].clone()}
+
+
+@pytest.mark.parametrize("heads,kv,width,m,steps", [
+    (8, 4, 16, 2, 6),        # "heads"
+    (8, 2, 16, 4, 6),        # 2 KV heads over 4: "seq", two ranks reading one head
+    (12, 3, 16, 2, 6),       # "seq", the query heads reading their KV heads unevenly
+    (9, 3, 16, 2, 6),        # "seq", the attention whole (9 heads over 2)
+    (12, 3, 9, 2, 6),        # "whole", the query heads split
+    (32, 8, 4, 4, 11),       # "seq" of one slot a rank, past the ring's wrap twice
+])
+def test_decode_on_the_ranks_blocks_equals_the_whole(heads, kv, width, m, steps):
+    """``attention_decode`` on m ranks (threads exchanging through
+    :class:`_Threads`), each with its blocks of the weights (its query
+    heads where they divide) and of the cache (``KVLayout``), at positions
+    0 ... steps-1: each step's output within 1e-5 of the whole step's
+    largest value on every rank, and each rank's cache the block of the
+    whole cache."""
+    from repro_torch.sharding.specs import kv_layout
+
+    dh, d, B = 8, 48, 2
+    p = _attention_params(heads + width, d, heads, kv, dh, True)
+    xs = torch.randn(steps, B, 1, d, generator=torch.Generator().manual_seed(2))
+    kw = dict(n_heads=heads, n_kv=kv, head_dim=dh, rope_theta=10000.0)
+    whole = L.init_kv_cache(1, B, kv, width, dh, torch.float32, "cpu")
+    whole = {k: t[0] for k, t in whole.items()}
+    split = heads % m == 0
+    group = _Threads(m)
+    tps = [_Thread(group, m, r) for r in range(m)]
+    lays = [kv_layout(kv, width, m, r, tps[r]) for r in range(m)]
+    lays = [None if lay.kind == "whole" else lay for lay in lays]
+    caches = [_cache_block(whole, lays[r], r) for r in range(m)]
+    blocks = [_attention_block(p, r, m, heads, kv, dh) if split else p for r in range(m)]
+    outs = [[None] * steps for _ in range(m)]
+
+    def rank(r):
+        for i in range(steps):
+            outs[r][i] = L.attention_decode(blocks[r], xs[i], caches[r], i, kv=lays[r],
+                                            tp=tps[r] if split else None, **kw)
+
+    threads = [threading.Thread(target=rank, args=(r,)) for r in range(m)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for i in range(steps):
+        want = L.attention_decode(p, xs[i], whole, i, **kw)
+        for r in range(m):
+            assert (outs[r][i] - want).abs().max() <= 1e-5 * want.abs().max(), (i, r)
+    for r in range(m):
+        blk = _cache_block(whole, lays[r], r)
+        assert torch.equal(caches[r]["slot_pos"], whole["slot_pos"])
+        for k in ("k", "v"):
+            assert (caches[r][k] - blk[k]).abs().max() <= 1e-6 * whole[k].abs().max()
+
+
+@pytest.mark.parametrize("n_kv,width,m,kind", [(8, 32, 4, "heads"), (3, 32, 4, "seq"),
+                                               (3, 9, 4, "whole")])
+def test_kv_layout_and_shard_cache_follow_the_cache_specs(n_kv, width, m, kind):
+    """``kv_layout`` takes ``cache_spec_rules``' split of a ``[L, B, Hkv, W,
+    dh]`` cache; ``shard_cache`` cuts each process's block of it by
+    ``serve_cache_specs`` (the rows over every data axis that divides them,
+    "pod" too; ``slot_pos`` whole), the shape that ``KVLayout`` gives, and
+    the blocks put back together are the whole cache."""
+    from repro_torch.sharding.specs import (build_cache_specs, kv_layout,
+                                            serve_cache_specs, shard_cache, unshard)
+
+    sizes = {"pod": 2, "data": 2, "model": m}
+    g = torch.Generator().manual_seed(0)
+    cache = {"k": torch.randn(2, 8, n_kv, width, 4, generator=g),
+             "v": torch.randn(2, 8, n_kv, width, 4, generator=g),
+             "slot_pos": torch.arange(2 * width).reshape(2, width)}
+    lay = kv_layout(n_kv, width, m)
+    assert lay.kind == kind
+    rule = build_cache_specs(cache, sizes)["k"]
+    assert rule[2:4] == {"heads": ("model", None), "seq": (None, "model"),
+                         "whole": (None, None)}[kind]
+    specs = serve_cache_specs(cache, sizes, ("pod", "data"))
+    assert specs["k"] == (None, ("pod", "data")) + rule[2:] and specs["slot_pos"] == ()
+    for coord in ({"pod": 1, "data": 0, "model": m - 1}, {"pod": 0, "data": 1, "model": 0}):
+        blk = shard_cache(cache, sizes, ("pod", "data"), coord)
+        assert blk["k"].shape == (2, 2, lay.heads(n_kv), lay.slots, 4)
+        assert blk["slot_pos"] is cache["slot_pos"]
+    for key in ("k", "v"):
+        back = unshard(lambda c: shard_cache(cache, sizes, ("pod", "data"), c)[key],
+                       specs[key], sizes)
+        assert torch.equal(back, cache[key])
 
 
 @pytest.mark.parametrize("m", [2, 4])
