@@ -233,17 +233,29 @@ port's six CUDA kernels from ``src/repro_torch/csrc``, all at once, then:
      decode's tokens (``dist_checks.decode_run``, the placed cache) must
      equal phase 19's bit for bit; (b) two spawned processes on this card,
      a (data 1, model 2) mesh over gloo (NCCL refuses two ranks on one
-     device), at full width and 8 layers (``SERVE_MESH_LAYERS``): llama3-8b's
-     prefill (flash on 16 of 32 heads) and 16 decode steps (its cache by KV
-     heads), smollm-135m's 16 decode steps (its cache by slots, its 9 heads
-     whole), each fed the greedy tokens of a float32 run in this process on
-     the same bf16 weights: every step's logits within 2e-2 x the largest
-     of a bf16 world of one's, and off float32's by at most
-     ``SERVE_MESH_NOISE`` x the world of one's own error, which a control
-     (the world of one with layer 0's ``wo`` row halves swapped) must
-     exceed; prints each kernel's launches.  gloo sends no point-to-point
-     message from CUDA tensors, which the MoE dataplane needs: paper-moe-8e
-     is held across processes by the CPU tests (``tests/test_torch_dist.py``).
+     device), at full width and 8 layers (``SERVE_MESH_LAYERS``): llama3-8b
+     (flash on 16 of 32 heads, its cache by KV heads) and smollm-135m
+     (uneven whole heads, 5 and 4 of 9, its cache by slots), each a 4 x 512
+     prefill and 16 decode steps fed the greedy tokens of a float32 run in
+     this process on the same bf16 weights: every step's logits within
+     2e-2 x the largest of a bf16 world of one's, and off float32's by at
+     most ``SERVE_MESH_NOISE`` x the world of one's own error, which a
+     control (the world of one with layer 0's ``wo`` row halves swapped)
+     must exceed; prints each kernel's launches and flash's launches by
+     their heads, which must be each rank's share.  gloo sends no
+     point-to-point message from CUDA tensors, which the MoE dataplane
+     needs: paper-moe-8e is held across processes by the CPU tests
+     (``tests/test_torch_dist.py``).
+ 29. the same two processes and limits (one spawn with 28b,
+     ``SERVE_MESH_CASES``): zamba2-1.2b at full width and 8 layers (its
+     Mamba layers by SSM heads, 16 of 32, their conv and SSM caches by
+     heads, ``gate_norm`` summed over the group; one call of the shared
+     block on 16 of 32 heads, its KV cache by heads; the control: the first
+     Mamba layer's ``out_proj`` row halves swapped) and whisper-small at
+     full size (a 4 x 256 prefill over 1500 stub frames, 6 of 12 heads in
+     the encoder's, the decoder's and the cross attention, the self cache
+     by heads, the cache's encoder states those of the frames; the control:
+     the first decoder layer's cross-attention ``wo`` row halves swapped).
 
 It prints one line per phase, the card's name and power limit as
 ``nvidia-smi`` reports them, a JSON line of per-kernel numbers, and as its
@@ -290,6 +302,20 @@ SERVE_MESH_LAYERS = 8
 #: phase 28b: the two processes' logits may be off float32's by at most this
 #: many times the world of one's bf16 error
 SERVE_MESH_NOISE = 2.0
+#: phases 28b and 29: (key, arch, prompt seed offset, prefill tokens, layers
+#: (None: all), the leaf whose first layer's row halves the control swaps)
+SERVE_MESH_CASES = (
+    ("llama3", "llama3-8b", 3, 512, SERVE_MESH_LAYERS, ("blocks", "attn", "wo")),
+    ("smollm", "smollm-135m", 5, 512, SERVE_MESH_LAYERS, ("blocks", "attn", "wo")),
+    ("zamba2", "zamba2-1.2b", 7, 512, SERVE_MESH_LAYERS, ("mamba", "out_proj")),
+    ("whisper", "whisper-small", 9, 256, None, ("dec", "cross_attn", "wo")),
+)
+#: each process's flash launches in 28b and 29: a prefill's attention layers
+#: (zamba2: one call of its shared block in 8 layers; whisper: the encoder's,
+#: the decoder's self and cross attention, then the encoder again for the
+#: decode cache's states)
+SERVE_MESH_FLASH = {"llama3": SERVE_MESH_LAYERS, "smollm": SERVE_MESH_LAYERS, "zamba2": 1,
+                    "whisper": 12 + 2 * 12 + 12}
 #: phase 26a's combos on 16 x 16 and the record values the CPU tests hold
 #: against the reference's dry run (``tests/test_torch_dryrun.py``)
 DRYRUN_PINNED = {
@@ -3022,7 +3048,8 @@ def analysis_phase(torch, check, seed: int, smi: str):
 
 
 def serve_mesh_phase(torch, np, check, seed: int, dev, smi: str, served19) -> dict:
-    """Phase 28: serving on a mesh; -> the kernels' launches of 28a and 28b."""
+    """Phases 28 and 29: serving on a mesh; -> the kernels' launches of 28a,
+    28b and 29."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import dist_checks
@@ -3066,7 +3093,7 @@ def serve_mesh_phase(torch, np, check, seed: int, dev, smi: str, served19) -> di
           f"(whole: one process), ids {'=' if same_ids else '!='} phase 19's; launches "
           f"{ {k: v for k, v in counts_a.items() if v} }", flush=True)
 
-    # ---- 28b. two processes on this card, a (data 1, model 2) mesh, gloo --------------
+    # ---- 28b and 29. two processes on this card, a (data 1, model 2) mesh, gloo ------
     # NCCL refuses two ranks on one device; gloo takes the serving path's
     # collectives on CUDA tensors (all_reduce, all_gather, reduce_scatter) but
     # not point-to-point sends, which the MoE dataplane's hops use (PERF.md):
@@ -3075,54 +3102,62 @@ def serve_mesh_phase(torch, np, check, seed: int, dev, smi: str, served19) -> di
     # the layers (PERF.md: about 2% of the largest at 32).  Each arch runs
     # first in this process: in float32 on the bf16 weights (the reference:
     # its greedy tokens are fed to every other run), in bf16 (the world of
-    # one), and in bf16 with layer 0's wo row halves swapped (the control: an
-    # error of the size of a misplaced row block).  The two processes' error
-    # against float32 must stay within SERVE_MESH_NOISE x the world of one's,
-    # and the control's must not
+    # one), and in bf16 with one row-parallel leaf's row halves swapped in
+    # its first layer (the control: an error of the size of a misplaced row
+    # block).  The two processes' error against float32 must stay within
+    # SERVE_MESH_NOISE x the world of one's, and the control's must not.
+    # 28b: llama3-8b (16 of 32 heads a process) and smollm-135m (5 and 4 of
+    # 9: uneven whole heads, its cache by slots); 29: zamba2-1.2b (its Mamba
+    # layers by SSM heads, 16 of 32, their conv and SSM caches by heads; one
+    # call of the shared block, 16 of 32 heads) and whisper-small at full
+    # size (6 of 12 heads in the encoder's, the decoder's and the cross
+    # attention; its self cache by heads; the cache's encoder states those
+    # of the prompts' stub frames)
     f32 = torch.float32
     refs, cases = {}, []
-    for key, arch, seed_p, pre in (("llama3", cfg.name, seed + 3, True),
-                                   ("smollm", "smollm-135m", seed + 5, False)):
-        c = dataclasses.replace(get_config(arch), n_layers=SERVE_MESH_LAYERS)
-        rng = np.random.default_rng(seed_p)
-        p_np = rng.integers(0, c.vocab, (B, 512)) if pre else None
+    for key, arch, seed_p, pre, layers, ctl_path in SERVE_MESH_CASES:
+        c = get_config(arch)
+        if layers is not None:
+            c = dataclasses.replace(c, n_layers=layers)
+        rng = np.random.default_rng(seed + seed_p)
+        p_np = rng.integers(0, c.vocab, (B, pre))
         g_np = rng.integers(0, c.vocab, (B, P))
+        f_np = (rng.normal(size=(B, c.n_audio_frames, c.d_model)).astype(np.float32)
+                if c.arch_type == "audio" else None)
         m16 = build_model(c, ParallelContext(param_dtype=bf16, compute_dtype=bf16,
                                              device="cuda"))
         m32 = build_model(c, ParallelContext(param_dtype=f32, compute_dtype=f32, device="cuda"))
         w16 = m16.init(seed)
-        wo = w16["blocks"]["attn"]["wo"]              # [layers, H dh, D]: rows by heads
-        half = wo.shape[1] // 2
-        ctl_wo = wo.clone()
-        ctl_wo[0, :half], ctl_wo[0, half:2 * half] = wo[0, half:2 * half], wo[0, :half]
-        ctl = dict(w16, blocks=dict(w16["blocks"], attn=dict(w16["blocks"]["attn"], wo=ctl_wo)))
+        ctl = _swap_row_halves(w16, ctl_path)
 
         def one(m, w, fed=None):
-            prefill = None
-            if pre:
-                with torch.no_grad():
-                    prefill = m.forward(w, {"tokens": torch.as_tensor(p_np, device=dev)},
-                                        last_only=True)[0][:, 0].float().cpu().numpy()
+            frames = None if f_np is None else torch.as_tensor(f_np, device=dev).to(
+                m.ctx.compute_dtype)
+            batch = {"tokens": torch.as_tensor(p_np, device=dev)}
+            if frames is not None:
+                batch["frames"] = frames
+            with torch.no_grad():
+                prefill = m.forward(w, batch, last_only=True)[0][:, 0].float().cpu().numpy()
             run = dist_checks.decode_run(m, w, torch.as_tensor(g_np, device=dev), width, new,
                                          B, fed=None if fed is None else torch.as_tensor(
-                                             fed.T, device=dev))
+                                             fed.T, device=dev), frames=frames)
             return run, prefill
 
         ref32 = one(m32, _to(w16, dev, f32))
         fed = ref32[0]["tokens"]
-        refs[key] = dict(f32=ref32, bf16=one(m16, w16, fed), control=one(m16, ctl, fed))
+        refs[key] = dict(f32=ref32, bf16=one(m16, w16, fed), control=one(m16, ctl, fed),
+                         ctl="/".join(ctl_path), heads=c.n_heads)
         cases.append((key, "serve_fed", dict(arch=arch, seed=seed, prompts=p_np, gprompts=g_np,
-                                             fed=fed.T, width=width,
-                                             n_layers=SERVE_MESH_LAYERS)))
-        del m16, m32, w16, ctl, ctl_wo, wo
+                                             fed=fed.T, width=width, n_layers=layers,
+                                             frames=f_np)))
+        del m16, m32, w16, ctl
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    res = spawn(dist_checks.run_cases, 2, cases, "cuda", backend="gloo", timeout_s=400)
+    res = spawn(dist_checks.run_cases, 2, cases, "cuda", backend="gloo", timeout_s=600)
     spawn_s = time.perf_counter() - t0
-    tol = 2e-2
     launched = {}
-    parts = []
-    want_kind = {"llama3": "heads", "smollm": "seq"}
+    parts = {"28b": [], "29": []}
+    want_kind = {"llama3": "heads", "smollm": "seq", "zamba2": "heads", "whisper": "heads"}
 
     def rel(got, want):
         """max over the steps of max|got - want| / max|want| at that step."""
@@ -3133,65 +3168,99 @@ def serve_mesh_phase(torch, np, check, seed: int, dev, smi: str, served19) -> di
             np.abs(got - want).max() / np.abs(want).max())
 
     for key, r3 in refs.items():
+        tag = "29" if key in ("zamba2", "whisper") else "28b"
         (l32, p32), (l16, p16), (lc, pc) = r3["f32"], r3["bf16"], r3["control"]
         noise = rel(l16["logits"], l32["logits"])
+        pnoise = rel(p16, p32)
+        # against the world of one: 28b's 2e-2; 29's archs in bf16 are noisier
+        # (zamba2's Mamba states), so the bound there is the one the float32
+        # limit implies, (1 + SERVE_MESH_NOISE) x the world of one's error
+        tol = 2e-2 if tag == "28b" else (1 + SERVE_MESH_NOISE) * noise
+        ptol = 2e-2 if tag == "28b" else (1 + SERVE_MESH_NOISE) * pnoise
         ctl_err = rel(lc["logits"], l32["logits"])
         ctl_vs_one = rel(lc["logits"], l16["logits"])
         check(ctl_err > SERVE_MESH_NOISE * noise and ctl_vs_one > tol,
-              f"28b {key}: the control (layer 0's wo row halves swapped) is off by "
-              f"{ctl_err:.4g} of float32's largest logit and {ctl_vs_one:.4g} of the world "
-              f"of one's, within {SERVE_MESH_NOISE:g} x {noise:.4g} or {tol:g}: the limits "
+              f"{tag} {key}: the control ({r3['ctl']}'s row halves swapped in layer 0) is off "
+              f"by {ctl_err:.4g} of float32's largest logit and {ctl_vs_one:.4g} of the world "
+              f"of one's, within {SERVE_MESH_NOISE:g} x {noise:.4g} or {tol:.4g}: the limits "
               f"would not see a misplaced block")
-        line = (f"{key}: world of one vs float32 {noise:.4g}, control {ctl_err:.4g} "
-                f"({ctl_vs_one:.4g} vs the world of one)")
-        if p32 is not None:
-            pnoise = rel(p16, p32)
-            line += f", prefill {pnoise:.4g} (control {rel(pc, p32):.4g})"
+        line = (f"{key}: world of one vs float32 {noise:.4g}, control ({r3['ctl']}) "
+                f"{ctl_err:.4g} ({ctl_vs_one:.4g} vs the world of one), prefill {pnoise:.4g} "
+                f"(control {rel(pc, p32):.4g})")
+        heads = set()
         for rank, r in enumerate(res):
             got = r[key]
             check(got["kind"] == want_kind[key],
-                  f"28b {key}: the cache lies by {got['kind']}, want {want_kind[key]}")
+                  f"{tag} {key}: the cache lies by {got['kind']}, want {want_kind[key]}")
             # each step's logits against the world of one's at that step
             errs = np.abs(got["logits"] - l16["logits"]).max(axis=(1, 2))
             scales = np.abs(l16["logits"]).max(axis=(1, 2))
             worst = int(np.argmax(errs / scales))
             check(bool((errs <= tol * scales).all()),
-                  f"28b {key} rank {rank}: step {worst}'s decode logits off by "
-                  f"{errs[worst]:.4g} > {tol:g} x {scales[worst]:.4g}")
+                  f"{tag} {key} rank {rank}: step {worst}'s decode logits off by "
+                  f"{errs[worst]:.4g} > {tol:.4g} x {scales[worst]:.4g}")
             tp_err = rel(got["logits"], l32["logits"])
             check(tp_err <= SERVE_MESH_NOISE * noise,
-                  f"28b {key} rank {rank}: decode logits off float32's by {tp_err:.4g} of "
+                  f"{tag} {key} rank {rank}: decode logits off float32's by {tp_err:.4g} of "
                   f"the largest, over {SERVE_MESH_NOISE:g} x the world of one's {noise:.4g}")
             line += (f"; rank {rank}: cache {got['kind']} {got['cache']}, {len(errs)} decode "
                      f"steps' logits vs the world of one at most "
-                     f"{errs[worst] / scales[worst]:.4g} (step {worst}; limit {tol:g}), vs "
+                     f"{errs[worst] / scales[worst]:.4g} (step {worst}; limit {tol:.4g}), vs "
                      f"float32 {tp_err:.4g} ({tp_err / noise:.3g} x the world of one's; limit "
                      f"{SERVE_MESH_NOISE:g})")
-            if p16 is not None:
-                perr = float(np.abs(got["prefill"] - p16).max())
-                pscale = float(np.abs(p16).max())
-                check(perr <= tol * pscale, f"28b {key} rank {rank}: prefill logits off by "
-                                            f"{perr:.4g} > {tol:g} x {pscale:.4g}")
-                ptp = rel(got["prefill"], p32)
-                check(ptp <= SERVE_MESH_NOISE * pnoise,
-                      f"28b {key} rank {rank}: prefill logits off float32's by {ptp:.4g}, over "
-                      f"{SERVE_MESH_NOISE:g} x the world of one's {pnoise:.4g}")
-                line += f", prefill {perr / pscale:.4g} (vs float32 {ptp:.4g})"
+            perr = float(np.abs(got["prefill"] - p16).max())
+            pscale = float(np.abs(p16).max())
+            check(perr <= ptol * pscale, f"{tag} {key} rank {rank}: prefill logits off by "
+                                         f"{perr:.4g} > {ptol:.4g} x {pscale:.4g}")
+            ptp = rel(got["prefill"], p32)
+            check(ptp <= SERVE_MESH_NOISE * pnoise,
+                  f"{tag} {key} rank {rank}: prefill logits off float32's by {ptp:.4g}, over "
+                  f"{SERVE_MESH_NOISE:g} x the world of one's {pnoise:.4g}")
+            line += (f", prefill {perr / pscale:.4g} (limit {ptol:.4g}; vs float32 "
+                     f"{ptp:.4g})")
             for kname, n_launch in got["launches"].items():
                 launched[kname] = launched.get(kname, 0) + n_launch
-            line += f"; launches { {k: v for k, v in got['launches'].items() if v} }"
-        parts.append(line)
+            heads |= set(got["flash_heads"])
+            line += (f"; launches { {k: v for k, v in got['launches'].items() if v} }, flash "
+                     f"by heads {got['flash_heads']}")
+        # the ranks' heads, 2 processes: ceil and floor of H / 2
+        want_heads = {-(-r3["heads"] // 2), r3["heads"] // 2}
+        check(heads == want_heads, f"{tag} {key}: flash launched on {sorted(heads)} heads, "
+                                   f"want {sorted(want_heads)} (each rank's share)")
+        parts[tag].append(line)
         check(all(np.array_equal(r[key]["tokens"], l32["tokens"]) for r in res),
-              f"28b {key}: the fed tokens came back changed")
-    want_fa = 2 * SERVE_MESH_LAYERS
+              f"{tag} {key}: the fed tokens came back changed")
+    want_fa = sum(2 * n for n in SERVE_MESH_FLASH.values())
     check(launched.get("flash_attention", 0) == want_fa,
-          f"28b: flash launched {launched.get('flash_attention', 0)} times in the two "
-          f"processes, want {want_fa} (llama3-8b's prefill on 16 of 32 heads each)")
-    print(f"[28b serve mesh] two processes on this card, (data 1, model 2), gloo on CUDA "
-          f"tensors, bf16, full width, {SERVE_MESH_LAYERS} layers, tokens fed from float32 "
-          f"({spawn_s:.1f} s with the spawn): " + "; ".join(parts)
-          + f" ({time.perf_counter() - t_phase:.0f} s for phase 28 on {smi})", flush=True)
+          f"28b/29: flash launched {launched.get('flash_attention', 0)} times in the two "
+          f"processes, want {want_fa} ({SERVE_MESH_FLASH} a process)")
+    for tag, what in (("28b", "llama3-8b and smollm-135m"),
+                      ("29", "zamba2-1.2b and whisper-small")):
+        print(f"[{tag} serve mesh] {what}: two processes on this card, (data 1, model 2), gloo "
+              f"on CUDA tensors, bf16, full width, tokens fed from float32 ({spawn_s:.1f} s "
+              f"for the spawn of 28b and 29): " + "; ".join(parts[tag])
+              + f" ({time.perf_counter() - t_phase:.0f} s for phases 28 and 29 on {smi})",
+              flush=True)
     return {k: counts_a.get(k, 0) + launched.get(k, 0) for k in KERNEL_META}
+
+
+def _swap_row_halves(tree, path):
+    """``tree`` with the leaf at ``path`` [layers, rows, cols] cloned and its
+    first layer's two row halves swapped (the model group's row blocks of a
+    row-parallel product, misplaced)."""
+    leaf = tree
+    for k in path:
+        leaf = leaf[k]
+    new = leaf.clone()
+    half = leaf.shape[1] // 2
+    new[0, :half], new[0, half:2 * half] = leaf[0, half:2 * half], leaf[0, :half]
+
+    def put(node, keys):
+        if not keys:
+            return new
+        return dict(node, **{keys[0]: put(node[keys[0]], keys[1:])})
+
+    return put(tree, tuple(path))
 
 
 def main() -> int:
@@ -3654,13 +3723,13 @@ def main() -> int:
     analysis_phase(torch, check, args.seed, smi)
     print(f"[27 analysis] ({time.perf_counter() - t_start:.0f} s in all)", flush=True)
 
-    # ---- 28. serving across processes as the reference places it ------------------
+    # ---- 28, 29. serving across processes as the reference places it --------------
     serve_launches = serve_mesh_phase(torch, np, check, args.seed, dev, smi, served19)
     del served19
     for kname, c in serve_launches.items():
         launches[kname] += c
     extra["flash_attention"]["launches_serve_mesh"] = serve_launches["flash_attention"]
-    print(f"[28 serve mesh] ({time.perf_counter() - t_start:.0f} s in all)", flush=True)
+    print(f"[28-29 serve mesh] ({time.perf_counter() - t_start:.0f} s in all)", flush=True)
 
     kernels = []
     for kname, (src, replaces) in KERNEL_META.items():

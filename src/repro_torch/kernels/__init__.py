@@ -17,5 +17,8 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
+    from .flash_attention.ops import LAUNCH_HEADS
+
     for name in _build.LAUNCHES:
         _build.LAUNCHES[name] = 0
+    LAUNCH_HEADS.clear()

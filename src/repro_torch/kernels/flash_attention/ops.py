@@ -18,6 +18,7 @@ fewer.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 from typing import Optional
@@ -36,6 +37,9 @@ _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float] + [
     ctypes.c_int] * 3 + [ctypes.c_void_p]
 #: keys a chunk of :func:`chunked_attention` (the reference's ``_CHUNK``)
 _CHUNK = 2048
+#: the kernel's launches by their query heads (a model group's uneven heads
+#: each launch on their own count); ``reset_launch_counts`` clears it
+LAUNCH_HEADS: collections.Counter = collections.Counter()
 
 
 def _mask(sq: int, sk: int, causal: bool, window: Optional[int], q_offset: int,
@@ -77,9 +81,10 @@ def mha_ref(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     """Plain version: q [B,H,Sq,Dh], k/v [B,Hkv,Sk,Dh] -> [B,H,Sq,Dh]."""
     b, h, sq, dh = q.shape
     g = h // k.shape[1]
-    kk = k.repeat_interleave(g, dim=1).float()
-    vv = v.repeat_interleave(g, dim=1).float()
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk)
+    f = torch.promote_types(q.dtype, torch.float32)     # float64 stays float64
+    kk = k.repeat_interleave(g, dim=1).to(f)
+    vv = v.repeat_interleave(g, dim=1).to(f)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(f), kk)
     s = s / torch.tensor(math.sqrt(dh), dtype=torch.float32)
     mask = _mask(sq, k.shape[2], causal, window, q_offset, q.device)
     s = torch.where(mask[None, None], s, float("-inf"))
@@ -164,6 +169,7 @@ def _flash(q, k, v, *, causal: bool, window: Optional[int], q_offset: int) -> to
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, entry)
     _build.LAUNCHES[count] += 1
+    LAUNCH_HEADS[h] += 1
     _build.report(count, lambda: (*flash_cost(q.shape, k.numel(), causal, window, q_offset,
                                               sk, q.element_size()), q.dtype))
     return o
@@ -229,7 +235,14 @@ def route(device_type: str, sq: int, sk: int) -> str:
 
 def attention(q, k, v, causal: bool = True, window: Optional[int] = None,
               q_offset: int = 0) -> torch.Tensor:
-    """[B,H,Sq,Dh] x [B,Hkv,Sk,Dh]^2 -> [B,H,Sq,Dh]; GQA via Hkv | H."""
+    """[B,H,Sq,Dh] x [B,Hkv,Sk,Dh]^2 -> [B,H,Sq,Dh]; GQA via Hkv | H.
+
+    H = 0 (a process of the model group that holds no query head,
+    ``sharding/tp.py::head_range``): the empty output, launched nowhere,
+    still reads q, k and v, so that the gathers of their leaves run their
+    backward in this process as in the others."""
+    if q.shape[1] == 0:
+        return q + (k.sum() + v.sum()).to(q.dtype) * 0
     name = route(q.device.type, q.shape[2], k.shape[2])
     if name == "flash_attention":
         return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),

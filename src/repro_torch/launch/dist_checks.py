@@ -61,6 +61,10 @@ import torch
 
 MODES = ("direct", "stripe", "nimble")
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+#: the train cases' parameter and compute dtypes (float64: zamba2's step,
+#: whose Mamba gradients are near-cancelling sums that a reordered float32
+#: sum moves past 1e-5 of their largest value)
+FLOATS = dict(DTYPES, f64=torch.float64)
 
 
 def exchange_inputs(n: int, C: int, E: int, seed: int, dtype: str):
@@ -286,7 +290,9 @@ def _ctx(mesh, ep_size, device, chunk=4):
 
 
 def _arrays(ts) -> list:
-    return [t.float().cpu().numpy() if isinstance(t, torch.Tensor) else t for t in ts]
+    """Tensors as numpy arrays of at least float32 (float64 kept)."""
+    return [t.detach().to(torch.promote_types(t.dtype, torch.float32)).cpu().numpy()
+            if isinstance(t, torch.Tensor) else t for t in ts]
 
 
 def held_bytes(*trees) -> int:
@@ -298,14 +304,15 @@ def held_bytes(*trees) -> int:
 
 
 def rows(group, device, arch="paper-moe-8e", data=2, model=2, B=2, S=32,
-         capacity=8.0, tree=None, steps=0, over=(), remat=False) -> dict:
+         capacity=8.0, tree=None, steps=0, over=(), remat=False, dtype="f32") -> dict:
     """This process's loss, drops and gradient blocks of one train step's
     ``loss_and_grads`` on a ``(data, model)`` mesh, from seed 0's weights or
     the reference's ``tree`` (numpy, through ``params_from_jax``); with
     ``steps``, its parameter blocks after that many steps (:data:`OPT`), each
     step's loss and norm, and the bytes of parameters and moments held.
     ``over``: config overrides (``rows_inputs``); ``remat``: recompute each
-    block in the backward.  ``launches``: the first step's sums over the
+    block in the backward; ``dtype``: the parameters' and the compute's
+    (:data:`FLOATS`).  ``launches``: the first step's sums over the
     model group and loss maxes (``sharding/tp.py::COUNTS``), and the gathers
     over "model" of each leaf (``sharding/gather.py::LEAF_GATHERS``)."""
     from ..models.registry import build_model
@@ -319,7 +326,8 @@ def rows(group, device, arch="paper-moe-8e", data=2, model=2, B=2, S=32,
 
     cfg, ep_size, batch = rows_inputs(arch, B, S, device, capacity, over)
     mesh = make_test_mesh(data * model, model)
-    ctx = dataclasses.replace(_ctx(mesh, ep_size, device), remat=remat)
+    ctx = dataclasses.replace(_ctx(mesh, ep_size, device), remat=remat,
+                              param_dtype=FLOATS[dtype], compute_dtype=FLOATS[dtype])
     m = build_model(cfg, ctx)
     stats = {} if cfg.n_experts else None
     params = m.init(0) if tree is None else params_from_jax(tree, cfg, ctx)
@@ -415,18 +423,46 @@ def serve_prompts(cfg, B: int, P: int) -> np.ndarray:
     return np.random.default_rng(3).integers(0, cfg.vocab, (B, P))
 
 
+def serve_frames(cfg, B: int):
+    """The audio family's stub frames [B, F, d] (float32) from seed 4; ``None``
+    for the other families."""
+    if cfg.arch_type != "audio":
+        return None
+    return np.random.default_rng(4).normal(
+        size=(B, cfg.n_audio_frames, cfg.d_model)).astype(np.float32)
+
+
+def encoder_states(model, params, frames: torch.Tensor, batch: int) -> torch.Tensor:
+    """The audio family's encoder states of this process's rows' ``frames``
+    (of a global ``batch``), placed as serving places that batch."""
+    place = model.serve_placement(model.serve_rows(batch))
+    return model.mod.encode(params, frames, model.cfg, model.ctx, place)
+
+
+def shapes(tree, prefix="") -> dict:
+    """{"a/b": shape} of a (nested) cache's leaves."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in shapes(sub, f"{prefix}{key}/").items()}
+    return {prefix[:-1]: tuple(tree.shape)}
+
+
 def decode_run(model, params, prompts: torch.Tensor, width: int, steps: int, batch: int,
-               stats=None, fed=None) -> dict:
+               stats=None, fed=None, frames=None) -> dict:
     """The prompt [b, P] (this process's rows of a global ``batch``) through
     ``decode_step`` at positions 0 ... P-1 into a cache of ``width`` slots,
     then ``steps`` steps on the greedy tokens, or on ``fed`` [b, steps]
     where given: the logits of every step ([P + steps, b, V], float32 on
-    the host) and the tokens it took after the prompt ([steps, b])."""
+    the host) and the tokens it took after the prompt ([steps, b]).
+    ``frames`` (the audio family, the rows' [b, F, d]): the cache's encoder
+    states are theirs (:func:`encoder_states`), not zeros."""
     from ..configs.base import InputShape
 
     out, toks = [], []
     with torch.no_grad():
         cache = model.init_cache(batch, InputShape("serve", width, batch, "decode"))
+        if frames is not None:
+            cache["enc_out"].copy_(encoder_states(model, params, frames, batch))
         for j in range(prompts.shape[1]):
             logits, cache = model.decode_step(params, cache, prompts[:, j], j, stats=stats)
             out.append(logits.float().cpu())
@@ -436,13 +472,14 @@ def decode_run(model, params, prompts: torch.Tensor, width: int, steps: int, bat
                                               prompts.shape[1] + j, stats=stats)
             out.append(logits.float().cpu())
     return dict(logits=torch.stack(out).numpy(), tokens=torch.stack(toks).cpu().numpy(),
-                cache={k: tuple(v.shape) for k, v in cache.items()})
+                cache=shapes(cache))
 
 
 def serve_run(model, params, prompts: torch.Tensor, width: int, steps: int,
-              batch: int) -> dict:
+              batch: int, frames=None) -> dict:
     """Serving on ``prompts`` [b, P] (this process's rows of a global
-    ``batch``): the prefill's last logits (``forward(last_only=True)`` on
+    ``batch``; ``frames`` their stub frames, the audio family's): the
+    prefill's last logits (``forward(last_only=True)`` on
     ``Model.serve_rows(batch)``), then
     :func:`decode_run`'s greedy steps, and this process's drops (moe) in the
     prefill (``prefill_dropped``) and the decode (``dropped``).
@@ -452,11 +489,12 @@ def serve_run(model, params, prompts: torch.Tensor, width: int, steps: int,
 
     stats = {} if model.cfg.n_experts else None
     pstats = {} if model.cfg.n_experts else None
+    inputs = {"tokens": prompts} if frames is None else {"tokens": prompts, "frames": frames}
     with torch.no_grad():
-        prefill, _ = model.forward(params, {"tokens": prompts}, last_only=True,
+        prefill, _ = model.forward(params, inputs, last_only=True,
                                    rows=model.serve_rows(batch), stats=pstats)
     before = dict(tp.COUNTS)
-    out = decode_run(model, params, prompts, width, steps, batch, stats)
+    out = decode_run(model, params, prompts, width, steps, batch, stats, frames=frames)
     out.update(prefill=prefill[:, 0].float().cpu().numpy(),
                launches={k: tp.COUNTS[k] - before.get(k, 0) for k in ("sum", "max", "gather")},
                dropped=int(stats.get("dropped", 0)) if stats is not None else 0,
@@ -465,14 +503,17 @@ def serve_run(model, params, prompts: torch.Tensor, width: int, steps: int,
 
 
 def serve_fed(group, device, arch="llama3-8b", seed=0, prompts=None, gprompts=None,
-              fed=None, width=16, n_layers=None) -> dict:
+              fed=None, width=16, n_layers=None, frames=None) -> dict:
     """Serving at full width in bf16 on a ``(data 1, model P)`` mesh, with
     ``n_layers`` layers where given: the prefill's last logits on
     ``prompts`` (numpy [B, S], where given), then :func:`decode_run` on
-    ``gprompts`` (numpy [B, P]) fed the tokens ``fed`` ([B, steps]).
-    ``launches``: the kernels' launch counts of the run."""
+    ``gprompts`` (numpy [B, P]) fed the tokens ``fed`` ([B, steps]);
+    ``frames`` (numpy [B, F, d]): the audio family's stub frames of both.
+    ``launches``: the kernels' launch counts of the run; ``flash_heads``:
+    the flash kernel's launches by their query heads."""
     from ..configs.base import get_config
     from ..kernels import launch_counts, reset_launch_counts
+    from ..kernels.flash_attention.ops import LAUNCH_HEADS
     from ..models.registry import build_model
     from ..sharding.context import ParallelContext
     from ..sharding.specs import kv_layout
@@ -487,16 +528,20 @@ def serve_fed(group, device, arch="llama3-8b", seed=0, prompts=None, gprompts=No
     model = build_model(cfg, ctx)
     params = model.init(seed)
     out = dict(kind=kv_layout(cfg.n_kv_heads, width, mesh.size()).kind)
+    as_t = functools.partial(torch.as_tensor, device=device)
+    frames = None if frames is None else as_t(frames).to(bf16)
     reset_launch_counts()
     if prompts is not None:
+        batch = {"tokens": as_t(prompts)}
+        if frames is not None:
+            batch["frames"] = frames
         with torch.no_grad():
-            logits, _ = model.forward(params, {"tokens": torch.as_tensor(prompts, device=device)},
-                                      last_only=True, rows=model.serve_rows(len(prompts)))
+            logits, _ = model.forward(params, batch, last_only=True,
+                                      rows=model.serve_rows(len(prompts)))
         out["prefill"] = logits[:, 0].float().cpu().numpy()
-    as_t = functools.partial(torch.as_tensor, device=device)
     out.update(decode_run(model, params, as_t(gprompts), width, fed.shape[1], fed.shape[0],
-                          fed=as_t(fed)))
-    out["launches"] = launch_counts()
+                          fed=as_t(fed), frames=frames))
+    out.update(launches=launch_counts(), flash_heads=dict(LAUNCH_HEADS))
     return out
 
 
@@ -523,16 +568,18 @@ def serve(group, device, arch="llama3-8b", over=(), data=2, model=2, B=4, P=5, s
     params = m.init(0) if tree is None else params_from_jax(tree, cfg, ctx)
     rows = m.serve_rows(B)
     b = B // rows.count
-    prompts = torch.as_tensor(serve_prompts(cfg, B, P)[rows.index * b:(rows.index + 1) * b],
-                              device=device)
-    out = serve_run(m, params, prompts, width, steps, B)
+    mine = slice(rows.index * b, (rows.index + 1) * b)
+    prompts = torch.as_tensor(serve_prompts(cfg, B, P)[mine], device=device)
+    frames = serve_frames(cfg, B)
+    if frames is not None:
+        frames = torch.as_tensor(frames[mine], device=device)
+    out = serve_run(m, params, prompts, width, steps, B, frames)
     coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
     whole = build_model(cfg, dataclasses.replace(ctx, mesh=None, device="meta")).init_cache(
         B, InputShape("serve", width, B, "decode"))
     out.update(coord=coord, rows=dataclasses.asdict(rows),
                kind=kv_layout(cfg.n_kv_heads, width, model).kind,
-               whole={k: tuple(v.shape) for k, v in shard_cache(
-                   whole, {"data": data, "model": model}, coord=coord).items()})
+               whole=shapes(shard_cache(whole, {"data": data, "model": model}, coord=coord)))
     return out
 
 

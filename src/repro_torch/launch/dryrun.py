@@ -27,9 +27,9 @@ length at position length - 1.  Prefill and decode inputs are placed as
 ``sharding/specs.py::input_specs_sharding`` places them: over the data axes
 where they divide, else replicated; the model group shares the products of
 its replicated rows, and the cache is this process's blocks
-(``Model.init_cache`` of the global batch: its rows, and the dense, vlm and
-moe families' KV heads or slots over the model group, as the reference's
-``build_cache_specs`` places them).
+(``Model.init_cache`` of the global batch: its rows, and the KV heads or
+slots over the model group, as the reference's ``build_cache_specs``
+places them; zamba2's Mamba states by SSM heads; xLSTM's states whole).
 
 ``bytes_per_device`` is the counterpart of ``memory_analysis()``:
 ``argument`` the step's inputs in this process (its blocks of the

@@ -128,9 +128,11 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, ctx: ParallelContext
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, ctx: ParallelContext = SINGLE,
-               kv=None):
-    """``batch`` rows' ring of ``cache_len`` slots; ``kv``: this process's
-    block of it over the model group (``sharding/specs.py::KVLayout``)."""
+               place=None):
+    """``batch`` rows' ring of ``cache_len`` slots; ``place``: serving's
+    placement (``Model.serve_placement``), under TP use this process's block
+    of the ring over the model group (``sharding/specs.py::KVLayout``)."""
+    kv = None if place is None else place.kv_layout(cfg.n_kv_heads, cache_len)
     return L.init_kv_cache(cfg.n_layers, batch, cfg.n_kv_heads, cache_len, cfg.head_dim,
                            ctx.compute_dtype, ctx.device, kv)
 

@@ -14,17 +14,23 @@ frames, the decoder's cross-attention non-causal with Sq != Sk.  The
 block inits).
 
 Serving: the cache holds a ring-buffer self-attention cache per decoder
-layer and the encoder output, from which each decode step projects the
-cross-attention K/V, as the reference does; ``init_cache`` without
-``enc_out`` holds zeros.
+layer and the encoder output, which each decode step's cross attention
+reads, as the reference does (its products in the other order:
+:func:`_cross_step`); ``init_cache`` without ``enc_out`` holds zeros.
 
 Over a mesh each leaf is held as its block and read whole
 (``sharding/gather.py``): a layer's leaves as the layer runs, the tied
-``embed`` at each of its two reads.
+``embed`` at each of its two reads.  Where the model group holds the rows
+replicated (training's and serving's TP use, ``sharding/tp.py``), every
+attention runs on the process's heads (unevenly where the heads do not
+divide the group), the MLP on its d_ff block, the logits on its vocab
+block where the vocab divides; the serving cache holds the self caches'
+block and the encoder states whole.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import torch
@@ -102,21 +108,60 @@ def _attn_out(q, k, v, n_heads: int, head_dim: int, causal: bool, pos_offset: in
     return o.transpose(1, 2).reshape(b, s, n_heads * head_dim)
 
 
-def _attn_out_proj(p, q, k, v, cfg: ModelConfig, causal: bool = False, pos_offset: int = 0,
-                   tp=None):
-    """``tp``: q, k, v hold this process's heads (``wq``/``wk``/``wv``'s
-    column blocks), ``wo`` its rows of them; the output is summed over the
-    model group."""
-    heads = cfg.n_heads if tp is None else cfg.n_heads // tp.size
+def _heads(p, cfg: ModelConfig, tp):
+    """(``p`` on this process's heads, their count): under ``tp``, the
+    columns of ``wq``/``wk``/``wv`` and the rows of ``wo`` of its heads
+    (``layers.local_heads``: the blocks as held, or cut from whole leaves
+    where the heads do not divide the group)."""
+    if tp is None:
+        return p, cfg.n_heads
+    p, _, hq = L.local_heads(p, cfg.n_heads, cfg.head_dim, tp, cols=("wq", "wk", "wv"))
+    return p, hq
+
+
+def _attn_out_proj(p, q, k, v, heads: int, cfg: ModelConfig, causal: bool = False,
+                   pos_offset: int = 0, tp=None):
+    """``heads`` of q, k, v, then ``wo`` (under ``tp`` its rows of them, the
+    output summed over the model group)."""
     y = _attn_out(q, k, v, heads, cfg.head_dim, causal, pos_offset) @ p["wo"]
     return y if tp is None else tp.sum(y)
 
 
+def _self(p, h, cfg: ModelConfig, causal: bool, tp=None):
+    """Self-attention of h [B, S, d], on this process's heads under ``tp``."""
+    p, heads = _heads(p, cfg, tp)
+    return _attn_out_proj(p, h @ p["wq"], h @ p["wk"], h @ p["wv"], heads, cfg, causal,
+                          tp=tp)
+
+
 def _cross(p, h, enc_out, cfg: ModelConfig, tp=None):
-    """Cross-attention of h [B, S, d] to the encoder states [B, F, d]."""
+    """Cross-attention of h [B, S, d] to the encoder states [B, F, d]; under
+    ``tp`` the K/V of ``enc_out`` are projected for this process's heads only."""
+    p, heads = _heads(p, cfg, tp)
     q = h @ p["wq"]
     k, v = enc_out @ p["wk"], enc_out @ p["wv"]
-    return _attn_out_proj(p, q, k, v, cfg, causal=False, tp=tp)
+    return _attn_out_proj(p, q, k, v, heads, cfg, causal=False, tp=tp)
+
+
+def _cross_step(p, h, enc_out, cfg: ModelConfig, tp=None):
+    """The decode step's cross attention: one token h [B, 1, d] to the
+    encoder states [B, F, d] (all of them visible), on this process's heads
+    under ``tp``.  The reference's products in the other order, equal in
+    exact arithmetic: the scores ``(q_h wk_h^T) enc_out^T`` and the output
+    ``(p_h enc_out) wv_h``, so that the F frames are read once a head where
+    projecting them to K and V costs ``4 F d dh`` flops a head and row
+    (whisper-small: 1500 frames, 64 times the ``4 F d`` here).  The scores
+    and softmax in at least float32, as ``mha_ref``'s."""
+    p, heads = _heads(p, cfg, tp)
+    b, dh = h.shape[0], cfg.head_dim
+    q = (h @ p["wq"]).reshape(b, heads, dh)
+    u = torch.einsum("bhe,dhe->bhd", q, p["wk"].reshape(-1, heads, dh))      # [B, h, d]
+    e = L.up32(enc_out)
+    w = torch.softmax(torch.einsum("bhd,bfd->bhf", L.up32(u), e) / math.sqrt(dh), dim=-1)
+    c = torch.einsum("bhf,bfd->bhd", w, e).to(h.dtype)                        # [B, h, d]
+    o = torch.einsum("bhd,dhe->bhe", c, p["wv"].reshape(-1, heads, dh))
+    y = o.reshape(b, 1, heads * dh) @ p["wo"]
+    return y if tp is None else tp.sum(y)
 
 
 def encode(params, frames: torch.Tensor, cfg: ModelConfig,
@@ -131,9 +176,7 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig,
     for i in range(params["enc"]["ln1"].shape[0]):
         p = L.layer(params["enc"], i, enc)
         h = L.layer_norm(x, p["ln1"], p["b_ln1"], cfg.norm_eps)
-        a = p["attn"]
-        x = x + _attn_out_proj(a, h @ a["wq"], h @ a["wk"], h @ a["wv"], cfg,
-                               tp=enc.tp_at("attn"))
+        x = x + _self(p["attn"], h, cfg, causal=False, tp=enc.tp_at("attn"))
         h = L.layer_norm(x, p["ln2"], p["b_ln2"], cfg.norm_eps)
         x = x + L.mlp(p["mlp"], h, enc.tp_at("mlp"))
     top = _top(params, place, "enc_norm", "b_enc_norm")
@@ -170,9 +213,7 @@ def decode(params, tokens: torch.Tensor, enc_out: torch.Tensor, cfg: ModelConfig
     for i in range(params["dec"]["ln1"].shape[0]):
         p = L.layer(params["dec"], i, dec)
         h = L.layer_norm(x, p["ln1"], p["b_ln1"], cfg.norm_eps)
-        a = p["self_attn"]
-        x = x + _attn_out_proj(a, h @ a["wq"], h @ a["wk"], h @ a["wv"], cfg, causal=True,
-                               tp=dec.tp_at("self_attn"))
+        x = x + _self(p["self_attn"], h, cfg, causal=True, tp=dec.tp_at("self_attn"))
         h = L.layer_norm(x, p["ln_x"], p["b_ln_x"], cfg.norm_eps)
         x = x + _cross(p["cross_attn"], h, enc_out, cfg, dec.tp_at("cross_attn"))
         h = L.layer_norm(x, p["ln2"], p["b_ln2"], cfg.norm_eps)
@@ -186,7 +227,9 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, ctx: ParallelContext
             *, frames: Optional[torch.Tensor] = None, last_only: bool = False,
             place=None, **_):
     """``place``: the parameters' placement (``sharding/gather.py::placement``;
-    TP use from ``Model.loss``: attention by whole heads, the MLP on d_ff)."""
+    TP use from ``Model.loss`` or serving: the encoder's, the decoder's and
+    the cross attention by whole heads, unevenly where they do not divide,
+    the MLP on d_ff, the tied logits by vocab where it divides)."""
     if frames is None:
         raise ValueError("the audio family needs stub frame embeddings (frames)")
     enc_out = encode(params, frames, cfg, ctx, place)
@@ -197,10 +240,15 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, ctx: ParallelContext
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, ctx: ParallelContext = SINGLE,
-               enc_out: Optional[torch.Tensor] = None):
-    """Self-attention ring caches and the encoder states (zeros without ``enc_out``)."""
+               enc_out: Optional[torch.Tensor] = None, place=None):
+    """Self-attention ring caches and the encoder states (zeros without
+    ``enc_out``).  ``place``: serving's placement (``Model.serve_placement``),
+    under TP use this process's block of the self caches over the model
+    group (``sharding/specs.py::KVLayout``, its heads or slots); the encoder
+    states stay whole over the group, as in the reference's cache."""
+    kv = None if place is None else place.kv_layout(cfg.n_heads, cache_len)
     self_c = L.init_kv_cache(cfg.n_layers, batch, cfg.n_heads, cache_len, cfg.head_dim,
-                             ctx.compute_dtype, ctx.device)
+                             ctx.compute_dtype, ctx.device, kv)
     if enc_out is None:
         enc_out = torch.zeros((batch, cfg.n_audio_frames, cfg.d_model),
                               dtype=ctx.compute_dtype, device=ctx.device)
@@ -208,20 +256,27 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, ctx: ParallelContex
 
 
 def decode_step(params, cache, token: torch.Tensor, pos: int, cfg: ModelConfig,
-                ctx: ParallelContext = SINGLE):
-    """token [B] at position ``pos`` -> (logits [B, V], cache updated in place)."""
-    place = placement(param_shapes, cfg, ctx)
+                ctx: ParallelContext = SINGLE, *, place=None):
+    """token [B] at position ``pos`` -> (logits [B, V], cache updated in place).
+    ``place``: the parameters' placement (serving's TP use from
+    ``Model.decode_step``: the self caches' block (``init_cache``), each
+    attention on this process's heads, the cross attention reading the
+    encoder states for them only (:func:`_cross_step`); the logits are then
+    this process's vocab block where the vocab divides)."""
+    place = placement(param_shapes, cfg, ctx) if place is None else place
+    dec = place.at("dec")
+    kv = place.kv_layout(cfg.n_heads, cache["self"]["slot_pos"].shape[-1])
     x = _embed(params, token[:, None], place, slice(pos, pos + 1), ctx.compute_dtype)
     enc_out = cache["enc_out"]
     for i in range(params["dec"]["ln1"].shape[0]):
-        p = L.layer(params["dec"], i, place.at("dec"))
+        p = L.layer(params["dec"], i, dec)
         c = {k: v[i] for k, v in cache["self"].items()}
         h = L.layer_norm(x, p["ln1"], p["b_ln1"], cfg.norm_eps)
         x = x + L.attention_decode(p["self_attn"], h, c, pos, n_heads=cfg.n_heads,
                                    n_kv=cfg.n_heads, head_dim=cfg.head_dim,
-                                   rope_theta=None)
+                                   rope_theta=None, tp=dec.tp_at("self_attn"), kv=kv)
         h = L.layer_norm(x, p["ln_x"], p["b_ln_x"], cfg.norm_eps)
-        x = x + _cross(p["cross_attn"], h, enc_out, cfg)
+        x = x + _cross_step(p["cross_attn"], h, enc_out, cfg, dec.tp_at("cross_attn"))
         h = L.layer_norm(x, p["ln2"], p["b_ln2"], cfg.norm_eps)
-        x = x + L.mlp(p["mlp"], h)
+        x = x + L.mlp(p["mlp"], h, dec.tp_at("mlp"))
     return _logits(params, x, cfg, place)[:, 0], cache

@@ -13,7 +13,12 @@ reference's vmapped init); the forward loops over them where the reference
 scans, and the attention block runs ``flash_attention`` through the
 ``attention`` dispatch (``Sq >= 128``).  Over a mesh each leaf is held as
 its block and read whole (``sharding/gather.py``): a mamba layer's leaves
-as the layer runs, the shared block's at each of its calls.
+as the layer runs, the shared block's at each of its calls.  Where the
+model group holds the rows replicated (training's and serving's TP use,
+``sharding/tp.py``) it shares the work: each Mamba layer by SSM heads
+(``ssm.py::_local``), the shared block's attention by heads and its MLP on
+d_ff, the logits by vocab; the serving caches hold the process's SSM heads
+and its block of the KV cache.
 """
 
 from __future__ import annotations
@@ -93,18 +98,25 @@ def init(seed: int, cfg: ModelConfig, ctx: ParallelContext = SINGLE):
     }
 
 
-def _attn_block(p, x: torch.Tensor, cfg: ModelConfig, window=None, pos_offset: int = 0):
+def _attn_block(p, x: torch.Tensor, cfg: ModelConfig, window=None, pos_offset: int = 0,
+                place=None):
+    """The shared block on ``p``'s leaves as ``place`` (the shared block's
+    placement) gave them: tensor-parallel under TP use."""
+    tp_attn = None if place is None else place.tp_at("attn")
+    tp_mlp = None if place is None else place.tp_at("mlp")
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     x = x + L.attention_forward(
         p["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
-        rope_theta=cfg.rope_theta, causal=True, window=window, pos_offset=pos_offset)
+        rope_theta=cfg.rope_theta, causal=True, window=window, pos_offset=pos_offset,
+        tp=tp_attn)
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + L.swiglu(p["mlp"], h)
+    return x + L.swiglu(p["mlp"], h, tp_mlp)
 
 
 def _mamba_at(blocks, i: int, place, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Mamba layer i of the stacked ``blocks``, its leaves gathered here."""
-    return ssm.mamba_forward(L.layer(blocks, i, place), x, cfg)
+    """Mamba layer i of the stacked ``blocks``, its leaves gathered here; on
+    this process's SSM heads under TP use (``place.tp_at()``)."""
+    return ssm.mamba_forward(L.layer(blocks, i, place), x, cfg, place.tp_at())
 
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig, ctx: ParallelContext = SINGLE,
@@ -117,8 +129,9 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, ctx: ParallelContext
     mamba block's activations are recomputed in the backward
     (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` does.
     ``place``: the parameters' placement (``sharding/gather.py::placement``;
-    never TP use: ``Model`` keeps this family on whole leaves, see
-    ``registry._WHOLE_LEAF_FAMILIES``).
+    TP use from ``Model.loss`` or serving: the Mamba layers by SSM heads, the
+    shared block's attention by heads and its MLP on d_ff, the logits by
+    vocab).
     """
     place = placement(param_shapes, cfg, ctx) if place is None else place
     x = place.at("embed").whole(params["embed"])[tokens].to(ctx.compute_dtype)
@@ -126,7 +139,7 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, ctx: ParallelContext
     off = 0
     for kind, count in layer_schedule(cfg):
         if kind == "attn":
-            x = _attn_block(shared.whole(params["shared_attn"]), x, cfg, window)
+            x = _attn_block(shared.whole(params["shared_attn"]), x, cfg, window, place=shared)
             continue
         for i in range(off, off + count):
             args = (params["mamba"], i, place.at("mamba"), x, cfg)
@@ -143,41 +156,52 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, ctx: ParallelContext
 # -- serving ---------------------------------------------------------------------
 
 
-def init_cache(cfg: ModelConfig, batch: int, cache_len: int, ctx: ParallelContext = SINGLE):
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, ctx: ParallelContext = SINGLE,
+               place=None):
     """Each mamba layer's conv and SSM states, and one ring-buffer KV cache
-    per invocation of the shared attention block."""
+    per invocation of the shared attention block.  ``place``: serving's
+    placement (``Model.serve_placement``): under TP use this process's SSM
+    heads of the mamba states and its block of the KV cache over the model
+    group (``sharding/specs.py::KVLayout``)."""
+    tp = kv = None
+    if place is not None:
+        tp, kv = place.tp_at("mamba"), place.kv_layout(cfg.n_kv_heads, cache_len)
     return {
         "mamba": ssm.init_mamba_cache(cfg, batch, ctx.compute_dtype, ctx.device,
-                                      lead=(n_mamba_layers(cfg),)),
+                                      lead=(n_mamba_layers(cfg),), tp=tp),
         "attn": L.init_kv_cache(n_attn_calls(cfg), batch, cfg.n_kv_heads, cache_len,
-                                cfg.head_dim, ctx.compute_dtype, ctx.device),
+                                cfg.head_dim, ctx.compute_dtype, ctx.device, kv),
     }
 
 
 def decode_step(params, cache, token: torch.Tensor, pos: int, cfg: ModelConfig,
-                ctx: ParallelContext = SINGLE):
-    """token [B] at position ``pos`` -> (logits [B, V], cache updated in place)."""
-    place = placement(param_shapes, cfg, ctx)
+                ctx: ParallelContext = SINGLE, *, place=None):
+    """token [B] at position ``pos`` -> (logits [B, V], cache updated in place).
+    ``place``: the parameters' placement (serving's TP use from
+    ``Model.decode_step``: the logits are then this process's vocab block)."""
+    place = placement(param_shapes, cfg, ctx) if place is None else place
+    mamba, shared = place.at("mamba"), place.at("shared_attn")
+    kv = place.kv_layout(cfg.n_kv_heads, cache["attn"]["slot_pos"].shape[-1])
     x = place.at("embed").whole(params["embed"])[token][:, None, :].to(ctx.compute_dtype)
     m_off = a_off = 0
     for kind, count in layer_schedule(cfg):
         if kind == "mamba":
             for i in range(m_off, m_off + count):
                 c = {k: v[i] for k, v in cache["mamba"].items()}
-                p = L.layer(params["mamba"], i, place.at("mamba"))
-                y, new = ssm.mamba_decode(p, x, c, cfg)
+                p = L.layer(params["mamba"], i, mamba)
+                y, new = ssm.mamba_decode(p, x, c, cfg, mamba.tp_at())
                 for k, v in new.items():
                     c[k].copy_(v)
                 x = x + y
             m_off += count
             continue
-        p = place.at("shared_attn").whole(params["shared_attn"])
+        p = shared.whole(params["shared_attn"])
         c = {k: v[a_off] for k, v in cache["attn"].items()}
         h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
         x = x + L.attention_decode(
             p["attn"], h, c, pos, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-            head_dim=cfg.head_dim, rope_theta=cfg.rope_theta)
+            head_dim=cfg.head_dim, rope_theta=cfg.rope_theta, tp=shared.tp_at("attn"), kv=kv)
         h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + L.swiglu(p["mlp"], h)
+        x = x + L.swiglu(p["mlp"], h, shared.tp_at("mlp"))
         a_off += 1
     return L.lm_head(params, x, cfg.norm_eps, place)[:, 0], cache

@@ -10,7 +10,9 @@ as in the reference.
 Tensor-parallel compute (``sharding/tp.py``): given a ``tp``
 (:class:`~repro_torch.sharding.tp.TensorParallel`), the blocks' products run
 on this process's "model" blocks of the leaves: :func:`attention_forward`
-on its ``H / m`` query heads and the KV heads they read, :func:`swiglu` and
+on its query heads (``tp.heads``: whole heads, unevenly where they do not
+divide the group, cut from the whole leaves by :func:`local_heads`) and
+the KV heads they read, :func:`swiglu` and
 :func:`mlp` on its d_ff block; the row-parallel output is summed over the
 model group (``tp.sum``), and a bias after it added once, after the sum.
 :func:`attention_decode` does the same at one position, over a cache split
@@ -25,6 +27,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..kernels.flash_attention.ops import attention
+from ..sharding.tp import head_range
 
 Params = Dict[str, torch.Tensor]
 
@@ -98,15 +101,21 @@ def lm_head(params: Params, x: torch.Tensor, eps: float, place) -> torch.Tensor:
     return x @ place.at("lm_head").whole(params["lm_head"])
 
 
+def up32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in at least float32: bf16 and float32 as float32, float64 kept
+    (a float64 run stays float64 end to end)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    xf = x.float()
+    xf = up32(x)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
 def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
-    xf = x.float()
+    xf = up32(x)
     mu = xf.mean(-1, keepdim=True)
     var = ((xf - mu) ** 2).mean(-1, keepdim=True)
     return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * w + b
@@ -115,9 +124,9 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
     """x: [..., S, dh]; pos: [S] absolute positions.  Interleaved pairs."""
     dh = x.shape[-1]
-    freqs = 1.0 / (theta ** (torch.arange(0, dh, 2, dtype=torch.float32,
-                                          device=x.device) / dh))
-    ang = pos[..., :, None].float() * freqs                 # [S, dh/2]
+    f = torch.promote_types(x.dtype, torch.float32)
+    freqs = 1.0 / (theta ** (torch.arange(0, dh, 2, dtype=f, device=x.device) / dh))
+    ang = pos[..., :, None].to(f) * freqs                   # [S, dh/2]
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = x[..., ::2], x[..., 1::2]
     y1 = x1 * cos - x2 * sin
@@ -136,13 +145,31 @@ def _project_qkv(p: Params, x, n_heads, n_kv, head_dim):
     return q, k, v
 
 
+def local_heads(p: Params, n_heads: int, head_dim: int, tp, cols=("wq", "bq"),
+                rows=("wo",)) -> Tuple[Params, int, int]:
+    """(``p`` on this process's query heads, the first of them, their count):
+    heads ``tp.heads(H)`` (``sharding/tp.py::head_range``), the columns of
+    the leaves ``cols`` and the rows of ``rows``.  Where the heads divide the
+    group these are the leaves' "model" blocks, held as they are; where
+    they do not, ``sharding/gather.py`` reads the leaves whole and they are
+    cut here, the gather's reduce-scatter then summing the processes'
+    disjoint shares into the whole leaf's gradient."""
+    h0, hq = tp.heads(n_heads)
+    if p["wq"].shape[-1] != n_heads * head_dim:          # the blocks as held
+        return p, h0, hq
+    cut = slice(h0 * head_dim, (h0 + hq) * head_dim)
+    out = dict(p)
+    out.update({k: p[k][..., cut] for k in cols if k in p})
+    out.update({k: p[k][cut] for k in rows})
+    return out, h0, hq
+
+
 def _local_qkv(p: Params, x, n_heads, n_kv, head_dim, tp):
-    """This process's query heads (``wq``'s column block r: heads ``r H/m``
-    to ``(r+1) H/m - 1``, whole heads in the reshape's order) and the KV
+    """The q of ``p``'s query heads (``p`` from :func:`local_heads`) and the KV
     heads they read: the KV block as held where ``Hkv % m == 0``, else the
     columns of the heads read out of the whole ``wk``/``wv``, each local
     query head given its own copy where they do not share them evenly."""
-    hq = n_heads // tp.size
+    hq = p["wq"].shape[-1] // head_dim
     if n_kv % tp.size == 0:
         return _project_qkv(p, x, hq, n_kv // tp.size, head_dim)
     first, count, index = tp.kv_heads(n_heads, n_kv)
@@ -159,12 +186,14 @@ def attention_forward(p: Params, x: torch.Tensor, *, n_heads: int, n_kv: int,
                       causal: bool = True, window: Optional[int] = None,
                       pos_offset: int = 0, tp=None) -> torch.Tensor:
     """Full-sequence attention (prefill path): x [B, S, D] -> [B, S, D].
-    ``tp``: on this process's heads (:func:`_local_qkv`), ``wo`` its rows of
-    them, the output summed over the model group."""
+    ``tp``: on this process's heads (:func:`local_heads`, :func:`_local_qkv`;
+    none at all where it holds no head), ``wo`` its rows of them, the output
+    summed over the model group."""
     b, s, _ = x.shape
     if tp is None:
         q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim)
     else:
+        p, _, _ = local_heads(p, n_heads, head_dim, tp)
         q, k, v = _local_qkv(p, x, n_heads, n_kv, head_dim, tp)
     if rope_theta is not None:
         pos = torch.arange(s, device=x.device) + pos_offset
@@ -197,19 +226,37 @@ def init_kv_cache(n_layers: int, batch: int, n_kv: int, cache_len: int,
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid: torch.Tensor,
             head_dim: int, group=None) -> torch.Tensor:
     """q [B, H, 1, dh] over the slots of k, v [B, H, W, dh] where ``valid`` [W],
-    in float32.  ``group``: the slots are this process's block of the ring
-    (``"seq"``), and the blocks are combined over the group's processes as a
-    flash-decoding step: the scores' max by one MAX all_reduce, then
-    ``[sum exp(s - max) v, sum exp(s - max)]`` by one sum."""
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(head_dim)
+    in at least float32.  ``group``: the slots are this process's block of
+    the ring (``"seq"``), and the blocks are combined over the group's
+    processes as a flash-decoding step: the scores' max by one MAX
+    all_reduce, then ``[sum exp(s - max) v, sum exp(s - max)]`` by one sum."""
+    s = torch.einsum("bhqd,bhkd->bhqk", up32(q), up32(k)) / math.sqrt(head_dim)
     s = torch.where(valid[None, None, None, :], s, float("-inf"))
     if group is None:
-        return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1), v.float())
+        return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1), up32(v))
     mx = group.max(s.amax(-1, keepdim=True))         # a slot of pos is always valid
     e = torch.exp(s - mx)
-    parts = group.sum(torch.cat([torch.einsum("bhqk,bhkd->bhqd", e, v.float()),
+    parts = group.sum(torch.cat([torch.einsum("bhqk,bhkd->bhqd", e, up32(v)),
                                  e.sum(-1, keepdim=True)], dim=-1))
     return parts[..., :-1] / parts[..., -1:]
+
+
+def _gather_heads(q, k, v, n_heads: int, tp):
+    """The new token's q of every query head and k, v of every KV head, over
+    the model group in head order, from each process's q of its heads and
+    k, v of the KV heads they read: one copy a query head, padded to
+    ``ceil(H / m)`` heads (the gather takes equal sizes), gathered, the
+    pads dropped (the caller keeps every ``H / Hkv``-th k, v copy)."""
+    hq, m = q.shape[1], tp.size
+    if hq and k.shape[1] != hq:
+        k, v = (t.repeat_interleave(hq // t.shape[1], dim=1) for t in (k, v))
+    most = -(-n_heads // m)
+    qkv = torch.nn.functional.pad(torch.stack([q, k, v]), (0, 0, 0, 0, 0, most - hq))
+    qkv = tp.gather(qkv).movedim(0, 2).flatten(2, 3)        # [3, B, m most, 1, dh]
+    if n_heads % m:
+        keep = [r * most + j for r in range(m) for j in range(head_range(n_heads, m, r)[1])]
+        qkv = qkv[:, :, keep]
+    return qkv[0], qkv[1], qkv[2]
 
 
 def attention_decode(p: Params, x: torch.Tensor, cache: Params, pos: int, *,
@@ -223,44 +270,49 @@ def attention_decode(p: Params, x: torch.Tensor, cache: Params, pos: int, *,
     ones.
 
     Over a model group that holds the rows replicated (serving's TP use):
-    ``tp`` where ``wq``/``bq``/``wo`` are this process's blocks of ``H / m``
-    query heads, and ``kv`` the cache's ``sharding/specs.py::KVLayout``
-    (``None``: each process holds it whole).
+    ``tp``, this process's place in the group, whose query heads
+    (:func:`local_heads`: ``wq``/``bq`` columns and ``wo`` rows, blocks as
+    held or cut from whole leaves) it computes, and ``kv`` the cache's
+    ``sharding/specs.py::KVLayout`` (``None``: each process holds it whole;
+    a split cache needs ``tp``).
 
       * ``"heads"``: the process's query heads and its ``Hkv / m`` KV heads
         (:func:`_local_qkv`), its KV heads' slot written, its rows of ``wo``,
         then ``tp.sum``: ``attention_forward``'s rule at one position;
       * ``"seq"``: the process holds every KV head at its block of slots.
-        With ``tp`` its heads' q and the KV heads they read are projected
-        (:func:`_local_qkv`, one copy a query head) and gathered over the
-        group, in head order; without (``H % m != 0``) each process projects
-        them all.  The slot's owner writes k and v, every process
-        ``slot_pos``; every head runs over the process's slots, combined
-        over the group (:func:`_attend`); then its heads' rows of ``wo`` and
-        ``tp.sum`` (with ``tp``) or all of ``wo``;
-      * whole: every process writes every KV head; with ``tp`` it runs its
-        query heads over the KV heads they read (``wk``/``wv`` are read
-        whole where ``Hkv % m != 0``), its rows of ``wo``, then ``tp.sum``.
+        Its heads' q and the KV heads they read are projected
+        (:func:`_local_qkv`) and gathered over the group in head order
+        (:func:`_gather_heads`).  The slot's owner writes k and v, every
+        process ``slot_pos``; every head runs over the process's slots,
+        combined over the group (:func:`_attend`); then its heads' rows of
+        ``wo`` and ``tp.sum``;
+      * whole: every process writes every KV head (``wk``/``wv`` read
+        whole), runs its query heads over the KV heads they read, its rows
+        of ``wo``, then ``tp.sum``.
+
+    A process of no query head (``H < m``) adds zeros to the sum.
     """
     b = x.shape[0]
     W = cache["k"].shape[2]
     width = cache["slot_pos"].shape[0]
     seq = kv is not None and kv.kind == "seq"
-    if tp is not None and kv is not None:   # "heads" (Hkv % m == 0 implies H % m == 0), "seq"
-        q, k, v = _local_qkv(p, x, n_heads, n_kv, head_dim, tp)
-    else:                                   # whole: under tp, wk/wv are read whole
-        q, k, v = _project_qkv(p, x, n_heads // (tp.size if tp else 1), n_kv, head_dim)
+    h0 = 0
+    if tp is None:
+        q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim)
+    else:
+        p, h0, _ = local_heads(p, n_heads, head_dim, tp)
+        if kv is not None:                  # "heads", "seq": the KV heads its heads read
+            q, k, v = _local_qkv(p, x, n_heads, n_kv, head_dim, tp)
+        else:                               # whole: every KV head
+            q, k, v = _project_qkv(p, x, p["wq"].shape[-1] // head_dim, n_kv, head_dim)
     if rope_theta is not None:
         ppos = torch.full((1,), pos, dtype=torch.int64, device=x.device)
         q = apply_rope(q, ppos, rope_theta)
         k = apply_rope(k, ppos, rope_theta)
     hq, g = q.shape[1], n_heads // n_kv
-    if seq and tp is not None:
-        # every head's q and every KV head's k, v, put back in head order
-        # (query head h reads KV head h // g)
-        k, v = (t.repeat_interleave(hq // t.shape[1], dim=1) for t in (k, v))
-        qkv = tp.gather(torch.stack([q, k, v])).movedim(0, 2).flatten(2, 3)
-        q, k, v = qkv[0], qkv[1][:, ::g], qkv[2][:, ::g]
+    if seq:
+        q, k, v = _gather_heads(q, k, v, n_heads, tp)
+        k, v = k[:, ::g], v[:, ::g]          # query head h reads KV head h // g
     slot = pos % width                                       # ring write
     if not seq or kv.owner(pos) == kv.rank:
         cache["k"][:, :, slot % W] = k[:, :, 0]
@@ -272,14 +324,14 @@ def attention_decode(p: Params, x: torch.Tensor, cache: Params, pos: int, *,
     valid = (spos >= 0) & (spos <= pos)                      # [W]
     kk, vv = cache["k"], cache["v"]
     if tp is not None and kv is None:                        # whole: this process's heads
-        reads = [(tp.rank * hq + j) // g for j in range(hq)]
+        reads = [(h0 + j) // g for j in range(hq)]
         kk, vv = kk[:, reads], vv[:, reads]
     else:
         kk = kk.repeat_interleave(q.shape[1] // kk.shape[1], dim=1)   # [B,H,W,dh]
         vv = vv.repeat_interleave(q.shape[1] // vv.shape[1], dim=1)
-    o = _attend(q, kk, vv, valid, head_dim, kv.group if seq else None).to(x.dtype)
-    if seq and tp is not None:
-        o = o[:, tp.rank * hq:(tp.rank + 1) * hq]
+    o = _attend(q, kk, vv, valid, head_dim, tp if seq else None).to(x.dtype)
+    if seq:
+        o = o[:, h0:h0 + hq]
     y = o.transpose(1, 2).reshape(b, 1, o.shape[1] * head_dim) @ p["wo"]
     return y if tp is None else tp.sum(y)
 

@@ -303,8 +303,10 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
-               ctx: ParallelContext = SINGLE, kv=None):
-    """As ``dense.init_cache``: ``kv`` this process's block over the model group."""
+               ctx: ParallelContext = SINGLE, place=None):
+    """As ``dense.init_cache``: with ``place``, this process's block over the
+    model group."""
+    kv = None if place is None else place.kv_layout(cfg.n_kv_heads, cache_len)
     return L.init_kv_cache(cfg.n_layers, batch, cfg.n_kv_heads, cache_len,
                            cfg.head_dim, ctx.compute_dtype, ctx.device, kv)
 

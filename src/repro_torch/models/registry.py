@@ -25,6 +25,7 @@ from ..sharding.gather import Placement, placement
 from ..sharding.specs import shard_params
 from ..sharding.tp import vocab_parallel_nll
 from . import dense, encdec, hybrid, moe, vlm, xlstm
+from .layers import up32
 
 _FAMILIES = {"dense": dense, "moe": moe, "hybrid": hybrid, "ssm": xlstm,
              "audio": encdec, "vlm": vlm}
@@ -32,20 +33,12 @@ _FAMILIES = {"dense": dense, "moe": moe, "hybrid": hybrid, "ssm": xlstm,
 # decode cache length policy: sub-quadratic archs keep O(1)/windowed state
 _LONG = "long_500k"
 
-#: families whose step stays on whole leaves where the model group holds
-#: the rows (``sharding/tp.py``): zamba2's Mamba gradients (``A_log``,
-#: ``dt_bias``, ``D``) are near-cancelling sums, so a reordered float32 sum
-#: anywhere above them (a tensor-parallel product's, or the loss's by vocab)
-#: moves them by more than the 1e-5 of their largest value to which the
-#: gloo worlds hold the step against one process
-_WHOLE_LEAF_FAMILIES = (hybrid,)
-
 #: families that serve over a mesh as the reference places them: the model
 #: group shares the prefill's and the decode step's products, and the KV
-#: cache lies over it by heads or by slots (``sharding/specs.py::KVLayout``);
-#: the others serve each process's rows on whole leaves, with a cache of
-#: those rows
-_SERVE_TP_FAMILIES = (dense, vlm, moe)
+#: cache lies over it by heads or by slots (``sharding/specs.py::KVLayout``),
+#: zamba2's Mamba states by SSM heads; xLSTM (``ssm``) serves each process's
+#: rows on whole leaves, with a cache of those rows
+_SERVE_TP_FAMILIES = (dense, vlm, moe, hybrid, encdec)
 
 
 class ServeCache(dict):
@@ -146,7 +139,7 @@ class Model:
     def loss(self, params, batch: Dict[str, torch.Tensor], *, window=None,
              aux_weight: float = 0.01, stats: Optional[dict] = None,
              rows=None) -> torch.Tensor:
-        """Mean next-token NLL (``log_softmax`` in float32) + ``aux_weight`` x aux.
+        """Mean next-token NLL (``log_softmax`` in at least float32) + ``aux_weight`` x aux.
 
         The reference's ``Model.loss`` (``registry.py:59-68``); ``stats`` as
         in :meth:`forward`, ``rows`` too.  The vlm family's logits cover the
@@ -155,17 +148,16 @@ class Model:
         process computes its vocab block of the logits and the NLL comes
         from the blocks (``sharding/tp.py::vocab_parallel_nll``).
         """
-        tp_rows = None if self.mod in _WHOLE_LEAF_FAMILIES else rows
-        place = placement(self.mod.param_shapes, self.cfg, self.ctx, tp_rows)
+        place = placement(self.mod.param_shapes, self.cfg, self.ctx, rows)
         logits, aux = self.forward(params, batch, window=window, stats=stats, rows=rows,
                                    place=place)
         labels = batch["labels"].long()
         if logits.shape[1] != labels.shape[1]:
             logits = logits[:, -labels.shape[1]:]
         if place.vocab is not None:
-            nll = vocab_parallel_nll(logits.float(), labels, place.vocab.start, place.tp)
+            nll = vocab_parallel_nll(up32(logits), labels, place.vocab.start, place.tp)
         else:
-            lp = torch.log_softmax(logits.float(), dim=-1)
+            lp = torch.log_softmax(up32(logits), dim=-1)
             nll = -torch.gather(lp, -1, labels[..., None])[..., 0]
         return nll.mean() + aux_weight * aux
 
@@ -185,15 +177,16 @@ class Model:
         :data:`_SERVE_TP_FAMILIES` return a :class:`ServeCache` that records
         those rows and holds this process's KV heads or slots over the model
         group (``sharding/specs.py::KVLayout``, the blocks ``shard_cache`` cuts
-        from the whole), ``slot_pos`` whole; the others their own cache."""
+        from the whole), ``slot_pos`` whole, zamba2's Mamba states by SSM
+        heads; xLSTM its own cache."""
         width = max(self.cache_len(shape), 1)
         rows = self.serve_rows(batch)
         local = batch if rows is None else batch // rows.count
         if self.mod not in _SERVE_TP_FAMILIES:
             return self.mod.init_cache(self.cfg, local, width, self.ctx)
-        kv = None if rows is None else self.serve_placement(rows).kv_layout(
-            self.cfg.n_kv_heads, width)
-        return ServeCache(self.mod.init_cache(self.cfg, local, width, self.ctx, kv), rows)
+        place = None if rows is None else self.serve_placement(rows)
+        return ServeCache(self.mod.init_cache(self.cfg, local, width, self.ctx, place=place),
+                          rows)
 
     def decode_step(self, params, cache, token, pos: int,
                     stats: Optional[dict] = None):

@@ -15,7 +15,13 @@ chunks (16 at S 2048).
 
 Parameters keep the reference's keys; the block's leaves may carry a
 leading layer axis (``lead``), as the hybrid's vmapped init stacks them.
-``A_log``, ``D`` and ``dt_bias`` stay float32, as in the reference.
+``A_log``, ``D`` and ``dt_bias`` stay float32, as in the reference (float64
+in a float64 run, whose casts to float32 are casts to at least float32).
+
+Over a model group that holds the rows replicated (``sharding/tp.py``), a
+layer runs on this process's SSM heads (:func:`_local`), its ``gate_norm``
+summed over the group (:func:`_gate_norm`), its ``out_proj`` output summed
+once; the decode's conv and SSM caches hold those heads.
 """
 
 from __future__ import annotations
@@ -56,7 +62,7 @@ def init_mamba_block(gen: torch.Generator, cfg: ModelConfig, dtype, device,
     """in_proj emits [z (gate), x, B, C, dt] fused, as in Mamba2."""
     d_inner, H, P, N = _dims(cfg)
     d_in_proj = 2 * d_inner + 2 * N * H + H
-    f32 = dict(dtype=torch.float32, device=device)
+    f32 = dict(dtype=torch.promote_types(dtype, torch.float32), device=device)
     return {
         "norm": torch.ones((*lead, cfg.d_model), dtype=dtype, device=device),
         "in_proj": L.dense_init(gen, cfg.d_model, d_in_proj, dtype, device, lead),
@@ -71,9 +77,45 @@ def init_mamba_block(gen: torch.Generator, cfg: ModelConfig, dtype, device,
     }
 
 
-def _split_proj(zxbcdt: torch.Tensor, cfg: ModelConfig):
+def _local(p, cfg: ModelConfig, tp):
+    """(``p`` on this process's SSM heads, and their d_inner, H, P, N).
+
+    ``tp`` (``sharding/tp.py``): process r of m computes heads ``r H/m ...
+    (r+1) H/m - 1`` (``H % m == 0``: ``sharding/gather.py`` keeps the
+    Mamba leaves' "model" blocks only then).  ``conv_w``, ``conv_b``,
+    ``gate_norm`` and ``out_proj`` are those blocks as held: exactly the
+    heads' x channels.  ``in_proj`` is read whole (its "model" block of
+    contiguous columns cuts across the five groups), and its columns of the
+    heads are cut out of each group: z and x (the heads' P channels), B and
+    C (their N), dt (the heads); ``A_log``, ``D`` and ``dt_bias``
+    (replicated) their heads."""
     d_inner, H, P, N = _dims(cfg)
+    if tp is None:
+        return p, d_inner, H, P, N
+    hq = H // tp.size
+    h0 = tp.rank * hq
+    starts = (0, d_inner, 2 * d_inner, 2 * d_inner + N * H, 2 * d_inner + 2 * N * H)
+    sizes = (P, P, N, N, 1)
+    w = p["in_proj"]
+    cols = [w[..., s0 + h0 * n:s0 + (h0 + hq) * n] for s0, n in zip(starts, sizes)]
+    heads = slice(h0, h0 + hq)
+    return (dict(p, in_proj=torch.cat(cols, -1), A_log=p["A_log"][heads], D=p["D"][heads],
+                 dt_bias=p["dt_bias"][heads]), hq * P, hq, P, N)
+
+
+def _split_proj(zxbcdt: torch.Tensor, d_inner: int, H: int, N: int):
     return torch.split(zxbcdt, [d_inner, d_inner, N * H, N * H, H], dim=-1)
+
+
+def _gate_norm(y: torch.Tensor, w: torch.Tensor, eps: float, d_inner: int, tp):
+    """``rms_norm`` of y over the whole ``d_inner``: under ``tp`` y holds the
+    process's channels, and their sum of squares ([B, S, 1], at least
+    float32) is summed over the group before the scale."""
+    if tp is None:
+        return L.rms_norm(y, w, eps)
+    yf = L.up32(y)
+    var = tp.sum(torch.sum(yf * yf, dim=-1, keepdim=True)) / (d_inner * tp.size)
+    return (yf * torch.rsqrt(var + eps)).to(y.dtype) * w
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -143,52 +185,62 @@ def _ssd_chunked(x, dt, B, C, A, D, chunk: int = 128):
     return y + x.reshape(Bt, Sp, H, P)[:, :S] * D[None, None, :, None]
 
 
-def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """x: [B, S, D] -> [B, S, D] (residual applied by the caller)."""
-    d_inner, H, P, N = _dims(cfg)
+def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig, tp=None) -> torch.Tensor:
+    """x: [B, S, D] -> [B, S, D] (residual applied by the caller).  ``tp``: on
+    this process's SSM heads (:func:`_local`), ``out_proj`` its rows of
+    them, the output summed over the model group."""
+    p, d_inner, H, P, N = _local(p, cfg, tp)
     h = L.rms_norm(x, p["norm"], cfg.norm_eps)
-    z, xi, Bv, Cv, dt = _split_proj(h @ p["in_proj"], cfg)
+    z, xi, Bv, Cv, dt = _split_proj(h @ p["in_proj"], d_inner, H, N)
     xi, _ = _causal_conv(xi, p["conv_w"][:, :d_inner], p["conv_b"], None)
-    dt = _softplus(dt.float() + p["dt_bias"])
+    dt = _softplus(L.up32(dt) + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     Bt, S = x.shape[:2]
     y = _ssd_chunked(
-        xi.reshape(Bt, S, H, P).float(), dt,
-        Bv.reshape(Bt, S, H, N).float(), Cv.reshape(Bt, S, H, N).float(),
+        L.up32(xi.reshape(Bt, S, H, P)), dt,
+        L.up32(Bv.reshape(Bt, S, H, N)), L.up32(Cv.reshape(Bt, S, H, N)),
         A, p["D"],
     ).reshape(Bt, S, d_inner).to(x.dtype)
-    y = L.rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
-    return y @ p["out_proj"]
+    y = _gate_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps, d_inner, tp) @ p["out_proj"]
+    return y if tp is None else tp.sum(y)
 
 
 # -- decode ------------------------------------------------------------------
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, dtype, device,
-                     lead: Tuple[int, ...] = ()):
+                     lead: Tuple[int, ...] = (), tp=None):
+    """The conv window ``[*lead, B, K-1, d_inner]`` and the SSM state ``[*lead,
+    B, H, N, P]`` (at least float32); ``tp``: this process's SSM heads of
+    them (its ``d_inner`` block of channels, its ``H / m`` heads)."""
     d_inner, H, P, N = _dims(cfg)
+    if tp is not None:
+        d_inner, H = d_inner // tp.size, H // tp.size
     return {
         "conv": torch.zeros((*lead, batch, cfg.ssm_conv - 1, d_inner), dtype=dtype,
                             device=device),
-        "ssm": torch.zeros((*lead, batch, H, N, P), dtype=torch.float32, device=device),
+        "ssm": torch.zeros((*lead, batch, H, N, P),
+                           dtype=torch.promote_types(dtype, torch.float32), device=device),
     }
 
 
-def mamba_decode(p, x: torch.Tensor, cache, cfg: ModelConfig):
-    """x: [B, 1, D]; the O(1) recurrent update -> (y [B, 1, D], new cache)."""
-    d_inner, H, P, N = _dims(cfg)
+def mamba_decode(p, x: torch.Tensor, cache, cfg: ModelConfig, tp=None):
+    """x: [B, 1, D]; the O(1) recurrent update -> (y [B, 1, D], new cache).
+    ``tp``: on this process's SSM heads, as :func:`mamba_forward`, against
+    its blocks of the cache (:func:`init_mamba_cache`)."""
+    p, d_inner, H, P, N = _local(p, cfg, tp)
     h = L.rms_norm(x, p["norm"], cfg.norm_eps)
-    z, xi, Bv, Cv, dt = _split_proj(h @ p["in_proj"], cfg)
+    z, xi, Bv, Cv, dt = _split_proj(h @ p["in_proj"], d_inner, H, N)
     xi, conv_state = _causal_conv(xi, p["conv_w"][:, :d_inner], p["conv_b"], cache["conv"])
-    dt = _softplus(dt.float() + p["dt_bias"])[:, 0]                    # [B,H]
+    dt = _softplus(L.up32(dt) + p["dt_bias"])[:, 0]                    # [B,H]
     A = -torch.exp(p["A_log"])
-    xh = xi[:, 0].reshape(-1, H, P).float()
-    Bh = Bv[:, 0].reshape(-1, H, N).float()
-    Ch = Cv[:, 0].reshape(-1, H, N).float()
+    xh = L.up32(xi[:, 0].reshape(-1, H, P))
+    Bh = L.up32(Bv[:, 0].reshape(-1, H, N))
+    Ch = L.up32(Cv[:, 0].reshape(-1, H, N))
     decay = torch.exp(dt * A[None, :])                                  # [B,H]
     hs = cache["ssm"] * decay[..., None, None] + torch.einsum(
         "bhn,bhp->bhnp", dt[..., None] * Bh, xh)
     y = torch.einsum("bhn,bhnp->bhp", Ch, hs) + xh * p["D"][None, :, None]
     y = y.reshape(-1, 1, d_inner).to(x.dtype)
-    y = L.rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
-    return y @ p["out_proj"], {"conv": conv_state, "ssm": hs}
+    y = _gate_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps, d_inner, tp) @ p["out_proj"]
+    return (y if tp is None else tp.sum(y)), {"conv": conv_state, "ssm": hs}

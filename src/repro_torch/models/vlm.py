@@ -42,8 +42,8 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, ctx: ParallelContext
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, ctx: ParallelContext = SINGLE,
-               kv=None):
-    return dense.init_cache(cfg, batch, cache_len, ctx, kv)
+               place=None):
+    return dense.init_cache(cfg, batch, cache_len, ctx, place)
 
 
 def decode_step(params, cache, token: torch.Tensor, pos: int, cfg: ModelConfig,

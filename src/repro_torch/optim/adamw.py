@@ -2,8 +2,9 @@
 
 Decoupled weight decay (Loshchilov & Hutter), bias-corrected moments,
 global-norm gradient clipping, and a cosine schedule with linear warm-up.
-The moments are float32 whatever the parameters' dtype; each leaf is
-updated in float32 and cast back to its dtype.  ``torch.optim.AdamW`` is
+The moments are float32 whatever the parameters' dtype (float64 for
+float64 leaves); each leaf is updated in float32 (or float64) and cast back
+to its dtype.  ``torch.optim.AdamW`` is
 not used: for bfloat16 parameters it keeps bfloat16 moments, and the
 reference does not.
 
@@ -30,6 +31,11 @@ from ..tree import leaves, map_tree
 _F32 = np.float32
 
 
+def _up(dtype: torch.dtype) -> torch.dtype:
+    """At least float32: a float64 leaf keeps float64 moments and norms."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 @dataclasses.dataclass(frozen=True)
 class AdamWConfig:
     lr: float = 3e-4
@@ -50,7 +56,7 @@ class OptState(NamedTuple):
 
 
 def init(params) -> OptState:
-    zeros = map_tree(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+    zeros = map_tree(lambda p: torch.zeros_like(p, dtype=_up(p.dtype)), params)
     return OptState(m=zeros, v=map_tree(torch.zeros_like, zeros), step=0)
 
 
@@ -66,7 +72,8 @@ def schedule(cfg: AdamWConfig, step: int) -> float:
 
 
 def global_norm(tree, split: Optional[Sequence[tuple]] = None) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, as a float32 device scalar.
+    """sqrt of the sum of every leaf's squares, as a float32 device scalar
+    (float64 where a leaf is float64).
 
     ``split``: per leaf (in leaf order), the process groups over which this
     process holds one block of it (the axes that split it,
@@ -82,8 +89,9 @@ def global_norm(tree, split: Optional[Sequence[tuple]] = None) -> torch.Tensor:
     make the card copy each bf16 leaf to float64 before it reduces.
     """
     norms = [torch.linalg.vector_norm(
-        torch.linalg.vector_norm(x, 2, dim=-1, dtype=torch.float32), 2) for x in leaves(tree)]
-    sq = torch.stack(norms).double() ** 2
+        torch.linalg.vector_norm(x, 2, dim=-1, dtype=_up(x.dtype)), 2) for x in leaves(tree)]
+    out = torch.float64 if any(n.dtype == torch.float64 for n in norms) else torch.float32
+    sq = torch.stack([n.double() for n in norms]) ** 2
     if split is not None and any(split):
         sq = list(sq.unbind())
         for group in dict.fromkeys(g for gs in split for g in gs):
@@ -93,7 +101,7 @@ def global_norm(tree, split: Optional[Sequence[tuple]] = None) -> torch.Tensor:
             for j, i in enumerate(idx):
                 sq[i] = part[j]
         sq = torch.stack(sq)
-    return torch.sqrt(torch.sum(sq)).float()
+    return torch.sqrt(torch.sum(sq)).to(out)
 
 
 @torch.no_grad()

@@ -37,9 +37,14 @@ only: ``wq``/``bq``/``wo`` of an attention whose query heads the model
 group divides, and ``wk``/``wv``/``bk``/``bv`` where its KV heads divide
 too (else they are read whole, and each process projects the KV heads
 its query heads read); ``wg``/``wu``/``wd``/``w1``/``b1``/``w2`` of a dense
-MLP (d_ff divides where the spec splits it); ``lm_head`` on vocab (a tied
-embedding is read whole and its vocab rows taken).  A block
-under TP use is the block the process holds: nothing is placed anew.
+MLP (d_ff divides where the spec splits it); a Mamba layer's ``conv_w``,
+``conv_b``, ``gate_norm`` and ``out_proj`` where its SSM heads divide;
+``lm_head`` on vocab (a tied embedding is read whole and its vocab rows
+taken).  Attention whose heads do not divide, and Mamba's ``in_proj``,
+are read whole and each process cuts its share out of the whole leaf
+(``sharding/tp.py``): :meth:`Placement.tp_at` hands every attention its
+:class:`TensorParallel` all the same.  A block under TP use is the block
+the process holds: nothing is placed anew.
 """
 
 from __future__ import annotations
@@ -67,6 +72,8 @@ _ATTENTION = ("attn", "self_attn", "cross_attn")
 _Q_LEAVES = ("wq", "bq", "wo")
 _KV_LEAVES = ("wk", "wv", "bk", "bv")
 _MLP_LEAVES = ("wg", "wu", "wd", "w1", "b1", "w2")
+#: a Mamba layer's leaves whose "model" block is its SSM heads' channels
+_MAMBA_LEAVES = ("conv_w", "conv_b", "gate_norm", "out_proj")
 
 #: one step of a gather: (dim, process group, its size)
 Step = Tuple[int, object, int]
@@ -139,7 +146,8 @@ def _keeps_model_block(path: Sequence, shapes, spec: Spec, m: int, head_dim: int
     (module docstring): a leaf of a tensor-parallel product that "model"
     splits as a dim of its own; attention by whole heads (``H % m``, and
     ``Hkv % m`` for the KV leaves, H and Hkv from ``wq``'s and ``wk``'s
-    columns); ``lm_head`` by vocab."""
+    columns); a Mamba layer's channel leaves by whole SSM heads (H from
+    ``A_log``); ``lm_head`` by vocab."""
     if "model" not in spec:
         return False
     name, parent = str(path[-1]), (path[-2] if len(path) > 1 else None)
@@ -147,6 +155,8 @@ def _keeps_model_block(path: Sequence, shapes, spec: Spec, m: int, head_dim: int
         sub = at_path(shapes, path[:-1])
         heads, kv = sub["wq"][-1] // head_dim, sub["wk"][-1] // head_dim
         return heads % m == 0 and (name in _Q_LEAVES or kv % m == 0)
+    if parent == "mamba":
+        return name in _MAMBA_LEAVES and at_path(shapes, path[:-1])["A_log"][-1] % m == 0
     if parent == "mlp":
         return name in _MLP_LEAVES
     return tuple(path) == ("lm_head",)
@@ -208,9 +218,13 @@ class Placement:
 
     def tp_at(self, *keys) -> Optional[TensorParallel]:
         """:attr:`tp` where a leaf of the subtree at ``keys`` keeps its "model"
-        block (its products are tensor-parallel), else ``None``."""
+        block (its products are tensor-parallel) and for every attention
+        subtree (its heads split unevenly where they do not divide: the
+        layer slices them out of the whole leaves), else ``None``."""
         if self.tp is None:
             return None
+        if (self.prefix + keys)[-1:] and (self.prefix + keys)[-1] in _ATTENTION:
+            return self.tp
         specs, use = at_path(self.specs, keys), at_path(self.use, keys)
         for path, _ in leaf_paths(at_path(self.shapes, keys)):
             if "model" in at_path(specs, path) and "model" not in at_path(use, path):

@@ -345,20 +345,50 @@ def build_cache_specs(cache, mesh) -> dict:
 
 
 def serve_cache_specs(cache, mesh, data_axes: Sequence[str] = ("data",)) -> dict:
-    """:func:`build_cache_specs` with a KV leaf's rows placed as
-    :func:`input_specs_sharding` places the tokens (:func:`batch_spec`: the
-    data axes that divide them, "pod" among them; never "model"), so that
-    each process holds the cache of the rows it decodes; ``slot_pos`` stays
-    replicated (spec ``()``)."""
+    """Serving's placement of a cache: each process holds the cache of the
+    rows it decodes, placed as :func:`input_specs_sharding` places the
+    tokens (:func:`batch_spec`: the data axes that divide them, "pod" among
+    them; never "model"), and its share of the model group's work:
+
+      * a KV leaf (``k``, ``v``) by :func:`build_cache_specs`' rule (its KV
+        heads, else its slots over "model"); ``slot_pos`` replicated (spec
+        ``()``);
+      * a Mamba layer's states (a ``conv`` [L, B, K-1, d_inner] beside an
+        ``ssm`` [L, B, H, N, P]) by SSM heads where H divides by "model":
+        ``ssm`` on H and ``conv`` on its channels, which are the heads' x
+        channels (``models/ssm.py``).  The reference's
+        ``cache_spec_rules`` splits ``ssm`` on P instead, the same bytes a
+        process; a split on P would have every process project every
+        head's B, C and dt (``2 N H + H`` of ``in_proj``'s columns) where a
+        split by heads projects its own;
+      * the encoder states ``enc_out`` [B, F, d] by rows only, whole over
+        "model" (the reference's cache holds them replicated)."""
     specs = build_cache_specs(cache, mesh)
+    sizes = mesh_sizes(mesh)
+    m = _axis_size(sizes, "model")
+
+    def rows_at(shape, dim):
+        parts = [None] * len(shape)
+        parts[dim] = batch_spec(mesh, data_axes, shape[dim])[0]
+        return parts
 
     def one(path, leaf):
-        spec = at_path(specs, path)
-        if str(path[-1]) not in ("k", "v") or len(spec) < 4:
-            return spec
-        rows = len(spec) - 4
-        return (*spec[:rows], batch_spec(mesh, data_axes, _shape(leaf)[rows])[0],
-                *spec[rows + 1:])
+        spec, name, shape = at_path(specs, path), str(path[-1]), _shape(leaf)
+        parent = at_path(cache, path[:-1])
+        if name in ("k", "v") and len(spec) >= 4:
+            rows = len(spec) - 4
+            return (*spec[:rows], batch_spec(mesh, data_axes, shape[rows])[0],
+                    *spec[rows + 1:])
+        if name in ("ssm", "conv") and isinstance(parent, Mapping) and {"ssm", "conv"} <= set(
+                parent):
+            heads = _shape(parent["ssm"])[-3]
+            parts = rows_at(shape, len(shape) - (4 if name == "ssm" else 3))
+            if m > 1 and heads % m == 0:
+                parts[-3 if name == "ssm" else -1] = "model"
+            return tuple(parts)
+        if name == "enc_out":
+            return tuple(rows_at(shape, 0))
+        return spec
 
     return map_with_path(one, cache)
 

@@ -5,20 +5,41 @@ Where the train step's rows are replicated over the model group
 batch), the reference's partitioned step computes each product on the
 group's "model" block of its weight, as XLA's partitioner places it from
 ``sharding/specs.py``'s rules: attention by whole query heads, the dense
-MLP and SwiGLU on d_ff (column-parallel in, row-parallel out), the loss's
-logits by vocab.  The port does the same:
+MLP and SwiGLU on d_ff (column-parallel in, row-parallel out), zamba2's
+Mamba layers by SSM heads, the loss's logits by vocab.  The port does the
+same:
 
-  * ``sharding/gather.py::Placement.for_rows`` keeps those leaves' "model"
-    blocks (gathered over their other axes only) and hands each block a
+  * ``sharding/gather.py::placement`` keeps those leaves' "model" blocks
+    (gathered over their other axes only) and hands each block a
     :class:`TensorParallel`, this process's place in the model group;
   * ``models/layers.py`` computes on the blocks: ``attention_forward`` on
-    the process's ``H / m`` query heads and the KV heads they read,
-    ``swiglu`` and ``mlp`` on the d_ff block; a row-parallel output is a
-    partial sum, summed over the group by :meth:`TensorParallel.sum`
+    the process's query heads (:meth:`TensorParallel.heads`) and the KV
+    heads they read, ``swiglu`` and ``mlp`` on the d_ff block,
+    ``models/ssm.py`` on the process's SSM heads; a row-parallel output is
+    a partial sum, summed over the group by :meth:`TensorParallel.sum`
     (:class:`SumOverGroup`), and a bias after it is added once, after the
     sum;
   * ``models/registry.py::Model.loss`` takes the logits' vocab block and
     computes the NLL from the blocks (:func:`vocab_parallel_nll`).
+
+Heads that do not divide the group.  The reference's counts suggest that
+XLA pads H heads to a multiple of m (40 over 16 to 48, 3 a device); the
+port splits whole heads unevenly (:func:`head_range`: rank 0 holds
+``ceil(H / m)``, the padded share, some ranks none where ``H < m``).
+Their leaves' "model" blocks are then not whole heads, so they stay
+gathered whole over "model" and each process uses a slice of the whole
+leaf: the columns of its heads in ``wq``/``bq`` (whisper's ``wk``/``wv``
+too), the rows of ``wo``, and the columns of the KV heads its heads read
+in ``wk``/``wv``/``bk``/``bv`` (``layers.local_heads``, ``_local_qkv``);
+Mamba's ``in_proj`` likewise, always (its "model" block of contiguous
+columns cuts across its five groups: ``ssm.py::_local``), and
+``A_log``/``D``/``dt_bias`` (replicated).  The gather's backward (a
+reduce-scatter) then sums the processes' disjoint shares into the whole
+leaf's gradient, and a replicated leaf's shares are summed by the step's
+all_reduce over "model".  A process of no head adds zeros to the sum and
+launches no attention kernel.  Mamba's ``gate_norm`` is an RMSNorm over
+the whole ``d_inner``: its sum of squares is summed over the group too.
+Where the SSM heads do not divide the group, a Mamba layer runs whole.
 
 The adjoints.  Each process scales its loss by ``1 / world`` and every
 collective's backward is its adjoint with respect to the sum ``J`` of the
@@ -39,12 +60,12 @@ So a leaf that keeps its "model" block has a gradient that is its block's
 whole: it is summed over the axes that do not split it, "model" not among
 them, as before.  A leaf read whole over "model" (a norm, the router,
 ``wk``/``wv`` whose KV heads do not divide, attention whose heads do not
-divide) collects the processes' shares: the step's all_reduce over
+divide, ``in_proj``) collects the processes' shares: the step's all_reduce over
 "model" or the gather's reduce-scatter sums them, as before.  Nothing in
 the step's reduction changes; only what the shares hold.
 
 :data:`COUNTS` counts the sums over a group (``"sum"``: the blocks' and the
-loss's, forward only; a remat recompute counts again), the maxes (``"max"``:
+loss's and ``gate_norm``'s, forward only; a remat recompute counts again), the maxes (``"max"``:
 the loss's, a sequence-split decode's) and the decode's gathers
 (``"gather"``).
 
@@ -121,18 +142,37 @@ class TensorParallel:
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
         return t
 
+    def heads(self, n_heads: int) -> Tuple[int, int]:
+        """(first, count) of this process's query heads: :func:`head_range`."""
+        return head_range(n_heads, self.size, self.rank)
+
     def kv_heads(self, n_heads: int, n_kv: int) -> Tuple[int, int, Optional[List[int]]]:
         """(first, count, index) of the KV heads that this process's query
-        heads ``r H/m ... (r+1) H/m - 1`` read (query head h reads KV head
+        heads (:meth:`heads`) read (query head h reads KV head
         ``h // (H / Hkv)``); ``index``: for each local query head, its KV
         head among them, where the local heads do not share them evenly
-        (then each gets its own copy), else ``None``."""
-        hq, g = n_heads // self.size, n_heads // n_kv
-        reads = [(self.rank * hq + j) // g for j in range(hq)]
+        (then each gets its own copy), else ``None``.  A process of no
+        query head reads none: ``(0, 0, None)``."""
+        h0, hq = self.heads(n_heads)
+        if hq == 0:
+            return 0, 0, None
+        g = n_heads // n_kv
+        reads = [(h0 + j) // g for j in range(hq)]
         first, count = reads[0], reads[-1] - reads[0] + 1
         even = hq % count == 0 and all(h - first == j // (hq // count)
                                        for j, h in enumerate(reads))
         return first, count, None if even else [h - first for h in reads]
+
+
+def head_range(n_heads: int, m: int, r: int) -> Tuple[int, int]:
+    """(first, count) of the query heads of process ``r`` of ``m``: heads
+    ``ceil(r H / m) ... ceil((r+1) H / m) - 1``, contiguous, the counts
+    differing by at most one and rank 0 holding the most (``ceil(H / m)``,
+    the share a pad of H up to a multiple of m gives each process).  Where
+    ``m`` divides H these are the "model" blocks of ``wq``; where ``H < m``
+    some processes hold none."""
+    first, last = -(-r * n_heads // m), -(-(r + 1) * n_heads // m)
+    return first, last - first
 
 
 def block_max(z: torch.Tensor) -> torch.Tensor:

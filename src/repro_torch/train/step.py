@@ -19,10 +19,10 @@ whole leaf's gradient back to the block, summed over the axes that split
 the leaf.
 
 Where the model group holds the rows replicated, it shares each block's
-dense products (``sharding/tp.py``): attention by whole heads, the MLP on
-d_ff and the loss's logits by vocab, each on the leaves' "model" blocks,
-summed over the group; the hybrid family stays on whole leaves
-(``models/registry.py::_WHOLE_LEAF_FAMILIES``).
+dense products (``sharding/tp.py``): attention by whole heads (unevenly
+where they do not divide), zamba2's Mamba layers by SSM heads, the MLP on
+d_ff and the loss's logits by vocab, each on the leaves' "model" blocks or
+on the process's share cut from a whole leaf, summed over the group.
 
 The gradients.  Each process scales its loss by ``1 / world``
 (``RowBlock.share``), and every collective on the loss's path has as its
@@ -54,7 +54,8 @@ at once).  Where the rows are replicated over "model":
     group's tokens in each process.  It is summed over "model" as before;
     so is, by the gather's reduce-scatter, a leaf "model" splits but the
     product reads whole (``wk``/``wv`` whose KV heads do not divide, the
-    attention of heads that do not, ``embed``).
+    attention of heads that do not, Mamba's ``in_proj``, ``embed``): each
+    process's gradient of it is nonzero only on the share it computed on.
 
 The sets of axes and the buckets are the same with or without
 tensor-parallel compute.  AdamW's global norm sums each leaf's squared

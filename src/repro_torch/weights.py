@@ -19,7 +19,7 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig, ctx: ParallelContext):
     Keys, list lengths and shapes must be the ones ``cfg``'s family expects
     (its ``param_shapes``).  Values are cast to ``ctx.param_dtype`` on
     ``ctx.device``, apart from the leaves the family keeps in float32 (its
-    ``F32_PARAMS``), as the reference does.  With ``ctx.mesh``, this
+    ``F32_PARAMS``; float64 in a float64 context), as the reference does.  With ``ctx.mesh``, this
     process's blocks (``sharding.specs.shard_params``).
     """
     mod = family(cfg)
@@ -40,7 +40,9 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig, ctx: ParallelContext):
         arr = np.asarray(node)
         if arr.shape != tuple(shapes):
             raise ValueError(f"{path}: shape {arr.shape} != {tuple(shapes)}")
-        dtype = torch.float32 if key in keep_f32 else ctx.param_dtype
-        return torch.as_tensor(arr.astype(np.float32)).to(device=ctx.device, dtype=dtype)
+        dtype = (torch.promote_types(ctx.param_dtype, torch.float32) if key in keep_f32
+                 else ctx.param_dtype)
+        arr = arr.astype(np.float64 if dtype == torch.float64 else np.float32)
+        return torch.as_tensor(arr).to(device=ctx.device, dtype=dtype)
 
     return shard_params(convert(tree, mod.param_shapes(cfg), "", ""), ctx)

@@ -38,7 +38,7 @@ over ``P`` processes, each hosting ``n / P`` of them:
   and the loss within 5e-2 of the JAX package's single-device step;
 * every parameter and AdamW moment placed by the full specs: the train
   step of reduced paper-moe-8e, granite-moe, smollm-135m, xlstm-125m and
-  zamba2-1.2b on
+  zamba2-1.2b (in float64: loss 1e-12, leaves 1e-9) on
   (data 2, model 2) (31 tokens a sequence: the MoE's masked branch) and
   (data 2, model 4) (32: its split), 2 sequences (the rows replicated over
   model), against one process: the loss within 1e-6 relative, each
@@ -51,10 +51,17 @@ over ``P`` processes, each hosting ``n / P`` of them:
   products tensor-parallel (``sharding/tp.py``): the placed cases' first
   step gathers no kept block over "model" and sums over the group as many
   times as the blocks' row-parallel products (and the loss once where the
-  vocab splits); five more cases on both worlds (query and KV heads that
-  divide, with remat; 2 KV heads over model 4; smollm's 9 over 3 heads; a
-  vocab of 509; whisper's tied logits) hold the same limits against one
-  process and the JAX package, and their launches exactly;
+  vocab splits; zamba2's Mamba layer by SSM heads on model 2); seven more
+  cases on both worlds (query and KV heads that divide, with remat; 2 KV
+  heads over model 4; smollm's 9 over 3 heads, uneven; 3 heads, one
+  process of none on model 4; a vocab of 509; whisper's tied logits;
+  whisper on 6 heads) hold the same limits against one process and the
+  JAX package, and their launches exactly;
+* serving on both worlds (``SERVE_CASES``): heads, slots (uneven heads
+  too), whole, a ring past its wrap, the MoE (one case dropping), zamba2
+  (conv and SSM caches by SSM heads) and whisper (its self cache, its cross
+  attention over its rows' encoder states) against one process within
+  1e-5 and the JAX package within 1e-4;
 * a checkpoint written by a (data 2, model 2) world is the world's blocks
   put together, bit for bit, and one written by a single process restores
   in the world as each process's block of it, bit for bit;
@@ -101,24 +108,39 @@ PLACED_ARCHS = ("paper-moe-8e", "granite-moe-1b-a400m", "smollm-135m", "xlstm-12
 #: the archs without experts take 32 on both (the same references)
 PLACED = {4: (2, 2, 31), 8: (2, 4, 32)}
 PLACED_STEPS = 2
+#: the placed cases' dtype and tolerances (loss relative, each leaf against
+#: its largest value): zamba2's Mamba gradients (``A_log``, ``dt_bias``,
+#: ``D``) are near-cancelling sums, which any reordered float32 sum above
+#: them moves past 1e-5, so its step is held in float64
+PLACED_DTYPE = {"zamba2-1.2b": "f64"}
+PLACED_TOL = {"f32": (1e-6, 1e-5), "f64": (1e-12, 1e-9)}
 #: the tensor-parallel cases on both PLACED worlds (2 sequences of 32
 #: tokens, the rows replicated over model): (arch reduced, its config
 #: overrides, remat); d_model 128 or 144, d_ff 256, 2 layers
 _NARROW = (("d_model", 128), ("d_ff", 256))
+_WHISPER6 = (("n_heads", 6), ("n_kv_heads", 6), ("d_model", 192), ("d_ff", 256))
 TP_CASES = {
     # query and KV heads divide by 2 and 4; remat recomputes the sums
     "heads-divide": ("llama3-8b", (("n_heads", 8), ("n_kv_heads", 4)) + _NARROW, True),
     # 2 KV heads over model 4: each read whole, two processes sharing one
     "kv-shared": ("llama3-8b", (("n_heads", 8), ("n_kv_heads", 2)) + _NARROW, False),
-    # smollm's 9 over 3 heads divide by neither: the attention stays whole,
-    # the MLP and the vocab split
+    # smollm's 9 over 3 heads divide by neither: uneven whole heads (5 and 4
+    # on model 2; 3, 2, 2, 2 on model 4) cut from the leaves read whole, the
+    # MLP and the vocab split
     "heads-whole": ("smollm-135m", (("n_heads", 9), ("n_kv_heads", 3), ("d_model", 144),
                                     ("d_ff", 256)), False),
+    # 3 query and 3 KV heads: 2 and 1 on model 2; on model 4 one process
+    # holds none (its share of every sum is zeros, no attention launched)
+    "heads-fewer": ("llama3-8b", (("n_heads", 3), ("n_kv_heads", 3), ("d_model", 192),
+                                  ("d_ff", 256)), False),
     # 509 divides by neither: the logits stay whole
     "vocab-whole": ("llama3-8b", (("vocab", 509),) + _NARROW, False),
     # whisper: the encoder's, the decoder's and the cross attention by heads,
     # the GELU MLP (its bias after the sum), the logits tied to the embedding
     "tied-vocab": ("whisper-small", _NARROW, False),
+    # whisper with 6 heads: 3 a process on model 2, 2, 1, 2, 1 on model 4, in
+    # the encoder's, the decoder's and the cross attention
+    "whisper-uneven": ("whisper-small", _WHISPER6, False),
 }
 
 
@@ -148,10 +170,20 @@ SERVE_CASES = {
     # tokens split over the model group, each decode step's 5 on the masked
     # branch), and the data replicas repeat each drop
     "moe-drop": ("paper-moe-8e", (), 16, 8),
+    # zamba2 with 4 SSM heads (one Mamba layer, one call of the shared
+    # block): the conv and SSM caches by SSM heads, the shared block's KV
+    # cache by heads
+    "zamba2": ("zamba2-1.2b", (("ssm_heads", 4),), 16, 5),
+    # whisper on 6 heads: its self caches (a ring of 4 slots, written past
+    # its wrap twice) by heads on model 2, by slots on model 4 (2, 1, 2, 1
+    # heads: uneven heads past the wrap), the cross attention on the
+    # process's heads over its rows' encoder states
+    "whisper": ("whisper-small", _WHISPER6, 4, 5),
 }
 SERVE_KINDS = {"heads": ("heads", "heads"), "seq-smollm": ("seq", "seq"), "seq": ("seq", "seq"),
                "whole": ("whole", "whole"), "ring": ("seq", "seq"), "moe": ("heads", "heads"),
-               "moe-drop": ("heads", "heads")}
+               "moe-drop": ("heads", "heads"), "zamba2": ("heads", "heads"),
+               "whisper": ("heads", "seq")}
 #: a case's batch, the expert layer's capacity factor and chunk (a chunk of
 #: one token, at 0.25, gives a rank's 2 assignments of a decode step one
 #: slot a destination)
@@ -246,7 +278,7 @@ def _cases(P):
             S = placed_tokens(P, arch)
             cases.append((f"placed-{arch}", "rows", dict(
                 arch=arch, data=data, model=model, S=S, steps=PLACED_STEPS,
-                tree=jax_rows_ref(arch, S=S)[0])))
+                tree=jax_rows_ref(arch, S=S)[0], dtype=PLACED_DTYPE.get(arch, "f32"))))
         for name, (arch, over, remat) in TP_CASES.items():
             cases.append((f"tp-{name}", "rows", dict(
                 arch=arch, data=data, model=model, steps=PLACED_STEPS, over=over,
@@ -536,15 +568,17 @@ class _FakeMesh:
 
 
 @functools.lru_cache(maxsize=None)
-def single_rows(arch, B=2, capacity=8.0, S=32, steps=0, over=(), remat=False):
+def single_rows(arch, B=2, capacity=8.0, S=32, steps=0, over=(), remat=False, dtype="f32"):
     """The single-process step on the whole batch (EP 4 stacked for moe),
     from the reference's weights: (loss, drops, gradient leaves, the
     parameters it started from); with ``steps``, also (each step's loss and
-    norm, the parameter leaves after them) at ``dist_checks.OPT``; ``over``
-    and ``remat`` as ``dist_checks.rows`` takes them."""
+    norm, the parameter leaves after them) at ``dist_checks.OPT``; ``over``,
+    ``remat`` and ``dtype`` as ``dist_checks.rows`` takes them."""
     cfg, ep_size, batch = dist_checks.rows_inputs(arch, B, S, capacity=capacity, over=over)
+    dt = dist_checks.FLOATS[dtype]
     ctx = ParallelContext(ep_size=ep_size, group_size=2, moe_mode="nimble",
-                          moe_chunk_tokens=4, device="cpu", remat=remat)
+                          moe_chunk_tokens=4, device="cpu", remat=remat, param_dtype=dt,
+                          compute_dtype=dt)
     model = build_model(cfg, ctx)
     params = params_from_jax(jax_rows_ref(arch, B, capacity, S, over)[0], cfg, ctx)
     stats = {} if cfg.n_experts else None
@@ -597,8 +631,10 @@ def test_placed_train_step_equals_one_process(world, arch):
     P = len(world[f"placed-{arch}"])
     data, model, _ = PLACED[P]
     S = placed_tokens(P, arch)
-    loss, dropped, grads, params, metrics, after = single_rows(arch, S=S,
-                                                               steps=PLACED_STEPS)
+    dtype = PLACED_DTYPE.get(arch, "f32")
+    ltol, tol = PLACED_TOL[dtype]
+    loss, dropped, grads, params, metrics, after = single_rows(
+        arch, S=S, steps=PLACED_STEPS, dtype=dtype)
     _, jloss = jax_rows_ref(arch, S=S)
     got = world[f"placed-{arch}"]
     sizes = {"data": data, "model": model}
@@ -606,10 +642,12 @@ def test_placed_train_step_equals_one_process(world, arch):
     held = 0
     for path, t in leaf_paths(params):
         spec = at_path(specs, path)
-        held += int(np.prod(block_shape(t.shape, spec, sizes))) * (t.element_size() + 8)
+        moment = max(t.element_size(), 4)            # AdamW's m and v: at least float32
+        held += int(np.prod(block_shape(t.shape, spec, sizes))) * (t.element_size()
+                                                                    + 2 * moment)
     for g in got:
         assert g["rows"]["replicas"] == model and not g["rows"]["split_over_model"]
-        assert abs(g["loss"] - loss) <= 1e-6 * abs(loss)
+        assert abs(g["loss"] - loss) <= ltol * abs(loss)
         assert np.isfinite(g["loss"]) and abs(g["loss"] - jloss) < 5e-2
         assert g["dropped"] == dropped == 0
         assert g["held"] == held
@@ -617,12 +655,13 @@ def test_placed_train_step_equals_one_process(world, arch):
         # norm as the gradients (the second starts from parameters that
         # differ by the summation order)
         for (lw, nw), (lg, ng) in zip(metrics, g["metrics"]):
-            assert abs(lg - lw) <= 1e-5 * abs(lw) and abs(ng - nw) <= 1e-5 * abs(nw)
+            assert abs(lg - lw) <= tol * abs(lw) and abs(ng - nw) <= tol * abs(nw)
     for key, want in (("grads", grads), ("params", after)):
         full = selftest.assemble_grads(got, params, key)
         assert len(full) == len(want)
         for a, b in zip(full, want):
-            _close(a, b)
+            assert a.dtype == b.dtype == {"f32": np.float32, "f64": np.float64}[dtype]
+            _close(a, b, tol)
 
 
 def _tp_launches(arch, over, model, remat=False):
@@ -631,27 +670,29 @@ def _tp_launches(arch, over, model, remat=False):
     that keep their "model" block, as "a/b/c" paths, a stacked leaf's
     layer dim folded; the sums over the model group; the loss's maxes).
     Attention keeps ``wq``/``bq``/``wo`` where the query heads divide and
-    ``wk``/``wv``/``bk``/``bv`` where the KV heads divide too; a dense MLP
-    and ``lm_head`` keep theirs where "model" splits them (d_ff, vocab).  A
-    block sums each tensor-parallel product once (the moe family's
-    attention only, xLSTM none; zamba2 at each call of its shared block),
-    the loss once where the vocab splits; remat's recompute reruns the
-    attention's sum, not the MLP's: the block's last op, whose output no
-    recomputed activation needs.  The hybrid family (zamba2) stays on whole
-    leaves (``models/registry.py::_WHOLE_LEAF_FAMILIES``): nothing kept,
-    nothing summed."""
+    ``wk``/``wv``/``bk``/``bv`` where the KV heads divide too, a Mamba layer
+    its channel leaves (``conv_w``, ``conv_b``, ``gate_norm``, ``out_proj``)
+    where its SSM heads divide; a dense MLP and ``lm_head`` keep theirs
+    where "model" splits them (d_ff, vocab).  Every attention sums its
+    output once, on whole heads or uneven ones (the moe family's attention
+    only, xLSTM none; zamba2 at each call of its shared block), a dense
+    MLP where d_ff divides, a Mamba layer twice where its SSM heads divide
+    (``gate_norm``'s sum of squares, ``out_proj``'s output), the loss once
+    where the vocab splits; remat's recompute reruns the attention's sum,
+    not the MLP's: the block's last op, whose output no recomputed
+    activation needs."""
     from repro_torch.configs.base import get_config
+    from repro_torch.models.hybrid import n_attn_calls, n_mamba_layers
     from repro_torch.models.registry import family
     from repro_torch.sharding.specs import at_path, build_param_specs, leaf_paths
 
     cfg = dataclasses.replace(get_config(arch).reduced(), **dict(over))
-    if cfg.arch_type == "hybrid":
-        return set(), 0, 0
     attention = ("attn", "self_attn", "cross_attn")
     shapes = family(cfg).param_shapes(cfg)
     specs = build_param_specs(shapes, {"data": 2, "model": model})
     heads = cfg.n_heads % model == 0
     kv = heads and cfg.n_kv_heads % model == 0
+    ssm = bool(cfg.ssm_heads) and cfg.ssm_heads % model == 0
     kept = set()
     for path, _ in leaf_paths(shapes):
         name, parent = path[-1], path[-2] if len(path) > 1 else None
@@ -661,17 +702,23 @@ def _tp_launches(arch, over, model, remat=False):
             kept.add("/".join(map(str, path)))
         if parent == "mlp" or path == ("lm_head",):
             kept.add("/".join(map(str, path)))
+        if parent == "mamba" and ssm and name in ("conv_w", "conv_b", "gate_norm",
+                                                  "out_proj"):
+            kept.add("/".join(map(str, path)))
     mlp = cfg.d_ff % model == 0 if cfg.d_ff else False
     vocab = int("lm_head" in kept or "lm_head" not in shapes and cfg.vocab % model == 0)
     if cfg.arch_type == "audio":          # encoder: attention, MLP; decoder: two, MLP
-        return kept, (cfg.n_enc_layers * (int(heads) + int(mlp))
-                      + cfg.n_layers * (2 * int(heads) + int(mlp)) + vocab), vocab
+        return kept, (cfg.n_enc_layers * (1 + int(mlp))
+                      + cfg.n_layers * (2 + int(mlp)) + vocab), vocab
+    if cfg.arch_type == "hybrid":
+        return kept, (n_attn_calls(cfg) * (1 + int(mlp))
+                      + n_mamba_layers(cfg) * 2 * int(ssm) + vocab), vocab
     if cfg.arch_type == "ssm":
         per, calls = 0, 0
     elif cfg.arch_type == "moe":
-        per, calls = int(heads), cfg.n_layers
+        per, calls = 1, cfg.n_layers
     else:
-        per, calls = int(heads) + int(mlp) + int(remat and heads), cfg.n_layers
+        per, calls = 1 + int(mlp) + int(remat), cfg.n_layers
     return kept, calls * per + vocab, vocab
 
 
@@ -682,21 +729,28 @@ def test_placed_train_step_runs_the_blocks_tensor_parallel(world, arch):
     model) on (data 2, model 2) and (data 2, model 4): no leaf that keeps
     its "model" block is gathered over "model" (``embed``, split on d, is),
     and the sums over the group and the loss's maxes are as
-    :func:`_tp_launches` counts them; zamba2 reads its shared block whole
-    over "model" at each of its calls."""
+    :func:`_tp_launches` counts them.  zamba2 shares its work too: its
+    shared block by heads (4 over 2 and 4), its logits by vocab, its Mamba
+    layer by SSM heads on model 2, whose ``in_proj`` it reads whole; its
+    2 SSM heads do not divide model 4, where the Mamba layer's leaves are
+    read whole."""
     got = world[f"placed-{arch}"]
     _, model, _ = PLACED[len(got)]
     kept, sums, maxes = _tp_launches(arch, (), model)
+    assert "lm_head" in kept
     hybrid = arch == "zamba2-1.2b"
-    assert ("lm_head" in kept) != hybrid
     for g in got:
         launches = g["launches"]
         assert launches["sum"] == sums and launches["max"] == maxes
         assert not kept & set(launches["model_gathers"])
         assert launches["model_gathers"]["embed"] == 1
         if hybrid:
-            assert launches["model_gathers"]["shared_attn/attn/wq"] == 1
-            assert launches["model_gathers"]["lm_head"] == 1
+            assert "shared_attn/attn/wq" in kept and "lm_head" not in launches["model_gathers"]
+            mamba = {k for k in launches["model_gathers"] if k.startswith("mamba/")}
+            assert mamba == ({"mamba/in_proj"} if model == 2 else
+                             {"mamba/conv_w", "mamba/conv_b", "mamba/gate_norm",
+                              "mamba/out_proj"})
+            assert ("mamba/out_proj" in kept) == (model == 2)
 
 
 @pytest.mark.parametrize("world,case", [pytest.param(P, c, id=f"P{P}-{c}") for P in PLACED
@@ -723,8 +777,10 @@ def test_tp_train_step_equals_one_process(world, case):
     heads, kv = cfg.get("n_heads", 4), cfg.get("n_kv_heads", 4)
     whole = (("wq", "wk", "wv", "wo") if heads % model else
              ("wk", "wv") if kv % model else ())
-    top = {"embed": 2, "dec_pos": 1} if arch == "whisper-small" else {"embed": 1}
-    gathered = dict({f"blocks/attn/{k}": 2 for k in whole}, **top)
+    audio = arch == "whisper-small"
+    top = {"embed": 2, "dec_pos": 1} if audio else {"embed": 1}
+    subtrees = ("enc/attn", "dec/self_attn", "dec/cross_attn") if audio else ("blocks/attn",)
+    gathered = dict({f"{t}/{k}": 2 for t in subtrees for k in whole}, **top)
     assert maxes == (case != "vocab-whole")
     for g in got:
         assert g["rows"]["replicas"] == model and not g["rows"]["split_over_model"]
@@ -751,25 +807,37 @@ def single_serve(case):
     model = build_model(cfg, ctx)
     params = params_from_jax(jax_serve_tree(arch, over), cfg, ctx)
     prompts = torch.as_tensor(dist_checks.serve_prompts(cfg, opts["B"], prompt))
-    return dist_checks.serve_run(model, params, prompts, width, SERVE_STEPS, opts["B"])
+    frames = dist_checks.serve_frames(cfg, opts["B"])
+    return dist_checks.serve_run(model, params, prompts, width, SERVE_STEPS, opts["B"],
+                                 None if frames is None else torch.as_tensor(frames))
 
 
 def _serve_launches(case, model) -> dict:
     """A decode step's collectives over the model group (``sharding/tp.py``),
     by the rules of ``models/layers.py::attention_decode``, summed over the
-    run's steps and layers: each layer sums its attention's row-parallel
-    output where the query heads divide, and its dense MLP's where d_ff
-    does (the expert layer's sum is its own); a cache split by slots takes
-    one max and one sum to combine its blocks, and a gather of the new
-    token's q, k, v where the query heads divide."""
+    run's steps and layers: each attention sums its row-parallel output
+    (on whole heads or uneven ones), a dense MLP where d_ff divides (the
+    expert layer's sum is its own), a Mamba layer its ``gate_norm`` and its
+    output where its SSM heads divide; a cache split by slots takes one
+    max and one sum to combine its blocks and one gather of the new token's
+    q, k, v.  whisper's decoder layer attends twice (its self cache, then
+    the cross attention), and its cache's encoder states are computed once
+    (the encoder's attention and MLP a layer)."""
+    from repro_torch.models.hybrid import n_attn_calls, n_mamba_layers
+
     arch, over, _, prompt = SERVE_CASES[case]
     cfg, _ = dist_checks.serve_config(arch, over)
-    heads = cfg.n_heads % model == 0
-    seq = SERVE_KINDS[case][model // 4] == "seq"
-    mlp = cfg.arch_type != "moe" and cfg.d_ff % model == 0
-    n = cfg.n_layers * (prompt + SERVE_STEPS)
-    return {"sum": n * (int(heads) + int(mlp) + int(seq)), "max": n * int(seq),
-            "gather": n * int(seq and heads)}
+    seq = int(SERVE_KINDS[case][model // 4] == "seq")
+    mlp = int(cfg.arch_type != "moe" and cfg.d_ff % model == 0)
+    steps = prompt + SERVE_STEPS
+    if cfg.arch_type == "hybrid":
+        n, mamba = n_attn_calls(cfg) * steps, n_mamba_layers(cfg) * steps
+        return {"sum": n * (1 + mlp + seq) + mamba * 2 * int(cfg.ssm_heads % model == 0),
+                "max": n * seq, "gather": n * seq}
+    n = cfg.n_layers * steps
+    cross = int(cfg.arch_type == "audio")
+    encoder = cfg.n_enc_layers * (1 + mlp) if cross else 0
+    return {"sum": n * (1 + cross + mlp + seq) + encoder, "max": n * seq, "gather": n * seq}
 
 
 @pytest.mark.parametrize("world,case", [pytest.param(P, c, id=f"P{P}-{c}") for P in PLACED
@@ -824,8 +892,12 @@ def _jax_prefill(arch, over, prompt):
     cfg, _ = dist_checks.serve_config(arch, over)
     jmodel, jparams = _jax_rows_model(arch, 8.0, over)
     prompts = dist_checks.serve_prompts(cfg, SERVE_BATCH, prompt)
+    batch = {"tokens": jnp.asarray(prompts.astype(np.int32))}
+    frames = dist_checks.serve_frames(cfg, SERVE_BATCH)
+    if frames is not None:
+        batch["frames"] = jnp.asarray(frames)
     forward = jax.jit(functools.partial(jmodel.forward, last_only=True))
-    jlogits, _ = forward(jparams, {"tokens": jnp.asarray(prompts.astype(np.int32))})
+    jlogits, _ = forward(jparams, batch)
     return np.asarray(jlogits)[:, -1]
 
 
@@ -833,7 +905,8 @@ def _jax_prefill(arch, over, prompt):
 def jax_serve(case):
     """The JAX package's prefill logits and ``decode_step`` logits on one
     device for ``case``, fed the prompts and then one process's greedy
-    tokens (which the worlds' equal)."""
+    tokens (which the worlds' equal); whisper's cache holds the encoder
+    states of the prompts' frames."""
     arch, over, width, prompt = SERVE_CASES[case]
     cfg, _ = dist_checks.serve_config(arch, over)
     jmodel, jparams = _jax_rows_model(arch, 8.0, over)
@@ -842,6 +915,12 @@ def jax_serve(case):
     prompts = dist_checks.serve_prompts(cfg, SERVE_BATCH, prompt)
     toks = np.concatenate([prompts, single_serve(case)["tokens"].T], axis=1)
     cache = jmodel.init_cache(SERVE_BATCH, JInputShape("serve", width, SERVE_BATCH, "decode"))
+    frames = dist_checks.serve_frames(cfg, SERVE_BATCH)
+    if frames is not None:
+        from repro.models import encdec as jencdec
+
+        cache["enc_out"] = jax.jit(functools.partial(jencdec.encode, cfg=jmodel.cfg))(
+            jparams, jnp.asarray(frames))
     step = jax.jit(jmodel.decode_step)
     out = []
     for j in range(toks.shape[1]):

@@ -20,7 +20,9 @@ prefill_32k, smollm-135m x decode_32k) must count within the stated
 factors of the reference's FLOPs and bytes a device.  smollm's train step must count, per device, the FLOPs of
 the same step on one process without a mesh at the per-device batch [1,
 4096]: the mesh adds collectives only (on 2 x 16 x 16, [8, 4096] with the
-split products at 1/16); and the ``all-reduce`` bytes of both
+split products at 1/16 and 1 of the 9 heads); zamba2, qwen2.5-14b and
+whisper-small at full depth must count within the stated factors of the
+reference's FLOPs and bytes a device; and the ``all-reduce`` bytes of both
 train steps are the gradients that ``train/step.py`` reduces, plus the
 scalars it sums.  The CLI writes the records and a ``FAIL`` record (exit 1)
 where a combo fails (a ``run_one`` made to raise).  ``chip_smoke.py``'s
@@ -149,10 +151,12 @@ def test_mesh_adds_collectives_only(records):
     x data, replicated over the 16 processes of a model group): the group
     shares the products it splits (``sharding/tp.py``), the MLP on d_ff
     1536 and the logits on vocab 49152, which count 1/16 of their
-    one-process FLOPs; the rest (the attention: 9 query heads do not divide
-    by 16) are equal.  The one-process step with d_ff and vocab cut by 16
-    counts the rest and 1/16 of the split products: the same FLOPs, by
-    dtype too; the split products' own FLOPs are the difference's 16/15."""
+    one-process FLOPs, and the attention by uneven whole heads: this
+    device, rank 0, runs 1 of the 9 query heads and the 1 KV head it reads.
+    The one-process step on 1 head (and 1 KV head, of head dim 64) counts
+    the rest; with d_ff and vocab cut by 16 as well it counts the rest and
+    1/16 of the split products: the same FLOPs, by dtype too; the split
+    products' own FLOPs are the difference's 16/15."""
     rec, _ = records[("smollm-135m", "train_4k", False)]
     one = _one_process("smollm-135m", 1)
     roof = rec["roofline"]
@@ -164,8 +168,9 @@ def test_mesh_adds_collectives_only(records):
 
     rec, _ = records[("smollm-135m", "train_4k", True)]
     cfg = get_config("smollm-135m")
-    one = _one_process("smollm-135m", 8)
-    cut = _one_process("smollm-135m", 8, d_ff=cfg.d_ff // 16, vocab=cfg.vocab // 16)
+    head = dict(n_heads=1, n_kv_heads=1, head_dim_override=cfg.head_dim)
+    one = _one_process("smollm-135m", 8, **head)
+    cut = _one_process("smollm-135m", 8, d_ff=cfg.d_ff // 16, vocab=cfg.vocab // 16, **head)
     split = (one["flops"] - cut["flops"]) * 16 / 15
     rest = one["flops"] - split
     roof = rec["roofline"]
@@ -244,6 +249,50 @@ def test_serving_model_group_shares_the_work(arch, shape):
     ref = REFERENCE_SERVE_16X16[(arch, shape)]
     for key, limit in SERVE_LIMITS[(arch, shape)].items():
         assert got[key] <= limit * ref[key], (key, got[key], ref[key])
+    assert not dist.is_initialized()
+
+
+#: the reference's counts a device of the combos whose work the model group
+#: shared only from here on (``PYTHONPATH=src JAX_PLATFORMS=cpu python -m
+#: repro.launch.dryrun --arch A --shape S [--multi-pod]``: its
+#: ``cost_analysis`` FLOPs, ``memory_analysis`` argument and peak bytes)
+REFERENCE_SHARED = {
+    ("zamba2-1.2b", "train_4k", True): dict(flops=24.21e12, peak=30.63e9),
+    ("qwen2.5-14b", "train_4k", True): dict(flops=261.60e12, peak=17.57e9),
+    ("zamba2-1.2b", "decode_32k", False): dict(flops=0.0071e12, argument=0.85e9),
+    ("whisper-small", "decode_32k", False): dict(flops=0.0215e12, peak=0.41e9),
+}
+#: how far the port's count may lie above the reference's, by figure; a peak
+#: given in bytes must fit one H100's 80 GB
+SHARED_LIMITS = {
+    ("zamba2-1.2b", "train_4k", True): dict(flops=1.15, peak_bytes=80e9),
+    ("qwen2.5-14b", "train_4k", True): dict(flops=1.15, peak_bytes=80e9),
+    ("zamba2-1.2b", "decode_32k", False): dict(argument=1.10),
+    ("whisper-small", "decode_32k", False): dict(flops=1.25),
+}
+
+
+@pytest.mark.parametrize("arch,shape,mp", list(SHARED_LIMITS), ids=[
+    f"{a}-{s}-{'2x16x16' if mp else '16x16'}" for a, s, mp in SHARED_LIMITS])
+def test_model_group_shares_uneven_heads_and_ssm_heads(arch, shape, mp):
+    """At full depth, the model group of 16 shares what it computed whole
+    before: qwen2.5-14b's 40 query heads over 16 (3 or 2 a process, cut
+    from the leaves read whole; the whole-head step: 1482.05 TFLOP, 171.90
+    GB), zamba2's Mamba layers by SSM heads (32 over 16), its shared
+    block's heads, MLP and vocab (train: 387.27 TFLOP, 405.38 GB; decode
+    13.19 GB of arguments: every process held its rows' whole conv, SSM
+    and KV caches), whisper's decode on 12 heads over 16 (0.3425 TFLOP: the
+    cross attention projected 1500 frames whole every step).  Each count a
+    device within :data:`SHARED_LIMITS` of the reference's."""
+    rec = dryrun.run_one(arch, shape, multi_pod=mp)
+    assert rec["status"] == "ok", rec.get("error")
+    got = dict(flops=rec["roofline"]["flops_per_device"], **rec["bytes_per_device"])
+    ref = REFERENCE_SHARED[(arch, shape, mp)]
+    for key, limit in SHARED_LIMITS[(arch, shape, mp)].items():
+        if key == "peak_bytes":
+            assert got["peak"] < limit, (got["peak"], limit)
+        else:
+            assert got[key] <= limit * ref[key], (key, got[key], ref[key])
     assert not dist.is_initialized()
 
 

@@ -18,6 +18,14 @@
 * Which leaves keep their "model" block under TP use
   (``sharding/gather.py``), at the published widths on model 16, and when
   rows take TP use.
+* Uneven whole heads: ``TensorParallel.heads`` covers every head once,
+  rank 0 the most; attention on the ranks' uneven heads cut from the
+  whole leaves sums to the whole, forward and gradients (a rank of no
+  head included); the decode over a ``seq`` cache on uneven heads past
+  the ring's wrap.
+* zamba2's Mamba layer on the ranks' SSM heads (m threads), with and
+  without ``gate_norm``'s sum over the group (the latter must differ), and
+  its decode on the conv and SSM caches' blocks for 4 steps.
 """
 
 import dataclasses
@@ -173,14 +181,18 @@ def _cache_block(cache, kv, r):
     (8, 4, 16, 2, 6),        # "heads"
     (8, 2, 16, 4, 6),        # 2 KV heads over 4: "seq", two ranks reading one head
     (12, 3, 16, 2, 6),       # "seq", the query heads reading their KV heads unevenly
-    (9, 3, 16, 2, 6),        # "seq", the attention whole (9 heads over 2)
+    (9, 3, 16, 2, 6),        # "seq", 9 heads over 2: 5 and 4, the gather padded
     (12, 3, 9, 2, 6),        # "whole", the query heads split
     (32, 8, 4, 4, 11),       # "seq" of one slot a rank, past the ring's wrap twice
+    (9, 3, 4, 4, 11),        # "seq", 3, 2, 2 and 2 heads, past the ring's wrap twice
+    (3, 3, 16, 4, 6),        # "seq", one rank of no head
+    (6, 3, 9, 4, 6),         # "whole", 2, 1, 2 and 1 heads
 ])
 def test_decode_on_the_ranks_blocks_equals_the_whole(heads, kv, width, m, steps):
     """``attention_decode`` on m ranks (threads exchanging through
-    :class:`_Threads`), each with its blocks of the weights (its query
-    heads where they divide) and of the cache (``KVLayout``), at positions
+    :class:`_Threads`), each on its query heads (``TensorParallel.heads``:
+    the weights' blocks where the heads divide, else cut from the whole
+    leaves) and its block of the cache (``KVLayout``), at positions
     0 ... steps-1: each step's output within 1e-5 of the whole step's
     largest value on every rank, and each rank's cache the block of the
     whole cache."""
@@ -204,7 +216,7 @@ def test_decode_on_the_ranks_blocks_equals_the_whole(heads, kv, width, m, steps)
     def rank(r):
         for i in range(steps):
             outs[r][i] = L.attention_decode(blocks[r], xs[i], caches[r], i, kv=lays[r],
-                                            tp=tps[r] if split else None, **kw)
+                                            tp=tps[r], **kw)
 
     threads = [threading.Thread(target=rank, args=(r,)) for r in range(m)]
     for t in threads:
@@ -327,3 +339,151 @@ def test_a_block_under_tp_use_is_the_block_held():
     for p, _ in leaf_paths(shapes):
         u, t = at_path(use, p), at_path(tp_use, p)
         assert t == u or t == tuple(None if a == "model" else a for a in u)
+
+
+# -- uneven whole heads and Mamba by SSM heads ----------------------------------
+
+
+@pytest.mark.parametrize("heads,m", [(9, 2), (9, 4), (40, 16), (12, 16), (3, 4)])
+def test_heads_cover_every_head_once_rank_0_the_most(heads, m):
+    """``TensorParallel.heads``: contiguous ranges that cover ``[0, H)`` once
+    in rank order, counts within one of each other, rank 0 holding
+    ``ceil(H / m)``; where ``H < m`` some ranks hold none."""
+    got = [_Local(None, m, r).heads(heads) for r in range(m)]
+    assert [h for first, n in got for h in range(first, first + n)] == list(range(heads))
+    counts = [n for _, n in got]
+    assert counts[0] == -(-heads // m) == max(counts) and max(counts) - min(counts) <= 1
+    assert (min(counts) == 0) == (heads < m)
+
+
+@pytest.mark.parametrize("heads,kv,m", [(9, 3, 2), (9, 3, 4), (6, 6, 4), (3, 3, 4)])
+def test_attention_on_uneven_heads_sums_to_the_whole(heads, kv, m):
+    """Each rank on its heads of ``TensorParallel.heads``, cut out of the
+    whole leaves (``layers.local_heads``): the partial outputs sum to the
+    whole attention's, and the ranks' gradients of the whole leaves (each
+    nonzero only on its heads' share; a rank of no head launches nothing
+    and still reaches every leaf) sum to the whole's."""
+    dh, d = 8, 48
+    p = _attention_params(heads * 10 + m, d, heads, kv, dh, True)
+    x = torch.randn(2, 6, d, generator=torch.Generator().manual_seed(1))
+    cot = torch.randn(2, 6, d, generator=torch.Generator().manual_seed(2))
+    kw = dict(n_heads=heads, n_kv=kv, head_dim=dh, rope_theta=10000.0)
+
+    def run(tp):
+        live = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+        y = L.attention_forward(live, x, tp=tp, **kw)
+        grads = torch.autograd.grad((y * cot).sum(), [live[k] for k in sorted(live)])
+        return y.detach(), grads
+
+    want, gw = run(None)
+    outs = [run(_Local(None, m, r)) for r in range(m)]
+    got = sum(y for y, _ in outs)
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    for i, w in enumerate(gw):
+        g = sum(o[1][i] for o in outs)
+        assert (g - w).abs().max() <= 1e-5 * w.abs().max(), sorted(p)[i]
+
+
+def _mamba_cfg(heads=4):
+    return dataclasses.replace(get_config("zamba2-1.2b").reduced(), ssm_heads=heads)
+
+
+def _mamba_params(cfg, seed=0):
+    """A whole Mamba layer with every leaf random (norms, biases, decays)."""
+    from repro_torch.models import ssm
+
+    g = torch.Generator().manual_seed(seed)
+    p = ssm.init_mamba_block(g, cfg, torch.float32, "cpu")
+    for k in ("norm", "gate_norm", "conv_b", "D", "dt_bias"):
+        p[k] = p[k] + 0.3 * torch.randn(p[k].shape, generator=g)
+    return p
+
+
+def _mamba_block(p, cfg, r, m):
+    """Rank r's blocks: the "model" blocks of ``conv_w``, ``conv_b``,
+    ``gate_norm`` and ``out_proj`` (its heads' channels); the rest whole."""
+    from repro_torch.models.ssm import _dims
+
+    d_inner = _dims(cfg)[0]
+    c = slice(r * d_inner // m, (r + 1) * d_inner // m)
+    return dict(p, conv_w=p["conv_w"][:, c], conv_b=p["conv_b"][c],
+                gate_norm=p["gate_norm"][c], out_proj=p["out_proj"][c])
+
+
+class _NoNormSum(_Thread):
+    """:class:`_Thread` that leaves ``gate_norm``'s sum of squares ([B, S, 1])
+    unsummed: the norm then scales by each rank's own channels."""
+
+    def sum(self, y):
+        return y if y.shape[-1] == 1 else super().sum(y)
+
+
+def _on_threads(m, fn):
+    outs = [None] * m
+    threads = [threading.Thread(target=lambda r=r: outs.__setitem__(r, fn(r)))
+               for r in range(m)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return outs
+
+
+@pytest.mark.parametrize("m", [2, 4])
+def test_mamba_on_the_ranks_ssm_heads_equals_the_whole(m):
+    """``mamba_forward`` on m ranks (threads), each on its SSM heads: its
+    blocks of the channel leaves, its columns of the whole ``in_proj``'s
+    five groups, its heads of ``A_log``/``D``/``dt_bias``; ``gate_norm``'s
+    sum of squares and the ``out_proj`` output summed over the group.
+    Every rank's output is the whole layer's within 1e-5; without the
+    norm's group sum it is not."""
+    from repro_torch.models import ssm
+
+    cfg = _mamba_cfg()
+    p = _mamba_params(cfg, m)
+    x = torch.randn(2, 40, cfg.d_model, generator=torch.Generator().manual_seed(3))
+    want = ssm.mamba_forward(p, x, cfg)
+    for kind, close in ((_Thread, True), (_NoNormSum, False)):
+        group = _Threads(m)
+        outs = _on_threads(m, lambda r: ssm.mamba_forward(
+            _mamba_block(p, cfg, r, m), x, cfg, kind(group, m, r)))
+        for y in outs:
+            err = (y - want).abs().max() / want.abs().max()
+            assert (err <= 1e-5) == close, (kind.__name__, float(err))
+
+
+@pytest.mark.parametrize("m", [2, 4])
+def test_mamba_decode_on_the_cache_blocks_equals_the_whole(m):
+    """``mamba_decode`` on m ranks, each on its SSM heads against its blocks
+    of the conv and SSM caches (``init_mamba_cache(tp=)``: its channels, its
+    heads), for 4 steps: each step's output within 1e-5 of the whole step's
+    largest value on every rank, and each rank's caches the blocks of the
+    whole caches."""
+    from repro_torch.models import ssm
+
+    cfg = _mamba_cfg()
+    p = _mamba_params(cfg, 7)
+    steps = 4
+    xs = torch.randn(steps, 2, 1, cfg.d_model, generator=torch.Generator().manual_seed(4))
+    whole = ssm.init_mamba_cache(cfg, 2, torch.float32, "cpu")
+    want = []
+    for i in range(steps):
+        y, whole = ssm.mamba_decode(p, xs[i], whole, cfg)
+        want.append(y)
+    group = _Threads(m)
+
+    def rank(r):
+        tp = _Thread(group, m, r)
+        cache, ys = ssm.init_mamba_cache(cfg, 2, torch.float32, "cpu", tp=tp), []
+        for i in range(steps):
+            y, cache = ssm.mamba_decode(_mamba_block(p, cfg, r, m), xs[i], cache, cfg, tp)
+            ys.append(y)
+        return ys, cache
+
+    d_inner, H = whole["conv"].shape[-1], whole["ssm"].shape[1]
+    for r, (ys, cache) in enumerate(_on_threads(m, rank)):
+        for y, w in zip(ys, want):
+            assert (y - w).abs().max() <= 1e-5 * w.abs().max()
+        c, h = slice(r * d_inner // m, (r + 1) * d_inner // m), slice(r * H // m, (r + 1) * H // m)
+        assert torch.allclose(cache["conv"], whole["conv"][..., c], rtol=0, atol=1e-6)
+        assert torch.allclose(cache["ssm"], whole["ssm"][:, h], rtol=1e-5, atol=1e-6)
