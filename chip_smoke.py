@@ -51,7 +51,12 @@ port's six CUDA kernels from ``src/repro_torch/csrc``, all at once, then:
  10. holds ``mlstm_scan`` against its plain version on the inputs of
      xlstm-125m's first mLSTM layer at a 4 x 2048 prefill (float32), and
      times both; under a gradient, checks that the kernel runs the forward
-     and the gradients equal the CPU's plain version's within 1e-4;
+     and the gradients equal the CPU's plain version's within 1e-4; then
+     the value-column route (a model group's process: q/k [4, 1, 2048, 192]
+     of one head, v of 48 or 96 of its columns, as on model 16 and 8): its
+     output and final state against the plain version's and against the
+     whole head's columns, its time and bound, and ``MLSTMScanFunction``'s
+     gradients against the CPU's within 1e-4;
  11. prefills xlstm-125m at full width (bf16) for 4 requests of 2048 tokens,
      holds the chunked (kernel) forward against the per-step mLSTM forward
      at 4 x 256 tokens (float32 and bf16), and a reduced xlstm config on the
@@ -188,8 +193,8 @@ port's six CUDA kernels from ``src/repro_torch/csrc``, all at once, then:
      placed path gathers nothing and the tensor-parallel path
      (``sharding/tp.py``) sums nothing over a model group; (c) ``selftest --procs <device_count>``
      (spawned processes, NCCL).  With one card no hop crosses a process:
-     ``tests/test_torch_dist.py`` holds the exchange between processes on the
-     CPU (gloo).
+     ``tests/test_torch_dist_p*.py`` hold the exchange between processes on
+     the CPU (gloo).
  26. the roofline and the dry run: (a) ``launch/dryrun.py`` on this
      machine's host (fake tensors in a fake world of 256 processes) for
      smollm-135m x train_4k, granite-moe-1b-a400m x train_4k and llama3-8b x
@@ -245,9 +250,15 @@ port's six CUDA kernels from ``src/repro_torch/csrc``, all at once, then:
      their heads, which must be each rank's share.  gloo sends no
      point-to-point message from CUDA tensors, which the MoE dataplane
      needs: paper-moe-8e is held across processes by the CPU tests
-     (``tests/test_torch_dist.py``).
+     (``tests/test_torch_dist_p4.py``, ``tests/test_torch_dist_p8.py``).
  29. the same two processes and limits (one spawn with 28b,
-     ``SERVE_MESH_CASES``): zamba2-1.2b at full width and 8 layers (its
+     ``SERVE_MESH_CASES``), and xlstm-125m at full size on them (2 of its 4
+     mLSTM heads a process, its sLSTM on 384 channels; the control: the
+     first mLSTM layer's ``wo`` row halves swapped) and on a second spawn
+     of 8 processes on this card, (data 1, model 8), where each process
+     computes 96 value columns of one head (``mlstm_scan`` at dv 96 < dk
+     192) and 96 sLSTM channels; each process launches ``mlstm_scan`` once
+     an mLSTM layer in the prefill; zamba2-1.2b at full width and 8 layers (its
      Mamba layers by SSM heads, 16 of 32, their conv and SSM caches by
      heads, ``gate_norm`` summed over the group; one call of the shared
      block on 16 of 32 heads, its KV cache by heads; the control: the first
@@ -309,13 +320,16 @@ SERVE_MESH_CASES = (
     ("smollm", "smollm-135m", 5, 512, SERVE_MESH_LAYERS, ("blocks", "attn", "wo")),
     ("zamba2", "zamba2-1.2b", 7, 512, SERVE_MESH_LAYERS, ("mamba", "out_proj")),
     ("whisper", "whisper-small", 9, 256, None, ("dec", "cross_attn", "wo")),
+    ("xlstm", "xlstm-125m", 11, 512, None, ("blocks", 0, "wo")),
 )
 #: each process's flash launches in 28b and 29: a prefill's attention layers
 #: (zamba2: one call of its shared block in 8 layers; whisper: the encoder's,
 #: the decoder's self and cross attention, then the encoder again for the
-#: decode cache's states)
+#: decode cache's states; xLSTM none)
 SERVE_MESH_FLASH = {"llama3": SERVE_MESH_LAYERS, "smollm": SERVE_MESH_LAYERS, "zamba2": 1,
-                    "whisper": 12 + 2 * 12 + 12}
+                    "whisper": 12 + 2 * 12 + 12, "xlstm": 0}
+#: phase 29's cases that also run on a world of 8 processes on the card
+SERVE_MESH_EIGHT = ("xlstm",)
 #: phase 26a's combos on 16 x 16 and the record values the CPU tests hold
 #: against the reference's dry run (``tests/test_torch_dryrun.py``)
 DRYRUN_PINNED = {
@@ -583,6 +597,8 @@ def xlstm_phases(torch, np, check, compare, seed: int, dev):
           f"{flops / 1e9:.3f} GFLOP at 67 TFLOP/s, {nbytes / 1e6:.1f} MB at 3.35 TB/s); "
           f"under a gradient (the first {2 * L} steps) the kernel launched {launched} time(s) "
           f"and the gradients are within {grad_err:.3g} of the CPU's (limit 1e-4)", flush=True)
+    ms_report["dv_routes"] = mlstm_value_columns(torch, check, compare, seed, dev, q, k, v,
+                                                 ig, lf, h, chunk)
 
     # ---- 11. prefill ---------------------------------------------------------
     reset_launch_counts()
@@ -657,6 +673,74 @@ def xlstm_phases(torch, np, check, compare, seed: int, dev):
           f", bf16 {'equal' if agree['bf16'] else 'differ'} (reported, not checked); ids "
           f"{ids[:, :8].tolist()}", flush=True)
     return ms_report, counts_prefill["mlstm_scan"] + counts_gen["mlstm_scan"]
+
+
+def mlstm_value_columns(torch, check, compare, seed, dev, q, k, v, ig, lf, h, chunk) -> dict:
+    """Phase 10's value-column route: head 0 of phase 10's inputs with 48 and
+    96 of its value columns (a model group's process on model 16 and 8: all
+    dk = 192 key columns, dv < dk) -> {dv: the route's figures}."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.mlstm_scan import ops as ms_ops
+    from repro_torch.kernels.mlstm_scan.ops import mlstm_scan, mlstm_scan_chunked_ref
+    from repro_torch.launch.kernel_times import time_ms
+    from repro_torch.roofline.analysis import kernel_bound
+
+    why = "f32 sums over dk and the chunk's steps in another order"
+    q1, k1, ig1, lf1 = (t[:, :1].contiguous() for t in (q, k, ig, lf))
+    B, _, S, dk = q1.shape
+    L = min(chunk, S)
+    out = {}
+    for dv in (48, 96):
+        v1 = v[:, :1, :, :dv].contiguous()
+        hv, st = mlstm_scan(q1, k1, v1, ig1, lf1, chunk=chunk)
+        hv_ref, st_ref = mlstm_scan_chunked_ref(q1, k1, v1, ig1, lf1, chunk=chunk)
+        check(tuple(hv.shape) == (B, 1, S, dv) and tuple(st["C"].shape) == (B, 1, dk, dv),
+              f"mlstm_scan dv {dv}: h {tuple(hv.shape)}, C {tuple(st['C'].shape)}")
+        err = compare("mlstm_scan", f"dv {dv} h f32", hv, hv_ref, 1e-4, why)
+        for key in ("C", "n", "m"):
+            compare("mlstm_scan", f"dv {dv} final {key} f32", st[key], st_ref[key], 1e-4, why)
+        cols = compare("mlstm_scan", f"dv {dv} h vs the whole head's columns", hv,
+                       h[:, :1, :, :dv], 1e-4, "the dv = dk launch's columns, f32 sums "
+                       "over the same chunk in another tiling")
+        flops, nbytes = ms_ops.mlstm_cost(B, 1, S, dk, chunk, dv)
+        bound_s, bound_by = kernel_bound(flops, nbytes, "f32")
+        # MLSTMScanFunction: the kernel's forward and the plain backward on
+        # the card against autograd through the plain version on the CPU, on
+        # the first 2 chunks, from a carried state
+        sub = [t[:, :, :2 * L].contiguous() for t in (q1, k1, v1, ig1, lf1)]
+        gen = torch.Generator().manual_seed(seed + dv)
+        st0 = {"C": 0.2 * torch.randn((B, 1, dk, dv), generator=gen),
+               "n": 0.2 * torch.randn((B, 1, dk), generator=gen),
+               "m": torch.randn((B, 1), generator=gen)}
+        g_out = torch.randn((B, 1, 2 * L, dv), generator=gen)
+        grads, launched = [], 0
+        for where in (dev, torch.device("cpu")):
+            live = [t.to(where).requires_grad_(True) for t in sub]
+            lst = {key: a.to(where).requires_grad_(True) for key, a in st0.items()}
+            before = launch_counts()["mlstm_scan"]
+            hh, _ = mlstm_scan(*live, chunk=chunk, state=lst)
+            grads.append([g.cpu() for g in torch.autograd.grad(hh, live + list(lst.values()),
+                                                               g_out.to(where))])
+            launched += launch_counts()["mlstm_scan"] - before
+        grad_err = max(((a - b).abs().max() / b.abs().max()).item()
+                       for a, b in zip(*grads) if b.abs().max() > 0)
+        check(launched == 1 and grad_err <= 1e-4,
+              f"mlstm_scan dv {dv} under grad: {launched} launches, gradients {grad_err:.3g} "
+              f"from the CPU's")
+        out[str(dv)] = dict(
+            ms=time_ms(lambda: mlstm_scan(q1, k1, v1, ig1, lf1, chunk=chunk), 10),
+            plain_ms=time_ms(lambda: mlstm_scan_chunked_ref(q1, k1, v1, ig1, lf1,
+                                                            chunk=chunk), 3),
+            bound_ms=bound_s * 1e3, bound_by=bound_by, max_abs_err=err,
+            whole_head_columns_err=cols, grad_rel_err=grad_err,
+            shape=f"q/k {tuple(q1.shape)}, v {tuple(v1.shape)} f32, chunk {L}")
+        r = out[str(dv)]
+        print(f"[10 kernel] mlstm_scan value columns dv {dv} < dk {dk}: {r['shape']}: kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({bound_by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB); vs the whole "
+              f"head's columns {cols:.3g}; under a gradient from a state {launched} launch, "
+              f"gradients within {grad_err:.3g} of the CPU's (limit 1e-4)", flush=True)
+    return out
 
 
 class EventTimer:
@@ -2850,8 +2934,8 @@ def dist_phase(torch, np, check, seed: int, dev, smi: str, phase4_logits, phase7
     check(rc == 0, f"selftest --procs {procs} returned {rc}")
     print(f"[25c dist selftest] selftest --procs {procs} (spawned, NCCL) -> {rc}; with "
           f"{procs} card{'s' if procs > 1 else ''} "
-          + ("no hop crossed a process: tests/test_torch_dist.py holds the exchange between "
-             "processes on the CPU (gloo, P = 2, 4, 8)" if procs == 1 else
+          + ("no hop crossed a process: tests/test_torch_dist_p*.py hold the exchange "
+             "between processes on the CPU (gloo, P = 2, 4, 8)" if procs == 1 else
              f"the hops crossed {procs} processes")
           + f" ({time.perf_counter() - t_phase:.0f} s for phase 25 on {smi})", flush=True)
     return out
@@ -3047,14 +3131,15 @@ def analysis_phase(torch, check, seed: int, smi: str):
           f"({time.perf_counter() - t_phase:.0f} s for phase 27 on {smi})", flush=True)
 
 
-def serve_mesh_phase(torch, np, check, seed: int, dev, smi: str, served19) -> dict:
-    """Phases 28 and 29: serving on a mesh; -> the kernels' launches of 28a,
-    28b and 29."""
+def serve_mesh_phase(torch, np, check, seed: int, dev, smi: str, served19):
+    """Phases 28 and 29: serving on a mesh; -> (the kernels' launches of 28a,
+    28b and 29, ``mlstm_scan``'s launches in 29's world of 8 at dv 96)."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import dist_checks
     from repro_torch.launch.dist import local_world, spawn
     from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import xlstm as xlstm_mod
     from repro_torch.models.registry import build_model
     from repro_torch.sharding.context import ParallelContext
 
@@ -3112,7 +3197,8 @@ def serve_mesh_phase(torch, np, check, seed: int, dev, smi: str, served19) -> di
     # call of the shared block, 16 of 32 heads) and whisper-small at full
     # size (6 of 12 heads in the encoder's, the decoder's and the cross
     # attention; its self cache by heads; the cache's encoder states those
-    # of the prompts' stub frames)
+    # of the prompts' stub frames) and xlstm-125m (2 whole mLSTM heads a
+    # process, then 96 value columns of one head on a world of 8)
     f32 = torch.float32
     refs, cases = {}, []
     for key, arch, seed_p, pre, layers, ctl_path in SERVE_MESH_CASES:
@@ -3146,7 +3232,7 @@ def serve_mesh_phase(torch, np, check, seed: int, dev, smi: str, served19) -> di
         ref32 = one(m32, _to(w16, dev, f32))
         fed = ref32[0]["tokens"]
         refs[key] = dict(f32=ref32, bf16=one(m16, w16, fed), control=one(m16, ctl, fed),
-                         ctl="/".join(ctl_path), heads=c.n_heads)
+                         ctl="/".join(map(str, ctl_path)), heads=c.n_heads)
         cases.append((key, "serve_fed", dict(arch=arch, seed=seed, prompts=p_np, gprompts=g_np,
                                              fed=fed.T, width=width, n_layers=layers,
                                              frames=f_np)))
@@ -3155,9 +3241,17 @@ def serve_mesh_phase(torch, np, check, seed: int, dev, smi: str, served19) -> di
     t0 = time.perf_counter()
     res = spawn(dist_checks.run_cases, 2, cases, "cuda", backend="gloo", timeout_s=600)
     spawn_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res8 = spawn(dist_checks.run_cases, 8, [c for c in cases if c[0] in SERVE_MESH_EIGHT],
+                 "cuda", backend="gloo", timeout_s=600)
+    spawn8_s = time.perf_counter() - t0
     launched = {}
     parts = {"28b": [], "29": []}
-    want_kind = {"llama3": "heads", "smollm": "seq", "zamba2": "heads", "whisper": "heads"}
+    want_kind = {"llama3": "heads", "smollm": "seq", "zamba2": "heads", "whisper": "heads",
+                 "xlstm": "state"}
+    n_mlstm = sum(1 for i in range(get_config("xlstm-125m").n_layers)
+                  if not xlstm_mod.is_slstm_layer(get_config("xlstm-125m"), i))
+    dv_launches = 0
 
     def rel(got, want):
         """max over the steps of max|got - want| / max|want| at that step."""
@@ -3168,7 +3262,7 @@ def serve_mesh_phase(torch, np, check, seed: int, dev, smi: str, served19) -> di
             np.abs(got - want).max() / np.abs(want).max())
 
     for key, r3 in refs.items():
-        tag = "29" if key in ("zamba2", "whisper") else "28b"
+        tag = "29" if key in ("zamba2", "whisper", "xlstm") else "28b"
         (l32, p32), (l16, p16), (lc, pc) = r3["f32"], r3["bf16"], r3["control"]
         noise = rel(l16["logits"], l32["logits"])
         pnoise = rel(p16, p32)
@@ -3188,7 +3282,8 @@ def serve_mesh_phase(torch, np, check, seed: int, dev, smi: str, served19) -> di
                 f"{ctl_err:.4g} ({ctl_vs_one:.4g} vs the world of one), prefill {pnoise:.4g} "
                 f"(control {rel(pc, p32):.4g})")
         heads = set()
-        for rank, r in enumerate(res):
+        worlds = [res] + ([res8] if key in SERVE_MESH_EIGHT else [])
+        for P, rank, r in ((len(w), rank, r) for w in worlds for rank, r in enumerate(w)):
             got = r[key]
             check(got["kind"] == want_kind[key],
                   f"{tag} {key}: the cache lies by {got['kind']}, want {want_kind[key]}")
@@ -3197,67 +3292,78 @@ def serve_mesh_phase(torch, np, check, seed: int, dev, smi: str, served19) -> di
             scales = np.abs(l16["logits"]).max(axis=(1, 2))
             worst = int(np.argmax(errs / scales))
             check(bool((errs <= tol * scales).all()),
-                  f"{tag} {key} rank {rank}: step {worst}'s decode logits off by "
+                  f"{tag} {key} rank {rank} of {P}: step {worst}'s decode logits off by "
                   f"{errs[worst]:.4g} > {tol:.4g} x {scales[worst]:.4g}")
             tp_err = rel(got["logits"], l32["logits"])
             check(tp_err <= SERVE_MESH_NOISE * noise,
-                  f"{tag} {key} rank {rank}: decode logits off float32's by {tp_err:.4g} of "
+                  f"{tag} {key} rank {rank} of {P}: decode logits off float32's by {tp_err:.4g} of "
                   f"the largest, over {SERVE_MESH_NOISE:g} x the world of one's {noise:.4g}")
-            line += (f"; rank {rank}: cache {got['kind']} {got['cache']}, {len(errs)} decode "
-                     f"steps' logits vs the world of one at most "
+            cache = f"{got['kind']} {got['cache']}" if rank == 0 else "as rank 0's"
+            line += (f"; rank {rank} of {P}: cache {cache}, "
+                     f"{len(errs)} decode steps' logits vs the world of one at most "
                      f"{errs[worst] / scales[worst]:.4g} (step {worst}; limit {tol:.4g}), vs "
                      f"float32 {tp_err:.4g} ({tp_err / noise:.3g} x the world of one's; limit "
                      f"{SERVE_MESH_NOISE:g})")
             perr = float(np.abs(got["prefill"] - p16).max())
             pscale = float(np.abs(p16).max())
-            check(perr <= ptol * pscale, f"{tag} {key} rank {rank}: prefill logits off by "
+            check(perr <= ptol * pscale, f"{tag} {key} rank {rank} of {P}: prefill logits off by "
                                          f"{perr:.4g} > {ptol:.4g} x {pscale:.4g}")
             ptp = rel(got["prefill"], p32)
             check(ptp <= SERVE_MESH_NOISE * pnoise,
-                  f"{tag} {key} rank {rank}: prefill logits off float32's by {ptp:.4g}, over "
-                  f"{SERVE_MESH_NOISE:g} x the world of one's {pnoise:.4g}")
+                  f"{tag} {key} rank {rank} of {P}: prefill logits off float32's by "
+                  f"{ptp:.4g}, over {SERVE_MESH_NOISE:g} x the world of one's {pnoise:.4g}")
             line += (f", prefill {perr / pscale:.4g} (limit {ptol:.4g}; vs float32 "
                      f"{ptp:.4g})")
             for kname, n_launch in got["launches"].items():
                 launched[kname] = launched.get(kname, 0) + n_launch
+            if key == "xlstm":                  # once an mLSTM layer in the prefill
+                check(got["launches"]["mlstm_scan"] == n_mlstm,
+                      f"{tag} {key} rank {rank} of {P}: mlstm_scan launched "
+                      f"{got['launches']['mlstm_scan']} times, want {n_mlstm}")
+                dv_launches += got["launches"]["mlstm_scan"] if P == 8 else 0
             heads |= set(got["flash_heads"])
             line += (f"; launches { {k: v for k, v in got['launches'].items() if v} }, flash "
                      f"by heads {got['flash_heads']}")
-        # the ranks' heads, 2 processes: ceil and floor of H / 2
-        want_heads = {-(-r3["heads"] // 2), r3["heads"] // 2}
+        # the ranks' heads, 2 processes: ceil and floor of H / 2 (xLSTM: no flash)
+        want_heads = {-(-r3["heads"] // 2), r3["heads"] // 2} if SERVE_MESH_FLASH[key] else set()
         check(heads == want_heads, f"{tag} {key}: flash launched on {sorted(heads)} heads, "
                                    f"want {sorted(want_heads)} (each rank's share)")
         parts[tag].append(line)
-        check(all(np.array_equal(r[key]["tokens"], l32["tokens"]) for r in res),
+        check(all(np.array_equal(r[key]["tokens"], l32["tokens"]) for w in worlds for r in w),
               f"{tag} {key}: the fed tokens came back changed")
     want_fa = sum(2 * n for n in SERVE_MESH_FLASH.values())
     check(launched.get("flash_attention", 0) == want_fa,
           f"28b/29: flash launched {launched.get('flash_attention', 0)} times in the two "
           f"processes, want {want_fa} ({SERVE_MESH_FLASH} a process)")
     for tag, what in (("28b", "llama3-8b and smollm-135m"),
-                      ("29", "zamba2-1.2b and whisper-small")):
+                      ("29", "zamba2-1.2b, whisper-small and xlstm-125m (also on 8 "
+                             f"processes, (data 1, model 8), {spawn8_s:.1f} s for that spawn)")):
         print(f"[{tag} serve mesh] {what}: two processes on this card, (data 1, model 2), gloo "
               f"on CUDA tensors, bf16, full width, tokens fed from float32 ({spawn_s:.1f} s "
               f"for the spawn of 28b and 29): " + "; ".join(parts[tag])
               + f" ({time.perf_counter() - t_phase:.0f} s for phases 28 and 29 on {smi})",
               flush=True)
-    return {k: counts_a.get(k, 0) + launched.get(k, 0) for k in KERNEL_META}
+    return {k: counts_a.get(k, 0) + launched.get(k, 0) for k in KERNEL_META}, dv_launches
 
 
 def _swap_row_halves(tree, path):
-    """``tree`` with the leaf at ``path`` [layers, rows, cols] cloned and its
-    first layer's two row halves swapped (the model group's row blocks of a
-    row-parallel product, misplaced)."""
+    """``tree`` with the leaf at ``path`` cloned and its first layer's two row
+    halves swapped (the model group's row blocks of a row-parallel product,
+    misplaced): a stacked leaf [layers, rows, cols], or one layer's [rows,
+    cols] where ``path`` indexes a list of layers (xLSTM's ``blocks``)."""
     leaf = tree
     for k in path:
         leaf = leaf[k]
     new = leaf.clone()
-    half = leaf.shape[1] // 2
-    new[0, :half], new[0, half:2 * half] = leaf[0, half:2 * half], leaf[0, :half]
+    rows, src = (new, leaf) if leaf.dim() == 2 else (new[0], leaf[0])
+    half = src.shape[0] // 2
+    rows[:half], rows[half:2 * half] = src[half:2 * half], src[:half]
 
     def put(node, keys):
         if not keys:
             return new
+        if isinstance(node, list):
+            return [put(n, keys[1:]) if i == keys[0] else n for i, n in enumerate(node)]
         return dict(node, **{keys[0]: put(node[keys[0]], keys[1:])})
 
     return put(tree, tuple(path))
@@ -3724,11 +3830,20 @@ def main() -> int:
     print(f"[27 analysis] ({time.perf_counter() - t_start:.0f} s in all)", flush=True)
 
     # ---- 28, 29. serving across processes as the reference places it --------------
-    serve_launches = serve_mesh_phase(torch, np, check, args.seed, dev, smi, served19)
+    serve_launches, dv_launches = serve_mesh_phase(torch, np, check, args.seed, dev, smi,
+                                                   served19)
     del served19
     for kname, c in serve_launches.items():
         launches[kname] += c
     extra["flash_attention"]["launches_serve_mesh"] = serve_launches["flash_attention"]
+    extra["mlstm_scan"]["launches_serve_mesh"] = serve_launches["mlstm_scan"]
+    # the value-column route: phase 10's figures, its launches on the main path
+    # (29's world of 8 at dv 96; model 16's dv 48 needs 16 processes)
+    dv_routes = report["mlstm_scan"].pop("dv_routes")
+    dv_routes["96"]["launches"], dv_routes["48"]["launches"] = dv_launches, 0
+    extra["mlstm_scan"]["value_column_routes"] = dv_routes
+    check(dv_launches > 0, "mlstm_scan never launched at dv < dk on the main path (29's "
+                           "world of 8)")
     print(f"[28-29 serve mesh] ({time.perf_counter() - t_start:.0f} s in all)", flush=True)
 
     kernels = []

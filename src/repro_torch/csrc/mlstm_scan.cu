@@ -3,7 +3,7 @@
 // Replaces the Pallas TPU kernel repro/kernels/mlstm_scan/scan.py
 // (mlstm_scan), which computes the exact chunk recurrence of the reference's
 // models/xlstm.py::_mlstm_chunk_body.  Per (batch, head) and chunk of L steps,
-// with the carried state (C [dh, dh], n [dh], m):
+// with the carried state (C [dk, dv], n [dk], m):
 //
 //   Lf = cumsum(lf),  g = ig - Lf,  u_t = max(m_in, cummax_{j<=t} g_j)
 //   S[t, j] = (q_t . k_j) e^{g_j - u_t}           (j <= t, else 0)
@@ -14,7 +14,12 @@
 //
 // Unlike the TPU kernel it starts from a given state (or the zero state with
 // m = -30 when none is given) and writes the final one, so
-// mlstm_forward_chunked(state=...) runs through it.
+// mlstm_forward_chunked(state=...) runs through it.  The value width dv may
+// differ from the key width dk: where a model group splits the mLSTM by value
+// columns, a process holds all dk key columns of its head but dv < dk of its
+// value columns (48 of 192 on a model group of 16).  Every value column's
+// recurrence reads the whole key dim and no other value column; n, m and the
+// denominators do not read v.
 //
 // Bound on the H100 at xlstm-125m's prefill (B 4, H 4, S 2048, dh 192, L 64):
 // operations.  Per chunk the work is q k^T and S v over the causal half of
@@ -32,12 +37,12 @@
 //      into shared memory by cp.async while one warp computes the chunk's
 //      gates (Lf, g, G; prefix sum and max by shuffles); then
 //      dC'[d, p] = sum_j e^{g_j - G} k_j[d] v_j[p] in tiles of 64 rows of
-//      d, as a register-tiled f32 product (8 x 6 outputs a thread, operands
-//      read from shared memory as float4 and float2), and dn', into a
-//      scratch tensor [B, H, chunks, dh * dh + dh] that the wrapper
-//      allocates.  It writes (Lf_L, G) of each chunk.
+//      d (an L x dk x dv product), as a register-tiled f32 product (8 x 6
+//      outputs a thread, operands read from shared memory as float4 and
+//      float2), and dn', into a scratch tensor [B, H, chunks, dk * dv + dk]
+//      that the wrapper allocates.  It writes (Lf_L, G) of each chunk.
 //   2. mlstm_prefix, a block per (b, h, 256 threads of state elements, 4 a
-//      thread as a float4 where dh % 4 == 0): thread 0 runs
+//      thread as a float4 where dk % 4 == 0 and dv % 4 == 0): thread 0 runs
 //      the stabilizer chain in chunk order (u_L = max(m, G),
 //      decay = e^{m - u_L}, scale = e^{G - u_L}, m <- Lf_L + u_L) over
 //      factors staged in shared memory; then every thread walks its element
@@ -45,14 +50,18 @@
 //      chunk c in place and writing the final C and n.  Each chunk's m_in
 //      and the final m go out too.
 //   3. mlstm_out, a block per (b, h, chunk): q k^T once per chunk (not once
-//      per value slice), masked and weighted into S, the denominators, then
-//      h = [S | w_in q] [v ; C_in] as one product of depth L + dh.  The B
-//      operands (k^T, then [v ; C_in]) stream through a two-stage shared
-//      ring of 16-row slices by cp.async, the next slice loading while this
-//      one is used; q^T and S^T stay in shared memory.
+//      per value slice, depth dk), masked and weighted into S, the
+//      denominators, then h = [S | w_in q] [v ; C_in] as one product of
+//      depth L + dk and width dv.  The B operands (k^T, then [v ; C_in])
+//      stream through a two-stage shared ring of 16-row slices by cp.async,
+//      the next slice loading while this one is used; q^T and S^T stay in
+//      shared memory.
 //
-// Rows and columns are 16-byte vectors where dh % 4 == 0 (the serving
-// path's 192), 4-byte words otherwise.
+// Rows are 16-byte vectors where their width is a multiple of 4 floats (the
+// serving path's 192, the value splits' 48 and 96), 4-byte words otherwise,
+// chosen apart for the key rows (q, k: kVecK) and the value rows (v, h:
+// kVecV); the state's rows (C_in, and the scratch's stores) take 16 or 8
+// bytes only where both hold.
 // Masked weights are exactly 0 (selected, not multiplied), as e^{-inf} is in
 // the reference; padded steps carry ig = -1e30, so their weights are 0 too.
 // CUDA cores only, in float32.
@@ -162,6 +171,7 @@ __device__ __forceinline__ void cp_wait_all() {
 
 // Rows [0, rows) of a [*, dh] float32 matrix into shared rows of pitch kBP;
 // kVec: dh % 4 == 0 and 16-byte aligned rows, copied 16 bytes at a time.
+// (dh is the row's own width: dk for k, dv for v.)
 template <bool kVec>
 __device__ __forceinline__ void stage_rows(float* dst, const float* src, int rows, int dh) {
   if (kVec) {
@@ -181,12 +191,12 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src, int row
 constexpr int kDeltaSmem = (2 * kMaxL * kBP + 4 * kMaxL) * 4;
 
 // 1. dC'_c = sum_j e^{g_j - G} k_j v_j^T and dn'_c, each chunk at its own G.
-// grid (chunks, B * H); the block walks dC' in tiles of 64 rows of d.
-template <bool kVec>
+// grid (chunks, B * H); the block walks dC' [dk, dv] in tiles of 64 rows of d.
+template <bool kVecK, bool kVecV>
 __global__ void __launch_bounds__(kThreads, 2)
 mlstm_delta(const float* __restrict__ k, const float* __restrict__ v,
             const float* __restrict__ ig, const float* __restrict__ lf,
-            float* __restrict__ work, float2* __restrict__ sc, int S, int dh, int L) {
+            float* __restrict__ work, float2* __restrict__ sc, int S, int dk, int dv, int L) {
   extern __shared__ float4 smem4[];
   float* As = reinterpret_cast<float*>(smem4);   // [L][kBP]: e^{g_j - G} k[j][d]
   float* Bs = As + kMaxL * kBP;                  // [L][kBP]: v[j][p]
@@ -199,8 +209,8 @@ mlstm_delta(const float* __restrict__ k, const float* __restrict__ v,
   const long long bh = blockIdx.y;
   const long long row0 = bh * S + (long long)c * L;
 
-  stage_rows<kVec>(As, k + row0 * dh, L, dh);
-  stage_rows<kVec>(Bs, v + row0 * dh, L, dh);
+  stage_rows<kVecK>(As, k + row0 * dk, L, dk);
+  stage_rows<kVecV>(Bs, v + row0 * dv, L, dv);
   cp_commit();
   if (warp == 0) {
     chunk_gates(ig + row0, lf + row0, L, lf_s, g_s, cm_s);
@@ -212,12 +222,12 @@ mlstm_delta(const float* __restrict__ k, const float* __restrict__ v,
   cp_wait_all();
   __syncthreads();
   for (int j = warp; j < L; j += kThreads / 32)
-    for (int d = lane; d < dh; d += 32) As[j * kBP + d] *= a_s[j];
+    for (int d = lane; d < dk; d += 32) As[j * kBP + d] *= a_s[j];
   __syncthreads();
 
-  const long long E = (long long)dh * dh + dh;
+  const long long E = (long long)dk * dv + dk;
   float* W = work + (bh * NC + c) * E;
-  for (int d0 = 0; d0 < dh; d0 += 64) {
+  for (int d0 = 0; d0 < dk; d0 += 64) {
     float acc[8][6];
 #pragma unroll
     for (int r = 0; r < 8; ++r)
@@ -228,24 +238,24 @@ mlstm_delta(const float* __restrict__ k, const float* __restrict__ v,
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
       const int d = d0 + 8 * warp + r;
-      if (d >= dh) continue;
-      float* Wd = W + (long long)d * dh;
+      if (d >= dk) continue;
+      float* Wd = W + (long long)d * dv;
 #pragma unroll
       for (int i = 0; i < 3; ++i) {
         const int p = 2 * lane + 64 * i;
-        if (kVec) {
-          if (p < dh) *reinterpret_cast<float2*>(Wd + p) = make_float2(acc[r][2 * i], acc[r][2 * i + 1]);
+        if (kVecK && kVecV) {
+          if (p < dv) *reinterpret_cast<float2*>(Wd + p) = make_float2(acc[r][2 * i], acc[r][2 * i + 1]);
         } else {
-          if (p < dh) Wd[p] = acc[r][2 * i];
-          if (p + 1 < dh) Wd[p + 1] = acc[r][2 * i + 1];
+          if (p < dv) Wd[p] = acc[r][2 * i];
+          if (p + 1 < dv) Wd[p + 1] = acc[r][2 * i + 1];
         }
       }
     }
   }
-  for (int d = tid; d < dh; d += kThreads) {
+  for (int d = tid; d < dk; d += kThreads) {
     float s = 0.f;
     for (int j = 0; j < L; ++j) s += As[j * kBP + d];
-    W[(long long)dh * dh + d] = s;
+    W[(long long)dk * dv + d] = s;
   }
 }
 
@@ -258,25 +268,26 @@ __device__ __forceinline__ float4 fma4(float a, float4 x, float4 y) {
 __device__ __forceinline__ float fma4(float a, float x, float y) { return fmaf(a, x, y); }
 
 // 2. The stabilizer chain, then C_in and n_in of every chunk in place.
-// grid (ceil((dh * dh + dh) / (256 * width of V)), B * H); V is float4 where
-// dh % 4 == 0 (C and n then split on a float4 boundary), else float.
+// grid (ceil((dk * dv + dk) / (256 * width of V)), B * H); V is float4 where
+// dk % 4 == 0 and dv % 4 == 0 (C and n then split on a float4 boundary),
+// else float.
 template <typename V>
 __global__ void __launch_bounds__(kThreads)
 mlstm_prefix(float* __restrict__ work, const float2* __restrict__ sc,
              const float* __restrict__ C0, const float* __restrict__ n0,
              const float* __restrict__ m0, float* __restrict__ C1, float* __restrict__ n1,
-             float* __restrict__ m1, float* __restrict__ m_in, int dh, int NC) {
+             float* __restrict__ m1, float* __restrict__ m_in, int dk, int dv, int NC) {
   constexpr int kW = sizeof(V) / sizeof(float);
   __shared__ float2 f_s[kChain];      // (Lf_L, G) of a chunk, then (decay, scale)
   __shared__ float m_s;
   const long long bh = blockIdx.y;
-  const long long CC = (long long)dh * dh, E = CC + dh;
+  const long long CC = (long long)dk * dv, E = CC + dk;
   const long long e = ((long long)blockIdx.x * kThreads + threadIdx.x) * kW;
   const bool live = e < E;
   V run{};
   if (live) {
     if (e < CC) { if (C0 != nullptr) run = *reinterpret_cast<const V*>(C0 + bh * CC + e); }
-    else if (n0 != nullptr) run = *reinterpret_cast<const V*>(n0 + bh * dh + (e - CC));
+    else if (n0 != nullptr) run = *reinterpret_cast<const V*>(n0 + bh * dk + (e - CC));
   }
   if (threadIdx.x == 0) m_s = m0 != nullptr ? m0[bh] : -30.f;
   V* w = reinterpret_cast<V*>(work + bh * NC * E + e);
@@ -318,7 +329,7 @@ mlstm_prefix(float* __restrict__ work, const float2* __restrict__ sc,
   }
   if (live) {
     if (e < CC) *reinterpret_cast<V*>(C1 + bh * CC + e) = run;
-    else *reinterpret_cast<V*>(n1 + bh * dh + (e - CC)) = run;
+    else *reinterpret_cast<V*>(n1 + bh * dk + (e - CC)) = run;
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) m1[bh] = m_s;
 }
@@ -327,18 +338,19 @@ constexpr int kOutSmem =
     ((kMaxL + kMaxDh) * kAP + 2 * kKS * kBP + kMaxDh + 5 * kMaxL) * 4;
 
 // 3. h of every chunk at once.  grid (chunks, B * H).
-template <bool kVec>
+template <bool kVecK, bool kVecV>
 __global__ void __launch_bounds__(kThreads, 2)
 mlstm_out(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, const float* __restrict__ ig,
           const float* __restrict__ lf, const float* __restrict__ work,
-          const float* __restrict__ m_in, float* __restrict__ h, int S, int dh, int L) {
+          const float* __restrict__ m_in, float* __restrict__ h, int S, int dk, int dv,
+          int L) {
   extern __shared__ float4 smem4[];
-  // AT rows 0..L-1: S^T [j][t]; rows L..L+dh-1: q^T [d][t], scaled by w_in_t
+  // AT rows 0..L-1: S^T [j][t]; rows L..L+dk-1: q^T [d][t], scaled by w_in_t
   // once the scores are done: the A operand of h = [S | w_in q] [v ; C_in]
   float* AT = reinterpret_cast<float*>(smem4);
   float* ring = AT + (kMaxL + kMaxDh) * kAP;     // [2][kKS][kBP], filled by cp.async
-  float* n_s = ring + 2 * kKS * kBP;             // [dh] n_in
+  float* n_s = ring + 2 * kKS * kBP;             // [dk] n_in
   float* g_s = n_s + kMaxDh;
   float* u_s = g_s + kMaxL;                      // u_t, after Lf_t
   float* win_s = u_s + kMaxL;                    // e^{m_in - u_t}
@@ -348,10 +360,10 @@ mlstm_out(const float* __restrict__ q, const float* __restrict__ k,
   const int c = blockIdx.x, NC = gridDim.x;
   const long long bh = blockIdx.y;
   const long long row0 = bh * S + (long long)c * L;
-  const float* qc = q + row0 * dh;
-  const float* kc = k + row0 * dh;
-  const float* vc = v + row0 * dh;
-  const long long E = (long long)dh * dh + dh;
+  const float* qc = q + row0 * dk;
+  const float* kc = k + row0 * dk;
+  const float* vc = v + row0 * dv;
+  const long long E = (long long)dk * dv + dk;
   const float* Cin = work + (bh * NC + c) * E;   // C_in [d][p], then n_in
 
   // k^T slice sl (rows d of 16, columns j) into ring stage sl & 1
@@ -360,17 +372,17 @@ mlstm_out(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < kKS * kMaxL / kThreads; ++i) {
       const int e = tid + kThreads * i, dd = e % kKS, j = e / kKS, d = sl * kKS + dd;
-      const bool ok = j < L && d < dh;
-      cp_async4(B + dd * kBP + j, ok ? kc + (long long)j * dh + d : kc, ok);
+      const bool ok = j < L && d < dk;
+      cp_async4(B + dd * kBP + j, ok ? kc + (long long)j * dk + d : kc, ok);
     }
     cp_commit();
   };
   issue_k(0);
-  for (int e = tid; e < kMaxL * dh; e += kThreads) {
-    const int t = e / dh, d = e % dh;
-    AT[(L + d) * kAP + t] = t < L ? qc[(long long)t * dh + d] : 0.f;
+  for (int e = tid; e < kMaxL * dk; e += kThreads) {
+    const int t = e / dk, d = e % dk;
+    AT[(L + d) * kAP + t] = t < L ? qc[(long long)t * dk + d] : 0.f;
   }
-  for (int d = tid; d < dh; d += kThreads) n_s[d] = Cin[(long long)dh * dh + d];
+  for (int d = tid; d < dk; d += kThreads) n_s[d] = Cin[(long long)dk * dv + d];
   if (warp == 0) {
     chunk_gates(ig + row0, lf + row0, L, u_s, g_s, win_s);   // u_s <- Lf, win_s <- cm
     __syncwarp();
@@ -387,13 +399,13 @@ mlstm_out(const float* __restrict__ q, const float* __restrict__ k,
   float sacc[8][2];
 #pragma unroll
   for (int r = 0; r < 8; ++r) sacc[r][0] = sacc[r][1] = 0.f;
-  const int nks = (dh + kKS - 1) / kKS;
+  const int nks = (dk + kKS - 1) / kKS;
   for (int sl = 0; sl < nks; ++sl) {
     cp_wait_all();
     __syncthreads();                          // slice sl is in; slice sl - 1 is used
     if (sl + 1 < nks) issue_k(sl + 1);
     const float* B = ring + (sl & 1) * kKS * kBP;
-    const int kn = min(kKS, dh - sl * kKS);
+    const int kn = min(kKS, dk - sl * kKS);
     const float* A = AT + (L + sl * kKS) * kAP + 8 * warp;
     if (kn == kKS) {
 #pragma unroll
@@ -417,38 +429,40 @@ mlstm_out(const float* __restrict__ q, const float* __restrict__ k,
     }
     rs = warp_sum(rs);
     float qn = 0.f;
-    for (int d = lane; d < dh; d += 32) qn = fmaf(AT[(L + d) * kAP + t], n_s[d], qn);
+    for (int d = lane; d < dk; d += 32) qn = fmaf(AT[(L + d) * kAP + t], n_s[d], qn);
     qn = warp_sum(qn);
     if (lane == 0 && t < L) den_s[t] = fmaxf(fabsf(rs + win_s[t] * qn), fl_s[t]);
   }
   __syncthreads();                            // q^T is read, S^T written, the ring free
 
   // ---- h = [S | w_in q] [v ; C_in]: t = 8 warp + r, p = 2 lane + 64 i + x --
-  const int K = L + dh;
+  // depth L + dk, width dv; its rows are 16-byte vectors where both routes
+  // are (the scratch's chunk stride dk (dv + 1) then keeps C_in's aligned)
+  const int K = L + dk;
   const int nbs = (K + kKS - 1) / kKS;
   // rows [16 sl, 16 sl + 16) of [v ; C_in] into ring stage sl & 1
   auto issue_b = [&](int sl) {
     float* B = ring + (sl & 1) * kKS * kBP;
-    if (kVec) {
-      const int qd = dh / 4;
+    if (kVecK && kVecV) {
+      const int qd = dv / 4;
       for (int e = tid; e < kKS * qd; e += kThreads) {
         const int kk = e / qd, p = 4 * (e % qd), kr = sl * kKS + kk;
-        const float* src = kr < L ? vc + (long long)kr * dh + p
-                                  : Cin + (long long)(kr - L) * dh + p;
+        const float* src = kr < L ? vc + (long long)kr * dv + p
+                                  : Cin + (long long)(kr - L) * dv + p;
         cp_async16(B + kk * kBP + p, kr < K ? src : vc, kr < K);
       }
     } else {
-      for (int e = tid; e < kKS * dh; e += kThreads) {
-        const int kk = e / dh, p = e % dh, kr = sl * kKS + kk;
-        const float* src = kr < L ? vc + (long long)kr * dh + p
-                                  : Cin + (long long)(kr - L) * dh + p;
+      for (int e = tid; e < kKS * dv; e += kThreads) {
+        const int kk = e / dv, p = e % dv, kr = sl * kKS + kk;
+        const float* src = kr < L ? vc + (long long)kr * dv + p
+                                  : Cin + (long long)(kr - L) * dv + p;
         cp_async4(B + kk * kBP + p, kr < K ? src : vc, kr < K);
       }
     }
     cp_commit();
   };
   issue_b(0);
-  for (int e = tid; e < dh * kMaxL; e += kThreads) {
+  for (int e = tid; e < dk * kMaxL; e += kThreads) {
     const int d = e / kMaxL, t = e % kMaxL;
     AT[(L + d) * kAP + t] *= t < L ? win_s[t] : 0.f;
   }
@@ -472,82 +486,97 @@ mlstm_out(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  float* hc = h + row0 * dh;
+  float* hc = h + row0 * dv;
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
     const int t = 8 * warp + r;
     if (t >= L) continue;
     const float den = den_s[t];
-    float* ht = hc + (long long)t * dh;
+    float* ht = hc + (long long)t * dv;
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
       const int p = 2 * lane + 64 * i;
-      if (kVec) {
-        if (p < dh) *reinterpret_cast<float2*>(ht + p) =
+      if (kVecV) {
+        if (p < dv) *reinterpret_cast<float2*>(ht + p) =
             make_float2(acc[r][2 * i] / den, acc[r][2 * i + 1] / den);
       } else {
-        if (p < dh) ht[p] = acc[r][2 * i] / den;
-        if (p + 1 < dh) ht[p + 1] = acc[r][2 * i + 1] / den;
+        if (p < dv) ht[p] = acc[r][2 * i] / den;
+        if (p + 1 < dv) ht[p + 1] = acc[r][2 * i + 1] / den;
       }
     }
   }
 }
 
-template <bool kVec>
+template <bool kVecK, bool kVecV>
 int launch(const float* q, const float* k, const float* v, const float* ig, const float* lf,
            const float* C0, const float* n0, const float* m0, float* h, float* C1, float* n1,
-           float* m1, float* work, float2* sc, float* mi, long long BH, int NC, int S, int dh,
-           int L, cudaStream_t s) {
-  const long long E = (long long)dh * dh + dh;
-  int err = (int)cudaFuncSetAttribute(mlstm_delta<kVec>,
+           float* m1, float* work, float2* sc, float* mi, long long BH, int NC, int S, int dk,
+           int dv, int L, cudaStream_t s) {
+  const long long E = (long long)dk * dv + dk;
+  int err = (int)cudaFuncSetAttribute(mlstm_delta<kVecK, kVecV>,
                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kDeltaSmem);
   if (!err)
-    err = (int)cudaFuncSetAttribute(mlstm_out<kVec>,
+    err = (int)cudaFuncSetAttribute(mlstm_out<kVecK, kVecV>,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize, kOutSmem);
   if (err) return err;
-  mlstm_delta<kVec><<<dim3(NC, (unsigned)BH), kThreads, kDeltaSmem, s>>>(k, v, ig, lf, work,
-                                                                        sc, S, dh, L);
+  mlstm_delta<kVecK, kVecV><<<dim3(NC, (unsigned)BH), kThreads, kDeltaSmem, s>>>(
+      k, v, ig, lf, work, sc, S, dk, dv, L);
   err = (int)cudaGetLastError();
   if (err) return err;
-  using V = typename std::conditional<kVec, float4, float>::type;
+  using V = typename std::conditional<kVecK && kVecV, float4, float>::type;
   const long long per_block = (long long)kThreads * (sizeof(V) / sizeof(float));
   mlstm_prefix<V><<<dim3((unsigned)((E + per_block - 1) / per_block), (unsigned)BH), kThreads,
-                    0, s>>>(work, sc, C0, n0, m0, C1, n1, m1, mi, dh, NC);
+                    0, s>>>(work, sc, C0, n0, m0, C1, n1, m1, mi, dk, dv, NC);
   err = (int)cudaGetLastError();
   if (err) return err;
-  mlstm_out<kVec><<<dim3(NC, (unsigned)BH), kThreads, kOutSmem, s>>>(q, k, v, ig, lf, work,
-                                                                    mi, h, S, dh, L);
+  mlstm_out<kVecK, kVecV><<<dim3(NC, (unsigned)BH), kThreads, kOutSmem, s>>>(
+      q, k, v, ig, lf, work, mi, h, S, dk, dv, L);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v, h [B, H, S, dh]; ig, lf [B, H, S]; C [B, H, dh, dh]; n [B, H, dh];
-// m [B, H]; all float32 and contiguous.  S must be a multiple of L, with
-// 1 <= L <= 64 and 1 <= dh <= 192.  C0, n0 and m0 may all be NULL: the zero
-// state with m = -30.  C1, n1 and m1 receive the final state.  work is
-// scratch of B * H * (S / L) * (dh * dh + dh + 3) floats.
+// q, k [B, H, S, dk]; v, h [B, H, S, dv]; ig, lf [B, H, S]; C [B, H, dk, dv];
+// n [B, H, dk]; m [B, H]; all float32 and contiguous.  S must be a multiple
+// of L, with 1 <= L <= 64, 1 <= dk <= 192 and 1 <= dv <= 192.  C0, n0 and m0
+// may all be NULL: the zero state with m = -30.  C1, n1 and m1 receive the
+// final state.  work is scratch of base + 3 B H (S / L) floats, base =
+// B H (S / L) (dk dv + dk) rounded up to even: each chunk's state, then its
+// (Lf_L, G) and its m_in.
+
 extern "C" int mlstm_scan(const float* q, const float* k, const float* v, const float* ig,
                           const float* lf, const float* C0, const float* n0,
                           const float* m0, float* h, float* C1, float* n1, float* m1,
-                          float* work, int B, int H, int S, int dh, int L, void* stream) {
-  if (L < 1 || L > kMaxL || dh < 1 || dh > kMaxDh || S < 1 || S % L != 0 || B < 1 || H < 1)
+                          float* work, int B, int H, int S, int dk, int dv, int L,
+                          void* stream) {
+  if (L < 1 || L > kMaxL || dk < 1 || dk > kMaxDh || dv < 1 || dv > kMaxDh || S < 1 ||
+      S % L != 0 || B < 1 || H < 1)
     return (int)cudaErrorInvalidValue;
   const int NC = S / L;
   const long long BH = (long long)B * H;
   if (NC > 2147483647 / kThreads || BH > 65535) return (int)cudaErrorInvalidValue;
-  const long long E = (long long)dh * dh + dh;          // even: dh (dh + 1)
-  float2* sc = reinterpret_cast<float2*>(work + BH * NC * E);   // (Lf_L, G) a chunk
-  float* mi = work + BH * NC * (E + 2);                 // m_in a chunk
-  const uintptr_t align = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)h |
-                          (uintptr_t)work | (uintptr_t)C0 | (uintptr_t)n0 | (uintptr_t)C1 |
-                          (uintptr_t)n1;
+  const long long E = (long long)dk * dv + dk;
+  const long long base = BH * NC * E + ((BH * NC * E) & 1);     // float2-aligned
+  float2* sc = reinterpret_cast<float2*>(work + base);  // (Lf_L, G) a chunk
+  float* mi = work + base + 2 * BH * NC;                // m_in a chunk
+  // the key rows' route and the value rows' (the state's rows, read and
+  // written 16 bytes at a time only under both, must be aligned for it too)
+  const bool vk = dk % 4 == 0 && ((uintptr_t)q | (uintptr_t)k) % 16 == 0;
+  const bool vv = dv % 4 == 0 && ((uintptr_t)v | (uintptr_t)h | (uintptr_t)work |
+                                  (uintptr_t)C0 | (uintptr_t)n0 | (uintptr_t)C1 |
+                                  (uintptr_t)n1) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dh % 4 == 0 && align % 16 == 0)
-    return launch<true>(q, k, v, ig, lf, C0, n0, m0, h, C1, n1, m1, work, sc, mi, BH, NC, S,
-                        dh, L, s);
-  return launch<false>(q, k, v, ig, lf, C0, n0, m0, h, C1, n1, m1, work, sc, mi, BH, NC, S, dh,
-                       L, s);
+  if (vk && vv)
+    return launch<true, true>(q, k, v, ig, lf, C0, n0, m0, h, C1, n1, m1, work, sc, mi, BH, NC,
+                              S, dk, dv, L, s);
+  if (vk)
+    return launch<true, false>(q, k, v, ig, lf, C0, n0, m0, h, C1, n1, m1, work, sc, mi, BH,
+                               NC, S, dk, dv, L, s);
+  if (vv)
+    return launch<false, true>(q, k, v, ig, lf, C0, n0, m0, h, C1, n1, m1, work, sc, mi, BH,
+                               NC, S, dk, dv, L, s);
+  return launch<false, false>(q, k, v, ig, lf, C0, n0, m0, h, C1, n1, m1, work, sc, mi, BH, NC,
+                              S, dk, dv, L, s);
 }
 
 // ---------------------------------------------------------------------------

@@ -21,9 +21,14 @@ mirrors what the reference differentiates: XLA's autodiff of the
 (``models/xlstm.py:125-205``); the reference has no Pallas backward.  The
 plain version on the CPU differentiates by autograd.
 
-Layout: q, k, v [B, H, S, dh] and ig, lf [B, H, S], all float32 (q and k
-pre-scaled as in ``_mlstm_qkvif``; lf is the log-sigmoid forget gate).  A
-state is ``{"C": [B, H, dh, dh], "n": [B, H, dh], "m": [B, H]}``.
+Layout: q, k [B, H, S, dk], v [B, H, S, dv] and ig, lf [B, H, S], all
+float32 (q and k pre-scaled as in ``_mlstm_qkvif``; lf is the log-sigmoid
+forget gate).  A state is ``{"C": [B, H, dk, dv], "n": [B, H, dk], "m": [B,
+H]}``.  dv is the head width dk where a process computes whole heads, and
+fewer columns of one head where a model group splits the mLSTM by value
+columns (``models/xlstm.py``, ``sharding/tp.py::value_columns``): each
+value column's recurrence reads all dk key columns and no other value
+column, and n and m do not depend on v at all.
 """
 
 from __future__ import annotations
@@ -39,25 +44,30 @@ from .. import _build
 
 State = Dict[str, torch.Tensor]
 
-#: the kernel's limits (``csrc/mlstm_scan.cu``): chunk length and head dim
+#: the kernel's limits (``csrc/mlstm_scan.cu``): chunk length and head dims (dk, dv)
 MAX_CHUNK = 64
 MAX_HEAD_DIM = 192
 _NEG = -1e30              # the padded steps' input gate, as xlstm.py:187
-_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
-def init_state(b: int, h: int, dh: int, device) -> State:
-    """The zero state with the stabilizer at -30 (``init_mlstm_state``)."""
-    return {"C": torch.zeros((b, h, dh, dh), dtype=torch.float32, device=device),
-            "n": torch.zeros((b, h, dh), dtype=torch.float32, device=device),
-            "m": torch.full((b, h), -30.0, dtype=torch.float32, device=device)}
+def init_state(b: int, h: int, dk: int, device, dv: Optional[int] = None,
+               dtype=torch.float32) -> State:
+    """The zero state with the stabilizer at -30 (``init_mlstm_state``); ``dv``
+    value columns a head (default ``dk``); float32 unless ``dtype`` (a
+    float64 run's)."""
+    dv = dk if dv is None else dv
+    return {"C": torch.zeros((b, h, dk, dv), dtype=dtype, device=device),
+            "n": torch.zeros((b, h, dk), dtype=dtype, device=device),
+            "m": torch.full((b, h), -30.0, dtype=dtype, device=device)}
 
 
 def mlstm_scan_ref(q, k, v, ig, lf, state: Optional[State] = None
                    ) -> Tuple[torch.Tensor, State]:
     """Plain per-step cell recurrence (the reference's ``mlstm_scan_ref``)."""
     b, hh, s, dh = q.shape
-    st = state if state is not None else init_state(b, hh, dh, q.device)
+    st = state if state is not None else init_state(b, hh, dh, q.device, v.shape[-1],
+                                                    q.dtype)
     C, n, m = st["C"], st["n"], st["m"]
     hs = []
     for t in range(s):
@@ -154,7 +164,7 @@ def _cummax(g: torch.Tensor) -> torch.Tensor:
 
 
 def _chunk_body(st: State, q, k, v, ig, lf) -> Tuple[State, torch.Tensor]:
-    """One chunk of L steps; q, k, v [B, H, L, dh], ig, lf [B, H, L].
+    """One chunk of L steps; q, k [B, H, L, dk], v [B, H, L, dv], ig, lf [B, H, L].
 
     The torch copy of ``_mlstm_chunk_body`` (xlstm.py:125-169), with the
     head axis before the time axis.
@@ -186,15 +196,18 @@ def _chunk_body(st: State, q, k, v, ig, lf) -> Tuple[State, torch.Tensor]:
     return {"C": C_out, "n": n_out, "m": Lf[..., -1] + u_L}, h
 
 
-def mlstm_cost(b: int, h: int, s: int, dh: int, chunk: int):
+def mlstm_cost(b: int, h: int, s: int, dh: int, chunk: int, dv: Optional[int] = None):
     """(flops, bytes) of one :func:`mlstm_scan` call's launches (``chip_smoke.py``'s
-    bound): q k^T and S v over the causal half of each L x L chunk, q C and
-    the k^T v state update at L x dh x dh; q, k, v, ig, lf read, h and the
-    final (C, n, m) written once, float32."""
+    bound) at key width ``dh`` and value width ``dv`` (default ``dh``): q k^T
+    (depth dk) and S v (width dv) over the causal half of each L x L chunk,
+    q C and the k^T v state update at L x dk x dv; q, k, v, ig, lf read, h
+    and the final (C, n, m) written once, float32."""
+    dv = dh if dv is None else dv
     L = min(chunk, s)
     nc = -(-s // L)
-    flops = 2.0 * b * h * nc * (2 * (L * (L + 1) // 2) * dh + 2 * L * dh * dh)
-    return flops, 4 * (4 * b * h * s * dh + 2 * b * h * s + b * h * (dh * dh + dh + 1))
+    flops = 2.0 * b * h * nc * ((L * (L + 1) // 2) * (dh + dv) + 2 * L * dh * dv)
+    return flops, 4 * (b * h * s * (2 * dh + 2 * dv) + 2 * b * h * s
+                       + b * h * (dh * dv + dh + 1))
 
 
 def cummax_bwd_cost(numel: int):
@@ -237,7 +250,8 @@ def mlstm_scan_chunked_ref(q, k, v, ig, lf, *, chunk: int = 64,
                            ) -> Tuple[torch.Tensor, State]:
     """Plain version: the chunk body looped over chunks -> (h, final state)."""
     b, hh, s, dh = q.shape
-    st = state if state is not None else init_state(b, hh, dh, q.device)
+    st = state if state is not None else init_state(b, hh, dh, q.device, v.shape[-1],
+                                                    q.dtype)
     q, k, v, ig, lf, L = _pad(q, k, v, ig, lf, chunk)
     h, st, _ = _chunk_loop(q, k, v, ig, lf, L, st, keep=False)
     return h[:, :, :s], st
@@ -247,7 +261,7 @@ def _launch(q, k, v, ig, lf, chunk: int, state: Optional[State]):
     """The kernel on CUDA tensors -> (h, final state, each chunk's input state).
 
     The chunk states are views into the kernel's scratch tensor:
-    C_in [B, H, chunks, dh, dh], n_in [B, H, chunks, dh], m_in [B, H, chunks].
+    C_in [B, H, chunks, dk, dv], n_in [B, H, chunks, dk], m_in [B, H, chunks].
     """
     dev = q.device
     if dev.type != "cuda" or any(a.device != dev for a in (k, v, ig, lf)):
@@ -255,16 +269,19 @@ def _launch(q, k, v, ig, lf, chunk: int, state: Optional[State]):
     if any(a.dtype != torch.float32 for a in (q, k, v, ig, lf)):
         raise TypeError("mlstm_scan: q, k, v, ig, lf must be float32")
     b, hh, s, dh = q.shape
-    cost = mlstm_cost(b, hh, s, dh, chunk)
-    if (tuple(k.shape) != tuple(q.shape) or tuple(v.shape) != tuple(q.shape)
+    dv = v.shape[-1] if v.dim() == 4 else 0
+    cost = mlstm_cost(b, hh, s, dh, chunk, dv)
+    if (tuple(k.shape) != tuple(q.shape) or tuple(v.shape[:3]) != (b, hh, s) or v.dim() != 4
             or tuple(ig.shape) != (b, hh, s) or tuple(lf.shape) != (b, hh, s)):
         raise ValueError(f"mlstm_scan: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}, ig {tuple(ig.shape)}, lf {tuple(lf.shape)}")
-    if not 1 <= chunk <= MAX_CHUNK or not 1 <= dh <= MAX_HEAD_DIM or s == 0:
-        raise ValueError(f"mlstm_scan: chunk {chunk} (1..{MAX_CHUNK}), head dim {dh} "
-                         f"(1..{MAX_HEAD_DIM}) and S {s} (>= 1) out of the kernel's range")
+    if (not 1 <= chunk <= MAX_CHUNK or not 1 <= dh <= MAX_HEAD_DIM
+            or not 1 <= dv <= MAX_HEAD_DIM or s == 0):
+        raise ValueError(f"mlstm_scan: chunk {chunk} (1..{MAX_CHUNK}), head dims dk {dh} "
+                         f"and dv {dv} (1..{MAX_HEAD_DIM}) and S {s} (>= 1) out of the "
+                         f"kernel's range")
     if state is not None:
-        want = {"C": (b, hh, dh, dh), "n": (b, hh, dh), "m": (b, hh)}
+        want = {"C": (b, hh, dh, dv), "n": (b, hh, dh), "m": (b, hh)}
         for key, shape in want.items():
             a = state[key]
             if tuple(a.shape) != shape or a.dtype != torch.float32 or a.device != dev:
@@ -272,13 +289,15 @@ def _launch(q, k, v, ig, lf, chunk: int, state: Optional[State]):
                                  f"{a.dtype} on {a.device}, want {shape} float32")
     q, k, v, ig, lf, L = _pad(q, k, v, ig, lf, chunk)
     q, k, v, ig, lf = (a.detach().contiguous() for a in (q, k, v, ig, lf))
-    h = torch.empty_like(q)
+    h = torch.empty_like(v)
     # scratch: each chunk's state update, replaced in place by its C_in and
     # n_in, then (Lf_L, G) and m_in of each chunk
     nc = q.shape[2] // L
-    E = dh * dh + dh
-    work = torch.empty(b * hh * nc * (E + 3), dtype=torch.float32, device=dev)
-    out = {"C": torch.empty((b, hh, dh, dh), dtype=torch.float32, device=dev),
+    E = dh * dv + dh
+    base = b * hh * nc * E
+    base += base & 1                      # the chunks' (Lf_L, G) pairs: float2-aligned
+    work = torch.empty(base + 3 * b * hh * nc, dtype=torch.float32, device=dev)
+    out = {"C": torch.empty((b, hh, dh, dv), dtype=torch.float32, device=dev),
            "n": torch.empty((b, hh, dh), dtype=torch.float32, device=dev),
            "m": torch.empty((b, hh), dtype=torch.float32, device=dev)}
     st_in = ([state[key].detach().contiguous() for key in ("C", "n", "m")]
@@ -287,14 +306,14 @@ def _launch(q, k, v, ig, lf, chunk: int, state: Optional[State]):
     fn = _build.function("mlstm_scan", "mlstm_scan", _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ig.data_ptr(), lf.data_ptr(),
              *ptrs, h.data_ptr(), out["C"].data_ptr(), out["n"].data_ptr(),
-             out["m"].data_ptr(), work.data_ptr(), b, hh, q.shape[2], dh, L,
+             out["m"].data_ptr(), work.data_ptr(), b, hh, q.shape[2], dh, dv, L,
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "mlstm_scan")
     _build.LAUNCHES["mlstm_scan"] += 1
     _build.report("mlstm_scan", lambda: (*cost, torch.float32))
     cn = work[:b * hh * nc * E].view(b, hh, nc, E)
-    chunk_in = (cn[..., :dh * dh].view(b, hh, nc, dh, dh), cn[..., dh * dh:],
-                work[b * hh * nc * (E + 2):].view(b, hh, nc))
+    chunk_in = (cn[..., :dh * dv].view(b, hh, nc, dh, dv), cn[..., dh * dv:],
+                work[base + 2 * b * hh * nc:].view(b, hh, nc))
     return h[:, :, :s], out, chunk_in
 
 
@@ -320,6 +339,7 @@ def mlstm_scan_bwd(q, k, v, ig, lf, chunk_in, final, dh_out, dstate: State, *,
     or the plain loop's), ``final`` the forward's final (C, n), ``dh_out``
     the cotangent of h and ``dstate`` that of the final state.  -> ((dq, dk,
     dv, dig, dlf), the cotangent of the initial state), float32 throughout.
+    The value width dv may differ from the key width dk (C [dk, dv]).
 
     Chunk c's body maps (its inputs x_c, its input state s_c) to (h_c, its
     output state s'_c), and s'_c is s_{c+1}: the cotangent of s_c is the VJP
@@ -342,7 +362,7 @@ def mlstm_scan_bwd(q, k, v, ig, lf, chunk_in, final, dh_out, dstate: State, *,
     """
     s = q.shape[2]
     q, k, v, ig, lf, L = _pad(*(a.detach().float() for a in (q, k, v, ig, lf)), chunk)
-    b, hh, sp, dh = q.shape
+    b, hh, sp, _ = q.shape
     nc = sp // L
     C_in, n_in, m_in = (a.detach() for a in chunk_in)
 
@@ -410,7 +430,8 @@ class MLSTMScanFunction(torch.autograd.Function):
         state = None if C0 is None else {"C": C0, "n": n0, "m": m0}
         if q.device.type == "cpu":
             b, hh, s, dh = q.shape
-            st = state if state is not None else init_state(b, hh, dh, q.device)
+            st = state if state is not None else init_state(b, hh, dh, q.device, v.shape[-1],
+                                                            q.dtype)
             qp, kp, vp, igp, lfp, L = _pad(q, k, v, ig, lf, chunk)
             h, out, chunk_in = _chunk_loop(qp, kp, vp, igp, lfp, L, st, keep=True)
             h = h[:, :, :s]
@@ -440,7 +461,7 @@ def mlstm_scan_function(q, k, v, ig, lf, *, chunk: int = 64, state: Optional[Sta
 
 def mlstm_scan(q, k, v, ig, lf, *, chunk: int = 64, state: Optional[State] = None
                ) -> Tuple[torch.Tensor, State]:
-    """-> (h [B, H, S, dh] float32, final state); ``state=None`` starts at zero.
+    """-> (h [B, H, S, dv] float32, final state); ``state=None`` starts at zero.
 
     Differentiable on both devices: by :class:`MLSTMScanFunction` on the
     card, by autograd through the plain version on the CPU; without a

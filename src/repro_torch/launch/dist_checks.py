@@ -313,8 +313,9 @@ def rows(group, device, arch="paper-moe-8e", data=2, model=2, B=2, S=32,
     ``over``: config overrides (``rows_inputs``); ``remat``: recompute each
     block in the backward; ``dtype``: the parameters' and the compute's
     (:data:`FLOATS`).  ``launches``: the first step's sums over the
-    model group and loss maxes (``sharding/tp.py::COUNTS``), and the gathers
-    over "model" of each leaf (``sharding/gather.py::LEAF_GATHERS``)."""
+    model group, loss maxes and activation gathers (the sLSTM's ``h``;
+    ``sharding/tp.py::COUNTS``), and the gathers over "model" of each leaf
+    (``sharding/gather.py::LEAF_GATHERS``)."""
     from ..models.registry import build_model
     from ..optim import adamw
     from ..train.step import loss_and_grads, make_train_step
@@ -333,7 +334,7 @@ def rows(group, device, arch="paper-moe-8e", data=2, model=2, B=2, S=32,
     params = m.init(0) if tree is None else params_from_jax(tree, cfg, ctx)
     sums, gathers = dict(tp.COUNTS), dict(gather.LEAF_GATHERS)
     loss, grads = loss_and_grads(m, params, batch, stats=stats)
-    launches = {k: tp.COUNTS[k] - sums.get(k, 0) for k in ("sum", "max")}
+    launches = {k: tp.COUNTS[k] - sums.get(k, 0) for k in ("sum", "max", "gather")}
     launches["model_gathers"] = {p: n - gathers.get((p, a), 0)
                                  for (p, a), n in gather.LEAF_GATHERS.items()
                                  if a == "model" and n > gathers.get((p, a), 0)}
@@ -440,9 +441,10 @@ def encoder_states(model, params, frames: torch.Tensor, batch: int) -> torch.Ten
 
 
 def shapes(tree, prefix="") -> dict:
-    """{"a/b": shape} of a (nested) cache's leaves."""
-    if isinstance(tree, dict):
-        return {k: v for key, sub in tree.items()
+    """{"a/b": shape} of a (nested) cache's leaves (a list's by index)."""
+    if isinstance(tree, (dict, list)):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        return {k: v for key, sub in items
                 for k, v in shapes(sub, f"{prefix}{key}/").items()}
     return {prefix[:-1]: tuple(tree.shape)}
 
@@ -527,7 +529,8 @@ def serve_fed(group, device, arch="llama3-8b", seed=0, prompts=None, gprompts=No
     ctx = ParallelContext(mesh=mesh, param_dtype=bf16, compute_dtype=bf16, device=device)
     model = build_model(cfg, ctx)
     params = model.init(seed)
-    out = dict(kind=kv_layout(cfg.n_kv_heads, width, mesh.size()).kind)
+    out = dict(kind="state" if cfg.arch_type == "ssm"
+               else kv_layout(cfg.n_kv_heads, width, mesh.size()).kind)
     as_t = functools.partial(torch.as_tensor, device=device)
     frames = None if frames is None else as_t(frames).to(bf16)
     reset_launch_counts()
@@ -553,8 +556,9 @@ def serve(group, device, arch="llama3-8b", over=(), data=2, model=2, B=4, P=5, s
     prompts (``Model.serve_rows``: over data where it divides them,
     replicated over model), its
     blocks of the parameters and the cache.  ``kind``: the cache's
-    ``KVLayout``; ``whole``: the shapes of ``shard_cache``'s blocks of the
-    whole cache, which the placed one must have."""
+    ``KVLayout`` ("state" for xLSTM, which has recurrent states only);
+    ``whole``: the shapes of ``shard_cache``'s blocks of the whole cache,
+    which the placed one must have."""
     from ..configs.base import InputShape
     from ..models.registry import build_model
     from ..sharding.specs import kv_layout, shard_cache
@@ -578,7 +582,8 @@ def serve(group, device, arch="llama3-8b", over=(), data=2, model=2, B=4, P=5, s
     whole = build_model(cfg, dataclasses.replace(ctx, mesh=None, device="meta")).init_cache(
         B, InputShape("serve", width, B, "decode"))
     out.update(coord=coord, rows=dataclasses.asdict(rows),
-               kind=kv_layout(cfg.n_kv_heads, width, model).kind,
+               kind=("state" if cfg.arch_type == "ssm"
+                     else kv_layout(cfg.n_kv_heads, width, model).kind),
                whole=shapes(shard_cache(whole, {"data": data, "model": model}, coord=coord)))
     return out
 

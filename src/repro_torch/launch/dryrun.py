@@ -29,7 +29,8 @@ where they divide, else replicated; the model group shares the products of
 its replicated rows, and the cache is this process's blocks
 (``Model.init_cache`` of the global batch: its rows, and the KV heads or
 slots over the model group, as the reference's ``build_cache_specs``
-places them; zamba2's Mamba states by SSM heads; xLSTM's states whole).
+places them; zamba2's Mamba states by SSM heads; xLSTM's mLSTM states by
+heads and value columns, its sLSTM states by channels).
 
 ``bytes_per_device`` is the counterpart of ``memory_analysis()``:
 ``argument`` the step's inputs in this process (its blocks of the

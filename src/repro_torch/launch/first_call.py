@@ -20,7 +20,8 @@ smallest first, and stops at the first stage that fails (exit 1):
      ``token_gather`` on rows that are no multiple of a segment, 64-byte
      rows, 8 KiB rows and offset views (the 4- and 2-byte routes);
      ``mlstm_scan`` with S no multiple of the chunk, dh 100, 50 and 192, a
-     chunk of 8, and a carried state; ``token_scatter_add`` (token_gather's
+     chunk of 8, a carried state, and value widths below the key width
+     (48 and 96 of 192, 7 of 33); ``token_scatter_add`` (token_gather's
      backward) on 6- and 12-byte rows, rows of several segments, the
      dispatch pack's backward (8192 rows of 8 KiB onto 2048) and offset
      views, after the inverse index on five and seventeen blocks; ``relay_copy``
@@ -224,8 +225,10 @@ def _scatter_stages(check, rng, dev) -> None:
 
 
 def _mlstm_stages(check, rng, dev) -> None:
-    def case(b, h, s, dh, chunk, split=None):
+    def case(b, h, s, dh, chunk, split=None, dv=None):
         a = mlstm_inputs(dev, int(rng.integers(1 << 30)), b, h, s, dh)
+        if dv is not None:                              # a model group's value columns
+            a = (a[0], a[1], a[2][..., :dv].contiguous(), a[3], a[4])
         st = None
         if split:
             _, st = ms.mlstm_scan(*(x[:, :, :split] for x in a), chunk=chunk)
@@ -234,7 +237,7 @@ def _mlstm_stages(check, rng, dev) -> None:
         torch.cuda.synchronize()
         want, st_want = ms.mlstm_scan_chunked_ref(*a, chunk=chunk, state=st)
         label = f"mlstm_scan [{b}, {h}, {a[0].shape[2]}, {dh}] chunk {chunk}" + (
-            " from a state" if split else "")
+            f" dv {dv}" if dv is not None else "") + (" from a state" if split else "")
         check(f"{label} h", got, want, 1e-4)
         for key in ("C", "n"):
             check(f"{label} final {key}", st_got[key], st_want[key], 1e-4)
@@ -248,6 +251,9 @@ def _mlstm_stages(check, rng, dev) -> None:
     case(1, 4, 320, 192, 64)
     case(2, 1, 8, 192, 64)                              # a chunk of 8
     case(1, 2, 300, 100, 64, split=130)
+    case(4, 1, 2048, 192, 64, dv=48)                    # value columns: model 16
+    case(4, 1, 2048, 192, 64, dv=96, split=700)         # model 8, from a state
+    case(1, 3, 72, 33, 16, dv=7)                        # both 4-byte routes, odd dk
 
 
 def _relay_stages(check, rng, dev) -> None:

@@ -36,9 +36,10 @@ _LONG = "long_500k"
 #: families that serve over a mesh as the reference places them: the model
 #: group shares the prefill's and the decode step's products, and the KV
 #: cache lies over it by heads or by slots (``sharding/specs.py::KVLayout``),
-#: zamba2's Mamba states by SSM heads; xLSTM (``ssm``) serves each process's
-#: rows on whole leaves, with a cache of those rows
-_SERVE_TP_FAMILIES = (dense, vlm, moe, hybrid, encdec)
+#: zamba2's Mamba states by SSM heads, xLSTM's (``ssm``) mLSTM states by
+#: heads and value columns and its sLSTM states by channels
+#: (``models/xlstm.py``)
+_SERVE_TP_FAMILIES = (dense, vlm, moe, hybrid, encdec, xlstm)
 
 
 class ServeCache(dict):
@@ -49,6 +50,15 @@ class ServeCache(dict):
 
     def __init__(self, leaves, rows=None):
         super().__init__(leaves)
+        self.rows = rows
+
+
+class ServeStates(list):
+    """xLSTM's per-layer states (this process's blocks of them) and ``rows``,
+    as :class:`ServeCache` holds a dict cache's."""
+
+    def __init__(self, states, rows=None):
+        super().__init__(states)
         self.rows = rows
 
 
@@ -178,15 +188,16 @@ class Model:
         those rows and holds this process's KV heads or slots over the model
         group (``sharding/specs.py::KVLayout``, the blocks ``shard_cache`` cuts
         from the whole), ``slot_pos`` whole, zamba2's Mamba states by SSM
-        heads; xLSTM its own cache."""
+        heads; xLSTM a :class:`ServeStates`, its layers' states by heads and
+        value columns or by channels."""
         width = max(self.cache_len(shape), 1)
         rows = self.serve_rows(batch)
         local = batch if rows is None else batch // rows.count
         if self.mod not in _SERVE_TP_FAMILIES:
             return self.mod.init_cache(self.cfg, local, width, self.ctx)
         place = None if rows is None else self.serve_placement(rows)
-        return ServeCache(self.mod.init_cache(self.cfg, local, width, self.ctx, place=place),
-                          rows)
+        cache = self.mod.init_cache(self.cfg, local, width, self.ctx, place=place)
+        return (ServeStates if isinstance(cache, list) else ServeCache)(cache, rows)
 
     def decode_step(self, params, cache, token, pos: int,
                     stats: Optional[dict] = None):

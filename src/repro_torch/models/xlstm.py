@@ -18,6 +18,31 @@ built without it.  Parameters keep the reference's tree: ``blocks`` is a
 list of per-layer dicts whose keys differ between sLSTM and mLSTM layers.
 Over a mesh each leaf is held as its block and read whole
 (``sharding/gather.py``): a layer's leaves as the layer runs.
+
+Over a model group that holds the rows replicated (TP use,
+``sharding/tp.py``; the train step's loss and serving), each layer takes
+its ``TensorParallel`` from ``place.tp_at("blocks", i)``:
+
+* an mLSTM layer splits by the "model" block of ``wv``: process r of m
+  computes the value columns ``[r d/m, (r+1) d/m)`` (``tp.value_columns``:
+  whole heads where m divides the heads, ``d/m`` columns of one head where
+  the heads divide m), with q and k of its heads whole (all dk columns,
+  cut from ``wq``/``wk`` read whole where m does not divide the heads),
+  so ``mlstm_scan`` runs at dv < dk there.  ``n`` and the denominator
+  ``n^T q`` are its heads' own: no sum.  ``wv``, ``wg``, ``gate_norm`` and
+  ``wo`` keep their blocks; ``gate_norm``'s sum of squares and ``wo``'s
+  output are summed over the group (:func:`_mlstm_out`);
+* an sLSTM layer splits by channels ``[r d/m, (r+1) d/m)``: its gates and
+  prefix scans run on them with no collective, then ``h`` is gathered over
+  the group (``TensorParallel.gather_last``, backward a reduce-scatter),
+  the GEGLU runs on the process's columns of each half of ``up`` (read
+  whole) and ``down``'s output is summed (:func:`_slstm_out`);
+* a layer whose split does not exist (m does not divide d, or the value
+  block is neither whole heads nor a divisor of one) runs whole.
+
+The serving states follow: an mLSTM layer's ``C [B, H_loc, dk, dv_loc]``,
+``n [B, H_loc, dk]``, ``m [B, H_loc]``, an sLSTM layer's ``c``, ``n``,
+``m``, ``h`` ``[B, d/m]`` (:func:`init_cache` with the serving placement).
 """
 
 from __future__ import annotations
@@ -33,6 +58,7 @@ from ..kernels.mlstm_scan.ops import init_state as init_mlstm_scan_state
 from ..kernels.mlstm_scan.ops import mlstm_scan
 from ..sharding.context import SINGLE, ParallelContext
 from ..sharding.gather import placement
+from ..sharding.tp import value_columns
 from . import layers as L
 
 State = Dict[str, torch.Tensor]
@@ -123,9 +149,20 @@ def init(seed: int, cfg: ModelConfig, ctx: ParallelContext = SINGLE):
 # --------------------------------------------------------------------------- #
 
 
-def init_mlstm_state(cfg: ModelConfig, batch: int, device) -> State:
+def _mlstm_dims(cfg: ModelConfig, tp) -> Tuple[int, int, int, int]:
+    """(first head, heads, first value column of a head, value columns a head)
+    of this process: every head whole without ``tp``, else
+    ``tp.value_columns`` (module docstring)."""
     H, dh = _dims(cfg)
-    return init_mlstm_scan_state(batch, H, dh, device)
+    if tp is None:
+        return 0, H, 0, dh
+    return value_columns(H, dh, tp.size, tp.rank)
+
+
+def init_mlstm_state(cfg: ModelConfig, batch: int, device, tp=None,
+                     dtype=torch.float32) -> State:
+    _, hq, _, dv = _mlstm_dims(cfg, tp)
+    return init_mlstm_scan_state(batch, hq, _dims(cfg)[1], device, dv, dtype)
 
 
 def _mlstm_cell(state: State, q, k, v, ig, fg) -> Tuple[State, torch.Tensor]:
@@ -142,53 +179,77 @@ def _mlstm_cell(state: State, q, k, v, ig, fg) -> Tuple[State, torch.Tensor]:
     return {"C": C, "n": n, "m": m_new}, num / den[..., None]
 
 
-def _mlstm_qkvif(p, h: torch.Tensor, cfg: ModelConfig):
-    """h [B, S, D] -> q, k, v [B, S, H, dh] and ig, fg [B, S, H], float32."""
-    H, dh = _dims(cfg)
+def _mlstm_qkvif(p, h: torch.Tensor, cfg: ModelConfig, tp=None):
+    """h [B, S, D] -> q, k [B, S, H, dh], v [B, S, H, dv] and ig, fg [B, S, H],
+    at least float32: every head whole without ``tp``, else this process's heads
+    (all dh key columns) and value columns (``_mlstm_dims``).  ``wv`` is its
+    block of value columns as held; ``wq``, ``wk``, ``wi`` and ``wf`` are
+    their blocks of the heads where m divides the heads, else read whole and
+    the heads' columns cut here; ``bi``/``bf`` (replicated) their heads."""
+    _, dh = _dims(cfg)
+    h0, hq, _, dv = _mlstm_dims(cfg, tp)
+    if tp is not None:
+        heads, cols = slice(h0, h0 + hq), slice(h0 * dh, (h0 + hq) * dh)
+        p = dict(p, bi=p["bi"][heads], bf=p["bf"][heads])
+        if p["wq"].shape[-1] != hq * dh:
+            p.update(wq=p["wq"][:, cols], wk=p["wk"][:, cols])
+        if p["wi"].shape[-1] != hq:
+            p.update(wi=p["wi"][:, heads], wf=p["wf"][:, heads])
     b, s, _ = h.shape
-    q = (h @ p["wq"]).reshape(b, s, H, dh).float() / (dh ** 0.5)
-    k = (h @ p["wk"]).reshape(b, s, H, dh).float() / (dh ** 0.25)
-    v = (h @ p["wv"]).reshape(b, s, H, dh).float()
-    ig = (h @ p["wi"]).float() + p["bi"]
-    fg = (h @ p["wf"]).float() + p["bf"]
+    q = L.up32((h @ p["wq"]).reshape(b, s, hq, dh)) / (dh ** 0.5)
+    k = L.up32((h @ p["wk"]).reshape(b, s, hq, dh)) / (dh ** 0.25)
+    v = L.up32((h @ p["wv"]).reshape(b, s, hq, dv))
+    ig = L.up32(h @ p["wi"]) + p["bi"]
+    fg = L.up32(h @ p["wf"]) + p["bf"]
     return q, k, v, ig, fg
 
 
-def _mlstm_out(p, h, y, x, cfg: ModelConfig) -> torch.Tensor:
-    """Output gate, gate norm and projection: y [B, S, D] float32 -> [B, S, D]."""
+def _mlstm_out(p, h, y, x, cfg: ModelConfig, tp=None) -> torch.Tensor:
+    """Output gate, gate norm and projection: y [B, S, D] float32 -> [B, S, D].
+    Under ``tp`` y holds this process's value columns, as ``wg`` and
+    ``gate_norm`` do: the norm's sum of squares over d is summed over the
+    group (``models/ssm.py::_gate_norm``) and ``wo``'s rows give a partial
+    product, summed once."""
     og = torch.sigmoid(h @ p["wg"])
-    y = L.rms_norm(y.to(x.dtype) * og, p["gate_norm"], cfg.norm_eps)
-    return y @ p["wo"]
+    z = y.to(x.dtype) * og
+    if tp is None:
+        return L.rms_norm(z, p["gate_norm"], cfg.norm_eps) @ p["wo"]
+    zf = L.up32(z)
+    var = tp.sum(torch.sum(zf * zf, dim=-1, keepdim=True)) / cfg.d_model
+    z = (zf * torch.rsqrt(var + cfg.norm_eps)).to(z.dtype) * p["gate_norm"]
+    return tp.sum(z @ p["wo"])
 
 
-def mlstm_forward(p, x: torch.Tensor, cfg: ModelConfig, state: Optional[State] = None
-                  ) -> Tuple[torch.Tensor, State]:
-    """Per-step mLSTM over x [B, S, D] -> (y [B, S, D], final state)."""
-    b, s, d = x.shape
+def mlstm_forward(p, x: torch.Tensor, cfg: ModelConfig, state: Optional[State] = None,
+                  tp=None) -> Tuple[torch.Tensor, State]:
+    """Per-step mLSTM over x [B, S, D] -> (y [B, S, D], final state); ``tp``:
+    on this process's value columns (module docstring)."""
+    b, s, _ = x.shape
     h = L.rms_norm(x, p["norm"], cfg.norm_eps)
-    q, k, v, ig, fg = _mlstm_qkvif(p, h, cfg)
-    st = state if state is not None else init_mlstm_state(cfg, b, x.device)
+    q, k, v, ig, fg = _mlstm_qkvif(p, h, cfg, tp)
+    st = state if state is not None else init_mlstm_state(cfg, b, x.device, tp, q.dtype)
     ys = []
     for t in range(s):
         st, y = _mlstm_cell(st, q[:, t], k[:, t], v[:, t], ig[:, t], fg[:, t])
         ys.append(y)
-    y = torch.stack(ys, dim=1).reshape(b, s, d)
-    return _mlstm_out(p, h, y, x, cfg), st
+    y = torch.stack(ys, dim=1).flatten(2)
+    return _mlstm_out(p, h, y, x, cfg, tp), st
 
 
 def mlstm_forward_chunked(p, x: torch.Tensor, cfg: ModelConfig,
-                          state: Optional[State] = None, chunk: int = 64
+                          state: Optional[State] = None, chunk: int = 64, tp=None
                           ) -> Tuple[torch.Tensor, State]:
     """Chunkwise-parallel mLSTM through the ``mlstm_scan`` kernel; the same
-    result as :func:`mlstm_forward`."""
-    b, s, d = x.shape
+    result as :func:`mlstm_forward` (under ``tp`` at the process's value
+    width, dv < dk where it holds part of a head)."""
+    b, s, _ = x.shape
     h = L.rms_norm(x, p["norm"], cfg.norm_eps)
-    q, k, v, ig, fg = _mlstm_qkvif(p, h, cfg)
+    q, k, v, ig, fg = _mlstm_qkvif(p, h, cfg, tp)
     hs, st = mlstm_scan(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                         ig.transpose(1, 2), F.logsigmoid(fg).transpose(1, 2),
                         chunk=chunk, state=state)
-    y = hs.transpose(1, 2).reshape(b, s, d)
-    return _mlstm_out(p, h, y, x, cfg), st
+    y = hs.transpose(1, 2).flatten(2)
+    return _mlstm_out(p, h, y, x, cfg, tp), st
 
 
 # --------------------------------------------------------------------------- #
@@ -196,8 +257,10 @@ def mlstm_forward_chunked(p, x: torch.Tensor, cfg: ModelConfig,
 # --------------------------------------------------------------------------- #
 
 
-def init_slstm_state(cfg: ModelConfig, batch: int, device) -> State:
-    z = torch.zeros((batch, cfg.d_model), dtype=torch.float32, device=device)
+def init_slstm_state(cfg: ModelConfig, batch: int, device, tp=None,
+                     dtype=torch.float32) -> State:
+    width = cfg.d_model if tp is None else cfg.d_model // tp.size
+    z = torch.zeros((batch, width), dtype=dtype, device=device)
     return {"c": z, "n": z.clone(), "m": z - 30.0, "h": z.clone()}
 
 
@@ -310,44 +373,64 @@ def maxplus_prefix(s: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return _maxplus_scan(s, v)
 
 
-def _slstm_gates(p, x: torch.Tensor, cfg: ModelConfig):
+def _slstm_gates(p, x: torch.Tensor, cfg: ModelConfig, tp=None):
+    """The gates [B, S, D], at least float32; under ``tp`` this process's channels:
+    ``wz``/``wi``/``wf``/``wo_gate`` are their blocks as held, ``bf``
+    (replicated) is sliced, ``norm`` applies whole to the replicated input."""
+    bf = p["bf"]
+    if tp is not None:
+        c = cfg.d_model // tp.size
+        bf = bf[tp.rank * c:(tp.rank + 1) * c]
     hpre = L.rms_norm(x, p["norm"], cfg.norm_eps)
-    z = (hpre @ p["wz"]).float()
-    ig = (hpre @ p["wi"]).float()
-    fg = (hpre @ p["wf"]).float() + p["bf"]
-    og = (hpre @ p["wo_gate"]).float()
+    z = L.up32(hpre @ p["wz"])
+    ig = L.up32(hpre @ p["wi"])
+    fg = L.up32(hpre @ p["wf"]) + bf
+    og = L.up32(hpre @ p["wo_gate"])
     return z, ig, fg, og
 
 
-def _slstm_out(p, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """GEGLU-style up/down projection of h [B, S, D] float32."""
+def _slstm_out(p, h: torch.Tensor, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """GEGLU-style up/down projection of h [B, S, D] float32.  Under ``tp`` h
+    holds this process's channels: it is gathered whole over the group,
+    the GEGLU runs on the process's columns of each half of ``up`` (read
+    whole), and ``down``'s block of rows gives a partial product, summed."""
     d = x.shape[-1]
     y = h.to(x.dtype)
-    y = _gelu(y @ p["up"][:, :d]) * (y @ p["up"][:, d:])
-    return y @ p["down"]
+    if tp is None:
+        return (_gelu(y @ p["up"][:, :d]) * (y @ p["up"][:, d:])) @ p["down"]
+    c = d // tp.size
+    cols = slice(tp.rank * c, (tp.rank + 1) * c)
+    up = p["up"]
+    y = tp.gather_last(y)
+    y = _gelu(y @ up[:, cols]) * (y @ up[:, d + cols.start:d + cols.stop])
+    return tp.sum(y @ p["down"])
 
 
-def slstm_forward(p, x: torch.Tensor, cfg: ModelConfig, state: Optional[State] = None
-                  ) -> Tuple[torch.Tensor, State]:
-    """Per-step sLSTM over x [B, S, D] -> (y [B, S, D], final state)."""
-    z, ig, fg, og = _slstm_gates(p, x, cfg)
-    st = state if state is not None else init_slstm_state(cfg, x.shape[0], x.device)
+def slstm_forward(p, x: torch.Tensor, cfg: ModelConfig, state: Optional[State] = None,
+                  tp=None) -> Tuple[torch.Tensor, State]:
+    """Per-step sLSTM over x [B, S, D] -> (y [B, S, D], final state); ``tp``:
+    on this process's channels (module docstring)."""
+    z, ig, fg, og = _slstm_gates(p, x, cfg, tp)
+    st = state if state is not None else init_slstm_state(cfg, x.shape[0], x.device, tp,
+                                                          z.dtype)
     hs = []
     for t in range(x.shape[1]):
         st, h = _slstm_cell(st, z[:, t], ig[:, t], fg[:, t], og[:, t])
         hs.append(h)
-    return _slstm_out(p, torch.stack(hs, dim=1), x), st
+    return _slstm_out(p, torch.stack(hs, dim=1), x, tp), st
 
 
 def slstm_forward_assoc(p, x: torch.Tensor, cfg: ModelConfig,
-                        state: Optional[State] = None) -> Tuple[torch.Tensor, State]:
+                        state: Optional[State] = None, tp=None
+                        ) -> Tuple[torch.Tensor, State]:
     """sLSTM through one max-plus and two linear prefixes (xlstm.py:333-375)."""
-    b, s, d = x.shape
-    z, ig, fg, og = _slstm_gates(p, x, cfg)
-    st = state if state is not None else init_slstm_state(cfg, b, x.device)
+    b, s, _ = x.shape
+    z, ig, fg, og = _slstm_gates(p, x, cfg, tp)
+    d = z.shape[-1]                                       # this process's channels
+    st = state if state is not None else init_slstm_state(cfg, b, x.device, tp, z.dtype)
     lf = F.logsigmoid(fg)                                 # [B,S,D]
     # 1. stabilizer prefix, with the carried m as a virtual step 0
-    zero = torch.zeros((b, 1, d), dtype=torch.float32, device=x.device)
+    zero = torch.zeros((b, 1, d), dtype=z.dtype, device=x.device)
     m_all = maxplus_prefix(torch.cat([zero, lf], dim=1),
                            torch.cat([st["m"][:, None], ig], dim=1))
     m_prev, m = m_all[:, :-1], m_all[:, 1:]
@@ -359,7 +442,7 @@ def slstm_forward_assoc(p, x: torch.Tensor, cfg: ModelConfig,
     n = linear_prefix(a_el, torch.cat([st["n"][:, None], bw], dim=1))[:, 1:]
     h = torch.sigmoid(og) * c / torch.clamp_min(n, 1e-6)
     new_state = {"c": c[:, -1], "n": n[:, -1], "m": m[:, -1], "h": h[:, -1]}
-    return _slstm_out(p, h, x), new_state
+    return _slstm_out(p, h, x, tp), new_state
 
 
 # --------------------------------------------------------------------------- #
@@ -372,19 +455,20 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
             place=None) -> torch.Tensor:
     """tokens [B, S] -> logits [B, S, V], or [B, 1, V] with ``last_only``.
     ``place``: the parameters' placement (``sharding/gather.py::placement``;
-    under TP use from ``Model.loss`` only the logits are by vocab: the
-    gates' leaves are read whole)."""
+    under TP use each layer on its ``TensorParallel``, the logits by
+    vocab)."""
     place = placement(param_shapes, cfg, ctx) if place is None else place
     x = place.at("embed").whole(params["embed"])[tokens].to(ctx.compute_dtype)
     for i, p in enumerate(params["blocks"]):
+        tp = place.tp_at("blocks", i)
         p = place.at("blocks", i).whole(p)
         if is_slstm_layer(cfg, i):
             fwd = slstm_forward_assoc if cfg.slstm_assoc else slstm_forward
-            y, _ = fwd(p, x, cfg)
+            y, _ = fwd(p, x, cfg, tp=tp)
         elif cfg.mlstm_chunk > 0:
-            y, _ = mlstm_forward_chunked(p, x, cfg, chunk=cfg.mlstm_chunk)
+            y, _ = mlstm_forward_chunked(p, x, cfg, chunk=cfg.mlstm_chunk, tp=tp)
         else:
-            y, _ = mlstm_forward(p, x, cfg)
+            y, _ = mlstm_forward(p, x, cfg, tp=tp)
         x = x + y
     if last_only:
         x = x[:, -1:]                    # slice before lm_head
@@ -392,21 +476,25 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
-               ctx: ParallelContext = SINGLE) -> List[State]:
-    """Each layer's recurrent state; O(1) in the sequence, so no ``cache_len``."""
-    return [init_slstm_state(cfg, batch, ctx.device) if is_slstm_layer(cfg, i)
-            else init_mlstm_state(cfg, batch, ctx.device) for i in range(cfg.n_layers)]
+               ctx: ParallelContext = SINGLE, place=None) -> List[State]:
+    """Each layer's recurrent state; O(1) in the sequence, so no ``cache_len``.
+    ``place``: the serving placement, under TP use each layer's states on
+    this process's heads and value columns or channels (module docstring)."""
+    tps = [None if place is None else place.tp_at("blocks", i) for i in range(cfg.n_layers)]
+    dt = torch.promote_types(ctx.compute_dtype, torch.float32)
+    return [init_slstm_state(cfg, batch, ctx.device, tp, dt) if is_slstm_layer(cfg, i)
+            else init_mlstm_state(cfg, batch, ctx.device, tp, dt) for i, tp in enumerate(tps)]
 
 
 def decode_step(params, cache: List[State], token: torch.Tensor, pos: int,
-                cfg: ModelConfig, ctx: ParallelContext = SINGLE):
-    """token [B] -> (logits [B, V], the new per-layer states)."""
-    place = placement(param_shapes, cfg, ctx)
+                cfg: ModelConfig, ctx: ParallelContext = SINGLE, place=None):
+    """token [B] -> (logits [B, V], ``cache`` with each layer's state replaced
+    in place); ``place`` as :func:`init_cache` took it."""
+    place = placement(param_shapes, cfg, ctx) if place is None else place
     x = place.at("embed").whole(params["embed"])[token][:, None, :].to(ctx.compute_dtype)
-    new_cache = []
-    for i, (p, st) in enumerate(zip(params["blocks"], cache)):
+    for i, p in enumerate(params["blocks"]):
         fwd = slstm_forward if is_slstm_layer(cfg, i) else mlstm_forward
-        y, st = fwd(place.at("blocks", i).whole(p), x, cfg, state=st)
+        y, cache[i] = fwd(place.at("blocks", i).whole(p), x, cfg, state=cache[i],
+                          tp=place.tp_at("blocks", i))
         x = x + y
-        new_cache.append(st)
-    return L.lm_head(params, x, cfg.norm_eps, place)[:, 0], new_cache
+    return L.lm_head(params, x, cfg.norm_eps, place)[:, 0], cache

@@ -39,9 +39,15 @@ too (else they are read whole, and each process projects the KV heads
 its query heads read); ``wg``/``wu``/``wd``/``w1``/``b1``/``w2`` of a dense
 MLP (d_ff divides where the spec splits it); a Mamba layer's ``conv_w``,
 ``conv_b``, ``gate_norm`` and ``out_proj`` where its SSM heads divide;
-``lm_head`` on vocab (a tied embedding is read whole and its vocab rows
-taken).  Attention whose heads do not divide, and Mamba's ``in_proj``,
-are read whole and each process cuts its share out of the whole leaf
+an mLSTM layer's ``wv``, ``wg``, ``gate_norm`` and ``wo`` (its value
+columns) where the model group's blocks of d are whole heads or columns
+of one head, and its ``wq``, ``wk``, ``wi``, ``wf`` where they are whole
+heads; an sLSTM layer's ``wz``, ``wi``, ``wf``, ``wo_gate`` and ``down``
+(its channels); ``lm_head`` on vocab (a tied embedding is read whole and
+its vocab rows taken).  Attention whose heads do not divide, Mamba's
+``in_proj``, the mLSTM's ``wq``/``wk`` where its heads do not divide and
+the sLSTM's ``up`` (whose block would hold one half's columns) are read
+whole and each process cuts its share out of the whole leaf
 (``sharding/tp.py``): :meth:`Placement.tp_at` hands every attention its
 :class:`TensorParallel` all the same.  A block under TP use is the block
 the process holds: nothing is placed anew.
@@ -59,7 +65,7 @@ import torch.distributed as dist
 from .specs import (KVLayout, Spec, at_path, block_shape, build_param_specs, entry_axes,
                     is_expert_leaf, kv_layout, leaf_paths, local_shard, map_with_path,
                     mesh_coord, mesh_sizes, split_axes)
-from .tp import TensorParallel
+from .tp import TensorParallel, value_columns
 
 #: launches of the gather's collectives: "all_gather" and "reduce_scatter"
 COUNTS: collections.Counter = collections.Counter()
@@ -74,6 +80,12 @@ _KV_LEAVES = ("wk", "wv", "bk", "bv")
 _MLP_LEAVES = ("wg", "wu", "wd", "w1", "b1", "w2")
 #: a Mamba layer's leaves whose "model" block is its SSM heads' channels
 _MAMBA_LEAVES = ("conv_w", "conv_b", "gate_norm", "out_proj")
+#: an mLSTM layer's leaves whose "model" block is its value columns, and
+#: those whose block is whole heads where the model group divides them
+_MLSTM_COLUMNS = ("wv", "wg", "gate_norm", "wo")
+_MLSTM_HEADS = ("wq", "wk", "wi", "wf")
+#: an sLSTM layer's leaves whose "model" block is its channels
+_SLSTM_LEAVES = ("wz", "wi", "wf", "wo_gate", "down")
 
 #: one step of a gather: (dim, process group, its size)
 Step = Tuple[int, object, int]
@@ -147,10 +159,21 @@ def _keeps_model_block(path: Sequence, shapes, spec: Spec, m: int, head_dim: int
     splits as a dim of its own; attention by whole heads (``H % m``, and
     ``Hkv % m`` for the KV leaves, H and Hkv from ``wq``'s and ``wk``'s
     columns); a Mamba layer's channel leaves by whole SSM heads (H from
-    ``A_log``); ``lm_head`` by vocab."""
+    ``A_log``); an xLSTM layer (a list entry of ``blocks``) by value
+    columns (an mLSTM layer, which has ``wq``; H from ``wi``'s columns,
+    ``tp.value_columns``) or by channels (an sLSTM layer, which has
+    ``wz``); ``lm_head`` by vocab."""
     if "model" not in spec:
         return False
     name, parent = str(path[-1]), (path[-2] if len(path) > 1 else None)
+    if isinstance(parent, int) and path[0] == "blocks":
+        sub = at_path(shapes, path[:-1])
+        if "wz" in sub:
+            return name in _SLSTM_LEAVES
+        heads = sub["wi"][-1]
+        if value_columns(heads, sub["wq"][-1] // heads, m, 0) is None:
+            return False
+        return name in _MLSTM_COLUMNS or (heads % m == 0 and name in _MLSTM_HEADS)
     if parent in _ATTENTION and name in _Q_LEAVES + _KV_LEAVES:
         sub = at_path(shapes, path[:-1])
         heads, kv = sub["wq"][-1] // head_dim, sub["wk"][-1] // head_dim

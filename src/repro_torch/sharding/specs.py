@@ -33,6 +33,8 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .tp import value_columns
+
 # leaf-name -> spec template (rightmost dims; missing leading dims -> None)
 _RULES = {
     # embeddings / heads
@@ -362,7 +364,19 @@ def serve_cache_specs(cache, mesh, data_axes: Sequence[str] = ("data",)) -> dict
         head's B, C and dt (``2 N H + H`` of ``in_proj``'s columns) where a
         split by heads projects its own;
       * the encoder states ``enc_out`` [B, F, d] by rows only, whole over
-        "model" (the reference's cache holds them replicated)."""
+        "model" (the reference's cache holds them replicated);
+      * an xLSTM layer's states as its compute splits them
+        (``models/xlstm.py``): an sLSTM layer's ``c``, ``n``, ``m``, ``h``
+        [B, d] by channels; an mLSTM layer's ``C`` [B, H, dk, dv], ``n``
+        [B, H, dk] and ``m`` [B, H] by heads where "model" divides them.
+        Where the heads divide "model" instead, a process holds value
+        columns of one head (``C`` [B, 1, dk, dv/(m/H)], ``n``, ``m`` of
+        that head), a block no spec of dims expresses: the spec gives its
+        rows, and :func:`shard_cache` cuts the head and its columns
+        (:func:`mlstm_columns`).  The reference's ``cache_spec_rules``
+        splits ``C`` and ``n`` on their last dim (``C``'s value columns: 12
+        of every head on 16) and replicates ``m`` and the sLSTM's ``c``,
+        ``m``, ``h``; the bytes of ``C`` a process are the same."""
     specs = build_cache_specs(cache, mesh)
     sizes = mesh_sizes(mesh)
     m = _axis_size(sizes, "model")
@@ -388,9 +402,37 @@ def serve_cache_specs(cache, mesh, data_axes: Sequence[str] = ("data",)) -> dict
             return tuple(parts)
         if name == "enc_out":
             return tuple(rows_at(shape, 0))
+        if _is_xlstm_state(parent):
+            parts = rows_at(shape, 0)
+            if m > 1 and "h" in parent and shape[-1] % m == 0:
+                parts[-1] = "model"                       # sLSTM: channels
+            elif m > 1 and "C" in parent and _shape(parent["C"])[1] % m == 0:
+                parts[1] = "model"                        # mLSTM: whole heads
+            return tuple(parts)
         return spec
 
     return map_with_path(one, cache)
+
+
+def _is_xlstm_state(node) -> bool:
+    """An xLSTM layer's serving state: an mLSTM's (C, n, m) or an sLSTM's (c,
+    n, m, h)."""
+    return isinstance(node, Mapping) and set(node) in ({"C", "n", "m"}, {"c", "n", "m", "h"})
+
+
+def mlstm_columns(state: Mapping, m: int, r: int) -> Optional[Tuple[slice, slice]]:
+    """(head slice, value column slice) of process ``r`` of a model group of
+    ``m`` in an mLSTM state ``{"C": [B, H, dk, dv], ...}`` where the heads
+    divide ``m`` and each process holds columns of one head
+    (``tp.value_columns``); ``None`` where the heads are whole (or m is 1)."""
+    H, dk = _shape(state["C"])[1:3]
+    if m == 1 or H % m == 0:
+        return None
+    cols = value_columns(H, dk, m, r)
+    if cols is None:
+        return None
+    h0, _, p0, pc = cols
+    return slice(h0, h0 + 1), slice(p0, p0 + pc)
 
 
 def shard_cache(cache, mesh, data_axes: Sequence[str] = ("data",), coord=None):
@@ -407,7 +449,14 @@ def shard_cache(cache, mesh, data_axes: Sequence[str] = ("data",), coord=None):
 
     def one(path, leaf):
         spec = at_path(specs, path)
-        if all(sizes.get(a, 1) == 1 for a in split_axes(spec)):
+        parent = at_path(cache, path[:-1])
+        cut = (mlstm_columns(parent, sizes.get("model", 1), coord.get("model", 0))
+               if _is_xlstm_state(parent) and "C" in parent else None)
+        if cut is not None:
+            heads, cols = cut
+            leaf = leaf[:, heads]
+            leaf = leaf[..., cols] if path[-1] == "C" else leaf
+        elif all(sizes.get(a, 1) == 1 for a in split_axes(spec)):
             return leaf
         return local_shard(leaf, spec, sizes, coord).contiguous()
 

@@ -6,7 +6,8 @@ batch), the reference's partitioned step computes each product on the
 group's "model" block of its weight, as XLA's partitioner places it from
 ``sharding/specs.py``'s rules: attention by whole query heads, the dense
 MLP and SwiGLU on d_ff (column-parallel in, row-parallel out), zamba2's
-Mamba layers by SSM heads, the loss's logits by vocab.  The port does the
+Mamba layers by SSM heads, xLSTM's mLSTM layers by value columns and its
+sLSTM layers by channels, the loss's logits by vocab.  The port does the
 same:
 
   * ``sharding/gather.py::placement`` keeps those leaves' "model" blocks
@@ -15,7 +16,9 @@ same:
   * ``models/layers.py`` computes on the blocks: ``attention_forward`` on
     the process's query heads (:meth:`TensorParallel.heads`) and the KV
     heads they read, ``swiglu`` and ``mlp`` on the d_ff block,
-    ``models/ssm.py`` on the process's SSM heads; a row-parallel output is
+    ``models/ssm.py`` on the process's SSM heads, ``models/xlstm.py`` on
+    the process's value columns (:func:`value_columns`) or channels; a
+    row-parallel output is
     a partial sum, summed over the group by :meth:`TensorParallel.sum`
     (:class:`SumOverGroup`), and a bias after it is added once, after the
     sum;
@@ -40,6 +43,24 @@ all_reduce over "model".  A process of no head adds zeros to the sum and
 launches no attention kernel.  Mamba's ``gate_norm`` is an RMSNorm over
 the whole ``d_inner``: its sum of squares is summed over the group too.
 Where the SSM heads do not divide the group, a Mamba layer runs whole.
+
+xLSTM.  An mLSTM layer splits by the "model" block of ``wv``: process r
+computes the value columns ``[r d/m, (r+1) d/m)``, whole heads where m
+divides the heads, else ``d/m`` columns of one head where the heads
+divide m (4 heads of 192 over 16: 48 columns a process).  Each value
+column's recurrence reads q and k of its head over all dk key columns
+and no other value column, and ``n`` and the denominator ``n^T q`` are
+the head's own, so the scan needs no collective (``mlstm_scan`` at a
+value width dv < dk); q and k of a shared head are computed by each
+process that holds its columns, from ``wq``/``wk`` read whole.
+``gate_norm``'s sum of squares and ``wo``'s output are summed over the
+group.  An sLSTM layer splits by channels: its gates and prefix scans
+are per channel, ``h`` is gathered over the group before ``up``
+(:meth:`TensorParallel.gather_last`, whose backward reduce-scatters, as
+the row gather's), each half of ``up`` (read whole) gives the process's
+columns of the GEGLU, and ``down``'s output is summed.  A layer runs
+whole where m does not divide d, or the value block is neither whole
+heads nor a divisor of one.
 
 The adjoints.  Each process scales its loss by ``1 / world`` and every
 collective's backward is its adjoint with respect to the sum ``J`` of the
@@ -66,8 +87,9 @@ the step's reduction changes; only what the shares hold.
 
 :data:`COUNTS` counts the sums over a group (``"sum"``: the blocks' and the
 loss's and ``gate_norm``'s, forward only; a remat recompute counts again), the maxes (``"max"``:
-the loss's, a sequence-split decode's) and the decode's gathers
-(``"gather"``).
+the loss's, a sequence-split decode's) and the gathers of activations
+(``"gather"``: the decode's q, k, v over a sequence-split cache, the
+sLSTM's ``h``).
 
 Serving (``models/registry.py``: a prefill's ``forward`` and ``decode_step``
 on a mesh) places its rows over the data axes only, so the model group
@@ -136,6 +158,16 @@ class TensorParallel:
         dist.all_gather_into_tensor(out, t.contiguous(), group=self.group)
         return out.unflatten(0, (self.size, t.shape[0]))
 
+    def gather_last(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` of each process of the group joined along its last dim, in
+        group-rank order (the sLSTM's ``h`` of the process's channels ->
+        every channel); differentiable: ``sharding/gather.py::GatherLeaf``,
+        whose backward reduce-scatters the cotangent back to the block."""
+        from .gather import gather_leaf       # gather.py imports this module
+
+        COUNTS["gather"] += 1
+        return gather_leaf(t, ((t.dim() - 1, self.group, self.size),))
+
     def max(self, t: torch.Tensor) -> torch.Tensor:
         """``t``'s elementwise max over the group, in place; no gradient."""
         COUNTS["max"] += 1
@@ -173,6 +205,28 @@ def head_range(n_heads: int, m: int, r: int) -> Tuple[int, int]:
     some processes hold none."""
     first, last = -(-r * n_heads // m), -(-(r + 1) * n_heads // m)
     return first, last - first
+
+
+def value_columns(n_heads: int, head_dim: int, m: int, r: int
+                  ) -> Optional[Tuple[int, int, int, int]]:
+    """(first head, heads, first value column within a head, value columns a
+    head) of process ``r`` of ``m`` under the mLSTM's split by the "model"
+    block of ``wv``: the process takes the value columns ``[r d/m, (r+1)
+    d/m)`` of ``d = n_heads * head_dim``, whole heads where ``d/m`` is a
+    multiple of the head width (``m`` divides the heads), else ``d/m``
+    columns of one head where ``d/m`` divides the head width (the heads
+    divide ``m``).  ``None`` where neither holds, or ``m`` does not divide
+    ``d``: the layer then runs whole."""
+    d = n_heads * head_dim
+    if d % m:
+        return None
+    c = d // m
+    if c % head_dim == 0:
+        hq = c // head_dim
+        return r * hq, hq, 0, head_dim
+    if head_dim % c == 0:
+        return r * c // head_dim, 1, r * c % head_dim, c
+    return None
 
 
 def block_max(z: torch.Tensor) -> torch.Tensor:

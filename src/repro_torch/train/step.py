@@ -63,8 +63,9 @@ norm over the axes that split it, the same axes.  The reported loss is
 summed over the world, the capacity drops too, counting each token once.
 
 On the CPU the tensor-parallel cases run in gloo worlds:
-``python -m pytest -q tests/test_torch_dist.py -k "placed or tp_train"``
-(the step on (data 2, model 2) and (data 2, model 4) against one process)
+``python -m pytest -q tests/test_torch_dist_p4.py tests/test_torch_dist_p8.py -k
+"placed or tp_train"`` (the step on (data 2, model 2) and (data 2, model 4)
+against one process)
 and ``tests/test_torch_tp.py`` (the blocks' algebra on one process).
 """
 

@@ -596,6 +596,44 @@ def test_mlstm_scan_matches_plain(cuda, b, h, s, dh, chunk):
         _close(st[key], st_ref[key])
 
 
+@pytest.mark.parametrize("b,h,s,dk,dv,chunk", [
+    (4, 1, 2048, 192, 48, 64),   # xlstm-125m's value block on model 16 (both 16-byte routes)
+    (4, 1, 2048, 192, 96, 64),   # and on model 8
+    (2, 2, 200, 192, 96, 64),    # S padded
+    (1, 2, 100, 100, 48, 64),    # 16-byte value rows, 16-byte key rows, no 64-row tile
+    (1, 2, 100, 64, 50, 64),     # 4-byte value rows beside 16-byte key rows
+    (1, 2, 100, 50, 64, 64),     # 4-byte key rows beside 16-byte value rows; dv > dk
+    (1, 3, 72, 33, 7, 16),       # both 4-byte, odd dk: the chain's pairs at an even offset
+    (2, 1, 64, 16, 1, 16),       # one value column
+])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_mlstm_scan_at_a_value_width_apart_from_the_key_width(cuda, b, h, s, dk, dv, chunk,
+                                                              with_state):
+    """v [B, H, S, dv] beside q, k [B, H, S, dk] (a model group's value
+    columns of a head): the kernel's h and final state against the plain
+    version's, from the zero state and from a carried one, one launch."""
+    rng = np.random.default_rng(s + dk + dv)
+    q, k, v, ig, lf = _mlstm_inputs(rng, b, h, s, dk, cuda)
+    v = v[..., :dv].contiguous() if dv <= dk else torch.as_tensor(
+        rng.normal(size=(b, h, s, dv)) * 0.3, dtype=torch.float32, device=cuda)
+    st = None
+    if with_state:
+        st = {"C": torch.as_tensor(rng.normal(size=(b, h, dk, dv)) * 0.2, dtype=torch.float32,
+                                   device=cuda),
+              "n": torch.as_tensor(rng.normal(size=(b, h, dk)) * 0.2, dtype=torch.float32,
+                                   device=cuda),
+              "m": torch.as_tensor(rng.normal(size=(b, h)), dtype=torch.float32, device=cuda)}
+    before = launch_counts()["mlstm_scan"]
+    got, fin = mlstm_scan(q, k, v, ig, lf, chunk=chunk, state=st)
+    torch.cuda.synchronize()
+    assert launch_counts()["mlstm_scan"] == before + 1
+    want, fin_ref = mlstm_scan_chunked_ref(q, k, v, ig, lf, chunk=chunk, state=st)
+    assert got.shape == (b, h, s, dv) and fin["C"].shape == (b, h, dk, dv)
+    _close(got, want)
+    for key in ("C", "n", "m"):
+        _close(fin[key], fin_ref[key])
+
+
 def test_mlstm_scan_carries_state(cuda):
     # two calls chained through the carried state equal one call
     rng = np.random.default_rng(7)
@@ -743,25 +781,28 @@ def test_kernel_without_backward_raises_under_grad(cuda, kernel):
 
 
 @pytest.mark.parametrize("with_state", [False, True])
-@pytest.mark.parametrize("b,h,s,dh,chunk", [
-    (1, 2, 64, 16, 16),
-    (2, 2, 100, 48, 32),     # S padded, a partial value slice
-    (1, 4, 300, 192, 64),    # xlstm-125m's head dim and chunk, S padded
+@pytest.mark.parametrize("b,h,s,dh,chunk,dv", [
+    (1, 2, 64, 16, 16, 16),
+    (2, 2, 100, 48, 32, 48),     # S padded, a partial value slice
+    (1, 4, 300, 192, 64, 192),   # xlstm-125m's head dim and chunk, S padded
+    (1, 1, 300, 192, 64, 48),    # its value block of one head on model 16
+    (1, 1, 300, 192, 64, 96),    # and on model 8
 ])
-def test_mlstm_scan_gradients_on_card_equal_cpu(cuda, with_state, b, h, s, dh, chunk):
+def test_mlstm_scan_gradients_on_card_equal_cpu(cuda, with_state, b, h, s, dh, chunk, dv):
     # under a gradient the card runs the kernel's forward (one launch) and
     # MLSTMScanFunction's backward from the kernel's chunk states; the CPU
     # differentiates its plain version by autograd.  f32 sums in other
     # orders: 1e-4 of each gradient's largest value
-    rng = np.random.default_rng(s + dh + with_state)
-    ins = _mlstm_inputs(rng, b, h, s, dh, "cpu")
+    rng = np.random.default_rng(s + dh + dv + with_state)
+    ins = list(_mlstm_inputs(rng, b, h, s, dh, "cpu"))
+    ins[2] = ins[2][..., :dv].contiguous()
     st = None
     if with_state:
-        st = {"C": torch.as_tensor(rng.normal(size=(b, h, dh, dh)) * 0.2, dtype=torch.float32),
+        st = {"C": torch.as_tensor(rng.normal(size=(b, h, dh, dv)) * 0.2, dtype=torch.float32),
               "n": torch.as_tensor(rng.normal(size=(b, h, dh)) * 0.2, dtype=torch.float32),
               "m": torch.as_tensor(rng.normal(size=(b, h)), dtype=torch.float32)}
     cots = [torch.as_tensor(rng.normal(size=shape), dtype=torch.float32)
-            for shape in ((b, h, s, dh), (b, h, dh, dh), (b, h, dh), (b, h))]
+            for shape in ((b, h, s, dv), (b, h, dh, dv), (b, h, dh), (b, h))]
     grads = []
     for dev in ("cpu", cuda):
         live = [a.to(dev).requires_grad_(True) for a in ins]

@@ -283,7 +283,8 @@ def test_model_group_shares_uneven_heads_and_ssm_heads(arch, shape, mp):
     13.19 GB of arguments: every process held its rows' whole conv, SSM
     and KV caches), whisper's decode on 12 heads over 16 (0.3425 TFLOP: the
     cross attention projected 1500 frames whole every step).  Each count a
-    device within :data:`SHARED_LIMITS` of the reference's."""
+    device within :data:`SHARED_LIMITS` of the reference's
+    (``test_torch_dryrun_xlstm.py`` holds xlstm-125m the same way)."""
     rec = dryrun.run_one(arch, shape, multi_pod=mp)
     assert rec["status"] == "ok", rec.get("error")
     got = dict(flops=rec["roofline"]["flops_per_device"], **rec["bytes_per_device"])

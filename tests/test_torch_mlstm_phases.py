@@ -44,10 +44,11 @@ def mlstm_scan_phases(q, k, v, ig, lf, *, chunk: int = 64, state: Optional[State
     ``scale`` [B, H, chunks].
     """
     b, hh, s, dh = q.shape
-    st = state if state is not None else init_state(b, hh, dh, q.device)
+    dv = v.shape[-1]
+    st = state if state is not None else init_state(b, hh, dh, q.device, dv)
     q, k, v, ig, lf, L = _pad(q, k, v, ig, lf, chunk)
     nc = q.shape[2] // L
-    qc, kc, vc = (a.reshape(b, hh, nc, L, dh) for a in (q, k, v))
+    qc, kc, vc = (a.reshape(b, hh, nc, L, a.shape[-1]) for a in (q, k, v))
     igc, lfc = (a.reshape(b, hh, nc, L) for a in (ig, lf))
     # 1. mlstm_delta
     Lf = torch.cumsum(lfc, dim=3)
@@ -84,7 +85,7 @@ def mlstm_scan_phases(q, k, v, ig, lf, *, chunk: int = 64, state: Optional[State
     h = num / torch.maximum(den.abs(), floor)[..., None]
     if parts is not None:
         parts.update(den=den, floor=floor, scale=torch.stack(scales, dim=2))
-    return h.reshape(b, hh, nc * L, dh)[:, :, :s], {"C": C, "n": n, "m": m}
+    return h.reshape(b, hh, nc * L, dv)[:, :, :s], {"C": C, "n": n, "m": m}
 
 
 def _inputs(b, h, s, dh, seed, extreme=False):
@@ -180,3 +181,22 @@ def test_phases_carry_a_state(split, chunk):
     for key in ("C", "n", "m"):
         _within(st_b[key], st_ref[key], f"final {key} vs mlstm_scan_chunked_ref")
         _within(st_b[key], st_whole[key], f"final {key} vs one call")
+
+
+@pytest.mark.parametrize("dh,dv,chunk", [(192, 48, 64), (192, 96, 64), (32, 8, 16),
+                                         (24, 6, 16)])
+def test_phases_at_a_value_width_below_the_key_width(dh, dv, chunk):
+    """The value columns of a model group's process (48 and 96 of a head of
+    192 on model 16 and 8): the phases at dv < dk against the plain chunk
+    loop, and against the JAX per-step oracle's columns of the whole head
+    (every value column's recurrence reads all dk key columns, none of the
+    other value columns)."""
+    q, k, v, ig, lf = _inputs(1, 2, 160, dh, seed=dh + dv)
+    t = [torch.as_tensor(a) for a in (q, k, v[..., :dv], ig, lf)]
+    got, st = mlstm_scan_phases(*t, chunk=chunk)
+    want, st_ref = mlstm_scan_chunked_ref(*t, chunk=chunk)
+    _within(got, want, "h vs the port's mlstm_scan_chunked_ref")
+    for key in ("C", "n", "m"):
+        _within(st[key], st_ref[key], f"final {key} vs mlstm_scan_chunked_ref")
+    whole = np.asarray(j_mlstm_scan_ref(*map(jnp.asarray, (q, k, v, ig, lf))))
+    _within(got, whole[..., :dv], "h vs JAX mlstm_scan_ref's value columns")

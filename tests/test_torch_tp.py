@@ -305,7 +305,11 @@ def test_tp_use_keeps_whole_heads_d_ff_and_vocab_blocks():
     MLP and the vocab split; whisper's 12 heads stay whole, its MLP splits,
     its tied vocab (51865) does not; granite's 16 query heads split (its 8
     KV heads are read whole), its experts keep their block as always, its
-    vocab (49155) does not split; xlstm-125m keeps only ``lm_head``."""
+    vocab (49155) does not split; xlstm-125m keeps ``lm_head``, each mLSTM
+    layer's value-column leaves (48 columns of one of its 4 heads a
+    process: ``wq``/``wk``/``wi``/``wf`` read whole) and each sLSTM layer's
+    channel leaves (``up`` read whole); on model 4, whole heads: the
+    mLSTM's head leaves too."""
     mlp = {"blocks/mlp/wg", "blocks/mlp/wu", "blocks/mlp/wd"}
     assert _kept("llama3-8b") == {"blocks/attn/wq", "blocks/attn/wo", "lm_head"} | mlp
     assert _kept("llama3-8b", model=4) == {"blocks/attn/wq", "blocks/attn/wo",
@@ -316,7 +320,12 @@ def test_tp_use_keeps_whole_heads_d_ff_and_vocab_blocks():
                                       for k in ("w1", "b1", "w2")}
     assert _kept("granite-moe-1b-a400m") == {"blocks/attn/wq", "blocks/attn/wo",
                                              "blocks/wg", "blocks/wu", "blocks/wd"}
-    assert _kept("xlstm-125m") == {"lm_head"}
+    mlstm = {f"blocks/{i}/{k}" for i in range(0, 12, 2) for k in ("wv", "wg", "gate_norm", "wo")}
+    slstm = {f"blocks/{i}/{k}" for i in range(1, 12, 2)
+             for k in ("wz", "wi", "wf", "wo_gate", "down")}
+    assert _kept("xlstm-125m") == {"lm_head"} | mlstm | slstm
+    heads = {f"blocks/{i}/{k}" for i in range(0, 12, 2) for k in ("wq", "wk", "wi", "wf")}
+    assert _kept("xlstm-125m", model=4) == {"lm_head"} | mlstm | slstm | heads
 
 
 def test_rows_take_tp_use_only_replicated_over_a_model_axis():

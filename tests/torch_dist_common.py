@@ -1,71 +1,23 @@
-"""The port's executor across processes (gloo, on the CPU) against the stacked one.
+"""What the port's gloo worlds run and what their tests hold them against.
 
-Each world is spawned once (a module-scoped fixture a process count ``P``)
-and runs every case of ``repro_torch.launch.dist_checks`` for it; the
-parametrised tests read its results.  ``n`` EP ranks in groups of ``G``
-over ``P`` processes, each hosting ``n / P`` of them:
+The tests of the port's executor across processes (on the CPU, against
+the stacked executor, one process and the JAX package) are split by the
+world they spawn, so that the worlds run side by side:
 
-* the dataplane at P in {1, 2, 4, 8} for n = 8, G = 4 and at P = 2 for
-  n = 4, G = 2, in the three modes, f32 and bf16: ``y`` and ``recv``
-  bit-exact against the stacked executor and ``ref_all_to_allv``, and the
-  plan's digest the same on every process and the stacked executor's;
-  ``baseline_all_to_all`` against the oracle (the padded buffers moved as
-  they are);
-* the MoE layer (router, dispatch, grouped FFN, combine) forward and its
-  gradients against the stacked path's, within 1e-5 of each one's largest
-  value (f32 sums over fewer rows, then an all_reduce);
-* the masked branch (tokens replicated over the model group) at P = 2 and
-  4: its forward against the stacked masked path, and the gradients of
-  each process's ``1 / P`` share of the objective (the tokens' and the
-  router's summed over the processes, the experts' blocks joined) against
-  the stacked path's;
-* ``sharding/gather.py::GatherLeaf`` on (data 2, model 2): a leaf split
-  over one axis, two axes of one dim, two dims and none comes back whole
-  bit for bit, and its block's gradient is the block of the cotangents
-  summed over the processes that split it (nothing launched for none);
-* the train step on (data 2, model 1) across 2 processes without EP
-  (ep_size 1) against the stacked one, as below;
-* the reference's EP train step on (data 2, model 4) across 8 processes
-  from the JAX package's weights (``params_from_jax``): the loss within
-  1e-6 relative and every gradient leaf within 1e-5 of its largest value
-  against the stacked EP 4 path, the loss within 5e-2 of the JAX package's
-  single-device step;
-* the train step on (data 2, model 2) across 4 processes with a batch of 2
-  sequences (the rows over data, replicated over model) for reduced
-  paper-moe-8e (EP 4, the MoE's full split over the model group) and
-  smollm-135m, from the JAX package's weights, against the single-process
-  step: the loss within 1e-6, the gradients within 1e-5, the drops equal;
-  and the loss within 5e-2 of the JAX package's single-device step;
-* every parameter and AdamW moment placed by the full specs: the train
-  step of reduced paper-moe-8e, granite-moe, smollm-135m, xlstm-125m and
-  zamba2-1.2b (in float64: loss 1e-12, leaves 1e-9) on
-  (data 2, model 2) (31 tokens a sequence: the MoE's masked branch) and
-  (data 2, model 4) (32: its split), 2 sequences (the rows replicated over
-  model), against one process: the loss within 1e-6 relative, each
-  gradient leaf assembled from the blocks within 1e-5 of its largest value,
-  two AdamW steps' losses and global norms within 1e-5 relative and the
-  parameters after them within 1e-5; the loss within 5e-2 of the JAX package's
-  single-device step; the bytes held (parameters, m, v) exactly the blocks'
-  bytes by the specs;
-* with the rows replicated over model, the model group runs each block's
-  products tensor-parallel (``sharding/tp.py``): the placed cases' first
-  step gathers no kept block over "model" and sums over the group as many
-  times as the blocks' row-parallel products (and the loss once where the
-  vocab splits; zamba2's Mamba layer by SSM heads on model 2); seven more
-  cases on both worlds (query and KV heads that divide, with remat; 2 KV
-  heads over model 4; smollm's 9 over 3 heads, uneven; 3 heads, one
-  process of none on model 4; a vocab of 509; whisper's tied logits;
-  whisper on 6 heads) hold the same limits against one process and the
-  JAX package, and their launches exactly;
-* serving on both worlds (``SERVE_CASES``): heads, slots (uneven heads
-  too), whole, a ring past its wrap, the MoE (one case dropping), zamba2
-  (conv and SSM caches by SSM heads) and whisper (its self cache, its cross
-  attention over its rows' encoder states) against one process within
-  1e-5 and the JAX package within 1e-4;
-* a checkpoint written by a (data 2, model 2) world is the world's blocks
-  put together, bit for bit, and one written by a single process restores
-  in the world as each process's block of it, bit for bit;
-* ``selftest --procs 8 --device cpu`` ends ``ALL OK``.
+* ``test_torch_dist_p1p2.py``: the worlds of 1 and 2 processes;
+* ``test_torch_dist_p4.py``: (data 2, model 2);
+* ``test_torch_dist_p8.py``: (data 2, model 4);
+* ``test_torch_dist_spawns.py``: the stand-alone spawns (the selftest, the
+  two examples, a failing process) and the worlds of one
+  (``local_world``).
+
+Each world is spawned once in a test process (:func:`_world`, on first
+use) and runs every case :func:`_cases` gives it
+(``repro_torch.launch.dist_checks``); the parametrised tests read its
+results.  This module holds the cases, the references they are held
+against (the stacked executor, one process, the JAX package's
+single-device step and decode) and the checks that more than one world
+shares (``check_*``).
 """
 
 import dataclasses
@@ -82,7 +34,7 @@ from repro.models.registry import build_model as j_build_model
 from repro.sharding.context import SINGLE as J_SINGLE
 from repro_torch.core.dataplane import NimbleAllToAll, ref_all_to_allv
 from repro_torch.launch import dist_checks, selftest
-from repro_torch.launch.dist import local_world, spawn
+from repro_torch.launch.dist import spawn
 from repro_torch.models.moe import make_moe_ffn
 from repro_torch.models.registry import build_model
 from repro_torch.sharding.context import ParallelContext
@@ -90,8 +42,6 @@ from repro_torch.optim import adamw
 from repro_torch.train.step import loss_and_grads, make_train_step
 from repro_torch.tree import leaves
 from repro_torch.weights import params_from_jax
-
-pytestmark = pytest.mark.torch_port
 
 WORLDS = (1, 2, 4, 8)
 GEOMETRIES = {8: (8, 4), 4: (4, 2)}           # n -> (n, G)
@@ -119,6 +69,9 @@ PLACED_TOL = {"f32": (1e-6, 1e-5), "f64": (1e-12, 1e-9)}
 #: overrides, remat); d_model 128 or 144, d_ff 256, 2 layers
 _NARROW = (("d_model", 128), ("d_ff", 256))
 _WHISPER6 = (("n_heads", 6), ("n_kv_heads", 6), ("d_model", 192), ("d_ff", 256))
+#: xLSTM with one mLSTM head of 128: half of it a process on model 2 (64
+#: value columns), a quarter on model 4 (32), the sLSTM by 64 or 32 channels
+_XLSTM1 = (("n_heads", 1), ("n_kv_heads", 1), ("d_model", 128))
 TP_CASES = {
     # query and KV heads divide by 2 and 4; remat recomputes the sums
     "heads-divide": ("llama3-8b", (("n_heads", 8), ("n_kv_heads", 4)) + _NARROW, True),
@@ -141,13 +94,21 @@ TP_CASES = {
     # whisper with 6 heads: 3 a process on model 2, 2, 1, 2, 1 on model 4, in
     # the encoder's, the decoder's and the cross attention
     "whisper-uneven": ("whisper-small", _WHISPER6, False),
+    # the mLSTM by value columns of its one head (dv < dk in mlstm_scan), the
+    # sLSTM by channels
+    "xlstm-one-head": ("xlstm-125m", _XLSTM1, False),
 }
+#: the tensor-parallel cases' dtype (``PLACED_TOL``'s tolerances): the
+#: one-head mLSTM's ``bi`` gradient is a near-cancelling sum over the tokens
+#: (1.2e-6 against ``wi``'s 0.36), whose four processes' float32 shares sum
+#: in another order than one process's, so that case is held in float64
+TP_DTYPE = {"xlstm-one-head": "f64"}
 
 
 #: serving on both PLACED worlds, 4 prompts (2 a data block, replicated
 #: over model) unless SERVE_OPTS says otherwise: (arch reduced, its config
-#: overrides, the cache's width, the prompt's length); then 6 greedy steps.  The cache's ``KVLayout`` on model
-#: 2 and model 4 in :data:`SERVE_KINDS`
+#: overrides, the cache's width, the prompt's length); then 6 greedy steps.
+#: The cache's ``KVLayout`` on model 2 and model 4 in :data:`SERVE_KINDS`
 _WIDE = (("n_heads", 12), ("n_kv_heads", 3), ("d_model", 192), ("d_ff", 256))
 SERVE_CASES = {
     # query and KV heads divide by 2 and 4
@@ -179,11 +140,19 @@ SERVE_CASES = {
     # heads: uneven heads past the wrap), the cross attention on the
     # process's heads over its rows' encoder states
     "whisper": ("whisper-small", _WHISPER6, 4, 5),
+    # xLSTM, 4 mLSTM heads of 64: 2 whole heads a process on model 2, one on
+    # model 4; the mLSTM states by those heads, the sLSTM's by channels
+    "xlstm": ("xlstm-125m", (), 16, 5),
+    # one mLSTM head: its states' value columns split (C [B, 1, 128, 64 or 32])
+    "xlstm-one-head": ("xlstm-125m", _XLSTM1, 16, 5),
 }
+#: the cache's ``KVLayout`` kind on model 2 and model 4 ("state" for xLSTM,
+#: which holds no KV cache, only recurrent states)
 SERVE_KINDS = {"heads": ("heads", "heads"), "seq-smollm": ("seq", "seq"), "seq": ("seq", "seq"),
                "whole": ("whole", "whole"), "ring": ("seq", "seq"), "moe": ("heads", "heads"),
                "moe-drop": ("heads", "heads"), "zamba2": ("heads", "heads"),
-               "whisper": ("heads", "seq")}
+               "whisper": ("heads", "seq"), "xlstm": ("state", "state"),
+               "xlstm-one-head": ("state", "state")}
 #: a case's batch, the expert layer's capacity factor and chunk (a chunk of
 #: one token, at 0.25, gives a rank's 2 assignments of a decode step one
 #: slot a destination)
@@ -282,7 +251,8 @@ def _cases(P):
         for name, (arch, over, remat) in TP_CASES.items():
             cases.append((f"tp-{name}", "rows", dict(
                 arch=arch, data=data, model=model, steps=PLACED_STEPS, over=over,
-                remat=remat, tree=jax_rows_ref(arch, over=over)[0])))
+                remat=remat, tree=jax_rows_ref(arch, over=over)[0],
+                dtype=TP_DTYPE.get(name, "f32"))))
         for name, (arch, over, width, prompt) in SERVE_CASES.items():
             cases.append((f"serve-{name}", "serve", dict(
                 arch=arch, over=over, data=data, model=model, P=prompt, steps=SERVE_STEPS,
@@ -314,15 +284,19 @@ def world(request):
     return _world(request.param)
 
 
-def _geometries():
-    return [(P, n) for P in WORLDS for n in GEOMETRIES
+def _geometries(worlds):
+    return [(P, n) for P in worlds for n in GEOMETRIES
             if n % P == 0 and (n != 4 or P == 2)]
 
 
-def _exchange_params():
+def exchange_params(worlds):
     return [pytest.param(P, n, dt, mode, id=f"P{P}-n{n}-{dt}-{mode}")
-            for P, n in _geometries() for dt in dist_checks.DTYPES
+            for P, n in _geometries(worlds) for dt in dist_checks.DTYPES
             for mode in dist_checks.MODES]
+
+
+def params_for(kind, worlds):
+    return [pytest.param(P, n, id=f"P{P}-n{n}-{kind}") for P, n in _geometries(worlds)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -335,8 +309,9 @@ def stacked_exchange(n, dt, mode):
     return y.float().numpy(), r.numpy(), dist_checks.plan_digest(plan), x_all, counts
 
 
-@pytest.mark.parametrize("world,n,dt,mode", _exchange_params(), indirect=["world"])
-def test_exchange_bit_exact_against_stacked_and_oracle(world, n, dt, mode):
+def check_exchange(world, n, dt, mode):
+    """``y`` and ``recv`` bit-exact against the stacked executor and the
+    oracle, the same plan on every process, messages sent across processes."""
     y_st, r_st, plan_st, x_all, counts = stacked_exchange(n, dt, mode)
     yref, rref = ref_all_to_allv(x_all, counts)
     assert np.array_equal(y_st, yref) and np.array_equal(r_st, rref)
@@ -353,12 +328,9 @@ def test_exchange_bit_exact_against_stacked_and_oracle(world, n, dt, mode):
     assert (max(sent) == 0) if P == 1 else (max(sent) >= 1)
 
 
-def _params_for(kind):
-    return [pytest.param(P, n, id=f"P{P}-n{n}-{kind}") for P, n in _geometries()]
-
-
-@pytest.mark.parametrize("world,n", _params_for("baseline"), indirect=["world"])
-def test_baseline_all_to_all_equals_the_oracle(world, n):
+def check_baseline(world, n):
+    """``baseline_all_to_all`` against the oracle (the padded buffers moved as
+    they are)."""
     x_all, counts = dist_checks.exchange_inputs(n, 16, 32, 0, "f32")
     yref, _ = ref_all_to_allv(x_all, counts)
     got = np.concatenate(world[f"baseline-n{n}"])
@@ -381,8 +353,10 @@ def stacked_layer(n):
     return dist_checks.layer_grads(make_moe_ffn(cfg, ctx), p, x, cot)
 
 
-@pytest.mark.parametrize("world,n", _params_for("layer"), indirect=["world"])
-def test_moe_layer_forward_and_gradients_equal_stacked(world, n):
+def check_layer(world, n):
+    """The MoE layer (router, dispatch, grouped FFN, combine) forward and its
+    gradients against the stacked path's, within 1e-5 of each one's largest
+    value (f32 sums over fewer rows, then an all_reduce)."""
     want = stacked_layer(n)
     got = world[f"layer-n{n}"]
     assert all(g["dropped"] == 0 for g in got) and want["dropped"] == 0
@@ -398,8 +372,7 @@ def test_moe_layer_forward_and_gradients_equal_stacked(world, n):
         _close(np.concatenate([g[k] for g in got]), want[k])
 
 
-@pytest.mark.parametrize("world", [2, 4], indirect=True, ids=["P2", "P4"])
-def test_masked_branch_forward_equals_stacked_and_its_gradients_equal_stacked(world):
+def check_masked(world):
     """3 tokens on every process (4 EP ranks, 2 or 1 a process): the sum over
     the model group forward, and its backward a sum too, so that the world's
     ``1 / P`` shares give the stacked path's gradients (f32, 1e-6)."""
@@ -419,30 +392,6 @@ def test_masked_branch_forward_equals_stacked_and_its_gradients_equal_stacked(wo
         _close(np.concatenate([g[k] for g in got]), want[k], 1e-6)
 
 
-@pytest.mark.parametrize("world", [4], indirect=True, ids=["P4"])
-@pytest.mark.parametrize("case", ["one axis", "two axes", "two dims", "no dim"])
-def test_gather_leaf_round_trip_and_gradient(world, case):
-    """(data 2, model 2): the whole leaf, bit for bit, in every process; the
-    block's gradient the block of the cotangents summed over the processes
-    that hold the leaf's other blocks (the processes of its split axes)."""
-    from repro_torch.sharding.specs import local_shard, split_axes
-
-    got = world["gather"]
-    t, cases, cots = dist_checks.gather_inputs(len(got))
-    spec = cases[case]
-    axes = split_axes(spec)
-    sizes = {"data": 2, "model": 2}
-    for rank, g in enumerate(got):
-        assert np.array_equal(g[case]["whole"], t.numpy())
-        me = g["coord"]
-        peers = [r for r, h in enumerate(got)
-                 if all(h["coord"][a] == me[a] for a in sizes if a not in axes)]
-        want = local_shard(sum(cots[r] for r in peers), spec, sizes, me)
-        _close(g[case]["grad"], want.numpy(), 1e-6)
-        steps = len(axes)
-        assert g[case]["launches"] == {"all_gather": steps, "reduce_scatter": steps}
-
-
 @functools.lru_cache(maxsize=None)
 def stacked_train(ep_size=4):
     tree, _ = jax_train_ref()
@@ -454,7 +403,9 @@ def stacked_train(ep_size=4):
     return float(loss), [g.numpy() for g in leaves(grads)], params
 
 
-def _hold_train(got, ep_size):
+def hold_train(got, ep_size):
+    """The EP train step's loss within 1e-6 relative and every gradient leaf
+    within 1e-5 of its largest value against the stacked EP ``ep_size`` path."""
     loss, grads, params = stacked_train(ep_size)
     assert all(g["dropped"] == 0 for g in got)
     for g in got:
@@ -463,108 +414,6 @@ def _hold_train(got, ep_size):
     assert len(full) == len(grads)
     for a, b in zip(full, grads):
         _close(a, b)
-
-
-@pytest.mark.parametrize("world", [4], indirect=True, ids=["P4"])
-def test_replicated_rows_count_each_dropped_token_once(world):
-    """1 sequence on (data 2, model 2), held by all 4 processes, at a capacity
-    that drops: the model group splits its 32 tokens as the stacked EP 4
-    step does (8 a rank) and the two data replicas repeat them, so the
-    world's sum of drops over the two copies is the single step's."""
-    loss, dropped, grads, params = single_rows("paper-moe-8e", 1, ROWS_OVERFLOW)
-    got = world["rows-overflow"]
-    assert dropped > 0
-    for g in got:
-        assert g["rows"] == dict(index=0, count=1, replicas=4, split_over_model=False)
-        assert g["dropped"] == dropped
-        assert abs(g["loss"] - loss) <= 1e-6 * abs(loss)
-    for a, b in zip(selftest.assemble_grads(got, params), grads):
-        _close(a, b)
-
-
-@pytest.mark.parametrize("world", [8], indirect=True, ids=["P8"])
-def test_train_step_across_8_processes_equals_stacked_ep4(world):
-    _hold_train(world["train"], 4)
-
-
-@pytest.mark.parametrize("world", [2], indirect=True, ids=["P2"])
-def test_ep1_train_step_on_data_2_model_1_equals_stacked(world):
-    """No EP with a mesh: the batch over data, the load-balance loss still
-    the global batch's (each process's aux is not its shard's)."""
-    _hold_train(world["train-ep1"], 1)
-
-
-@pytest.mark.parametrize("world", [8], indirect=True, ids=["P8"])
-def test_train_step_across_8_processes_near_jax_single_device(world):
-    got = world["train"]
-    _, jloss = jax_train_ref()
-    for g in got:
-        assert np.isfinite(g["loss"]) and abs(g["loss"] - jloss) < 5e-2
-
-
-def test_selftest_procs_8_all_ok(capsys):
-    assert selftest.main(["--procs", "8", "--device", "cpu"]) == 0
-    out = capsys.readouterr().out
-    for arm in ("dataplane direct (8 processes): OK", "dataplane stripe (8 processes): OK",
-                "dataplane nimble (8 processes): OK", "moe_comm direct (8 processes): OK",
-                "moe_comm nimble (8 processes): OK", "EP train step (8 processes, mesh data "
-                "2 x model 4", "ALL OK"):
-        assert arm in out, arm
-
-
-def test_spawn_reports_a_failing_process():
-    with pytest.raises(RuntimeError, match="failed in process [01] of 2"):
-        spawn(dist_checks.run_cases, 2, [("x", "exchange", dict(n=3, G=4))], timeout_s=120)
-
-
-def test_shard_batch_raises_when_the_processes_do_not_split_it():
-    """Over data x model where that divides the batch; else over the data
-    axes that divide it, replicated over the rest (the model axis with them),
-    each process's loss share still one over the world."""
-    from repro_torch.launch.mesh import make_test_mesh
-    from repro_torch.sharding.context import RowBlock
-    from repro_torch.train.step import routed_copies, shard_batch
-
-    batch = {"tokens": torch.arange(24).view(8, 3), "labels": torch.arange(24).view(8, 3)}
-    with local_world("gloo"):
-        ctx = ParallelContext(mesh=make_test_mesh(1, 1), ep_size=1, device="cpu")
-        got, rows = shard_batch(batch, ctx)
-        assert rows == RowBlock(0, 1, 1, True) and rows.share == 1.0
-        assert torch.equal(got["tokens"], batch["tokens"])
-    sizes = {"data": 2, "model": 4}
-    ctx = ParallelContext(mesh=_FakeMesh(sizes, {"data": 1, "model": 3}), ep_size=4,
-                          device="cpu")
-    got, rows = shard_batch(batch, ctx)                 # 8 rows over 8 processes
-    assert rows == RowBlock(7, 8, 1, True) and rows.share == 1 / 8
-    assert torch.equal(got["tokens"], batch["tokens"][7:8])
-    assert routed_copies(rows, ctx) == 1
-    two = {k: v[:2] for k, v in batch.items()}          # 2 rows: over data only
-    got, rows = shard_batch(two, ctx)
-    assert rows == RowBlock(1, 2, 4, False) and rows.share == 1 / 8
-    assert torch.equal(got["labels"], batch["labels"][1:2])
-    assert routed_copies(rows, ctx) == 1               # the model group routes once
-    pods = ParallelContext(mesh=_FakeMesh({"pod": 2, "data": 3, "model": 2},
-                                          {"pod": 1, "data": 2, "model": 0}),
-                           data_axes=("pod", "data"), ep_size=2, device="cpu")
-    got, rows = shard_batch(two, pods)                  # pod divides, data does not
-    assert rows == RowBlock(1, 2, 6, False) and rows.share == 1 / 12
-    assert routed_copies(rows, pods) == 3              # the data replicas repeat it
-    with pytest.raises(ValueError, match="holds 3 rows, not 8"):
-        shard_batch({"tokens": batch["tokens"], "labels": batch["labels"][:3]}, ctx)
-
-
-class _FakeMesh:
-    """A mesh's names, shape and this process's coordinate, without a group."""
-
-    def __init__(self, sizes, coord):
-        self.mesh_dim_names, self.shape = tuple(sizes), tuple(sizes.values())
-        self._coord = [coord[a] for a in sizes]
-
-    def get_coordinate(self):
-        return self._coord
-
-    def size(self):
-        return int(np.prod(self.shape))
 
 
 @functools.lru_cache(maxsize=None)
@@ -596,31 +445,7 @@ def single_rows(arch, B=2, capacity=8.0, S=32, steps=0, over=(), remat=False, dt
     return out + (metrics, [t.numpy() for t in leaves(p)])
 
 
-@pytest.mark.parametrize("world,arch", [pytest.param(4, a, id=f"P4-{a}")
-                                        for a in ROWS_ARCHS], indirect=["world"])
-def test_train_step_with_rows_replicated_over_model_equals_single(world, arch):
-    """2 sequences on (data 2, model 2): each data block's row replicated over
-    the model group; the MoE splits its tokens over the group and gathers
-    them back (the backward a reduce-scatter sum).  The loss is also held
-    against the JAX package's single-device step on the same weights."""
-    loss, dropped, grads, params = single_rows(arch)
-    _, jloss = jax_rows_ref(arch)
-    got = world[f"rows-{arch}"]
-    for g in got:
-        assert g["rows"] == dict(index=g["coord"]["data"], count=2, replicas=2,
-                                 split_over_model=False)
-        assert abs(g["loss"] - loss) <= 1e-6 * abs(loss)
-        assert np.isfinite(g["loss"]) and abs(g["loss"] - jloss) < 5e-2
-        assert g["dropped"] == dropped == 0
-    full = selftest.assemble_grads(got, params)
-    assert len(full) == len(grads)
-    for a, b in zip(full, grads):
-        _close(a, b)
-
-
-@pytest.mark.parametrize("world,arch", [pytest.param(P, a, id=f"P{P}-{a}") for P in PLACED
-                                        for a in PLACED_ARCHS], indirect=["world"])
-def test_placed_train_step_equals_one_process(world, arch):
+def check_placed(world, arch):
     """Every leaf and both AdamW moments held as blocks by the full specs, 2
     sequences on (data 2, model 2) or (data 2, model 4): the loss, the
     gradients put together from the blocks, two steps' losses and norms and
@@ -673,18 +498,28 @@ def _tp_launches(arch, over, model, remat=False):
     ``wk``/``wv``/``bk``/``bv`` where the KV heads divide too, a Mamba layer
     its channel leaves (``conv_w``, ``conv_b``, ``gate_norm``, ``out_proj``)
     where its SSM heads divide; a dense MLP and ``lm_head`` keep theirs
-    where "model" splits them (d_ff, vocab).  Every attention sums its
+    where "model" splits them (d_ff, vocab).  An mLSTM layer keeps ``wv``,
+    ``wg``, ``gate_norm`` and ``wo`` (its value columns) where the model
+    group divides d into blocks of whole heads or of one head's columns,
+    and ``wq``/``wk``/``wi``/``wf`` too where it divides the heads; an
+    sLSTM layer keeps ``wz``, ``wi``, ``wf``, ``wo_gate`` and ``down`` (its
+    channels) where it divides d.  Every attention sums its
     output once, on whole heads or uneven ones (the moe family's attention
-    only, xLSTM none; zamba2 at each call of its shared block), a dense
+    only; zamba2 at each call of its shared block), a dense
     MLP where d_ff divides, a Mamba layer twice where its SSM heads divide
-    (``gate_norm``'s sum of squares, ``out_proj``'s output), the loss once
-    where the vocab splits; remat's recompute reruns the attention's sum,
-    not the MLP's: the block's last op, whose output no recomputed
-    activation needs."""
+    (``gate_norm``'s sum of squares, ``out_proj``'s output), an mLSTM
+    layer twice on its value columns (the same two), an sLSTM layer once
+    on its channels (``down``'s output, after one gather of ``h``), the
+    loss once where the vocab splits; remat's recompute reruns the
+    attention's sum, not the MLP's: the block's last op, whose output no
+    recomputed activation needs.  -> (kept, sums, maxes, gathers), the
+    last the group gathers of activations (the sLSTM's ``h``)."""
     from repro_torch.configs.base import get_config
     from repro_torch.models.hybrid import n_attn_calls, n_mamba_layers
     from repro_torch.models.registry import family
+    from repro_torch.models.xlstm import is_slstm_layer
     from repro_torch.sharding.specs import at_path, build_param_specs, leaf_paths
+    from repro_torch.sharding.tp import value_columns
 
     cfg = dataclasses.replace(get_config(arch).reduced(), **dict(over))
     attention = ("attn", "self_attn", "cross_attn")
@@ -693,6 +528,9 @@ def _tp_launches(arch, over, model, remat=False):
     heads = cfg.n_heads % model == 0
     kv = heads and cfg.n_kv_heads % model == 0
     ssm = bool(cfg.ssm_heads) and cfg.ssm_heads % model == 0
+    xl = cfg.arch_type == "ssm"
+    mlstm = xl and value_columns(cfg.n_heads, cfg.d_model // cfg.n_heads, model, 0) is not None
+    slstm = xl and cfg.d_model % model == 0
     kept = set()
     for path, _ in leaf_paths(shapes):
         name, parent = path[-1], path[-2] if len(path) > 1 else None
@@ -705,43 +543,55 @@ def _tp_launches(arch, over, model, remat=False):
         if parent == "mamba" and ssm and name in ("conv_w", "conv_b", "gate_norm",
                                                   "out_proj"):
             kept.add("/".join(map(str, path)))
+        if xl and path[0] == "blocks":
+            if is_slstm_layer(cfg, path[1]):
+                keep = slstm and name in ("wz", "wi", "wf", "wo_gate", "down")
+            else:
+                keep = mlstm and (name in ("wv", "wg", "gate_norm", "wo")
+                                  or heads and name in ("wq", "wk", "wi", "wf"))
+            if keep:
+                kept.add("/".join(map(str, path)))
     mlp = cfg.d_ff % model == 0 if cfg.d_ff else False
     vocab = int("lm_head" in kept or "lm_head" not in shapes and cfg.vocab % model == 0)
     if cfg.arch_type == "audio":          # encoder: attention, MLP; decoder: two, MLP
         return kept, (cfg.n_enc_layers * (1 + int(mlp))
-                      + cfg.n_layers * (2 + int(mlp)) + vocab), vocab
+                      + cfg.n_layers * (2 + int(mlp)) + vocab), vocab, 0
     if cfg.arch_type == "hybrid":
         return kept, (n_attn_calls(cfg) * (1 + int(mlp))
-                      + n_mamba_layers(cfg) * 2 * int(ssm) + vocab), vocab
-    if cfg.arch_type == "ssm":
-        per, calls = 0, 0
-    elif cfg.arch_type == "moe":
+                      + n_mamba_layers(cfg) * 2 * int(ssm) + vocab), vocab, 0
+    if xl:
+        n_s = sum(is_slstm_layer(cfg, i) for i in range(cfg.n_layers))
+        n_m = cfg.n_layers - n_s
+        return kept, 2 * n_m * int(mlstm) + n_s * int(slstm) + vocab, vocab, n_s * int(slstm)
+    if cfg.arch_type == "moe":
         per, calls = 1, cfg.n_layers
     else:
         per, calls = 1 + int(mlp) + int(remat), cfg.n_layers
-    return kept, calls * per + vocab, vocab
+    return kept, calls * per + vocab, vocab, 0
 
 
-@pytest.mark.parametrize("world,arch", [pytest.param(P, a, id=f"P{P}-{a}") for P in PLACED
-                                        for a in PLACED_ARCHS], indirect=["world"])
-def test_placed_train_step_runs_the_blocks_tensor_parallel(world, arch):
+def check_placed_tp(world, arch):
     """The placed cases' first step (2 sequences, the rows replicated over
     model) on (data 2, model 2) and (data 2, model 4): no leaf that keeps
     its "model" block is gathered over "model" (``embed``, split on d, is),
-    and the sums over the group and the loss's maxes are as
-    :func:`_tp_launches` counts them.  zamba2 shares its work too: its
-    shared block by heads (4 over 2 and 4), its logits by vocab, its Mamba
-    layer by SSM heads on model 2, whose ``in_proj`` it reads whole; its
-    2 SSM heads do not divide model 4, where the Mamba layer's leaves are
+    and the sums over the group, the loss's maxes and the activations'
+    gathers are as :func:`_tp_launches` counts them.  zamba2 shares its
+    work too: its shared block by heads (4 over 2 and 4), its logits by
+    vocab, its Mamba layer by SSM heads on model 2, whose ``in_proj`` it
+    reads whole; its 2 SSM heads do not divide model 4, where the Mamba
+    layer's leaves are read whole.  xLSTM's mLSTM layer by value columns
+    (2 whole heads of 4 on model 2, one on model 4), its ``norm``, ``bi``,
+    ``bf`` read whole; its sLSTM layer by channels, ``up`` and ``norm``
     read whole."""
     got = world[f"placed-{arch}"]
     _, model, _ = PLACED[len(got)]
-    kept, sums, maxes = _tp_launches(arch, (), model)
+    kept, sums, maxes, gathers = _tp_launches(arch, (), model)
     assert "lm_head" in kept
     hybrid = arch == "zamba2-1.2b"
     for g in got:
         launches = g["launches"]
         assert launches["sum"] == sums and launches["max"] == maxes
+        assert launches["gather"] == gathers
         assert not kept & set(launches["model_gathers"])
         assert launches["model_gathers"]["embed"] == 1
         if hybrid:
@@ -751,28 +601,38 @@ def test_placed_train_step_runs_the_blocks_tensor_parallel(world, arch):
                              {"mamba/conv_w", "mamba/conv_b", "mamba/gate_norm",
                               "mamba/out_proj"})
             assert ("mamba/out_proj" in kept) == (model == 2)
+        if arch == "xlstm-125m":
+            assert {k for k in kept if k.startswith("blocks/")} == {
+                "blocks/0/wq", "blocks/0/wk", "blocks/0/wv", "blocks/0/wi", "blocks/0/wf",
+                "blocks/0/wg", "blocks/0/gate_norm", "blocks/0/wo", "blocks/1/wz",
+                "blocks/1/wi", "blocks/1/wf", "blocks/1/wo_gate", "blocks/1/down"}
+            assert {k for k in launches["model_gathers"] if k.startswith("blocks/")} == {
+                "blocks/1/up"}
+            assert gathers == 1
 
 
-@pytest.mark.parametrize("world,case", [pytest.param(P, c, id=f"P{P}-{c}") for P in PLACED
-                                        for c in TP_CASES], indirect=["world"])
-def test_tp_train_step_equals_one_process(world, case):
+def check_tp_train(world, case):
     """The tensor-parallel cases, 2 sequences on (data 2, model 2) and (data
     2, model 4), from the JAX package's weights: the loss within 1e-6
     relative and each gradient leaf within 1e-5 of its largest value
     against one process, two AdamW steps' losses, norms and parameters
-    within 1e-5; the loss within 5e-2 of the JAX package's single-device
-    step.  The launches: the sums and maxes of :func:`_tp_launches`, and
-    over "model" only the leaves that do not keep their block, each layer
-    once (``embed`` once; ``wk``/``wv`` where the KV heads do not divide;
-    every attention leaf where the query heads do not; whisper's tied
-    ``embed`` at both its reads, ``dec_pos`` once)."""
+    within 1e-5 (float64: 1e-12 and 1e-9, ``TP_DTYPE``); the loss within
+    5e-2 of the JAX package's single-device step.  The launches: the sums,
+    maxes and gathers of :func:`_tp_launches`, and over "model" only the
+    leaves that do not keep their block, each
+    layer once (``embed`` once; ``wk``/``wv`` where the KV heads do not
+    divide; every attention leaf where the query heads do not; whisper's
+    tied ``embed`` at both its reads, ``dec_pos`` once; the one-head
+    mLSTM's ``wq`` and ``wk`` and the sLSTM's ``up``)."""
     arch, over, remat = TP_CASES[case]
     got = world[f"tp-{case}"]
     data, model, _ = PLACED[len(got)]
+    dtype = TP_DTYPE.get(case, "f32")
+    ltol, tol = PLACED_TOL[dtype]
     loss, dropped, grads, params, metrics, after = single_rows(
-        arch, steps=PLACED_STEPS, over=over, remat=remat)
+        arch, steps=PLACED_STEPS, over=over, remat=remat, dtype=dtype)
     _, jloss = jax_rows_ref(arch, over=over)
-    kept, sums, maxes = _tp_launches(arch, over, model, remat)
+    kept, sums, maxes, gathers = _tp_launches(arch, over, model, remat)
     cfg = dict(over)
     heads, kv = cfg.get("n_heads", 4), cfg.get("n_kv_heads", 4)
     whole = (("wq", "wk", "wv", "wo") if heads % model else
@@ -781,19 +641,22 @@ def test_tp_train_step_equals_one_process(world, case):
     top = {"embed": 2, "dec_pos": 1} if audio else {"embed": 1}
     subtrees = ("enc/attn", "dec/self_attn", "dec/cross_attn") if audio else ("blocks/attn",)
     gathered = dict({f"{t}/{k}": 2 for t in subtrees for k in whole}, **top)
+    if arch == "xlstm-125m":     # one mLSTM head (wi/wf [d, 1]: not split), an sLSTM layer
+        gathered = {"blocks/0/wq": 1, "blocks/0/wk": 1, "blocks/1/up": 1, **top}
     assert maxes == (case != "vocab-whole")
     for g in got:
         assert g["rows"]["replicas"] == model and not g["rows"]["split_over_model"]
-        assert abs(g["loss"] - loss) <= 1e-6 * abs(loss)
+        assert abs(g["loss"] - loss) <= ltol * abs(loss)
         assert np.isfinite(g["loss"]) and abs(g["loss"] - jloss) < 5e-2
         for (lw, nw), (lg, ng) in zip(metrics, g["metrics"]):
-            assert abs(lg - lw) <= 1e-5 * abs(lw) and abs(ng - nw) <= 1e-5 * abs(nw)
-        assert g["launches"] == {"sum": sums, "max": maxes, "model_gathers": gathered}
+            assert abs(lg - lw) <= tol * abs(lw) and abs(ng - nw) <= tol * abs(nw)
+        assert g["launches"] == {"sum": sums, "max": maxes, "gather": gathers,
+                                 "model_gathers": gathered}
     for key, want in (("grads", grads), ("params", after)):
         full = selftest.assemble_grads(got, params, key)
         assert len(full) == len(want)
         for a, b in zip(full, want):
-            _close(a, b)
+            _close(a, b, tol)
 
 
 @functools.lru_cache(maxsize=None)
@@ -818,12 +681,15 @@ def _serve_launches(case, model) -> dict:
     run's steps and layers: each attention sums its row-parallel output
     (on whole heads or uneven ones), a dense MLP where d_ff divides (the
     expert layer's sum is its own), a Mamba layer its ``gate_norm`` and its
-    output where its SSM heads divide; a cache split by slots takes one
+    output where its SSM heads divide, an mLSTM layer the same two on its
+    value columns, an sLSTM layer one gather of ``h`` and ``down``'s sum
+    on its channels; a cache split by slots takes one
     max and one sum to combine its blocks and one gather of the new token's
     q, k, v.  whisper's decoder layer attends twice (its self cache, then
     the cross attention), and its cache's encoder states are computed once
     (the encoder's attention and MLP a layer)."""
     from repro_torch.models.hybrid import n_attn_calls, n_mamba_layers
+    from repro_torch.models.xlstm import is_slstm_layer
 
     arch, over, _, prompt = SERVE_CASES[case]
     cfg, _ = dist_checks.serve_config(arch, over)
@@ -834,29 +700,31 @@ def _serve_launches(case, model) -> dict:
         n, mamba = n_attn_calls(cfg) * steps, n_mamba_layers(cfg) * steps
         return {"sum": n * (1 + mlp + seq) + mamba * 2 * int(cfg.ssm_heads % model == 0),
                 "max": n * seq, "gather": n * seq}
+    if cfg.arch_type == "ssm":
+        n_s = sum(is_slstm_layer(cfg, i) for i in range(cfg.n_layers)) * steps
+        n_m = cfg.n_layers * steps - n_s
+        return {"sum": 2 * n_m + n_s, "max": 0, "gather": n_s}
     n = cfg.n_layers * steps
     cross = int(cfg.arch_type == "audio")
     encoder = cfg.n_enc_layers * (1 + mlp) if cross else 0
     return {"sum": n * (1 + cross + mlp + seq) + encoder, "max": n * seq, "gather": n * seq}
 
 
-@pytest.mark.parametrize("world,case", [pytest.param(P, c, id=f"P{P}-{c}") for P in PLACED
-                                        for c in SERVE_CASES], indirect=["world"])
-def test_serving_across_processes_equals_one_process(world, case):
+def check_serving(world, case):
     """Serving on (data 2, model 2) and (data 2, model 4), the prompts over
     data where it divides them, replicated over model (``Model.serve_rows``):
-    each process holds its blocks of the parameters and of the KV cache (by
-    heads, by slots or whole: ``SERVE_KINDS``; the shapes of
-    ``shard_cache``'s blocks), and its prefill's last logits, the decode
-    steps' logits (f32) and greedy tokens are one process's, the logits
-    within 1e-5 of their largest value, whole over the vocab on every
-    process of a model group; the decode's collectives as
-    :func:`_serve_launches` counts them; the world's drops (moe), over the
-    replicas on the data axes, are one process's, in the prefill and the
-    decode, and "moe-drop" drops in both.  Every case but "moe-drop" (whose
-    drops are EP 4's, which one JAX device does not have) is also held
-    against the JAX package's prefill and ``decode_step`` on one device at
-    ``test_torch_dense.py``'s 1e-4."""
+    each process holds its blocks of the parameters and of the cache (the
+    KV cache by heads, by slots or whole: ``SERVE_KINDS``; xLSTM's states
+    by heads, value columns or channels; the shapes of ``shard_cache``'s
+    blocks), and its prefill's last logits, the decode steps' logits (f32)
+    and greedy tokens are one process's, the logits within 1e-5 of their
+    largest value, whole over the vocab on every process of a model group;
+    the decode's collectives as :func:`_serve_launches` counts them; the
+    world's drops (moe), over the replicas on the data axes, are one
+    process's, in the prefill and the decode, and "moe-drop" drops in both.
+    Every case but "moe-drop" (whose drops are EP 4's, which one JAX device
+    does not have) is also held against the JAX package's prefill and
+    ``decode_step`` on one device at ``test_torch_dense.py``'s 1e-4."""
     got = world[f"serve-{case}"]
     data, model, _ = PLACED[len(got)]
     want = single_serve(case)
@@ -958,76 +826,3 @@ def single_ckpt(arch="smollm-135m"):
     d = _ckpt_dir("single")
     ckpt.save(d, 1, tree)
     return d, tree
-
-
-@pytest.mark.parametrize("world", [4], indirect=True, ids=["P4"])
-def test_checkpoint_round_trip_across_world_shapes(world):
-    """(data 2, model 2) -> one process: the files hold the world's blocks put
-    together, bit for bit; one process -> (data 2, model 2): each process
-    restores its block of the single tree, bit for bit.  The save holds one
-    gathered leaf whole at a time, and the restore uploads only blocks."""
-    from repro_torch.checkpoint import ckpt
-    from repro_torch.sharding.specs import at_path, build_param_specs, leaf_paths, local_shard
-
-    got = world["ckpt"]
-    _, tree = single_ckpt()
-    params = tree["params"]
-    n = len(leaves(params))
-    whole, _ = ckpt.restore(_ckpt_dir("world"), 1,
-                            namedtuple_types={"OptState": adamw.OptState}, device="cpu")
-    want = leaves(whole)                  # m, v, step, params: the "opt" key sorts first
-    parts = {"m": (0, n), "v": (n, 2 * n), "params": (2 * n + 1, 3 * n + 1)}
-    for lo, hi in parts.values():
-        res = [dict(coord=g["coord"], blocks=g["written"][lo:hi]) for g in got]
-        for a, b in zip(selftest.assemble_grads(res, params, "blocks"), want[lo:hi]):
-            assert np.array_equal(a, b.numpy())
-    assert want[2 * n] == 1 and all(g["written"][2 * n] == 1 for g in got)
-    sizes = {"data": 2, "model": 2}
-    specs = build_param_specs(params, sizes)
-    single = leaves(tree)
-    for g in got:
-        for lo, hi in parts.values():
-            for i, (path, _) in zip(range(lo, hi), leaf_paths(params)):
-                spec = at_path(specs, path)
-                blk = local_shard(single[i], spec, sizes, g["coord"])
-                assert np.array_equal(g["restored"][i], blk.numpy())
-                assert g["uploaded"][i] == tuple(blk.shape)
-        assert g["restored"][2 * n] == 1
-        assert len(g["uploaded"]) == len(single) and g["held_whole"] == 1
-
-
-def test_gradient_all_reduce_packs_buckets_and_copies_back(monkeypatch):
-    from repro_torch.launch.dist import local_world
-    from repro_torch.train import step
-
-    monkeypatch.setattr(step, "BUCKET_BYTES", 64)
-    g = torch.Generator().manual_seed(0)
-    f32, bf16 = torch.float32, torch.bfloat16
-    ts = [torch.randn(n, generator=g).to(dt)
-          for n, dt in ((4, f32), (40, f32), (3, bf16), (8, f32), (2, f32), (5, bf16))]
-    ts.append(torch.randn(4, 6, generator=g).t())           # strided: through a buffer
-    assert [[t.numel() for t in b] for b in step._buckets(ts)] == [
-        [4], [40], [8, 2], [24], [3, 5]]
-    want = [t.clone() for t in ts]
-    with local_world("gloo"):
-        step._all_reduce_flat(ts, (None,))                  # a sum over one process
-    assert all(torch.equal(a, b) for a, b in zip(ts, want))
-
-
-def test_train_moe_nimble_example_across_8_processes(capsys):
-    from repro_torch.examples import train_moe_nimble
-
-    losses = train_moe_nimble.main(["--device", "cpu", "--steps", "25", "--seq", "32",
-                                    "--procs", "8"])
-    out = capsys.readouterr().out
-    assert "8 processes: the global loss equal on every process" in out
-    assert "(improved)" in out and len(losses) == 25
-
-
-def test_skewed_alltoallv_example_across_4_processes(capsys):
-    from repro_torch.examples import skewed_alltoallv
-
-    across = skewed_alltoallv.main(["--device", "cpu", "--procs", "4"])
-    stacked = skewed_alltoallv.main(["--device", "cpu"])
-    assert across == stacked                 # bit-exact flags and the same projections
-    assert capsys.readouterr().out.count("all modes bit-exact vs oracle") == 2
