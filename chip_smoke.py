@@ -163,10 +163,13 @@ port's six CUDA kernels from ``src/repro_torch/csrc``, all at once, then:
      on the card against the CPU (keys padded to whole chunks, a window,
      GQA 4:1, a ``q_offset``; f32 within 1e-5, bf16 1e-2), and
      ``attention()`` below 128 queries over 4500 keys taking it; (b) the
-     flash kernel's backward, ``chunked_attention``'s VJP, at [4, 9, 2048,
-     64] and [4, 9, 4096, 64] over 3 heads (one and two chunks) and at
-     [4, 32, 512, 128] over 8 (one chunk of 512) against the CPU's and
-     ``mha_ref``'s VJP (f32, 1e-4), and both formulations' ms a call; (c)
+     flash kernel's backward, ``attention_bwd`` from the rows' statistics
+     (the reference's ``chunked_attention`` VJP by FlashAttention-2's
+     blocks), at [4, 9, 2048, 64] and [4, 9, 4096, 64] over 3 heads (one
+     and two chunks) and at [4, 32, 512, 128] over 8 (one chunk of 512)
+     against the CPU's and ``mha_ref``'s VJP (f32, 1e-4); bf16, its ms a
+     call and its peak above its start (below one float32 score tensor
+     over two chunks, checked) beside ``mha_ref``'s VJP's; (c)
      smollm-135m trains 2 steps at 4 x 4096 (bf16): step ms, tokens/s, the
      attention backward's ms a step, peak memory, finite losses and norms,
      and its first flash call against ``mha_ref``; (d) ``grouped_ffn_scan``
@@ -812,7 +815,7 @@ def train_phases(torch, np, check, seed: int, dev, smi: str):
     base_gb = torch.cuda.memory_allocated() / 1e9
     rows = []
     with EventTimer(torch, ffn_ops, "grouped_ffn_bwd") as t_ffn, \
-            EventTimer(torch, fa_ops, "flash_attention_bwd") as t_fa:
+            EventTimer(torch, fa_ops, "attention_bwd") as t_fa:
         for i in (1, 2, 3):
             times, stats = {}, {}
             torch.cuda.synchronize()
@@ -1820,7 +1823,7 @@ def dense_phase(torch, np, check, compare, seed: int, dev, smi: str):
     params, state, m0 = step(params, state, batches[0])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with EventTimer(torch, fa_ops, "flash_attention_bwd") as t_fa:
+    with EventTimer(torch, fa_ops, "attention_bwd") as t_fa:
         params, state, rows = _step_rows(step, params, state, batches)
     counts_train = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2267,7 +2270,7 @@ def moe_family_phase(torch, np, check, compare, seed: int, dev, smi: str):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     rows, dropped = [], []
-    with EventTimer(torch, fa_ops, "flash_attention_bwd") as t_fa:
+    with EventTimer(torch, fa_ops, "attention_bwd") as t_fa:
         for i in (1, 2, 3):
             times, st = {}, {}
             torch.cuda.synchronize()
@@ -2396,7 +2399,7 @@ def zamba2_phase(torch, np, check, compare, seed: int, dev, smi: str):
     params, state, m0 = step(params, state, batches[0])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with EventTimer(torch, fa_ops, "flash_attention_bwd") as t_fa:
+    with EventTimer(torch, fa_ops, "attention_bwd") as t_fa:
         params, state, rows = _step_rows(step, params, state, batches)
     counts = launch_counts()
     fa_bwd_ms = t_fa.total_ms() / 3
@@ -2558,8 +2561,9 @@ def nontpu_phase(torch, np, check, compare, seed: int, dev, smi: str):
     """Phase 24 -> (flash launches of smollm's 4 x 4096 steps, flash's report
     at their shape, the quickstart's launches, the backward's figures).
 
-    The reference's non-TPU paths in plain torch: ``chunked_attention`` and,
-    through its VJP, the flash kernel's backward; ``grouped_ffn_scan`` and
+    The reference's non-TPU paths in plain torch: ``chunked_attention``; the
+    flash kernel's backward (its VJP, by ``attention_bwd`` from the rows'
+    statistics), its ms and its peak; ``grouped_ffn_scan`` and
     ``grouped_ffn_dense``; the quickstart."""
     import io
 
@@ -2623,8 +2627,18 @@ def nontpu_phase(torch, np, check, compare, seed: int, dev, smi: str):
           f"{'chunked_attention, no kernel launched' if took else 'ANOTHER ROUTE'}, card vs "
           f"CPU {err_att:.3g}", flush=True)
 
-    # ---- 24b. the flash backward: chunked_attention's VJP --------------------------
+    # ---- 24b. the flash backward: attention_bwd from the rows' statistics ----------
     bwd = {}
+
+    def peak_ms(fn):
+        """(ms a call, bytes the allocator held above its start at the peak)."""
+        fn()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(fn, 3)
+        return ms, torch.cuda.max_memory_allocated() - base
+
     # smollm's heads at one chunk and at two; paper-moe-8e's 512 keys, one chunk of 512
     for h, hkv, sk, dh in ((9, 3, 2048, 64), (9, 3, 4096, 64), (32, 8, 512, 128)):
         q = torch.as_tensor(rng.normal(size=(4, h, sk, dh)), dtype=torch.float32)
@@ -2645,21 +2659,38 @@ def nontpu_phase(torch, np, check, compare, seed: int, dev, smi: str):
               f"{e_mha:.3g} (limit 1e-4)")
         del got, want, plain, live
         qb, kb, vb, gb = (t.to(torch.bfloat16) for t in card)
-        ms_chunked = time_ms(lambda: fa_ops.flash_attention_bwd(qb, kb, vb, gb, **kw), 3)
-        ms_mha = time_ms(lambda: _attn_vjp(torch, fa_ops.mha_ref, qb, kb, vb, gb, kw), 3)
-        flops = 5 * 2 * 4 * h * sk * sk * dh          # S recomputed, dV, dP, dQ, dK
-        bwd[shape] = dict(chunks=-(-sk // fa_ops._CHUNK), chunked_ms=ms_chunked,
-                          mha_ref_ms=ms_mha, err_cpu=e_cpu, err_mha_ref=e_mha,
+        with torch.no_grad():
+            ob = fa_ops.flash_attention(qb, kb, vb, **kw)
+        chunk = min(fa_ops._CHUNK, sk)
+        # the main path's call: the rows' log-sum-exp pass, then the blocks
+        ms_bwd, peak_bwd = peak_ms(lambda: fa_ops.attention_bwd(qb, kb, vb, ob, gb, None,
+                                                                chunk=chunk, **kw))
+        ms_mha, peak_mha = peak_ms(lambda: _attn_vjp(torch, fa_ops.mha_ref, qb, kb, vb, gb, kw))
+        pairs = sum((k1 - k0) * (q1 - q0) for k0, k1, q0, q1, _ in fa_ops._blocks(
+            sk, sk, 0, True, None, chunk, fa_ops._BLOCK))
+        flops = 6 * 2 * 4 * h * pairs * dh            # lse's S, then S, dV, dP, dQ, dK
+        scores = 4 * 4 * h * sk * sk                  # one float32 [4, h, sk, sk]
+        # the backward holds two query block x key chunk tensors: at one
+        # chunk that is as large as the scores, so the peak is held below
+        # them only over two chunks or more
+        check(sk <= fa_ops._CHUNK or peak_bwd < scores,
+              f"the attention backward at {shape} held {peak_bwd / 1e9:.3f} GB above its "
+              f"start, one float32 score tensor {scores / 1e9:.3f} GB")
+        bwd[shape] = dict(chunks=-(-sk // fa_ops._CHUNK), bwd_ms=ms_bwd, bwd_peak_bytes=peak_bwd,
+                          mha_ref_ms=ms_mha, mha_ref_peak_bytes=peak_mha, err_cpu=e_cpu,
+                          err_mha_ref=e_mha, scores_f32_bytes=scores,
                           bound_f32_ms=flops / PEAK_FLOPS["f32"] * 1e3,
                           bound_bf16_ms=flops / PEAK_FLOPS["bf16"] * 1e3)
-        del q, k, v, g, card, qb, kb, vb, gb
+        del q, k, v, g, card, qb, kb, vb, gb, ob
         torch.cuda.empty_cache()
     print("[24b flash bwd] " + "; ".join(
         f"{shape} ({r['chunks']} chunk{'s' * (r['chunks'] > 1)}), causal, "
         f"f32: card vs CPU {r['err_cpu']:.3g}, vs mha_ref's VJP {r['err_mha_ref']:.3g} "
-        f"(limit 1e-4); bf16 inputs, a call: chunked_attention's VJP {r['chunked_ms']:.2f} ms, "
-        f"mha_ref's VJP {r['mha_ref_ms']:.2f} ms (bound, 5 products, all keys: "
-        f"{r['bound_bf16_ms']:.3f} ms bf16, {r['bound_f32_ms']:.3f} ms f32)"
+        f"(limit 1e-4); bf16 inputs, a call: attention_bwd (lse pass and blocks, f32) "
+        f"{r['bwd_ms']:.2f} ms, peak {r['bwd_peak_bytes'] / 1e9:.3f} GB above its start; "
+        f"mha_ref's VJP {r['mha_ref_ms']:.2f} ms, peak {r['mha_ref_peak_bytes'] / 1e9:.3f} GB "
+        f"(one f32 score tensor {r['scores_f32_bytes'] / 1e9:.3f} GB; bound, 6 products on "
+        f"the unmasked blocks: {r['bound_bf16_ms']:.3f} ms bf16, {r['bound_f32_ms']:.3f} ms f32)"
         for shape, r in bwd.items()) + f"; on {smi}", flush=True)
 
     # ---- 24c. smollm-135m trains 2 steps at 4 x 4096 ------------------------------
@@ -2680,7 +2711,7 @@ def nontpu_phase(torch, np, check, compare, seed: int, dev, smi: str):
     walls, bwd_ms, ms = [], [], []
     rec_fa = Recorder(fa_ops, "flash_attention", keep=1)   # layer 0's call of step 0
     for i in range(2):
-        with EventTimer(torch, fa_ops, "flash_attention_bwd") as t_fa, \
+        with EventTimer(torch, fa_ops, "attention_bwd") as t_fa, \
                 (rec_fa if i == 0 else contextlib.nullcontext()):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2701,7 +2732,7 @@ def nontpu_phase(torch, np, check, compare, seed: int, dev, smi: str):
           f"(the reference's train_4k length; its batch 256 cut to 4 for one card), AdamW, "
           f"2 steps: {walls[0]:.1f} ms (first, allocations included) and {walls[1]:.1f} ms, "
           f"{B * S / walls[1] * 1e3:.0f} tokens/s at the second; the attention backward "
-          f"(chunked_attention's VJP, 2 chunks, f32) {bwd_ms[0]:.1f} and {bwd_ms[1]:.1f} ms a "
+          f"(attention_bwd by blocks, f32) {bwd_ms[0]:.1f} and {bwd_ms[1]:.1f} ms a "
           f"step over {cfg.n_layers} layers; flash launches {fa_train}; peak memory "
           f"{peak_gb:.2f} GB; losses {[round(x, 4) for x in losses]}, grad_norm "
           f"{[round(x, 4) for x in norms]}; on {smi}", flush=True)
@@ -3802,14 +3833,14 @@ def main() -> int:
     extra["flash_attention"]["shapes"] = fa_shapes
     print(f"[23 audio+vlm] ({time.perf_counter() - t_start:.0f} s in all)", flush=True)
 
-    # ---- 24. the reference's non-TPU paths: chunked attention (the flash backward),
+    # ---- 24. the reference's non-TPU paths: chunked attention, the flash backward,
     # the grouped FFN's scan and dense branches, the quickstart ----------------------
     fa_4k, fa_shapes["smollm 4 x 4096 causal 9 heads over 3"], qs_launches, fa_bwd = \
         nontpu_phase(torch, np, check, compare, args.seed, dev, smi)
     launches["flash_attention"] += fa_4k
     launches["token_gather"] += qs_launches.get("token_gather", 0)
     extra["flash_attention"]["launches_smollm_4x4096"] = fa_4k
-    extra["flash_attention"]["backward_chunked_vjp"] = fa_bwd
+    extra["flash_attention"]["backward_attention_bwd"] = fa_bwd
     extra["grouped_ffn_blocked"]["launches_quickstart_f32"] = qs_launches.get(
         "grouped_ffn_blocked_f32", 0)
     print(f"[24 non-TPU paths] ({time.perf_counter() - t_start:.0f} s in all)", flush=True)

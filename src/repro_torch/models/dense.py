@@ -71,12 +71,11 @@ def _block_fwd(p, x: torch.Tensor, cfg: ModelConfig, window: Optional[int],
                place) -> torch.Tensor:
     """One block on ``p``'s leaves as ``place`` (the blocks' placement) gave
     them: tensor-parallel where it keeps their "model" blocks."""
-    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     x = x + L.attention_forward(
-        p["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
-        rope_theta=cfg.rope_theta, causal=True, window=window, tp=place.tp_at("attn"))
-    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + L.swiglu(p["mlp"], h, place.tp_at("mlp"))
+        p["attn"], x, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
+        rope_theta=cfg.rope_theta, causal=True, window=window, tp=place.tp_at("attn"),
+        norm=(p["ln1"], cfg.norm_eps))
+    return x + L.swiglu(p["mlp"], x, place.tp_at("mlp"), norm=(p["ln2"], cfg.norm_eps))
 
 
 def _layer_fwd(blocks, i: int, place, x: torch.Tensor, cfg: ModelConfig,
@@ -89,10 +88,12 @@ def _layer_fwd(blocks, i: int, place, x: torch.Tensor, cfg: ModelConfig,
 def _logits(params, x: torch.Tensor, cfg: ModelConfig, place) -> torch.Tensor:
     """The logits, or under TP use with ``place.vocab`` this process's vocab
     block of them."""
-    x = L.rms_norm(x, place.at("final_norm").whole(params["final_norm"]), cfg.norm_eps)
     if "lm_head" not in params:
-        return x @ place.vocab_rows(place.at("embed").whole(params["embed"])).T
-    return x @ place.at("lm_head").whole(params["lm_head"])
+        w = place.vocab_rows(place.at("embed").whole(params["embed"])).T
+    else:
+        w = place.at("lm_head").whole(params["lm_head"])
+    norm = place.at("final_norm").whole(params["final_norm"])
+    return L.norm_linear(x, norm, cfg.norm_eps, [w])[0]
 
 
 def embed(params, tokens: torch.Tensor, place) -> torch.Tensor:

@@ -104,13 +104,11 @@ def _attn_block(p, x: torch.Tensor, cfg: ModelConfig, window=None, pos_offset: i
     placement) gave them: tensor-parallel under TP use."""
     tp_attn = None if place is None else place.tp_at("attn")
     tp_mlp = None if place is None else place.tp_at("mlp")
-    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     x = x + L.attention_forward(
-        p["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
+        p["attn"], x, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
         rope_theta=cfg.rope_theta, causal=True, window=window, pos_offset=pos_offset,
-        tp=tp_attn)
-    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + L.swiglu(p["mlp"], h, tp_mlp)
+        tp=tp_attn, norm=(p["ln1"], cfg.norm_eps))
+    return x + L.swiglu(p["mlp"], x, tp_mlp, norm=(p["ln2"], cfg.norm_eps))
 
 
 def _mamba_at(blocks, i: int, place, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

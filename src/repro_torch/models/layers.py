@@ -25,9 +25,10 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..kernels.flash_attention.ops import attention
-from ..sharding.tp import head_range
+from ..sharding.tp import chunk_rows, head_range, row_chunks
 
 Params = Dict[str, torch.Tensor]
 
@@ -80,9 +81,11 @@ def init_swiglu(gen: torch.Generator, d_model: int, d_ff: int, dtype, device,
             "wd": dense_init(gen, d_ff, d_model, dtype, device, lead)}
 
 
-def swiglu(p: Params, x: torch.Tensor, tp=None) -> torch.Tensor:
-    """``tp``: ``wg``/``wu``/``wd`` are this process's d_ff blocks."""
-    y = (torch.nn.functional.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+def swiglu(p: Params, x: torch.Tensor, tp=None, norm=None) -> torch.Tensor:
+    """``tp``: ``wg``/``wu``/``wd`` are this process's d_ff blocks.  ``norm``:
+    as :func:`attention_forward`'s."""
+    g, u = _project(x, (p["wg"], p["wu"]), norm)
+    y = (torch.nn.functional.silu(g) * u) @ p["wd"]
     return y if tp is None else tp.sum(y)
 
 
@@ -97,8 +100,8 @@ def layer(blocks: Params, i: int, place=None) -> Params:
 def lm_head(params: Params, x: torch.Tensor, eps: float, place) -> torch.Tensor:
     """``final_norm`` then ``lm_head``, each read whole through ``place`` (the
     parameters' ``sharding.gather.Placement``)."""
-    x = rms_norm(x, place.at("final_norm").whole(params["final_norm"]), eps)
-    return x @ place.at("lm_head").whole(params["lm_head"])
+    return norm_linear(x, place.at("final_norm").whole(params["final_norm"]), eps,
+                       [place.at("lm_head").whole(params["lm_head"])])[0]
 
 
 def up32(t: torch.Tensor) -> torch.Tensor:
@@ -107,10 +110,158 @@ def up32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
+#: float32 bytes a row chunk of the norms' forward and backward holds (a
+#: few such chunks are their float32 working set)
+NORM_CHUNK_BYTES = 1 << 26
+
+
+def _rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float):
+    """(the norm, ``rstd`` [.., 1] in ``up32``'s dtype), over row chunks of
+    :data:`NORM_CHUNK_BYTES`: no float32 copy of x beyond a chunk's."""
+    d = x.shape[-1]
+    f = torch.promote_types(x.dtype, torch.float32)
+    xr = x.reshape(-1, d)
+    y = torch.empty(xr.shape, dtype=torch.promote_types(x.dtype, w.dtype), device=x.device)
+    rstd = torch.empty((xr.shape[0], 1), dtype=f, device=x.device)
+    n = chunk_rows(d, NORM_CHUNK_BYTES)
+    for xc, yc, rc in zip(xr.split(n), y.split(n), rstd.split(n)):
+        xf = xc.to(f, copy=True)                     # scaled in place below
+        torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps, out=rc)
+        torch.mul(xf.mul_(rc).to(x.dtype), w, out=yc)
+    return y.view(x.shape), rstd.view(*x.shape[:-1], 1)
+
+
+def _rms_norm_bwd(x, w, rstd, gy, need_x: bool, need_w: bool, reuse: bool = False):
+    """(dx, dw) of :func:`rms_norm` for its output's gradient ``gy``, each row
+    chunk at a time: with ``x̂ = x * rstd`` in float32 and ``a = gy * w``
+    rounded to x's dtype, ``dx = rstd * (a - x̂ * mean(a * x̂))``, ``dw`` the
+    sum over the rows of ``gy * round(x̂)`` (the rounding to x's dtype
+    before the weight differentiated as the identity).  ``reuse``: gy is
+    the caller's own, and dx may take its place where they agree in dtype."""
+    d = x.shape[-1]
+    f = rstd.dtype
+    xr, gr, rr = x.reshape(-1, d), gy.reshape(-1, d), rstd.reshape(-1, 1)
+    same = reuse and gy.dtype == x.dtype and gy.is_contiguous()
+    dx = (gr if same else torch.empty_like(xr)) if need_x else xr
+    dw = torch.zeros(d, dtype=f, device=x.device) if need_w else None
+    n = chunk_rows(d, NORM_CHUNK_BYTES)
+    for xc, gc, rc, dxc in zip(xr.split(n), gr.split(n), rr.split(n), dx.split(n)):
+        xhat = xc.to(f, copy=True).mul_(rc)
+        if need_w:
+            dw += (gc * xhat.to(x.dtype)).to(f).sum(0)
+        if need_x:
+            g = (gc * w).to(x.dtype).to(f)
+            m = (g * xhat).mean(-1, keepdim=True)
+            torch.mul(rc, g.sub_(xhat.mul_(m)), out=dxc)
+    return (dx.view(x.shape) if need_x else None,
+            dw.sum_to_size(w.shape).to(w.dtype) if need_w else None)
+
+
+class _RMSNorm(torch.autograd.Function):
+    """:func:`rms_norm` keeping x in its own dtype and ``rstd`` for the
+    backward (:func:`_rms_norm_bwd`): no float32 copy of x, as XLA's fusion
+    keeps none."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        y, rstd = _rms_norm(x, w, eps)
+        ctx.save_for_backward(x, w, rstd)
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gy):
+        x, w, rstd = ctx.saved_tensors
+        return (*_rms_norm_bwd(x, w, rstd, gy, *ctx.needs_input_grad[:2]), None)
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    xf = up32(x)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+    """``(x * rsqrt(mean(x^2) + eps))`` in at least float32, rounded to x's
+    dtype, times ``w``; under autograd through :class:`_RMSNorm`."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _RMSNorm.apply(x, w, eps)
+    return _rms_norm(x, w, eps)[0]
+
+
+class _NormLinear(torch.autograd.Function):
+    """``[rms_norm(x, w) @ W for W in ws]`` keeping x, not the norm's output:
+    the backward recomputes the norm (its output and ``rstd``, the same
+    bits) for the weights' gradients, sums the products' input gradients
+    into one tensor (``addmm_``) and takes it through :func:`_rms_norm_bwd`.
+    A block's norm output is then never held between its forward and its
+    backward, as under XLA's remat it is recomputed only where its
+    products' backward needs it."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps, *ws):
+        h = _rms_norm(x, w, eps)[0]
+        ctx.save_for_backward(x, w, *ws)
+        ctx.eps = eps
+        return tuple(h @ W for W in ws)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *gys):
+        x, w, *ws = ctx.saved_tensors
+        h, rstd = _rms_norm(x, w, ctx.eps)
+        h = h.reshape(-1, x.shape[-1])
+        gys = [g.reshape(h.shape[0], g.shape[-1]) for g in gys]   # W may have 0 columns
+        dws = [(h.t() @ g).to(W.dtype) if need else None
+               for g, W, need in zip(gys, ws, ctx.needs_input_grad[3:])]
+        del h
+        dh = None
+        for g, W in zip(gys, ws):
+            dh = g @ W.t() if dh is None else dh.addmm_(g, W.t())
+        dx, dw = _rms_norm_bwd(x, w, rstd, dh, *ctx.needs_input_grad[:2], reuse=True)
+        return (dx, dw, None, *dws)
+
+
+def norm_linear(x: torch.Tensor, w: torch.Tensor, eps: float, ws) -> list:
+    """``[rms_norm(x, w, eps) @ W for W in ws]``; under autograd through
+    :class:`_NormLinear`."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w, *ws)):
+        return list(_NormLinear.apply(x, w, eps, *ws))
+    h = rms_norm(x, w, eps)
+    return [h @ W for W in ws]
+
+
+def _nll_rows(z: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return -torch.gather(torch.log_softmax(up32(z), dim=-1), -1, labels[:, None])[:, 0]
+
+
+class _NLL(torch.autograd.Function):
+    """:func:`nll` over row chunks (``sharding/tp.py::row_chunks``), keeping
+    the logits in their own dtype for the backward: no float32 copy of the
+    logits, nor their log-softmax, lives past a chunk.  The backward
+    recomputes each chunk's log-softmax: ``dz = g * (exp(lp) - onehot)``."""
+
+    @staticmethod
+    def forward(ctx, z, labels):
+        ctx.save_for_backward(z, labels)
+        return nll(z, labels)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        z, labels = ctx.saved_tensors
+        v = z.shape[-1]
+        zr, lr, gr = z.reshape(-1, v), labels.reshape(-1), g.reshape(-1)
+        dz = torch.empty_like(zr)
+        for a, b in row_chunks(zr.shape[0], v):
+            d = torch.exp(torch.log_softmax(up32(zr[a:b]), dim=-1)) * gr[a:b, None]
+            dz[a:b] = d.scatter_add_(-1, lr[a:b, None], -gr[a:b, None])
+        return dz.view(z.shape), None
+
+
+def nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each position's ``-log_softmax(logits)[label]``, in at least float32
+    (the reference's loss); under autograd through :class:`_NLL`."""
+    if torch.is_grad_enabled() and logits.requires_grad:
+        return _NLL.apply(logits, labels)
+    v = logits.shape[-1]
+    zr, lr = logits.reshape(-1, v), labels.reshape(-1)
+    return torch.cat([_nll_rows(zr[a:b], lr[a:b])
+                      for a, b in row_chunks(zr.shape[0], v)]).view(labels.shape)
 
 
 def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -134,9 +285,15 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor
     return torch.stack([y1, y2], dim=-1).reshape(x.shape).to(x.dtype)
 
 
-def _project_qkv(p: Params, x, n_heads, n_kv, head_dim):
+def _project(x: torch.Tensor, ws, norm=None) -> list:
+    """``[x @ W for W in ws]``, or with ``norm`` (the weight and eps of an
+    RMSNorm that x has not had yet) :func:`norm_linear`'s."""
+    return [x @ W for W in ws] if norm is None else norm_linear(x, *norm, ws)
+
+
+def _project_qkv(p: Params, x, n_heads, n_kv, head_dim, norm=None):
     b, s, _ = x.shape
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    q, k, v = _project(x, (p["wq"], p["wk"], p["wv"]), norm)
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(b, s, n_heads, head_dim).transpose(1, 2)
@@ -164,18 +321,18 @@ def local_heads(p: Params, n_heads: int, head_dim: int, tp, cols=("wq", "bq"),
     return out, h0, hq
 
 
-def _local_qkv(p: Params, x, n_heads, n_kv, head_dim, tp):
+def _local_qkv(p: Params, x, n_heads, n_kv, head_dim, tp, norm=None):
     """The q of ``p``'s query heads (``p`` from :func:`local_heads`) and the KV
     heads they read: the KV block as held where ``Hkv % m == 0``, else the
     columns of the heads read out of the whole ``wk``/``wv``, each local
     query head given its own copy where they do not share them evenly."""
     hq = p["wq"].shape[-1] // head_dim
     if n_kv % tp.size == 0:
-        return _project_qkv(p, x, hq, n_kv // tp.size, head_dim)
+        return _project_qkv(p, x, hq, n_kv // tp.size, head_dim, norm)
     first, count, index = tp.kv_heads(n_heads, n_kv)
     cols = slice(first * head_dim, (first + count) * head_dim)
     local = dict(p, **{k: p[k][..., cols] for k in ("wk", "wv", "bk", "bv") if k in p})
-    q, k, v = _project_qkv(local, x, hq, count, head_dim)
+    q, k, v = _project_qkv(local, x, hq, count, head_dim, norm)
     if index is not None:
         k, v = k[:, index], v[:, index]
     return q, k, v
@@ -184,17 +341,18 @@ def _local_qkv(p: Params, x, n_heads, n_kv, head_dim, tp):
 def attention_forward(p: Params, x: torch.Tensor, *, n_heads: int, n_kv: int,
                       head_dim: int, rope_theta: Optional[float],
                       causal: bool = True, window: Optional[int] = None,
-                      pos_offset: int = 0, tp=None) -> torch.Tensor:
+                      pos_offset: int = 0, tp=None, norm=None) -> torch.Tensor:
     """Full-sequence attention (prefill path): x [B, S, D] -> [B, S, D].
     ``tp``: on this process's heads (:func:`local_heads`, :func:`_local_qkv`;
     none at all where it holds no head), ``wo`` its rows of them, the output
-    summed over the model group."""
+    summed over the model group.  ``norm``: (weight, eps) of the RMSNorm
+    that x takes first, fused into the projections (:func:`norm_linear`)."""
     b, s, _ = x.shape
     if tp is None:
-        q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim)
+        q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim, norm)
     else:
         p, _, _ = local_heads(p, n_heads, head_dim, tp)
-        q, k, v = _local_qkv(p, x, n_heads, n_kv, head_dim, tp)
+        q, k, v = _local_qkv(p, x, n_heads, n_kv, head_dim, tp, norm)
     if rope_theta is not None:
         pos = torch.arange(s, device=x.device) + pos_offset
         q = apply_rope(q, pos, rope_theta)

@@ -257,11 +257,10 @@ def _block_fwd(blocks, i: int, place, x, cfg: ModelConfig, moe_apply, window):
     """Layer i of the stacked ``blocks`` -> (x, aux, dropped); its leaves are
     gathered here (so that under remat the backward gathers them again)."""
     p = L.layer(blocks, i, place)
-    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     x = x + L.attention_forward(
-        p["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+        p["attn"], x, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
         head_dim=cfg.head_dim, rope_theta=cfg.rope_theta, causal=True,
-        window=window, tp=place.tp_at("attn"))
+        window=window, tp=place.tp_at("attn"), norm=(p["ln1"], cfg.norm_eps))
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     y, aux, dropped = moe_apply(p, h)
     return x + y, aux, dropped

@@ -25,7 +25,7 @@ from ..sharding.gather import Placement, placement
 from ..sharding.specs import shard_params
 from ..sharding.tp import vocab_parallel_nll
 from . import dense, encdec, hybrid, moe, vlm, xlstm
-from .layers import up32
+from .layers import nll as token_nll
 
 _FAMILIES = {"dense": dense, "moe": moe, "hybrid": hybrid, "ssm": xlstm,
              "audio": encdec, "vlm": vlm}
@@ -165,10 +165,9 @@ class Model:
         if logits.shape[1] != labels.shape[1]:
             logits = logits[:, -labels.shape[1]:]
         if place.vocab is not None:
-            nll = vocab_parallel_nll(up32(logits), labels, place.vocab.start, place.tp)
+            nll = vocab_parallel_nll(logits, labels, place.vocab.start, place.tp)
         else:
-            lp = torch.log_softmax(up32(logits), dim=-1)
-            nll = -torch.gather(lp, -1, labels[..., None])[..., 0]
+            nll = token_nll(logits, labels)
         return nll.mean() + aux_weight * aux
 
     def cache_len(self, shape: InputShape) -> int:

@@ -8,7 +8,9 @@ Counterpart of ``repro/roofline/breakdown.py``::
 Runs one combo of the dry run (``launch/dryrun.py``) with the counter
 attributing each op, and prints the reference's three sections: the top N
 byte contributors with their op, the top collectives, and an aggregate by
-name prefix.  The counterpart of the reference's ``op_name`` is where the op
+name prefix; and a fourth: what is live at the step's peak (``temp``), by
+the site that allocated it, the rest of the sites in one row, so that the
+rows sum to ``temp``.  The counterpart of the reference's ``op_name`` is where the op
 was dispatched: the innermost frame under ``src/repro_torch/``, as
 ``module.function:line``; the aggregate is by ``module.function``.  A row
 sums every call of one op at one line (``xN``: the calls), as the
@@ -40,6 +42,28 @@ def by_prefix(rows):
     for b, _, _, site in rows:
         agg[site.rsplit(":", 1)[0]] += b
     return sorted(agg.items(), key=lambda x: -x[1])
+
+
+def live_rows(counter):
+    """[(bytes, storages, site)] live at ``temp_peak``, largest first."""
+    return sorted(((b, n, site) for site, (b, n) in counter.peak_sites.items()),
+                  key=lambda r: -r[0])
+
+
+def live_section(counter, top: int) -> list:
+    """The fourth section's lines: the ``top`` sites, then the rest in one row."""
+    rows = live_rows(counter)
+    lines = [f"live at the peak (temp {counter.temp_peak:.3e} bytes, "
+             f"{sum(r[1] for r in rows)} storages), by allocating site:"]
+    for b, n, site in rows[:top]:
+        lines.append(f"  {b:10.3e} ({100 * b / max(counter.temp_peak, 1):5.1f}%) "
+                     f"x{n:<6d} {site[:80]}")
+    rest = rows[top:]
+    if rest:
+        b = sum(r[0] for r in rest)
+        lines.append(f"  {b:10.3e} ({100 * b / max(counter.temp_peak, 1):5.1f}%) "
+                     f"x{sum(r[1] for r in rest):<6d} ({len(rest)} more sites)")
+    return lines
 
 
 def main(argv=None) -> int:
@@ -81,6 +105,9 @@ def main(argv=None) -> int:
     print("\nby op_name prefix:")
     for k, v in by_prefix(rows)[:15]:
         print(f"  {v:10.3e} ({100 * v / total:5.1f}%)  {k}")
+
+    print()
+    print("\n".join(live_section(counter, args.top)))
     return 0
 
 

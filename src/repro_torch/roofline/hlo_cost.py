@@ -8,7 +8,7 @@ optimizer, on the card or over fake tensors alike) and returns the
 reference's dict:
 
   * **flops** — torch's own formulas (``torch.utils.flop_counter``) for
-    every op that has one: the products and attention, as the reference
+    every op that has one (an in-place variant, ``addmm_``, its op's): the products and attention, as the reference
     counts its ``dot`` ops; also split by the operands' dtype
     (``flops_by_dtype``), since a float32 product runs at another peak;
   * **bytes** — each op's operand and result bytes, the counterpart of the
@@ -44,7 +44,10 @@ storages allocated inside the step alive at once, a storage counting while
 any tensor on it lives (views add nothing); storages the step received are
 its arguments and are not counted.  With ``attribute=True`` it keeps, for
 ``roofline/breakdown.py``, each op's bytes by where it was dispatched: the
-innermost frame under ``src/repro_torch/``.
+innermost frame under ``src/repro_torch/``; and each live storage's bytes by
+the site that allocated it, the set live at ``temp_peak`` in ``peak_sites``
+(a new peak's set is taken at the first free after it, when the live bytes
+are still the peak's).
 """
 
 from __future__ import annotations
@@ -123,6 +126,17 @@ def _aliasing(func) -> Tuple[bool, bool]:
     infos = [r.alias_info for r in func._schema.returns]
     return (any(a is not None and not a.is_write for a in infos),
             any(a is not None for a in infos))
+
+
+@functools.lru_cache(maxsize=None)
+def _flop_formula(packet):
+    """torch's FLOP formula of an op, an in-place variant (``addmm_``) taking
+    its op's."""
+    formula = flop_registry.get(packet)
+    if formula is None and packet.__name__.endswith("_"):
+        base = getattr(torch.ops.aten, packet.__name__[:-1], None)
+        formula = None if base is None else flop_registry.get(base)
+    return formula
 
 
 def _write_only(func, args, kwargs) -> set:
@@ -224,6 +238,10 @@ class CostCounter(TorchDispatchMode):
         self.rows: Dict[Tuple[str, str], list] = defaultdict(lambda: [0.0, 0.0, 0])
         self.coll_rows: Dict[Tuple[str, str], list] = defaultdict(lambda: [0.0, 0])
         self._storages = WeakIdKeyDictionary()   # storage -> True if allocated here
+        #: (attribute) site -> [bytes, storages] live now, and at temp_peak
+        self.live_sites: Dict[str, list] = defaultdict(lambda: [0, 0])
+        self.peak_sites: Dict[str, list] = {}
+        self._peak_open = False
         self._paused = 0
         self._launches0: Dict[str, int] = {}
         self.uncounted = 0
@@ -236,6 +254,7 @@ class CostCounter(TorchDispatchMode):
 
     def __exit__(self, *exc):
         _build.COUNTERS.remove(self)
+        self._take_peak()
         reported = {k: v[0] for k, v in self.kernels.items()}
         self.uncounted = sum(
             _build.LAUNCHES[k] - self._launches0.get(k, 0) - reported.get(k, 0)
@@ -260,19 +279,20 @@ class CostCounter(TorchDispatchMode):
             self._collective(func, args)
             return out
         flops = 0.0
-        formula = flop_registry.get(func.overloadpacket)
+        formula = _flop_formula(func.overloadpacket)
         if formula is not None:
             flops = float(formula(*args, **kwargs, out_val=out))
             self.flops_by_dtype[dtype_name(_tensors((args, kwargs))[0].dtype)] += flops
         b = op_bytes(func, args, kwargs, out)
         self.bytes += b
+        site = _site() if self.attribute else None
         # a result that aliases an operand (a view, an in-place or out= op)
         # lies on a storage allocated before, here or outside the step
         fresh = not _aliasing(func)[1]
         for t in _tensors(out):
-            self._track(t, fresh)
+            self._track(t, fresh, site)
         if self.attribute:
-            row = self.rows[(_site(), func.overloadpacket.__name__)]
+            row = self.rows[(site, func.overloadpacket.__name__)]
             row[0] += b
             row[1] += flops
             row[2] += 1
@@ -289,9 +309,10 @@ class CostCounter(TorchDispatchMode):
             row[0] += b
             row[1] += 1
 
-    def _track(self, t: torch.Tensor, allocated: bool) -> None:
+    def _track(self, t: torch.Tensor, allocated: bool, site=None) -> None:
         """Note ``t``'s storage; one ``allocated`` by this op counts as live
-        until it is freed, one seen first as an alias is an argument's."""
+        until it is freed (under ``site``, when attributing), one seen first
+        as an alias is an argument's."""
         try:
             st = t.untyped_storage()
         except (RuntimeError, NotImplementedError):
@@ -302,11 +323,30 @@ class CostCounter(TorchDispatchMode):
         if allocated:
             n = st.nbytes()
             self.live += n
-            self.temp_peak = max(self.temp_peak, self.live)
-            weakref.finalize(st, self._free, n)
+            if self.live > self.temp_peak:
+                self.temp_peak = self.live
+                self._peak_open = self.attribute
+            if site is None:
+                weakref.finalize(st, self._free, n)
+            else:
+                row = self.live_sites[site]
+                row[0] += n
+                row[1] += 1
+                weakref.finalize(st, self._free, n, site)
 
-    def _free(self, n: int) -> None:
+    def _take_peak(self) -> None:
+        """Keep the live set as ``peak_sites`` if it is a new peak's."""
+        if self._peak_open:
+            self.peak_sites = {k: list(v) for k, v in self.live_sites.items() if v[1]}
+            self._peak_open = False
+
+    def _free(self, n: int, site=None) -> None:
+        self._take_peak()
         self.live -= n
+        if site is not None:
+            row = self.live_sites[site]
+            row[0] -= n
+            row[1] -= 1
 
     # -- kernels ---------------------------------------------------------------------
     def launched(self, name: str,

@@ -106,6 +106,7 @@ from typing import List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+from torch.autograd.function import once_differentiable
 
 #: forward launches over the model group: "sum", "max", "gather"
 COUNTS: collections.Counter = collections.Counter()
@@ -229,21 +230,82 @@ def value_columns(n_heads: int, head_dim: int, m: int, r: int
     return None
 
 
+#: float32 bytes a row chunk of the loss's forward and backward holds
+#: (``models/layers.py::nll`` too): a bound on their float32 working set
+ROW_CHUNK_BYTES = 1 << 24
+
+
+def chunk_rows(width: int, nbytes: int = 0) -> int:
+    """Rows of ``width`` float32s that make one chunk of at most ``nbytes``
+    (:data:`ROW_CHUNK_BYTES` by default; at least one row)."""
+    return max(1, (nbytes or ROW_CHUNK_BYTES) // (4 * max(width, 1)))
+
+
+def row_chunks(rows: int, width: int) -> List[Tuple[int, int]]:
+    """[r0, r1) ranges of ``rows`` rows of :func:`chunk_rows` each."""
+    step = chunk_rows(width)
+    return [(r, min(rows, r + step)) for r in range(0, rows, step)]
+
+
 def block_max(z: torch.Tensor) -> torch.Tensor:
-    """The largest logit of each position over a vocab block, no gradient."""
-    return z.detach().amax(-1)
+    """The largest logit of each position over a vocab block, in at least
+    float32, no gradient."""
+    return z.detach().amax(-1).to(torch.promote_types(z.dtype, torch.float32))
+
+
+def _parts(z, labels, v0: int, mx):
+    """(:func:`block_parts`, the target's index in the block by row, whether
+    it lies there), over row chunks of ``z``."""
+    f = torch.promote_types(z.dtype, torch.float32)
+    v = z.shape[-1]
+    zr, mr = z.reshape(-1, v), mx.reshape(-1)
+    local = labels.reshape(-1) - v0
+    mine = (local >= 0) & (local < v)
+    idx = local.clamp(0, v - 1)
+    se = torch.cat([torch.exp(zr[a:b].to(f) - mr[a:b, None]).sum(-1)
+                    for a, b in row_chunks(zr.shape[0], v)])
+    t = torch.gather(zr, -1, idx[:, None])[:, 0].to(f)
+    parts = torch.stack([se, torch.where(mine, t, torch.zeros_like(t))])
+    return parts.view(2, *z.shape[:-1]), idx, mine
+
+
+class _BlockParts(torch.autograd.Function):
+    """:func:`block_parts`, keeping ``z`` in its own dtype for the backward:
+    no float32 copy of the logits, nor their exps, lives past a row chunk.
+    The backward: ``dz = g_se * exp(z - mx)``, plus ``g_t`` at the target
+    where it lies in the block."""
+
+    @staticmethod
+    def forward(ctx, z, labels, v0, mx):
+        parts, idx, mine = _parts(z, labels, v0, mx)
+        ctx.save_for_backward(z, mx, idx, mine)
+        return parts
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        z, mx, idx, mine = ctx.saved_tensors
+        f = torch.promote_types(z.dtype, torch.float32)
+        v = z.shape[-1]
+        zr, mr = z.reshape(-1, v), mx.reshape(-1)
+        g = g.reshape(2, -1)
+        gt = torch.where(mine, g[1], torch.zeros_like(g[1]))
+        dz = torch.empty_like(zr)
+        for a, b in row_chunks(zr.shape[0], v):
+            d = torch.exp(zr[a:b].to(f) - mr[a:b, None]) * g[0, a:b, None]
+            dz[a:b] = d.scatter_add_(-1, idx[a:b, None], gt[a:b, None])
+        return dz.view(z.shape), None, None, None
 
 
 def block_parts(z: torch.Tensor, labels: torch.Tensor, v0: int,
                 mx: torch.Tensor) -> torch.Tensor:
     """[2, ...]: a vocab block's ``sum(exp(z - mx))`` and the target's logit
-    (0 where the target lies in another block); ``z`` holds vocab
-    ``v0 ... v0 + z.shape[-1] - 1``, ``mx`` is the max over every block."""
-    se = torch.exp(z - mx[..., None]).sum(-1)
-    local = labels - v0
-    mine = (local >= 0) & (local < z.shape[-1])
-    t = torch.gather(z, -1, local.clamp(0, z.shape[-1] - 1)[..., None])[..., 0]
-    return torch.stack([se, torch.where(mine, t, torch.zeros_like(t))])
+    (0 where the target lies in another block), in at least float32; ``z``
+    holds vocab ``v0 ... v0 + z.shape[-1] - 1``, ``mx`` is the max over
+    every block (:class:`_BlockParts` under autograd)."""
+    if torch.is_grad_enabled() and z.requires_grad:
+        return _BlockParts.apply(z, labels, v0, mx)
+    return _parts(z, labels, v0, mx)[0]
 
 
 def nll_from_parts(parts: torch.Tensor, mx: torch.Tensor) -> torch.Tensor:
@@ -253,7 +315,8 @@ def nll_from_parts(parts: torch.Tensor, mx: torch.Tensor) -> torch.Tensor:
 
 def vocab_parallel_nll(z: torch.Tensor, labels: torch.Tensor, v0: int,
                        tp: TensorParallel) -> torch.Tensor:
-    """Each position's NLL from this process's vocab block ``z`` (float32):
+    """Each position's NLL from this process's vocab block ``z`` (in its own
+    dtype; the arithmetic in at least float32):
     the max over the group (``all_reduce(MAX)``, no gradient), then the
     blocks' sums of exps and the target's logit summed over the group in
     one :meth:`TensorParallel.sum`."""

@@ -308,20 +308,25 @@ def test_flash_attention_vjp_matches_reference(case):
 
 
 def test_attention_dispatch_differentiates_through_the_kernel_route():
-    # Sq >= 128 takes the flash Function on the card (route); the Function's
-    # gradient (chunked_attention's VJP, one chunk here) equals autograd's
-    # through the plain attention, which is what attention() takes on the
-    # CPU: the same f32 function
+    # Sq >= 128 takes the flash route on the card (route); every route's
+    # gradient is the one attention Function's (attention_bwd from the saved
+    # row statistics, one chunk here), whichever forward it ran, and equals
+    # autograd's through the plain attention: the same f32 function
     rng = np.random.default_rng(1)
     q, k, v = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32).requires_grad_(True)
                for s in ((1, 4, 128, 16), (1, 2, 128, 16), (1, 2, 128, 16)))
     assert route("cuda", 128, 128) == "flash_attention" and route("cpu", 128, 128) == "mha_ref"
     o = flash_attention(q, k, v, causal=True, window=64)
-    assert type(o.grad_fn).__name__ == "_FlashAttentionBackward"
+    assert type(o.grad_fn).__name__ == "_AttentionBackward"
     g = torch.as_tensor(rng.normal(size=o.shape), dtype=torch.float32)
     got = torch.autograd.grad(o, (q, k, v), g)
-    plain = attention(q, k, v, True, 64, 0)
-    assert type(plain.grad_fn).__name__ != "_FlashAttentionBackward"
+    routed = attention(q, k, v, True, 64, 0)
+    assert type(routed.grad_fn).__name__ == "_AttentionBackward"
+    assert torch.equal(routed, mha_ref(q, k, v, causal=True, window=64))
+    plain = mha_ref(q, k, v, causal=True, window=64)
+    assert type(plain.grad_fn).__name__ != "_AttentionBackward"
     want = torch.autograd.grad(plain, (q, k, v), g)
     for a, b in zip(got, want):
+        _close(a.numpy(), b.numpy(), 1e-6)
+    for a, b in zip(torch.autograd.grad(routed, (q, k, v), g), want):
         _close(a.numpy(), b.numpy(), 1e-6)

@@ -1304,9 +1304,9 @@ def test_chunked_attention_on_card_equals_cpu(cuda, dtype, tol, case):
 @pytest.mark.parametrize("sk", [200, 2100])
 def test_flash_backward_is_chunked_vjp_on_card(cuda, case, sk):
     # the kernel's backward on the card is chunked_attention's VJP at chunk
-    # 2048 (one chunk at Sk 200, two at 2100): within 1e-4 of the CPU's same
-    # function and of mha_ref's VJP, f32 sums in other orders (the limit of
-    # test_flash_backward_on_card_equals_cpu)
+    # 2048 (one chunk at Sk 200, two at 2100), by attention_bwd: within 1e-4
+    # of the CPU's same function and of mha_ref's VJP, f32 sums in other
+    # orders (the limit of test_flash_backward_on_card_equals_cpu)
     kw = dict(causal=case != "not causal", window=300 if case == "window" else None,
               q_offset=sk - 130 if case != "not causal" else 0)
     rng = np.random.default_rng(sk)
@@ -1320,6 +1320,27 @@ def test_flash_backward_is_chunked_vjp_on_card(cuda, case, sk):
     for a, b, c in zip(got, want, ref):
         assert (a.cpu() - b).abs().max() <= 1e-4 * b.abs().max()
         assert (a.cpu() - c).abs().max() <= 1e-4 * c.abs().max()
+
+
+def test_attention_backward_keeps_no_score_tensor_on_card(cuda):
+    # smollm-135m's heads (9 over 3 of 64) at the reference's train_4k
+    # length, batch 4, bf16, causal: the flash route's backward
+    # (attention_bwd from q, k, v, o, its rows' log-sum-exp pass first, then
+    # one query block x key chunk at a time) holds less above its start
+    # than one float32 [4, 9, 4096, 4096] score tensor (2.42 GB)
+    rng = np.random.default_rng(24)
+    q, k, v, g = (torch.as_tensor(rng.normal(size=s), dtype=torch.bfloat16).to(cuda)
+                  for s in ((4, 9, 4096, 64), (4, 3, 4096, 64), (4, 3, 4096, 64),
+                            (4, 9, 4096, 64)))
+    live = [t.requires_grad_(True) for t in (q, k, v)]
+    o = flash_attention(*live, causal=True)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    grads = torch.autograd.grad(o, live, g)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < 4 * 4 * 9 * 4096 * 4096
+    assert all(bool(t.isfinite().all()) for t in grads)
 
 
 @pytest.mark.parametrize("fn,kw,skew", [

@@ -182,8 +182,10 @@ def test_mesh_adds_collectives_only(records):
 
 #: the reference's count of llama3-8b x train_4k on 2 x 16 x 16, a device:
 #: ``PYTHONPATH=src JAX_PLATFORMS=cpu python -m repro.launch.dryrun --arch
-#: llama3-8b --shape train_4k --multi-pod`` (its ``cost_analysis``)
+#: llama3-8b --shape train_4k --multi-pod`` (its ``cost_analysis`` FLOPs,
+#: ``memory_analysis`` peak bytes)
 REFERENCE_LLAMA_2X16X16_FLOPS = 130.70e12
+REFERENCE_LLAMA_2X16X16_PEAK = 9.22e9
 
 
 def test_llama3_8b_train_4k_model_group_shares_the_work():
@@ -191,9 +193,11 @@ def test_llama3_8b_train_4k_model_group_shares_the_work():
     8 sequences that its model group of 16 holds replicated: the blocks'
     products split 16 ways (32 query heads; the 8 KV heads read whole, each
     process projecting the one its 2 heads read; d_ff 14336; vocab
-    128256), so a device counts within 10% of the reference's FLOPs and
-    peaks under one H100's 80 GB (the whole-leaf step: 2091.20 TFLOP,
-    133.27 GB).  Its all-reduces carry the group sums: in each of the 32
+    128256), so a device counts within 10% of the reference's FLOPs (the
+    whole-leaf step: 2091.20 TFLOP, 133.27 GB); and it keeps for its
+    backward what the reference does (attention's row statistics, not its
+    scores; no float32 copy of a norm's input, nor the norms' outputs, nor
+    the logits past a row chunk), peaking within 1.20 x the reference's.  Its all-reduces carry the group sums: in each of the 32
     layers two in the forward, the attention's again in remat's recompute,
     and two in the backward, each of [8, 4096, 4096] bf16.  On 16 x 16 (one
     sequence a process) nothing is tensor-parallel: the record is the
@@ -202,13 +206,13 @@ def test_llama3_8b_train_4k_model_group_shares_the_work():
     assert rec["status"] == "ok", rec.get("error")
     roof, mem = rec["roofline"], rec["bytes_per_device"]
     assert roof["flops_per_device"] <= 1.10 * REFERENCE_LLAMA_2X16X16_FLOPS
-    assert mem["peak"] < 80e9
+    assert mem["peak"] <= 1.20 * REFERENCE_LLAMA_2X16X16_PEAK
     assert roof["coll_breakdown"]["all-reduce"] >= 5 * 32 * 8 * 4096 * 4096 * 2
     assert not dist.is_initialized()
     rec = dryrun.run_one("llama3-8b", "train_4k", multi_pod=False)
-    assert rec["roofline"]["flops_per_device"] == 261400299569152.0
+    assert rec["roofline"]["flops_per_device"] == 260300787941376.0
     assert rec["bytes_per_device"]["argument"] == 931995648
-    assert rec["bytes_per_device"]["peak"] == 17952645128
+    assert rec["bytes_per_device"]["peak"] == 5426241544
     assert rec["roofline"]["coll_breakdown"]["all-reduce"] == 131866756
 
 
@@ -262,11 +266,10 @@ REFERENCE_SHARED = {
     ("zamba2-1.2b", "decode_32k", False): dict(flops=0.0071e12, argument=0.85e9),
     ("whisper-small", "decode_32k", False): dict(flops=0.0215e12, peak=0.41e9),
 }
-#: how far the port's count may lie above the reference's, by figure; a peak
-#: given in bytes must fit one H100's 80 GB
+#: how far the port's count may lie above the reference's, by figure
 SHARED_LIMITS = {
-    ("zamba2-1.2b", "train_4k", True): dict(flops=1.15, peak_bytes=80e9),
-    ("qwen2.5-14b", "train_4k", True): dict(flops=1.15, peak_bytes=80e9),
+    ("zamba2-1.2b", "train_4k", True): dict(flops=1.15, peak=1.00),
+    ("qwen2.5-14b", "train_4k", True): dict(flops=1.15, peak=1.20),
     ("zamba2-1.2b", "decode_32k", False): dict(argument=1.10),
     ("whisper-small", "decode_32k", False): dict(flops=1.25),
 }
@@ -290,10 +293,7 @@ def test_model_group_shares_uneven_heads_and_ssm_heads(arch, shape, mp):
     got = dict(flops=rec["roofline"]["flops_per_device"], **rec["bytes_per_device"])
     ref = REFERENCE_SHARED[(arch, shape, mp)]
     for key, limit in SHARED_LIMITS[(arch, shape, mp)].items():
-        if key == "peak_bytes":
-            assert got["peak"] < limit, (got["peak"], limit)
-        else:
-            assert got[key] <= limit * ref[key], (key, got[key], ref[key])
+        assert got[key] <= limit * ref[key], (key, got[key], ref[key])
     assert not dist.is_initialized()
 
 
